@@ -1,0 +1,384 @@
+"""Drive the PyTorch port's local ``xdma.transfer`` datapath on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, all started together), then drives the port through
+its public entry points at the sizes its users call real — the paper's
+Fig. 4 relayouts at 4096 x 4096 f32, and the Table III Prefill store and
+Load at the full width of phi4-mini-3.8B (d_model 3072) over an 8192-token
+prefill in bf16 — and holds every kernel against its plain PyTorch version
+on the same inputs.  Each phase resets the kernels' launch counts just
+before it drives the path and reads them just after; a kernel of the path
+that did not launch, a result that disagrees, or a kernel that does not
+build or launch fails the run with a non-zero exit.
+
+The line before the last is one JSON object with each kernel's launches,
+error and times (CUDA events, median of several runs, GPU time only);
+the last line is ``{"ok": true, "device": {...}}``.  Per-pair times go to
+``chiprun_out/chip_smoke_times.json``.  Without a CUDA device it exits
+non-zero and prints no result.
+"""
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+SEED = 0
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+# -- timing: GPU time of one call, the host's enqueue hidden behind a sleep --
+def gpu_ms(fn, reps=7, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)      # keeps the card busy while we enqueue
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bits(t):
+    size = t.element_size()
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32, 8: torch.int64}[size])
+
+
+def assert_bitwise(got, want, what):
+    check(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(torch.equal(bits(got), bits(want)), f"{what}: not bitwise equal")
+
+
+def max_abs_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def tolerance(chain, in_dtype):
+    """tests/oracle.py's chain_tolerance, read for the stream: one ulp of a
+    half-precision stream (a Cast to it, or a bf16/f16 input) -> rtol 2e-2,
+    atol 1e-2; float32 streams -> rtol 2e-5, atol 1e-5."""
+    from repro_torch.core import plugins as P
+    half = in_dtype.itemsize < 4 or any(
+        isinstance(p, P.Cast) and p.dtype.itemsize < 4 for p in chain)
+    return dict(rtol=2e-2, atol=1e-2) if half else dict(rtol=2e-5, atol=1e-5)
+
+
+def assert_close(got, want, tol, what):
+    check(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite")
+    ok = torch.allclose(got.float(), want.float(), **tol)
+    check(ok, f"{what}: outside {tol}, max abs err {max_abs_err(got, want)}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import layouts as L
+    from repro_torch.core import plugins as P
+    from repro_torch.core import plugin_compiler
+    from repro_torch.core import xdma
+    from repro_torch.core.descriptor import describe
+    from repro_torch.kernels import _build, agu, datapath
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
+    log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(card)
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"[build] {len(libs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s: {[p.name for p in libs]}")
+    for src, text in sorted(_build.BUILD_LOG.items()):
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+        log(f"[ptxas] {src}: at most {max(regs, default=0)} registers a "
+            f"thread, {spills} bytes of spill traffic over its kernels")
+
+    rows = {}          # kernel name -> JSON row
+    pair_times = []
+
+    def drive(phase, kernels, body):
+        """Run `body` as a main-path phase: counts at 0 before, read after."""
+        _build.reset_launches()
+        out = body()
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in _build.KERNELS}
+        for k in kernels:
+            check(counts[k.name] > 0,
+                  f"{phase}: kernel {k.name} was not launched on the path")
+        log(f"[{phase}] launches {counts}")
+        return out, counts
+
+    # -- phase 2: kernel 1, the AGU relayout (Fig. 4 at 4096^2 f32) ---------
+    pairs = [("MN", "MNM8N128", False), ("MN", "MNM16N128", False),
+             ("MN", "MNM32N128", False), ("MNM8N128", "MN", False),
+             ("MNM16N128", "MN", False), ("MNM32N128", "MN", False),
+             ("MNM8N128", "MNM8N128", True), ("MNM16N128", "MNM16N128", True),
+             ("MNM32N128", "MNM32N128", True), ("MN", "MN", True),
+             ("MNM8N128", "MNM16N128", False),
+             ("MN", "NM", False), ("NM", "MNM8N128", False),
+             ("MN", "MNP64", False), ("MNP64", "MNM16N128", False),
+             ("NMM8N128", "MN", False)]
+    x32 = torch.randn(4096, 4096, generator=gen, device=dev)
+    xb = torch.randn(8192, 3072, generator=gen, device=dev).to(torch.bfloat16)
+    cases = [(s, d, t, x32) for s, d, t in pairs] + \
+        [("MN", "MNM16N128", False, xb)]
+    inputs = []
+    for s, d, t, x in cases:
+        src, dst = L.by_name(s), L.by_name(d)
+        desc = describe(s, d, *([P.Transpose()] if t else []),
+                        backend="pallas")
+        inputs.append((src, dst, t, src.from_logical(x), desc))
+    agu.clear_agu_stats()
+
+    def k1_path():
+        return [xdma.transfer(xin, desc) for _, _, _, xin, desc in inputs]
+
+    outs, counts = drive("kernel1", [agu.RELAYOUT], k1_path)
+    stats = agu.agu_stats()
+    check(stats["fallback"] == 0, f"kernel1: fallbacks {stats['reasons']}")
+    check(counts["agu_relayout"] == len(inputs),
+          f"kernel1: {counts['agu_relayout']} launches for {len(inputs)} calls")
+    k1_err = 0.0
+    for (src, dst, t, xin, desc), got in zip(inputs, outs):
+        want = agu.relayout_plain(xin, src, dst, t)
+        assert_bitwise(got, want, f"kernel1 {desc.summary()}")
+        k1_err = max(k1_err, max_abs_err(got, want))
+    small = torch.randn(128, 256, generator=gen, device=dev)
+    for s, d, t in pairs:
+        src, dst = L.by_name(s), L.by_name(d)
+        xin = src.from_logical(small)
+        assert_bitwise(agu.relayout_kernel(xin, src, dst, t).cpu(),
+                       agu.relayout_plain(xin.cpu(), src, dst, t),
+                       f"kernel1 small {s}->{d} vs CPU")
+    log(f"[kernel1] {len(inputs)} relayouts bitwise equal to the plain "
+        f"version; agu_stats {stats}")
+    for (src, dst, t, xin, desc), got in zip(inputs, outs):
+        ms = gpu_ms(lambda: agu.relayout_kernel(xin, src, dst, t))
+        plain = gpu_ms(lambda: agu.relayout_plain(xin, src, dst, t))
+        pair_times.append({"pair": desc.summary(), "dtype": str(xin.dtype),
+                           "ms": ms, "plain_ms": plain,
+                           "bound_ms": bound_ms(nbytes(xin, got))})
+    # the JSON row: the Fig. 4 tile store MN -> MNM8N128 at 4096^2 f32
+    src, dst, t, xin, desc = inputs[0]
+    gm, gn = 4096 // 8, 4096 // 128
+    lib = lambda: xin.view(gm, 8, gn, 128).permute(0, 2, 1, 3).contiguous()
+    assert_bitwise(lib(), outs[0], "kernel1 library yardstick")
+    rows["agu_relayout"] = {
+        "name": "agu_relayout", "route": "cuda",
+        "source": "src/repro_torch/csrc/agu_relayout.cu",
+        "replaces": agu.RELAYOUT.replaces,
+        "launches": counts["agu_relayout"], "max_abs_err": k1_err,
+        "ms": pair_times[0]["ms"], "plain_ms": pair_times[0]["plain_ms"],
+        "bound_ms": pair_times[0]["bound_ms"], "bound_by": "bytes",
+        "library_ms": gpu_ms(lib),
+        "shape": "MN->MNM8N128 4096x4096 float32"}
+    for r in pair_times:
+        log(f"[kernel1] {r['pair']} {r['dtype']}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound)")
+    del outs, inputs
+
+    # -- phase 3: kernel 2, the Prefill store at phi4-mini width -------------
+    w = torch.randn(3072, generator=gen, device=dev).to(torch.bfloat16)
+    store = describe("MN", "MNM16N128", P.RMSNormPlugin(weight=w))
+    cast_chain = (P.Cast(torch.bfloat16), P.Scale(1.5), P.BiasAdd(0.25))
+    cast = describe("MN", "MNM16N128", *cast_chain)
+    xf = torch.randn(8192, 3072, generator=gen, device=dev)
+    plugin_compiler.clear_stats()
+
+    def k2_path():
+        return xdma.transfer(xb, store), xdma.transfer(xf, cast)
+
+    (y_store, y_cast), counts = drive("kernel2", [datapath.STREAMED], k2_path)
+    check(plugin_compiler.cfg_stats()["fused"] == 2,
+          f"kernel2: cfg_stats {plugin_compiler.cfg_stats()}")
+    want_store = datapath.plain(xb, store.plugins, L.MN, L.MNM16N128)
+    want_cast = datapath.plain(xf, cast.plugins, L.MN, L.MNM16N128)
+    tol_store = tolerance(store.plugins, xb.dtype)
+    tol_cast = tolerance(cast.plugins, xf.dtype)
+    assert_close(y_store, want_store, tol_store, "kernel2 rmsnorm store")
+    assert_close(y_cast, want_cast, tol_cast, "kernel2 cast/scale/bias")
+    k2_err = max_abs_err(y_store, want_store)
+    differ = int((bits(y_store) != bits(want_store)).sum())
+    log(f"[kernel2] rmsnorm store within {tol_store} (max abs err {k2_err}, "
+        f"{differ} of {y_store.numel()} elements differ in bits); "
+        f"cast->scale->bias within {tol_cast} (max abs err "
+        f"{max_abs_err(y_cast, want_cast)}); cfg_stats "
+        f"{plugin_compiler.cfg_stats()}")
+    sm = torch.randn(64, 256, generator=gen, device=dev)
+    fn = plugin_compiler.compile_local(describe("MN", "MNM8N128", *cast_chain))
+    assert_close(fn(sm).cpu(), fn(sm.cpu()), tolerance(cast_chain, sm.dtype),
+                 "kernel2 small vs CPU")
+    run_store = plugin_compiler.compile_local(store)
+    run_store(xb)
+    rows["streamed_datapath"] = {
+        "name": "streamed_datapath", "route": "cuda",
+        "source": "src/repro_torch/csrc/streamed_datapath.cu",
+        "replaces": datapath.STREAMED.replaces,
+        "launches": counts["streamed_datapath"], "max_abs_err": k2_err,
+        "ms": gpu_ms(lambda: run_store(xb)),
+        "plain_ms": gpu_ms(lambda: datapath.plain(
+            xb, store.plugins, L.MN, L.MNM16N128)),
+        "bound_ms": bound_ms(nbytes(xb, w, y_store)), "bound_by": "bytes",
+        "library_ms": None,
+        "shape": "MN->MNM16N128 RMSNorm(weight) 8192x3072 bfloat16"}
+    del y_cast, want_cast, xf
+
+    # -- phase 4: kernel 3, the block datapath -------------------------------
+    xt = L.MNM16N128.from_logical(xb)
+    load = describe("MNM16N128", "MN", P.Transpose(), backend="compiled")
+    perm = torch.randperm(8192, generator=gen, device=dev)
+    gather = describe("MN", "MN", P.GatherScatter(indices=perm))
+    keep_blocks = torch.rand(1024, generator=gen, device=dev) < 0.5
+    xs = xb * keep_blocks.repeat_interleave(8)[:, None].to(xb.dtype)
+    compress = describe("MN", "MNM16N128", P.Compress(block_rows=8))
+    roundtrip = describe("MN", "MN", P.Compress(block_rows=8), P.Decompress())
+    rsum = describe("MN", "MN", P.ReduceStage("sum"))
+    rmax = describe("MN", "MN", P.ReduceStage("max"))
+
+    def k3_path():
+        return (xdma.transfer(xt, load), xdma.transfer(xb, gather),
+                xdma.transfer(xs, compress), xdma.transfer(xs, roundtrip),
+                xdma.transfer(xb, rsum), xdma.transfer(xb, rmax))
+
+    (y_load, y_gather, y_comp, y_round, y_sum, y_max), counts = drive(
+        "kernel3", [datapath.BLOCK], k3_path)
+    plain = lambda x, d: datapath.plain(x, d.plugins, d.src.layout,
+                                              d.dst.layout)
+    want_load = plain(xt, load)
+    assert_bitwise(y_load, want_load, "kernel3 load (transpose)")
+    assert_bitwise(y_gather, plain(xb, gather), "kernel3 gather")
+    want_comp = plain(xs, compress)
+    assert_bitwise(y_comp.values, want_comp.values, "kernel3 compress values")
+    assert_bitwise(y_comp.mask, want_comp.mask, "kernel3 compress mask")
+    check(torch.equal(want_comp.mask, keep_blocks),
+          "kernel3 compress mask marks exactly the kept blocks")
+    assert_bitwise(y_round, xs, "kernel3 compress->decompress round trip")
+    tol_sum = tolerance(rsum.plugins, xb.dtype)
+    assert_close(y_sum, plain(xb, rsum), tol_sum, "kernel3 reduce sum")
+    assert_bitwise(y_max, plain(xb, rmax), "kernel3 reduce max")
+    log(f"[kernel3] load, gather, compress (values+mask), round trip and "
+        f"max bitwise; sum within {tol_sum} (max abs err "
+        f"{max_abs_err(y_sum, plain(xb, rsum))}); occupancy "
+        f"{float(y_comp.mask.float().mean()):.3f}")
+    sm = torch.randn(2, 64, 256, generator=gen, device=dev)
+    fn = plugin_compiler.compile_local(describe(
+        "MN", "MN", P.Transpose(), P.Scale(2.0), P.ReduceStage("max"),
+        P.RMSNormPlugin()))
+    assert_close(fn(sm).cpu(), fn(sm.cpu()), tolerance((), sm.dtype),
+                 "kernel3 small rank-3 chain vs CPU")
+    run_load = plugin_compiler.compile_local(load)
+    run_load(xt)
+    lib = lambda: xt.permute(1, 3, 0, 2).reshape(3072, 8192)
+    assert_bitwise(lib(), y_load, "kernel3 library yardstick")
+    rows["block_datapath"] = {
+        "name": "block_datapath", "route": "cuda",
+        "source": "src/repro_torch/csrc/block_datapath.cu",
+        "replaces": datapath.BLOCK.replaces,
+        "launches": counts["block_datapath"],
+        "max_abs_err": max_abs_err(y_load, want_load),
+        "ms": gpu_ms(lambda: run_load(xt)),
+        "plain_ms": gpu_ms(lambda: plain(xt, load)),
+        "bound_ms": bound_ms(nbytes(xt, y_load)), "bound_by": "bytes",
+        "library_ms": gpu_ms(lib),
+        "shape": "MNM16N128->MN + Transpose 8192x3072 bfloat16"}
+    for name, d, x in (("gather", gather, xb), ("compress", compress, xs),
+                       ("roundtrip", roundtrip, xs), ("sum", rsum, xb),
+                       ("max", rmax, xb)):
+        f = plugin_compiler.compile_local(d)
+        f(x)
+        out = f(x)
+        out_t = out.values if isinstance(out, P.CTensor) else out
+        pair_times.append({"pair": d.summary(), "dtype": str(x.dtype),
+                           "ms": gpu_ms(lambda: f(x)),
+                           "plain_ms": gpu_ms(lambda: plain(x, d)),
+                           "bound_ms": bound_ms(nbytes(x, out_t))})
+        r = pair_times[-1]
+        log(f"[kernel3] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
+            f" bound {r['bound_ms']:.4f})")
+    del y_gather, y_comp, y_round, y_sum, y_max
+
+    # -- phase 5: the queue ----------------------------------------------------
+    queue = xdma.XDMAQueue([store, load], name="prefill")
+
+    def q_path():
+        return queue.run(xb), xdma.transfer(xdma.transfer(xb, store), load)
+
+    (q_out, t_out), counts = drive(
+        "queue", [datapath.STREAMED, datapath.BLOCK], q_path)
+    assert_bitwise(q_out, t_out, "queue vs transfers in turn")
+    hits = xdma.cache_stats().hits
+    xdma.transfer(xdma.transfer(xb, store), load)
+    check(xdma.cache_stats().hits >= hits + 2,
+          f"queue: cache_stats {xdma.cache_stats()}")
+    log(f"[queue] store->load equals the two transfers; {xdma.cache_stats()}")
+
+    order = ["agu_relayout", "streamed_datapath", "block_datapath"]
+    for name in order:
+        r = rows[name]
+        log(f"[times] {name} ({r['shape']}): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the "
+            f"bound) on {card}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_times.json"),
+              "w") as f:
+        json.dump({"card": card, "kernels": [rows[n] for n in order],
+                   "cases": pair_times}, f, indent=1)
+    log(json.dumps({"kernels": [{k: v for k, v in rows[n].items()
+                                 if k != "shape"} for n in order]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

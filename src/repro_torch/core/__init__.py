@@ -1,0 +1,26 @@
+"""repro_torch.core — XDMA's local datapath as a PyTorch module.
+
+Re-exports the names of ``repro.core`` for the part that is ported: the
+layout IR, the plugins, the descriptor, the engine, the plugin compiler and
+the local ``xdma.transfer`` API.
+"""
+from .layouts import (  # noqa: F401
+    Layout, MN, NM, MNP64, MNM8N128, MNM16N128, MNM32N128, MNM8N8,
+    NMM8N128, KV4M8N128, AUTO,
+    affine_pattern, AffinePattern, PatternPair, relayout_pair,
+    layout_for_dtype, tiled_layout, by_name,
+)
+from .plugins import (  # noqa: F401
+    Plugin, Identity, Transpose, Cast, Scale, BiasAdd,
+    RMSNormPlugin, Quantize, Dequantize, QTensor, apply_chain,
+    GatherScatter, Compress, Decompress, CTensor, ReduceStage,
+    register_plugin, plugin_by_name, registered_plugins,
+)
+from .descriptor import Endpoint, XDMADescriptor, describe, from_spec  # noqa: F401
+from .engine import xdma_copy, xdma_copy_pallas, reader, writer  # noqa: F401
+from .api import (  # noqa: F401
+    XDMAQueue, transfer, cache_stats, clear_cache,
+    cache_capacity, set_cache_capacity,
+)
+from . import api as xdma  # noqa: F401  (usage: from repro_torch.core import xdma)
+from . import plugin_compiler  # noqa: F401  (cfg_stats, compile_local, ...)

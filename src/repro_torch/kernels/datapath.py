@@ -1,0 +1,414 @@
+"""The plugin datapath kernels: host side of kernels 2 and 3.
+
+* :class:`StreamedDatapath` — kernel 2, ``csrc/streamed_datapath.cu``, the
+  port of the reference's ``_compile_streamed``: reader -> a chain of
+  streaming plugins -> writer, one block per logical row.
+* :class:`BlockDatapath` — kernel 3, ``csrc/block_datapath.cu``, the port of
+  ``_compile_block``: reader -> any emit-capable chain (Transpose,
+  GatherScatter, Compress, Decompress, ReduceStage and the streaming
+  plugins) -> writer, spread over many blocks.
+
+Both compile the chain once into a small op or stage list whose constants
+are rounded to the stream dtype as jnp's rules require (``Scale`` and
+``BiasAdd`` cast their constant to the stream dtype first), so one binary
+serves every chain.  On a CPU tensor each takes its plain version — the
+plugins' ``__call__`` composed with the layout algebra — and on a CUDA
+tensor it launches its kernel or raises.  The kernels run float32, bfloat16
+and float16 streams; a scale, bias or weight is a scalar or a vector over
+the last logical axis.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import layouts as L
+from repro_torch.core import plugins as P
+
+from . import _build, maps
+
+__all__ = ["StreamedDatapath", "BlockDatapath", "STREAMED", "BLOCK",
+           "plain"]
+
+
+# -- shared: constants of value stages ----------------------------------------
+def _column_const(value: Any, n: int, dtype: torch.dtype, device
+                  ) -> Tuple[float, Optional[torch.Tensor]]:
+    """A scale / bias / weight constant cast to ``dtype`` (jnp's rule), as
+    (scalar, None) or (0.0, f32 vector over the last axis on ``device``)."""
+    c = P.as_tensor(value).to(dtype)
+    if c.numel() == 1:
+        return float(c.reshape(()).to(torch.float32)), None
+    if c.numel() == n and all(s == 1 for s in c.shape[:-1]):
+        vec = c.reshape(n).to(torch.float32).to(device).contiguous()
+        return 0.0, vec
+    raise NotImplementedError(
+        f"the datapath kernels take a scalar or a vector over the last axis "
+        f"({n}), not a constant of shape {tuple(c.shape)}")
+
+
+def _check_input(x: torch.Tensor, shape: Sequence[int], dtype: torch.dtype):
+    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+        raise ValueError(f"compiled for {tuple(shape)} {dtype}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("the datapath kernels take a contiguous buffer")
+
+
+def plain(x, chain, src_layout: L.Layout, dst_layout: L.Layout):
+    """The plain version of kernels 2 and 3: reader -> plugin chain ->
+    writer; a Compress at the end returns a :class:`CTensor` whose values
+    take the dst layout and whose mask is raw."""
+    v = P.apply_chain(chain, src_layout.to_logical(x))
+    if isinstance(v, P.CTensor):
+        return P.CTensor(values=dst_layout.from_logical(v.values), mask=v.mask)
+    return dst_layout.from_logical(v)
+
+
+# -- kernel 2: the streamed datapath ------------------------------------------
+_OP_CAST, _OP_SCALE, _OP_BIAS, _OP_RMSNORM = 1, 2, 3, 4
+_MAX_OPS = 8
+_MAX_ROW_FLOATS = (227 * 1024 - 33 * 4) // 4      # the row lives in smem
+
+
+class _Op(ctypes.Structure):
+    _fields_ = [("code", ctypes.c_int64), ("dtype", ctypes.c_int64),
+                ("a", ctypes.c_double), ("vec", ctypes.c_int64)]
+
+
+class _StreamArgs(ctypes.Structure):
+    _fields_ = [("rows", ctypes.c_int64), ("cols", ctypes.c_int64),
+                ("pcols", ctypes.c_int64), ("in_dtype", ctypes.c_int64),
+                ("out_dtype", ctypes.c_int64), ("nops", ctypes.c_int64),
+                ("ops", _Op * _MAX_OPS), ("src", maps.DimMap * 2),
+                ("dst", maps.DimMap * 2)]
+
+
+STREAMED = _build.register(_build.Kernel(
+    "streamed_datapath", "streamed_datapath.cu", "xdma_streamed_datapath",
+    [ctypes.c_void_p] * 3,
+    replaces="src/repro/core/plugin_compiler.py:236"))
+
+
+class StreamedDatapath:
+    """Kernel 2 compiled for one chain, layout pair and input shape/dtype.
+    The kernel gives each logical row a block of its own."""
+
+    def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
+                 dst_layout: L.Layout, in_shape: Sequence[int],
+                 in_dtype: torch.dtype):
+        self.chain = tuple(chain)
+        self.src_layout, self.dst_layout = src_layout, dst_layout
+        self.in_shape, self.in_dtype = tuple(in_shape), in_dtype
+        self.logical = src_layout.logical_shape(self.in_shape)
+        if len(self.logical) != 2:
+            raise ValueError("the streamed datapath runs rank-2 logical data")
+        self.out_dtype = P.chain_out_dtype(self.chain, in_dtype)
+        self._prepared: Dict[Any, Tuple[_StreamArgs, List[torch.Tensor]]] = {}
+
+    def _prepare(self, device) -> Tuple[_StreamArgs, List[torch.Tensor]]:
+        m, n = self.logical
+        if n > _MAX_ROW_FLOATS:
+            raise NotImplementedError(
+                f"the streamed kernel stages a row of {n} floats in shared "
+                f"memory; at most {_MAX_ROW_FLOATS}")
+        a = _StreamArgs()
+        keep: List[torch.Tensor] = []
+        a.rows, a.cols = m, n
+        a.pcols = n + self.dst_layout.dim_pad(2, 1)
+        a.in_dtype = maps.dtype_code(self.in_dtype)
+        a.out_dtype = maps.dtype_code(self.out_dtype)
+        dtype, k = self.in_dtype, 0
+        for p in self.chain:
+            if isinstance(p, P.Identity):
+                continue
+            if k == _MAX_OPS:
+                raise NotImplementedError(f"at most {_MAX_OPS} streamed ops")
+            op = a.ops[k]
+            if isinstance(p, P.Cast):
+                dtype = p.dtype
+                op.code, op.a, op.vec = _OP_CAST, 0.0, 0
+            elif isinstance(p, (P.Scale, P.BiasAdd, P.RMSNormPlugin)):
+                if isinstance(p, P.RMSNormPlugin):
+                    op.code, op.a, vec = _OP_RMSNORM, float(p.eps), None
+                    if p.weight is not None:
+                        _, vec = _column_const(p.weight, n, torch.float32,
+                                               device)
+                else:
+                    value = p.alpha if isinstance(p, P.Scale) else p.bias
+                    op.code = _OP_SCALE if isinstance(p, P.Scale) else _OP_BIAS
+                    op.a, vec = _column_const(value, n, dtype, device)
+                op.vec = 0 if vec is None else vec.data_ptr()
+                if vec is not None:
+                    keep.append(vec)
+            else:
+                raise ValueError(f"{p.name!r} is not a streaming plugin")
+            op.dtype = maps.dtype_code(dtype)
+            k += 1
+        a.nops = k
+        for d, mp in enumerate(maps.dim_maps(self.src_layout, (m, n))):
+            a.src[d] = maps.DimMap(*mp)
+        for d, mp in enumerate(maps.dim_maps(self.dst_layout, (m, n))):
+            a.dst[d] = maps.DimMap(*mp)
+        return a, keep
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return plain(x, self.chain, self.src_layout, self.dst_layout)
+        if x.device.type != "cuda":
+            raise NotImplementedError(f"no datapath kernel for {x.device}")
+        return self.launch(x)
+
+    def launch(self, x: torch.Tensor) -> torch.Tensor:
+        """Launch kernel 2 on ``x``'s device and stream."""
+        _check_input(x, self.in_shape, self.in_dtype)
+        key = (x.device.type, x.device.index)
+        prepared = self._prepared.get(key)
+        if prepared is None:
+            prepared = self._prepared[key] = self._prepare(x.device)
+        args, _ = prepared
+        out = torch.empty(self.dst_layout.physical_shape(self.logical),
+                          dtype=self.out_dtype, device=x.device)
+        STREAMED(ctypes.addressof(args), x.data_ptr(), out.data_ptr())
+        return out
+
+
+# -- kernel 3: the block datapath ---------------------------------------------
+_XR, _XS, _XP = 4, 8, 8
+(_ST_CAST, _ST_SCALE, _ST_BIAS, _ST_RMSNORM, _ST_TRANSPOSE, _ST_GATHER,
+ _ST_COMPRESS, _ST_DECOMPRESS, _ST_REDUCE_SUM, _ST_REDUCE_MAX) = range(1, 11)
+_MODE_OUT, _MODE_STAT, _MODE_MASK = 0, 1, 2
+
+
+class _Stage(ctypes.Structure):
+    _fields_ = [("code", ctypes.c_int64), ("dtype", ctypes.c_int64),
+                ("axis", ctypes.c_int64), ("keepdims", ctypes.c_int64),
+                ("block_rows", ctypes.c_int64), ("a", ctypes.c_double),
+                ("vec", ctypes.c_int64), ("aux", ctypes.c_int64),
+                ("in_rank", ctypes.c_int64), ("in_shape", ctypes.c_int64 * _XR)]
+
+
+class _BlockArgs(ctypes.Structure):
+    _fields_ = [("nstages", ctypes.c_int64), ("st", _Stage * _XS),
+                ("in_dtype", ctypes.c_int64), ("src_rank", ctypes.c_int64),
+                ("src", maps.DimMap * _XR), ("upto", ctypes.c_int64),
+                ("out_rank", ctypes.c_int64),
+                ("out_shape", ctypes.c_int64 * _XR),
+                ("out_dtype", ctypes.c_int64), ("nphys", ctypes.c_int64),
+                ("pext", ctypes.c_int64 * _XP), ("pdim", ctypes.c_int64 * _XP),
+                ("pw", ctypes.c_int64 * _XP), ("total", ctypes.c_int64),
+                ("reduce_at", ctypes.c_int64)]
+
+
+BLOCK = _build.register(_build.Kernel(
+    "block_datapath", "block_datapath.cu", "xdma_block_datapath",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64],
+    replaces="src/repro/core/plugin_compiler.py:182"))
+
+
+@dataclasses.dataclass
+class _St:
+    """One compiled stage of kernel 3 (host side)."""
+
+    code: int
+    dtype: torch.dtype              # stream dtype after the stage
+    in_shape: Tuple[int, ...]
+    out_shape: Tuple[int, ...] = ()
+    axis: int = 0
+    keepdims: int = 1
+    block_rows: int = 0
+    a: float = 0.0
+    vec: Optional[torch.Tensor] = None
+    index: Optional[torch.Tensor] = None   # GATHER indices
+    mask_of: int = -1                      # DECOMPRESS: its COMPRESS stage
+
+    @property
+    def is_reduce(self) -> bool:
+        return self.code in (_ST_REDUCE_SUM, _ST_REDUCE_MAX)
+
+
+class BlockDatapath:
+    """Kernel 3 compiled for one chain, layout pair and input shape/dtype.
+
+    Launches, in order, for each launch segment (a chain with more than one
+    ReduceStage is cut before each later one, joined by a row-major
+    intermediate): a statistics pass per RMSNorm, a mask pass per Compress,
+    then the output pass.  ``GatherScatter`` follows ``jnp.take``: negative
+    indices count from the end, and an index outside ``[-n, n)`` yields
+    NaN."""
+
+    def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
+                 dst_layout: L.Layout, in_shape: Sequence[int],
+                 in_dtype: torch.dtype):
+        self.chain = tuple(chain)
+        self.src_layout, self.dst_layout = src_layout, dst_layout
+        self.in_shape, self.in_dtype = tuple(in_shape), in_dtype
+        self.logical = src_layout.logical_shape(self.in_shape)
+        self._prepared: Dict[Any, List[_St]] = {}
+
+    # -- compile --------------------------------------------------------------
+    def _compile(self, device) -> List[_St]:
+        shape, dtype = tuple(self.logical), self.in_dtype
+        stages: List[_St] = []
+        compressed = -1                       # stage index of a pending Compress
+        for p in self.chain:
+            if isinstance(p, P.Identity):
+                continue
+            if compressed >= 0 and not isinstance(p, P.Decompress):
+                raise ValueError(f"{p.name!r} cannot follow a Compress; only "
+                                 "Decompress takes a CTensor")
+            st = _St(code=0, dtype=dtype, in_shape=shape)
+            n = shape[-1]
+            if isinstance(p, P.Cast):
+                st.code, st.dtype = _ST_CAST, p.dtype
+            elif isinstance(p, (P.Scale, P.BiasAdd)):
+                st.code = _ST_SCALE if isinstance(p, P.Scale) else _ST_BIAS
+                value = p.alpha if isinstance(p, P.Scale) else p.bias
+                st.a, st.vec = _column_const(value, n, dtype, device)
+            elif isinstance(p, P.RMSNormPlugin):
+                st.code, st.a = _ST_RMSNORM, float(p.eps)
+                if p.weight is not None:
+                    _, st.vec = _column_const(p.weight, n, torch.float32,
+                                              device)
+            elif isinstance(p, P.Transpose):
+                st.code = _ST_TRANSPOSE
+            elif isinstance(p, P.GatherScatter):
+                st.code, st.axis = _ST_GATHER, p.axis % len(shape)
+                st.index = P.take_indices(p.indices, shape[st.axis],
+                                          device=device).contiguous()
+            elif isinstance(p, P.Compress):
+                if shape[-2] % p.block_rows:
+                    raise ValueError(f"logical rows {shape[-2]} not divisible "
+                                     f"by block_rows={p.block_rows}")
+                st.code, st.block_rows = _ST_COMPRESS, p.block_rows
+                compressed = len(stages)
+            elif isinstance(p, P.Decompress):
+                if compressed < 0:
+                    raise ValueError("Decompress needs a CTensor: put a "
+                                     "Compress before it")
+                st.code = _ST_DECOMPRESS
+                st.block_rows = stages[compressed].block_rows
+                st.mask_of, compressed = compressed, -1
+            elif isinstance(p, P.ReduceStage):
+                st.code = _ST_REDUCE_SUM if p.op == "sum" else _ST_REDUCE_MAX
+                st.keepdims = int(p.keepdims)
+            else:
+                raise ValueError(f"{p.name!r} has no block-datapath stage")
+            shape = st.out_shape = tuple(p.out_logical_shape(shape))
+            dtype = st.dtype
+            if not 2 <= len(shape) <= _XR or len(st.in_shape) > _XR:
+                raise NotImplementedError(
+                    f"the block kernel runs logical ranks 2..{_XR}")
+            stages.append(st)
+        maps.dtype_code(self.in_dtype)        # raises on a dtype the kernel
+        for st in stages:                     # does not run
+            maps.dtype_code(st.dtype)
+        return stages
+
+    def _segments(self, stages: List[_St]) -> List[Tuple[int, int]]:
+        """Stage ranges of the launch segments: at most one ReduceStage and
+        at most ``_XS`` stages each."""
+        segs, lo, has_reduce = [], 0, False
+        for s, st in enumerate(stages):
+            if (st.is_reduce and has_reduce) or s - lo == _XS:
+                segs.append((lo, s))
+                lo, has_reduce = s, False
+            has_reduce = has_reduce or st.is_reduce
+        segs.append((lo, len(stages)))
+        return segs
+
+    # -- launch ---------------------------------------------------------------
+    def _args(self, stages: List[_St], lo: int, hi: int,
+              src_layout: L.Layout, src_logical: Tuple[int, ...],
+              src_dtype: torch.dtype, aux: Dict[int, torch.Tensor]
+              ) -> _BlockArgs:
+        a = _BlockArgs()
+        a.nstages = hi - lo
+        a.reduce_at = -1
+        for k, st in enumerate(stages[lo:hi]):
+            c = a.st[k]
+            c.code, c.dtype = st.code, maps.dtype_code(st.dtype)
+            c.axis, c.keepdims, c.block_rows, c.a = (st.axis, st.keepdims,
+                                                     st.block_rows, st.a)
+            c.vec = 0 if st.vec is None else st.vec.data_ptr()
+            buf = st.index if st.index is not None else aux.get(
+                st.mask_of if st.mask_of >= 0 else lo + k)
+            c.aux = 0 if buf is None else buf.data_ptr()
+            c.in_rank = len(st.in_shape)
+            for d, e in enumerate(st.in_shape):
+                c.in_shape[d] = e
+            if st.is_reduce:
+                a.reduce_at = k
+        a.in_dtype = maps.dtype_code(src_dtype)
+        a.src_rank = len(src_logical)
+        for d, mp in enumerate(maps.dim_maps(src_layout, src_logical)):
+            a.src[d] = maps.DimMap(*mp)
+        return a
+
+    def _launch_segment(self, stages, lo, hi, x, src_layout, dst_layout,
+                        out_dtype, aux) -> torch.Tensor:
+        passes = []                         # (segment stage, mode, rows)
+        for k, st in enumerate(stages[lo:hi]):
+            if st.code == _ST_RMSNORM:
+                rows = math.prod(st.in_shape[:-1])
+                aux[lo + k] = torch.empty(rows, dtype=torch.float32,
+                                          device=x.device)
+                passes.append((k, _MODE_STAT, rows))
+            elif st.code == _ST_COMPRESS:
+                blocks = st.in_shape[:-2] + (st.in_shape[-2] // st.block_rows,)
+                aux[lo + k] = torch.empty(blocks, dtype=torch.bool,
+                                          device=x.device)
+                passes.append((k, _MODE_MASK, math.prod(blocks)))
+        src_logical = src_layout.logical_shape(tuple(x.shape))
+        a = self._args(stages, lo, hi, src_layout, src_logical, x.dtype, aux)
+        for k, mode, rows in passes:
+            a.upto, a.total = k, rows
+            BLOCK(ctypes.addressof(a), x.data_ptr(), None, mode)
+        shape = stages[hi - 1].out_shape if hi > lo else src_logical
+        out = torch.empty(dst_layout.physical_shape(shape), dtype=out_dtype,
+                          device=x.device)
+        phys = maps.physical_dims(dst_layout, shape)
+        a.upto, a.out_rank = hi - lo, len(shape)
+        a.out_dtype = maps.dtype_code(out_dtype)
+        for d, e in enumerate(shape):
+            a.out_shape[d] = e
+        a.nphys = len(phys)
+        for k, (e, d, w) in enumerate(phys):
+            a.pext[k], a.pdim[k], a.pw[k] = e, d, w
+        a.total = out.numel()
+        BLOCK(ctypes.addressof(a), x.data_ptr(), out.data_ptr(), _MODE_OUT)
+        return out
+
+    def __call__(self, x: torch.Tensor):
+        if x.device.type == "cpu":
+            return plain(x, self.chain, self.src_layout, self.dst_layout)
+        if x.device.type != "cuda":
+            raise NotImplementedError(f"no datapath kernel for {x.device}")
+        return self.launch(x)
+
+    def launch(self, x: torch.Tensor):
+        """Launch kernel 3's passes on ``x``'s device and stream."""
+        _check_input(x, self.in_shape, self.in_dtype)
+        key = (x.device.type, x.device.index)
+        stages = self._prepared.get(key)
+        if stages is None:
+            stages = self._prepared[key] = self._compile(x.device)
+        aux: Dict[int, torch.Tensor] = {}
+        segs = self._segments(stages)
+        v, src_layout = x, self.src_layout
+        for i, (lo, hi) in enumerate(segs):
+            final = i == len(segs) - 1
+            dst_layout = self.dst_layout if final else L.MN
+            out_dtype = stages[hi - 1].dtype if hi > lo else self.in_dtype
+            v = self._launch_segment(stages, lo, hi, v, src_layout,
+                                     dst_layout, out_dtype, aux)
+            src_layout = L.MN
+        compress = [s for s, st in enumerate(stages)
+                    if st.code == _ST_COMPRESS]
+        if compress and not any(st.mask_of == compress[-1] for st in stages):
+            return P.CTensor(values=v, mask=aux[compress[-1]])
+        return v

@@ -1,0 +1,30 @@
+"""Public wrappers for the port's kernels (the twin of
+``repro.kernels.ops``'s relayout part).
+
+``relayout`` lowers a layout pair through the generic AGU kernel
+(:mod:`.agu`); pairs outside kernel coverage (no common loop-nest
+refinement, row-stride padding, rank > 2) take the reference's recorded
+fallback — the plain layout composition — and
+:func:`repro_torch.kernels.agu.agu_stats` records the reason.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import layouts as L
+
+from . import agu
+
+__all__ = ["relayout"]
+
+
+def relayout(x: torch.Tensor, *, src_layout: L.Layout, dst_layout: L.Layout,
+             transpose: bool = False, d_buf: int = 9) -> torch.Tensor:
+    logical = src_layout.logical_shape(tuple(x.shape))
+    plan, reason = agu.plan_relayout(src_layout, dst_layout, logical,
+                                     transpose=transpose, d_buf=d_buf)
+    if plan is not None:
+        agu.record_plan(plan)
+        return plan.run(x)
+    agu.record_fallback(reason)
+    return agu.relayout_plain(x, src_layout, dst_layout, transpose)

@@ -62,3 +62,9 @@ def run_multidevice(snippet: str, n_devices: int = 8, timeout: int = 300) -> str
     if out.returncode != 0:
         raise AssertionError(f"subprocess failed:\n{out.stdout}\n{out.stderr}")
     return out.stdout
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skips without one")

@@ -1,0 +1,179 @@
+"""The port's hand-written CUDA kernels on the card, held against their plain
+PyTorch versions (which the CPU runs).
+
+Every test here is marked ``cuda`` and skips without a GPU.  The module
+imports neither JAX nor the reference, so it runs on a machine that has only
+PyTorch and the CUDA toolkit::
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+import repro_torch.core as PC  # noqa: E402
+from repro_torch.core import plugin_compiler as ppc  # noqa: E402
+from repro_torch.core import xdma as px  # noqa: E402
+from repro_torch.kernels import agu as pagu  # noqa: E402
+from repro_torch.kernels import datapath as DP  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+CANONICAL_PAIRS = [
+    ("MN", "MNM8N128", False), ("MN", "MNM16N128", False),
+    ("MN", "MNM32N128", False), ("MNM8N128", "MN", False),
+    ("MNM16N128", "MN", False), ("MNM32N128", "MN", False),
+    ("MNM8N128", "MNM8N128", True), ("MNM16N128", "MNM16N128", True),
+    ("MNM32N128", "MNM32N128", True), ("MN", "MN", True),
+    ("MNM8N128", "MNM16N128", False),
+    ("MN", "NM", False), ("NM", "MNM8N128", False),
+    ("MN", "MNP64", False), ("MNP64", "MNM16N128", False),
+    ("NMM8N128", "MN", False),
+]
+
+ROWPAD = PC.Layout(None, "rowpad", pad=(8, 0))
+
+# (src, dst, chain, logical shape, dtype, bitwise)
+CHAINS = {
+    "rmsnorm_store": ("MN", "MNM16N128", lambda s: (PC.RMSNormPlugin(
+        weight=torch.linspace(-2, 2, s[-1]).to(torch.bfloat16)),),
+        (256, 384), torch.bfloat16, False),
+    "cast_scale_bias": ("MN", "MNP64", lambda s: (
+        PC.Cast(torch.bfloat16), PC.Scale(1.5), PC.BiasAdd(0.25)),
+        (128, 256), torch.float32, True),
+    "vector_constants": ("NM", "MNM8N128", lambda s: (
+        PC.Scale(torch.linspace(0.5, 2, s[-1])),
+        PC.BiasAdd(torch.linspace(-1, 1, s[-1]))), (128, 256), torch.float32,
+        True),
+    "f16_rmsnorm": ("MN", "MN", lambda s: (
+        PC.Cast(torch.float16), PC.RMSNormPlugin(eps=1e-5)), (64, 384),
+        torch.float32, False),
+    "load_transpose": ("MNM16N128", "MN", lambda s: (PC.Transpose(),),
+                       (256, 384), torch.bfloat16, True),
+    "gather_fill": ("MN", "MNM8N128", lambda s: (PC.GatherScatter(
+        indices=np.r_[np.random.default_rng(1).permutation(s[0] - 1),
+                      -1, s[0] + 3][1:]),), (128, 256), torch.float32, True),
+    "gather_cols": ("MN", "MN", lambda s: (PC.GatherScatter(
+        indices=np.arange(s[-1] - 1, -1, -1), axis=-1),), (64, 256),
+        torch.bfloat16, True),
+    "compress": ("MN", "MNM16N128", lambda s: (PC.Compress(block_rows=8),),
+                 (256, 256), torch.bfloat16, True),
+    "compress_roundtrip": ("MN", "MN", lambda s: (
+        PC.Compress(block_rows=8), PC.Decompress()), (256, 256),
+        torch.float32, True),
+    "reduce_sum": ("MN", "MN", lambda s: (PC.ReduceStage("sum"),),
+                   (512, 256), torch.float32, False),
+    "reduce_max": ("MNM16N128", "MN", lambda s: (PC.ReduceStage("max"),),
+                   (512, 256), torch.bfloat16, True),
+    "rowpad_rmsnorm": ("MN", ROWPAD, lambda s: (PC.RMSNormPlugin(),),
+                       (64, 256), torch.float32, False),
+    "rank3": ("MN", "KV4M8N128", lambda s: (PC.RMSNormPlugin(),
+                                            PC.Scale(2.0)),
+              (8, 32, 256), torch.float32, False),
+    "transpose_rmsnorm_sum": ("NMM8N128", "MNP64", lambda s: (
+        PC.Transpose(), PC.RMSNormPlugin(), PC.ReduceStage("sum")),
+        (128, 256), torch.float32, False),
+    "two_reduces": ("MN", "MN", lambda s: (
+        PC.ReduceStage("max"), PC.Transpose(), PC.ReduceStage("sum")),
+        (64, 256), torch.float32, False),
+}
+
+
+@pytest.fixture(autouse=True)
+def _needs_a_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written kernels)")
+
+
+def _logical(shape, dtype, seed=0, zero_blocks=False):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=gen) * 4
+    if zero_blocks:
+        keep = torch.rand(shape[-2] // 8, generator=gen) < 0.5
+        x = x * keep.repeat_interleave(8)[:, None]
+    return x.to(dtype)
+
+
+def _layout(name):
+    return name if isinstance(name, PC.Layout) else PC.by_name(name)
+
+
+def _equal_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.float64])
+def test_relayout_kernel_bitwise_vs_plain(dtype):
+    x = _logical((256, 384), torch.float32, seed=2).to(dtype).cuda()
+    before = pagu.RELAYOUT.launches
+    for src, dst, t in CANONICAL_PAIRS:
+        sl, dl = PC.by_name(src), PC.by_name(dst)
+        xin = sl.from_logical(x)
+        got = pagu.relayout_kernel(xin, sl, dl, t)
+        assert _equal_bits(got, pagu.relayout_plain(xin, sl, dl, t)), \
+            (src, dst, t)
+    torch.cuda.synchronize()
+    assert pagu.RELAYOUT.launches == before + len(CANONICAL_PAIRS)
+
+
+def test_relayout_kernel_keeps_nan_payloads_and_negative_zero():
+    bits = torch.tensor([0x7FC00001, 0x7F800001, 0x80000000, 0xFFC12345],
+                        dtype=torch.int64).to(torch.int32)
+    x = bits.repeat(64 * 128 // 4).view(torch.float32).reshape(64, 128)
+    got = pagu.relayout_kernel(x.cuda(), PC.MN, PC.MN, True).cpu()
+    assert torch.equal(got.view(torch.int32), x.T.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("name", sorted(CHAINS))
+def test_datapath_kernels_vs_plain(name):
+    src, dst, chain, shape, dtype, bitwise = CHAINS[name]
+    sl, dl = _layout(src), _layout(dst)
+    x = sl.from_logical(_logical(shape, dtype, seed=5,
+                                 zero_blocks="compress" in name))
+    desc = PC.XDMADescriptor(src=PC.Endpoint(layout=sl),
+                             dst=PC.Endpoint(layout=dl), pre=chain(shape))
+    fn = ppc.compile_local(desc)
+    want = fn(x)                                  # plain version, CPU
+    counts = (DP.STREAMED.launches, DP.BLOCK.launches)
+    got = fn(x.cuda())
+    torch.cuda.synchronize()
+    assert (DP.STREAMED.launches, DP.BLOCK.launches) != counts
+    if isinstance(want, PC.CTensor):
+        assert torch.equal(got.mask.cpu(), want.mask)
+        got, want = got.values, want.values
+    got = got.cpu()
+    if bitwise:
+        assert _equal_bits(got, want)
+    else:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        tol = (dict(rtol=2e-2, atol=1e-2) if got.element_size() < 4
+               else dict(rtol=1e-4, atol=1e-4))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused", "pallas", "compiled"])
+def test_transfer_on_cuda_matches_cpu(backend):
+    descs = [PC.describe("MN", "MNM16N128", backend=backend),
+             PC.describe("MNM8N128", "MN", PC.Transpose(), backend=backend),
+             PC.describe("MN", "MNM8N128", PC.Scale(2.0), backend=backend),
+             PC.describe("MN", "MN", PC.Compress(8), PC.Decompress(),
+                         backend=backend)]
+    x = _logical((128, 256), torch.float32, seed=7, zero_blocks=True)
+    for desc in descs:
+        xin = desc.src.layout.from_logical(x)
+        got = px.transfer(xin.cuda(), desc)
+        assert got.is_cuda
+        assert _equal_bits(got.cpu(), px.transfer(xin, desc)), desc.summary()
+
+
+def test_queue_on_cuda_matches_the_transfers_in_turn():
+    w = torch.linspace(0.5, 1.5, 256).to(torch.bfloat16).cuda()
+    store = PC.describe("MN", "MNM16N128", PC.RMSNormPlugin(weight=w))
+    load = PC.describe("MNM16N128", "MN", PC.Transpose(), backend="compiled")
+    x = _logical((128, 256), torch.bfloat16, seed=9).cuda()
+    want = px.transfer(px.transfer(x, store), load)
+    assert _equal_bits(px.XDMAQueue([store, load]).run(x), want)

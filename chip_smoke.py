@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's local ``xdma.transfer`` datapath on one NVIDIA GPU.
+"""Drive the PyTorch port's kernel paths on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -6,14 +6,24 @@ Run from the root of a checkout, with no arguments::
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all started together), then drives the port through
-its public entry points at the sizes its users call real — the paper's
-Fig. 4 relayouts at 4096 x 4096 f32, and the Table III Prefill store and
-Load at the full width of phi4-mini-3.8B (d_model 3072) over an 8192-token
-prefill in bf16 — and holds every kernel against its plain PyTorch version
-on the same inputs.  Each phase resets the kernels' launch counts just
-before it drives the path and reads them just after; a kernel of the path
-that did not launch, a result that disagrees, or a kernel that does not
-build or launch fails the run with a non-zero exit.
+its public entry points at the sizes its users call real, and holds every
+kernel against its plain PyTorch version on the same inputs:
+
+* the local ``xdma.transfer`` datapath (kernels 1-3): the paper's Fig. 4
+  relayouts at 4096 x 4096 f32, and the Table III Prefill store and Load at
+  the full width of phi4-mini-3.8B (d_model 3072) over an 8192-token
+  prefill in bf16;
+* ``ops.rmsnorm_relayout`` (kernel 4) on the same Prefill store;
+* ``ops.quantize_tiled`` (kernel 5) on one phi4-mini MLP gradient leaf,
+  3072 x 8192 (the int8 wire codec);
+* ``flash_attention_gqa`` (kernel 6) on a phi4-mini prefill (S 4096, 24
+  query / 8 kv heads, hd 128, causal) and a gemma3-27B local layer (32 / 16
+  heads, window 1024), in bf16.
+
+Each phase resets the kernels' launch counts just before it drives the path
+and reads them just after; a kernel of the path that did not launch, a
+result that disagrees, or a kernel that does not build or launch fails the
+run with a non-zero exit.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times (CUDA events, median of several runs, GPU time only);
@@ -33,9 +43,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
+ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def log(*args):
@@ -118,7 +132,10 @@ def main():
     from repro_torch.core import plugin_compiler
     from repro_torch.core import xdma
     from repro_torch.core.descriptor import describe
-    from repro_torch.kernels import _build, agu, datapath
+    from repro_torch.kernels import _build, agu, datapath, ops
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_rmsnorm_relayout as FN
+    from repro_torch.kernels import quant as FQ
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -360,7 +377,182 @@ def main():
           f"queue: cache_stats {xdma.cache_stats()}")
     log(f"[queue] store->load equals the two transfers; {xdma.cache_stats()}")
 
-    order = ["agu_relayout", "streamed_datapath", "block_datapath"]
+    del q_out, t_out, y_load, want_load, xt
+
+    # -- phase 6: kernel 4, ops.rmsnorm_relayout at phi4-mini width ----------
+    x4 = torch.randn(8192, 3072, generator=gen, device=dev)
+    w4 = torch.randn(3072, generator=gen, device=dev)
+    bf16_tol, f32_tol = dict(rtol=2e-2, atol=1e-2), dict(rtol=1e-5, atol=1e-5)
+
+    def k4_path():
+        return (ops.rmsnorm_relayout(xb, w, (16, 128)),
+                ops.rmsnorm_relayout(x4, w4, (8, 128)))
+
+    (y4, y4f), counts = drive("kernel4", [FN.NORM], k4_path)
+    want4 = FN.rmsnorm_relayout_plain(xb, w, (16, 128))
+    assert_close(y4, want4, bf16_tol, "kernel4 bf16 (16, 128) with weight")
+    assert_close(y4f, FN.rmsnorm_relayout_plain(x4, w4, (8, 128)), f32_tol,
+                 "kernel4 f32 (8, 128) with weight")
+    for shape, tile, dt in (((40, 384), (16, 128), torch.bfloat16),
+                            ((48, 120), (16, 40), torch.float32)):
+        sm = torch.randn(*shape, generator=gen, device=dev).to(dt)
+        assert_close(ops.rmsnorm_relayout(sm, None, tile).cpu(),
+                     FN.rmsnorm_relayout_plain(sm.cpu(), None, tile),
+                     bf16_tol if dt == torch.bfloat16 else f32_tol,
+                     f"kernel4 small {shape} {tile} vs CPU")
+    k4_err = max_abs_err(y4, want4)
+    log(f"[kernel4] bf16 within {bf16_tol} (max abs err {k4_err}, "
+        f"{int((bits(y4) != bits(want4)).sum())} of {y4.numel()} elements "
+        f"differ in bits); f32 within {f32_tol} (max abs err "
+        f"{max_abs_err(y4f, FN.rmsnorm_relayout_plain(x4, w4, (8, 128)))})")
+    rows["rmsnorm_relayout"] = {
+        "name": "rmsnorm_relayout", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm_relayout.cu",
+        "replaces": FN.NORM.replaces,
+        "launches": counts["rmsnorm_relayout"], "max_abs_err": k4_err,
+        "ms": gpu_ms(lambda: ops.rmsnorm_relayout(xb, w, (16, 128))),
+        "plain_ms": gpu_ms(lambda: FN.rmsnorm_relayout_plain(
+            xb, w, (16, 128))),
+        "bound_ms": bound_ms(nbytes(xb, w, y4)), "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none: no one PyTorch call does norm + tiling",
+        "shape": "MN->MNM16N128 RMSNorm(weight) 8192x3072 bfloat16"}
+    pair_times.append({
+        "pair": "rmsnorm_relayout MN->MNM8N128 8192x3072",
+        "dtype": "torch.float32",
+        "ms": gpu_ms(lambda: ops.rmsnorm_relayout(x4, w4, (8, 128))),
+        "plain_ms": gpu_ms(lambda: FN.rmsnorm_relayout_plain(
+            x4, w4, (8, 128))),
+        "bound_ms": bound_ms(nbytes(x4, w4, y4f))})
+    del x4, y4, y4f, want4
+
+    # -- phase 7: kernel 5, ops.quantize_tiled on a phi4-mini gradient leaf --
+    x5 = torch.randn(3072, 8192, generator=gen, device=dev) * \
+        torch.rand(3072, 1, generator=gen, device=dev) * 4
+    x5[7] = 0.0                                   # an all-zero row
+    ties = torch.tensor([127.0, 2.5, -0.5, 1.5, -2.5, 0.5, -1.5, 3.5],
+                        device=dev)
+    x5[8] = ties.repeat(8192 // len(ties))        # amax 127: exact .5 ties
+    x5b = x5.to(torch.bfloat16)
+
+    def k5_path():
+        return ops.quantize_tiled(x5), ops.quantize_tiled(x5b)
+
+    ((v5, s5), (v5b, s5b)), counts = drive("kernel5", [FQ.QUANT], k5_path)
+    for (v, sc), x, what in (((v5, s5), x5, "f32"), ((v5b, s5b), x5b, "bf16")):
+        pv, ps = FQ.quantize_tiled_plain(x)
+        assert_bitwise(v, pv, f"kernel5 {what} values")
+        assert_bitwise(sc, ps, f"kernel5 {what} scales")
+        logical = v.permute(0, 2, 1, 3).reshape(3072, 8192)
+        check(sc[7].item() == 1.0 and not bool(logical[7].any()),
+              f"kernel5 {what}: the zero row has scale 1 and zero values")
+        check(sc[8].item() == 1.0 and logical[8, :8].tolist() ==
+              [127, 2, 0, 2, -2, 0, -2, 4], f"kernel5 {what}: ties row "
+              f"{logical[8, :8].tolist()}")
+    sm = torch.randn(40, 384, generator=gen, device=dev) * 3
+    got_v, got_s = ops.quantize_tiled(sm)
+    want_v, want_s = FQ.quantize_tiled_plain(sm.cpu())
+    assert_bitwise(got_v.cpu(), want_v, "kernel5 small values vs CPU")
+    assert_bitwise(got_s.cpu(), want_s, "kernel5 small scales vs CPU")
+    log("[kernel5] f32 and bf16 values and scales bitwise equal to the plain "
+        "version; zero row and ties row as the reference rounds them")
+    rows["quantize_tiled"] = {
+        "name": "quantize_tiled", "route": "cuda",
+        "source": "src/repro_torch/csrc/quantize_tiled.cu",
+        "replaces": FQ.QUANT.replaces,
+        "launches": counts["quantize_tiled"],
+        "max_abs_err": max_abs_err(v5, FQ.quantize_tiled_plain(x5)[0]),
+        "ms": gpu_ms(lambda: ops.quantize_tiled(x5)),
+        "plain_ms": gpu_ms(lambda: FQ.quantize_tiled_plain(x5)),
+        "bound_ms": bound_ms(nbytes(x5, v5, s5)), "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none: no one PyTorch call takes per-row amax scales, "
+                   "rounds to int8 and tiles",
+        "shape": "int8 MNM32N128 + f32 scales, 3072x8192 float32"}
+    pair_times.append({
+        "pair": "quantize_tiled MNM32N128 3072x8192", "dtype": "torch.bfloat16",
+        "ms": gpu_ms(lambda: ops.quantize_tiled(x5b)),
+        "plain_ms": gpu_ms(lambda: FQ.quantize_tiled_plain(x5b)),
+        "bound_ms": bound_ms(nbytes(x5b, v5b, s5b))})
+    del x5, x5b, v5, s5, v5b, s5b
+
+    # -- phase 8: kernel 6, flash_attention_gqa on two model layers ----------
+    # (name, B, S, H, KV, hd, window): phi4-mini-3.8B prefill attention;
+    # gemma3-27B local (sliding-window) layer
+    attn_cases = [("phi4-mini prefill", 1, 4096, 24, 8, 128, None),
+                  ("gemma3-27B local", 1, 4096, 32, 16, 128, 1024)]
+    attn_in = []
+    for name, B, S, H, KV, hd, window in attn_cases:
+        qkv = [torch.randn(B, S, h, hd, generator=gen, device=dev).to(
+            torch.bfloat16) for h in (H, KV, KV)]
+        attn_in.append((name, window, qkv))
+
+    def k6_path():
+        return [FA.flash_attention_gqa(*qkv, causal=True, window=window)
+                for _, window, qkv in attn_in]
+
+    outs6, counts = drive("kernel6", [FA.FLASH], k6_path)
+    attn_tol = dict(rtol=2e-2, atol=2e-2)
+    sm = [torch.randn(2, 96, h, 64, generator=gen, device=dev)
+          for h in (4, 2, 2)]
+    assert_close(FA.flash_attention_gqa(*sm, window=24).cpu(),
+                 FA.flash_attention_gqa_plain(*(t.cpu() for t in sm),
+                                              window=24),
+                 dict(rtol=2e-5, atol=2e-5), "kernel6 small f32 GQA vs CPU")
+    sm = [torch.randn(3, 200, 32, generator=gen, device=dev)
+          for _ in range(3)]
+    assert_close(FA.flash_attention(*sm, causal=False).cpu(),
+                 FA.flash_attention_plain(*(t.cpu() for t in sm),
+                                          causal=False),
+                 dict(rtol=2e-5, atol=2e-5), "kernel6 small f32 vs CPU")
+    for (name, window, qkv), out in zip(attn_in, outs6):
+        B, S, H, hd = qkv[0].shape
+        want = FA.flash_attention_gqa_plain(*qkv, causal=True, window=window)
+        assert_close(out, want, attn_tol, f"kernel6 {name}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in qkv)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            pairs = S * (S + 1) // 2
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            pairs = int(mask.sum())
+        assert_close(lib().transpose(1, 2), want, attn_tol,
+                     f"kernel6 {name} library yardstick")
+        flops = 4 * B * H * hd * pairs
+        r = {"pair": f"flash_attention_gqa {name} B{B} S{S} H{H} "
+                     f"KV{qkv[1].shape[2]} hd{hd} window {window}",
+             "dtype": "torch.bfloat16", "max_abs_err": max_abs_err(out, want),
+             "ms": gpu_ms(lambda: FA.flash_attention_gqa(
+                 *qkv, causal=True, window=window), reps=5),
+             "plain_ms": gpu_ms(lambda: FA.flash_attention_gqa_plain(
+                 *qkv, causal=True, window=window), reps=3, warmup=1),
+             "library_ms": gpu_ms(lib),
+             "flops": flops,
+             "bound_ms": max(flops / BF16_FLOPS,
+                             nbytes(*qkv, out) / HBM_BYTES_PER_S) * 1e3}
+        pair_times.append(r)
+        log(f"[kernel6] {name}: within {attn_tol} of the plain version "
+            f"(max abs err {r['max_abs_err']}); {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ({flops / r['ms'] / 1e9:.1f} TFLOP/s)")
+        del want
+    r = pair_times[-2]                            # the phi4-mini prefill
+    rows["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": FA.FLASH.replaces, "launches": counts["flash_attention"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "operations", "library_ms": r["library_ms"],
+        "shape": r["pair"] + " bfloat16 causal"}
+
+    order = ["agu_relayout", "streamed_datapath", "block_datapath",
+             "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
         r = rows[name]
         log(f"[times] {name} ({r['shape']}): {r['ms']:.4f} ms, plain "
@@ -372,8 +564,8 @@ def main():
               "w") as f:
         json.dump({"card": card, "kernels": [rows[n] for n in order],
                    "cases": pair_times}, f, indent=1)
-    log(json.dumps({"kernels": [{k: v for k, v in rows[n].items()
-                                 if k != "shape"} for n in order]}))
+    log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
+                                for n in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

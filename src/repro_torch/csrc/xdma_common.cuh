@@ -104,4 +104,42 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return scratch[32];
 }
 
+// V consecutive elements of T moved as one access: one 16-byte load or store
+// when V * sizeof(T) == 16 and the address is 16-byte aligned.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+// Sum or max over groups of G consecutive threads (G a power of two, from 32
+// up to blockDim.x): a shuffle tree in each warp, then the group's warp
+// partials combined in order, so the result is deterministic.  Every thread
+// gets its group's result.  For G > 32 every thread of the block must call
+// it; `scratch` holds blockDim.x / 32 floats.
+struct SumOp {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return a + b;
+  }
+};
+struct MaxOp {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return fmaxf(a, b);
+  }
+};
+
+template <int G, typename Op>
+__device__ __forceinline__ float group_reduce(float v, float* scratch, Op op) {
+  static_assert(G >= 32 && (G & (G - 1)) == 0, "G: a power of two >= 32");
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (G == 32) return v;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[warp] = v;
+  __syncthreads();
+  const int first = warp & ~(G / 32 - 1);
+  float r = scratch[first];
+  for (int w = 1; w < G / 32; ++w) r = op(r, scratch[first + w]);
+  return r;
+}
+
 }  // namespace xdma

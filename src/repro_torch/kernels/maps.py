@@ -18,7 +18,7 @@ import torch
 from repro_torch.core import layouts as L
 
 __all__ = ["DimMap", "dim_maps", "physical_dims", "inner_axis",
-           "dtype_code", "DTYPE_CODES"]
+           "dtype_code", "DTYPE_CODES", "tiled_rows"]
 
 # dtype codes shared with csrc/xdma_common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -80,3 +80,18 @@ def physical_dims(layout: L.Layout, logical_shape: Sequence[int]
 def inner_axis(layout: L.Layout, rank: int) -> int:
     """The logical dim the layout's innermost physical dim indexes."""
     return layout._phys_dims(rank)[-1][0]
+
+
+def tiled_rows(x: torch.Tensor, tile_shape: Tuple[int, int], what: str) -> int:
+    """The rows of ``x`` (m, n) that the reference's fused kernels write into
+    ``tile_shape`` tiles, ``(m // tm) * tm`` (their grid covers m // tm row
+    tiles); raises where their reshape fails, on columns that are not a whole
+    number of tiles."""
+    if x.dim() != 2:
+        raise ValueError(f"{what} takes an (m, n) array, not {tuple(x.shape)}")
+    m, n = x.shape
+    tm, tn = tile_shape
+    if tm <= 0 or tn <= 0 or n % tn:
+        raise ValueError(f"{n} columns are not a whole number of {tn}-wide "
+                         f"tiles")
+    return (m // tm) * tm

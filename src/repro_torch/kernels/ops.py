@@ -1,5 +1,4 @@
-"""Public wrappers for the port's kernels (the twin of
-``repro.kernels.ops``'s relayout part).
+"""Public wrappers for the port's kernels (the twin of ``repro.kernels.ops``).
 
 ``relayout`` lowers a layout pair through the generic AGU kernel
 (:mod:`.agu`); pairs outside kernel coverage (no common loop-nest
@@ -14,8 +13,10 @@ import torch
 from repro_torch.core import layouts as L
 
 from . import agu
+from .fused_rmsnorm_relayout import rmsnorm_relayout
+from .quant import quantize_tiled
 
-__all__ = ["relayout"]
+__all__ = ["relayout", "rmsnorm_relayout", "quantize_tiled"]
 
 
 def relayout(x: torch.Tensor, *, src_layout: L.Layout, dst_layout: L.Layout,

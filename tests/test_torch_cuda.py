@@ -18,6 +18,10 @@ from repro_torch.core import plugin_compiler as ppc  # noqa: E402
 from repro_torch.core import xdma as px  # noqa: E402
 from repro_torch.kernels import agu as pagu  # noqa: E402
 from repro_torch.kernels import datapath as DP  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import fused_rmsnorm_relayout as FN  # noqa: E402
+from repro_torch.kernels import ops as pops  # noqa: E402
+from repro_torch.kernels import quant as FQ  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -177,3 +181,97 @@ def test_queue_on_cuda_matches_the_transfers_in_turn():
     x = _logical((128, 256), torch.bfloat16, seed=9).cuda()
     want = px.transfer(px.transfer(x, store), load)
     assert _equal_bits(px.XDMAQueue([store, load]).run(x), want)
+
+
+# -- kernels 4-6: the fused kernel layer --------------------------------------
+NORM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=2e-2, atol=1e-2)}
+
+
+# (m, n, tile): 16-byte packs with one warp a row and with 128 threads a row,
+# rows past the last row tile, tiles that are not a whole number of bf16
+# packs (one element an access), and a row longer than the registers hold
+@pytest.mark.parametrize("m,n,tile", [(256, 3072, (16, 128)),
+                                      (40, 384, (8, 128)),
+                                      (48, 120, (16, 40)),
+                                      (32, 20480, (8, 128))])
+@pytest.mark.parametrize("weight", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_relayout_kernel_vs_plain(m, n, tile, weight, dtype):
+    x = _logical((m, n), dtype, seed=11)
+    w = None if weight is None else _logical((n,), weight, seed=12)
+    want = FN.rmsnorm_relayout_plain(x, w, tile)
+    before = FN.NORM.launches
+    got = pops.rmsnorm_relayout(x.cuda(), None if w is None else w.cuda(),
+                                tile)
+    torch.cuda.synchronize()
+    assert FN.NORM.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               **NORM_TOL[dtype])
+
+
+def _quant_input(m, n, dtype, seed):
+    x = _logical((m, n), torch.float32, seed=seed)
+    x = x * torch.linspace(0.01, 30, m)[:, None]
+    x[1] = 0.0
+    ties = torch.tensor([127.0, 2.5, -0.5, 1.5, -2.5, 0.5, -1.5, 3.5])
+    x[2] = ties.repeat(-(-n // 8))[:n]
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("m,n,tile", [(96, 8192, (32, 128)),
+                                      (64, 256, (32, 128)),
+                                      (40, 384, (32, 128)),
+                                      (64, 120, (32, 40)),
+                                      (64, 40960, (32, 128))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_tiled_kernel_bitwise_vs_plain(m, n, tile, dtype):
+    x = _quant_input(m, n, dtype, seed=13)
+    want_v, want_s = FQ.quantize_tiled_plain(x, tile)
+    before = FQ.QUANT.launches
+    got_v, got_s = pops.quantize_tiled(x.cuda(), tile)
+    torch.cuda.synchronize()
+    assert FQ.QUANT.launches == before + 1
+    assert _equal_bits(got_v.cpu(), want_v)
+    assert _equal_bits(got_s.cpu(), want_s)
+    assert got_s[1].item() == 1.0 and got_s[2].item() == 1.0
+
+
+# (B, Sq, Sk, H, KV, hd, causal, window, dtype)
+FLASH_CASES = {
+    "causal_ragged": (2, 96, 96, 1, 1, 16, True, None, torch.float32),
+    "window": (1, 200, 200, 1, 1, 64, True, 70, torch.float32),
+    "full_bf16": (2, 128, 128, 1, 1, 128, False, None, torch.bfloat16),
+    "sq_gt_sk": (1, 100, 40, 1, 1, 32, True, None, torch.float32),
+    "no_live_key": (1, 130, 40, 1, 1, 32, False, 8, torch.float32),
+    "gqa_window_bf16": (1, 256, 256, 8, 2, 128, True, 64, torch.bfloat16),
+    "gqa_f16": (2, 64, 64, 4, 4, 64, True, None, torch.float16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_attention_kernel_vs_plain(name):
+    B, Sq, Sk, H, KV, hd, causal, window, dtype = FLASH_CASES[name]
+    q = _logical((B * Sq * H, hd), dtype, seed=21).reshape(B, Sq, H, hd)
+    k = _logical((B * Sk * KV, hd), dtype, seed=22).reshape(B, Sk, KV, hd)
+    v = _logical((B * Sk * KV, hd), dtype, seed=23).reshape(B, Sk, KV, hd)
+    q, k = q / 4, k / 4
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    before = FA.FLASH.launches
+    if H == 1:
+        fold = lambda t: t[:, :, 0]                       # noqa: E731
+        want = FA.flash_attention_plain(fold(q), fold(k), fold(v),
+                                        causal=causal, window=window)
+        got = FA.flash_attention(fold(q).cuda(), fold(k).cuda(),
+                                 fold(v).cuda(), causal=causal, window=window)
+    else:
+        want = FA.flash_attention_gqa_plain(q, k, v, causal=causal,
+                                            window=window)
+        got = FA.flash_attention_gqa(q.cuda(), k.cuda(), v.cuda(),
+                                     causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.FLASH.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), **tol)

@@ -23,12 +23,16 @@ kernel against its plain PyTorch version on the same inputs:
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
 result that disagrees, or a kernel that does not build or launch fails the
-run with a non-zero exit.
+run with a non-zero exit.  Phases 2 and 4 also assert the launches by code
+path: kernel 1's ``direct`` and ``staged`` copies, and kernel 3's six
+main-path transfers all on its rank-2 path (a small rank-3 chain on its
+generic path).  Phase 7 holds kernel 5 on NaN, inf and -inf rows too.
 
 The line before the last is one JSON object with each kernel's launches,
 error and times (CUDA events, median of several runs, GPU time only);
 the last line is ``{"ok": true, "device": {...}}``.  Per-pair times go to
-``chiprun_out/chip_smoke_times.json``.  Without a CUDA device it exits
+``chiprun_out/chip_smoke_times.json``, the compiler's output (registers and
+spills of every kernel) to ``chiprun_out/build_log.txt``.  Without a CUDA device it exits
 non-zero and prints no result.
 """
 import json
@@ -151,6 +155,10 @@ def main():
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s: {[p.name for p in libs]}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "build_log.txt"), "w") as f:
+        for src, text in sorted(_build.BUILD_LOG.items()):
+            f.write(f"== {src}\n{text}\n")
     for src, text in sorted(_build.BUILD_LOG.items()):
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
@@ -159,6 +167,11 @@ def main():
 
     rows = {}          # kernel name -> JSON row
     pair_times = []
+
+    def log_case(kernel, r):
+        log(f"[{kernel}] {r['pair']} {r['dtype']}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound) on {card}")
 
     def drive(phase, kernels, body):
         """Run `body` as a main-path phase: counts at 0 before, read after."""
@@ -173,15 +186,24 @@ def main():
         return out, counts
 
     # -- phase 2: kernel 1, the AGU relayout (Fig. 4 at 4096^2 f32) ---------
-    pairs = [("MN", "MNM8N128", False), ("MN", "MNM16N128", False),
-             ("MN", "MNM32N128", False), ("MNM8N128", "MN", False),
-             ("MNM16N128", "MN", False), ("MNM32N128", "MN", False),
-             ("MNM8N128", "MNM8N128", True), ("MNM16N128", "MNM16N128", True),
-             ("MNM32N128", "MNM32N128", True), ("MN", "MN", True),
-             ("MNM8N128", "MNM16N128", False),
-             ("MN", "NM", False), ("NM", "MNM8N128", False),
-             ("MN", "MNP64", False), ("MNP64", "MNM16N128", False),
-             ("NMM8N128", "MN", False)]
+    # (src, dst, transpose, path): "direct" where both layouts are innermost
+    # along the same logical axis, "staged" through shared memory otherwise
+    paths = [("MN", "MNM8N128", False, "direct"),
+             ("MN", "MNM16N128", False, "direct"),
+             ("MN", "MNM32N128", False, "direct"),
+             ("MNM8N128", "MN", False, "direct"),
+             ("MNM16N128", "MN", False, "direct"),
+             ("MNM32N128", "MN", False, "direct"),
+             ("MNM8N128", "MNM8N128", True, "staged"),
+             ("MNM16N128", "MNM16N128", True, "staged"),
+             ("MNM32N128", "MNM32N128", True, "staged"),
+             ("MN", "MN", True, "staged"),
+             ("MNM8N128", "MNM16N128", False, "direct"),
+             ("MN", "NM", False, "staged"), ("NM", "MNM8N128", False, "staged"),
+             ("MN", "MNP64", False, "direct"),
+             ("MNP64", "MNM16N128", False, "direct"),
+             ("NMM8N128", "MN", False, "direct")]
+    pairs = [p[:3] for p in paths]
     x32 = torch.randn(4096, 4096, generator=gen, device=dev)
     xb = torch.randn(8192, 3072, generator=gen, device=dev).to(torch.bfloat16)
     cases = [(s, d, t, x32) for s, d, t in pairs] + \
@@ -202,6 +224,12 @@ def main():
     check(stats["fallback"] == 0, f"kernel1: fallbacks {stats['reasons']}")
     check(counts["agu_relayout"] == len(inputs),
           f"kernel1: {counts['agu_relayout']} launches for {len(inputs)} calls")
+    want_paths = {}
+    for p in [p[3] for p in paths] + ["direct"]:       # + the bf16 store
+        want_paths[p] = want_paths.get(p, 0) + 1
+    check(agu.RELAYOUT.paths == want_paths,
+          f"kernel1: paths {agu.RELAYOUT.paths}, expected {want_paths}")
+    log(f"[kernel1] launches by path {agu.RELAYOUT.paths}")
     k1_err = 0.0
     for (src, dst, t, xin, desc), got in zip(inputs, outs):
         want = agu.relayout_plain(xin, src, dst, t)
@@ -237,9 +265,7 @@ def main():
         "library_ms": gpu_ms(lib),
         "shape": "MN->MNM8N128 4096x4096 float32"}
     for r in pair_times:
-        log(f"[kernel1] {r['pair']} {r['dtype']}: {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
-            f"{r['bound_ms'] / r['ms']:.1%} of the bound)")
+        log_case("kernel1", r)
     del outs, inputs
 
     # -- phase 3: kernel 2, the Prefill store at phi4-mini width -------------
@@ -307,6 +333,10 @@ def main():
 
     (y_load, y_gather, y_comp, y_round, y_sum, y_max), counts = drive(
         "kernel3", [datapath.BLOCK], k3_path)
+    # one launch each, plus a mask pass for each Compress: all rank-2
+    check(datapath.BLOCK.paths == {"rank2": 8},
+          f"kernel3: paths {datapath.BLOCK.paths}, expected 8 rank-2 launches")
+    log(f"[kernel3] launches by path {datapath.BLOCK.paths}")
     plain = lambda x, d: datapath.plain(x, d.plugins, d.src.layout,
                                               d.dst.layout)
     want_load = plain(xt, load)
@@ -329,7 +359,12 @@ def main():
     fn = plugin_compiler.compile_local(describe(
         "MN", "MN", P.Transpose(), P.Scale(2.0), P.ReduceStage("max"),
         P.RMSNormPlugin()))
-    assert_close(fn(sm).cpu(), fn(sm.cpu()), tolerance((), sm.dtype),
+    _build.reset_launches()
+    small = fn(sm)
+    check(datapath.BLOCK.paths == {"generic": 2},
+          f"kernel3: the rank-3 chain's paths {datapath.BLOCK.paths}, "
+          f"expected its statistics and output passes on the generic path")
+    assert_close(small.cpu(), fn(sm.cpu()), tolerance((), sm.dtype),
                  "kernel3 small rank-3 chain vs CPU")
     run_load = plugin_compiler.compile_local(load)
     run_load(xt)
@@ -346,6 +381,9 @@ def main():
         "bound_ms": bound_ms(nbytes(xt, y_load)), "bound_by": "bytes",
         "library_ms": gpu_ms(lib),
         "shape": "MNM16N128->MN + Transpose 8192x3072 bfloat16"}
+    r = rows["block_datapath"]
+    log_case("kernel3", {"pair": "load " + load.summary(),
+                         "dtype": str(xt.dtype), **r})
     for name, d, x in (("gather", gather, xb), ("compress", compress, xs),
                        ("roundtrip", roundtrip, xs), ("sum", rsum, xb),
                        ("max", rmax, xb)):
@@ -357,9 +395,7 @@ def main():
                            "ms": gpu_ms(lambda: f(x)),
                            "plain_ms": gpu_ms(lambda: plain(x, d)),
                            "bound_ms": bound_ms(nbytes(x, out_t))})
-        r = pair_times[-1]
-        log(f"[kernel3] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
-            f" bound {r['bound_ms']:.4f})")
+        log_case("kernel3", pair_times[-1])
     del y_gather, y_comp, y_round, y_sum, y_max
 
     # -- phase 5: the queue ----------------------------------------------------
@@ -449,6 +485,21 @@ def main():
         check(sc[8].item() == 1.0 and logical[8, :8].tolist() ==
               [127, 2, 0, 2, -2, 0, -2, 4], f"kernel5 {what}: ties row "
               f"{logical[8, :8].tolist()}")
+    # non-finite rows: NaN -> scale 1.0 and 0 for the NaN element; +-inf ->
+    # scale inf and all zeros (the reference's max propagates NaN)
+    xn = x5[:64].clone()
+    xn[3, 5], xn[4, 7], xn[5, 9] = float("nan"), float("inf"), float("-inf")
+    for x, what in ((xn, "f32"), (xn.to(torch.bfloat16), "bf16")):
+        got_v, got_s = ops.quantize_tiled(x)
+        pv, ps = FQ.quantize_tiled_plain(x)
+        assert_bitwise(got_v, pv, f"kernel5 {what} non-finite rows values")
+        assert_bitwise(got_s, ps, f"kernel5 {what} non-finite rows scales")
+        logical = got_v.permute(0, 2, 1, 3).reshape(64, 8192)
+        check(got_s[3:6, 0].tolist() == [1.0, float("inf"), float("inf")]
+              and logical[3, 5].item() == 0 and not bool(logical[4:6].any()),
+              f"kernel5 {what}: non-finite rows {got_s[3:6, 0].tolist()}")
+    log("[kernel5] NaN, inf and -inf rows bitwise equal to the plain version: "
+        "scales 1.0, inf, inf; NaN and inf elements 0")
     sm = torch.randn(40, 384, generator=gen, device=dev) * 3
     got_v, got_s = ops.quantize_tiled(sm)
     want_v, want_s = FQ.quantize_tiled_plain(sm.cpu())

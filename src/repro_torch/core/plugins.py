@@ -243,7 +243,10 @@ class Quantize(Plugin):
     def __call__(self, x) -> QTensor:
         xf = x.to(torch.float32)
         amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-        scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        # amax * f32(1 / 127), not amax / 127: XLA compiles the reference's
+        # division by the constant into this multiply under jit, and PyTorch
+        # on CUDA rewrites the division into it too, so every device agrees
+        scale = torch.where(amax > 0, amax * (1 / 127), torch.ones_like(amax))
         q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
         return QTensor(values=q, scales=scale)
 

@@ -13,22 +13,33 @@
 // element written once.
 //
 // Design: the TPU stages the whole array in VMEM in one step; here the work
-// is spread over many blocks with nothing staged.  The host compiles the
-// chain into stages: index stages (the reader's map, Transpose, the gather
-// indices) and value stages (cast, scale, bias, RMSNorm, Decompress).  The
-// output pass gives each thread one element of the destination buffer in
-// physical order (coalesced writes, zeros into stride padding): it maps the
-// physical index back to a logical coordinate, walks it back through the
-// index stages to a source offset, loads, and applies the value stages
-// forward, rounding to the stream dtype after each.  A ReduceStage becomes
-// a loop over the reduced rows: a 32 x 32 block gives each output column 32
-// threads that sum (or max) interleaved rows in f32, then combines the 32
-// partials in a fixed order, so the result is deterministic.  A value that
-// exists only after a reduction over the data takes a pass of its own
-// before the output pass: one block per row for an RMSNorm's inverse RMS,
-// one block per row block for a Compress mask (any nonzero).  The host
-// splits a chain with more than one ReduceStage into launches joined by a
-// row-major intermediate buffer.
+// is spread over many blocks.  The host compiles the chain into stages:
+// index stages (the reader's map, Transpose, the gather indices) and value
+// stages (cast, scale, bias, RMSNorm, Decompress), and picks one of two
+// paths per launch from the compiled chain, before launch.
+//
+// The rank-2 path (see its section below) takes the chains whose index
+// stages compose into one map per axis: a tiled copy with the layout maps
+// hoisted out of the element loop and 16-byte accesses (xdma::tile2_run,
+// shared with kernel 1), and row passes that read along the rows.
+//
+// The generic path takes the rest (logical ranks 3-4, a cast between
+// dtypes, a gather after a stage that reads its coordinate, stages after a
+// ReduceStage).  Its output pass gives each thread one element of the
+// destination buffer in physical order (coalesced writes, zeros into stride
+// padding): it maps the physical index back to a logical coordinate, walks
+// it back through the index stages to a source offset, loads, and applies
+// the value stages forward, rounding to the stream dtype after each.  A
+// ReduceStage becomes a loop over the reduced rows: a 32 x 32 block gives
+// each output column 32 threads that sum (or max) interleaved rows in f32,
+// then combines the 32 partials in a fixed order, so the result is
+// deterministic.
+//
+// On both paths a value that exists only after a reduction over the data
+// takes a pass of its own before the output pass: an RMSNorm's inverse RMS
+// per row, a Compress mask per row block (any nonzero).  The host splits a
+// chain with more than one ReduceStage into launches joined by a row-major
+// intermediate buffer.
 #include "xdma_common.cuh"
 
 namespace {
@@ -366,6 +377,352 @@ mask_kernel(const void* __restrict__ src, BlockArgs a) {
   }
 }
 
+// ---- the rank-2 path -------------------------------------------------------
+//
+// For chains the host can compose (logical rank 2, one stream dtype, index
+// stages that compose into a swap and one index vector per axis, a
+// ReduceStage only last): no element walks the stage list.  The host folds
+// the index stages of the stages before a pass's point into the pass's
+// Tile2 (xdma_common.cuh): the source terms of a pass-space row and column,
+// each with its composed gather indices, whose entries < 0 are the fill
+// code -(g + 1) of the gather g that failed.  Value stages then run in
+// chain order, once on each item of values (a 16-byte pack, or one word),
+// each reading its own coordinate: the pass's (r, c) or, under an odd
+// number of later transposes, (c, r).
+//   OUT    the tiled copy: words unchanged (Copy) when no stage changes a
+//          value, else through f32 (Values)
+//   STAT   an RMSNorm's inverse RMS: one block per row, 16-byte reads along
+//          the row where they can be
+//   MASK   a Compress mask: one block per row block, early out on a nonzero
+//   REDUCE the ReduceStage that ends the segment: a block owns 64 columns
+//          of a row split, lanes along the columns; the splits' partials
+//          are combined in order by the block that finishes last
+
+struct Stage2 {
+  int64_t code;
+  int64_t dtype;        // stream dtype after the stage
+  int64_t swap;         // 1: the stage reads its coordinate as (c, r)
+  int64_t block_rows;   // DECOMPRESS
+  double a;             // SCALE / BIAS constant
+  int64_t vec;          // f32 vector over the stage's last axis, or 0
+  int64_t aux;          // RMSNORM: f32 inverse RMS per row; DECOMPRESS: mask
+};
+
+struct Rank2Args {
+  xdma::Tile2 t;        // pass space (t.rows x t.cols) -> src; OUT: -> dst.
+                        // REDUCE: t.prows x t.pcols pads its (1, n) output
+  int64_t nstages;      // the stages before the pass's point
+  Stage2 st[XS];
+  int64_t dtype;        // the stream dtype, of input and output
+  int64_t fill_bits;    // OUT with Copy: the dtype's NaN, a failed gather's
+  int64_t op;           // REDUCE: ST_REDUCE_SUM / ST_REDUCE_MAX
+  double eps;           // STAT
+  int64_t block_rows;   // MASK
+  int64_t out;          // STAT: f32 per row; MASK: uint8 per row block
+  int64_t splits;       // REDUCE: row splits
+  int64_t partial;      // REDUCE: f32 [splits][t.cols] (splits > 1)
+  int64_t counter;      // REDUCE: int32 per column strip, zeroed
+};
+
+// Rounds an item's values to the stream dtype, to nearest even.
+template <int V>
+__device__ __forceinline__ void round_item(float (&v)[V], int64_t dt) {
+  if (dt == xdma::BF16) {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      v[e] = __bfloat162float(__float2bfloat16_rn(v[e]));
+  } else if (dt == xdma::F16) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = __half2float(__float2half_rn(v[e]));
+  }
+}
+
+// Value stage st on an item of V values from pass coordinate (r, c) along
+// the columns (along_c) or the rows: the stage's coordinate of value e is
+// (i0 + di * e, j0 + dj * e), so its switch runs once an item.
+template <int V>
+__device__ __forceinline__ void apply_item(const Stage2& st, float (&v)[V],
+                                           int64_t r, int64_t c,
+                                           bool along_c) {
+  const bool sw = st.swap != 0;
+  const int64_t i0 = sw ? c : r, j0 = sw ? r : c;
+  const int di = along_c == sw ? 1 : 0, dj = 1 - di;
+  const float* vec = reinterpret_cast<const float*>(st.vec);
+  switch (st.code) {
+    case ST_CAST:
+      break;
+    case ST_SCALE:
+    case ST_BIAS: {
+      const bool mul = st.code == ST_SCALE;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float k = vec ? vec[j0 + dj * e] : (float)st.a;
+        v[e] = mul ? v[e] * k : v[e] + k;
+      }
+      break;
+    }
+    case ST_RMSNORM: {
+      const float* inv = reinterpret_cast<const float*>(st.aux);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float y = v[e] * inv[i0 + di * e];
+        if (vec) y = y * vec[j0 + dj * e];
+        v[e] = y;
+      }
+      break;
+    }
+    case ST_DECOMPRESS: {
+      const uint8_t* mask = reinterpret_cast<const uint8_t*>(st.aux);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const bool keep =
+            mask[xdma::div_floor(i0 + di * e, st.block_rows)] != 0;
+        v[e] = v[e] * (keep ? 1.f : 0.f);
+      }
+      break;
+    }
+    default:  // TRANSPOSE, GATHER, COMPRESS: values pass unchanged
+      return;
+  }
+  round_item<V>(v, st.dtype);
+}
+
+// The value policy of the tiled copy and the row passes: the stages before
+// the pass's point on f32 values, from the stage after a failed gather on
+// its NaN fill.  The stages are read from a copy in shared memory
+// (stages_to_shared).
+template <typename T>
+struct Values {
+  using In = T;
+  using S = float;
+  using Out = T;
+  const Stage2* st;
+  int n;
+  template <int V>
+  __device__ __forceinline__ void values(const xdma::Pack<T, V>& x, int code,
+                                         int64_t r, int64_t c, bool along_c,
+                                         float (&v)[V]) const {
+    int from = 0;
+    if (code < 0) {
+      from = -code;
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = __int_as_float(0x7fc00000);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = xdma::to_f32(x.v[e]);
+    }
+    for (int s = from; s < n; ++s) apply_item<V>(st[s], v, r, c, along_c);
+  }
+  __device__ __forceinline__ T store(float v) const {
+    return xdma::from_f32<T>(v);
+  }
+  __device__ __forceinline__ T zero() const { return xdma::from_f32<T>(0.f); }
+};
+
+// Copies the pass's stages to shared memory; the caller syncs the block
+// before a thread reads them.
+__device__ __forceinline__ void stages_to_shared(const Rank2Args& a,
+                                                 Stage2* sh) {
+  if (threadIdx.x < a.nstages) sh[threadIdx.x] = a.st[threadIdx.x];
+}
+
+template <typename W>
+__device__ __forceinline__ xdma::Copy<W> policy_of(const Rank2Args& a,
+                                                   const Stage2*,
+                                                   xdma::Copy<W>*) {
+  return {(W)a.fill_bits};
+}
+template <typename T>
+__device__ __forceinline__ Values<T> policy_of(const Rank2Args& a,
+                                               const Stage2* sh, Values<T>*) {
+  return {sh, (int)a.nstages};
+}
+
+template <class P, int VS, int VD, bool DIRECT>
+__global__ void __launch_bounds__(xdma::TILE_THREADS)
+out2_kernel(const typename P::In* __restrict__ src,
+            typename P::Out* __restrict__ dst,
+            const __grid_constant__ Rank2Args a) {
+  __shared__ Stage2 sh[XS];
+  stages_to_shared(a, sh);     // tile2_run syncs before any value is read
+  xdma::tile2_run<P, VS, VD, DIRECT>(
+      a.t, src, dst, policy_of(a, sh, static_cast<P*>(nullptr)));
+}
+
+template <class P>
+struct Out2 {
+  template <int VS, int VD, bool DIRECT>
+  struct K {
+    using Fn = void (*)(const typename P::In*, typename P::Out*,
+                        const Rank2Args);
+    static Fn fn() { return out2_kernel<P, VS, VD, DIRECT>; }
+  };
+};
+
+// V values of pass-space row i from column j on (V > 1: one 16-byte pack;
+// the host allows it only where the column term is a unit-stride run).
+template <typename T, int V>
+__device__ __forceinline__ void row_values(const Values<T>& pol,
+                                           const T* src, int64_t i,
+                                           int64_t so_r, int64_t so_c,
+                                           int64_t j, float (&v)[V]) {
+  const int64_t off = xdma::join(so_r, so_c);
+  xdma::Pack<T, V> p;
+  if (off >= 0) p = xdma::load_pack<T, V>(src + off);
+  pol.template values<V>(p, off < 0 ? (int)off : 0, i, j, true, v);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+stat2_kernel(const T* __restrict__ src, const __grid_constant__ Rank2Args a) {
+  __shared__ float scratch[33];
+  __shared__ Stage2 sh[XS];
+  stages_to_shared(a, sh);
+  __syncthreads();
+  const Values<T> pol{sh, (int)a.nstages};
+  const int64_t n = a.t.cols;
+  for (int64_t i = blockIdx.x; i < a.t.rows; i += gridDim.x) {
+    const int64_t so_r = xdma::term_off(a.t.src_r, i);
+    float ss = 0.f;
+    for (int64_t j = (int64_t)threadIdx.x * V; j < n;
+         j += (int64_t)THREADS * V) {
+      float v[V];
+      row_values<T, V>(pol, src, i, so_r, xdma::term_off(a.t.src_c, j), j, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss += v[e] * v[e];
+    }
+    ss = xdma::block_sum(ss, scratch);
+    if (threadIdx.x == 0)
+      reinterpret_cast<float*>(a.out)[i] = rsqrtf(ss / (float)n + (float)a.eps);
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+mask2_kernel(const T* __restrict__ src, const __grid_constant__ Rank2Args a) {
+  __shared__ Stage2 sh[XS];
+  stages_to_shared(a, sh);
+  __syncthreads();
+  const Values<T> pol{sh, (int)a.nstages};
+  const int64_t packs = a.t.cols / V;
+  const int64_t span = a.block_rows * packs;
+  const int64_t nb = a.t.rows / a.block_rows;
+  for (int64_t b = blockIdx.x; b < nb; b += gridDim.x) {
+    int any = 0;
+    for (int64_t k = threadIdx.x; k < span && !any; k += THREADS) {
+      int64_t row, pack;
+      xdma::divmod(k, packs, row, pack);
+      const int64_t i = b * a.block_rows + row, j = pack * V;
+      float v[V];
+      row_values<T, V>(pol, src, i, xdma::term_off(a.t.src_r, i),
+                       xdma::term_off(a.t.src_c, j), j, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) any |= v[e] != 0.f;
+    }
+    any = __syncthreads_or(any);
+    if (threadIdx.x == 0) reinterpret_cast<uint8_t*>(a.out)[b] = any ? 1 : 0;
+  }
+}
+
+constexpr int SW = 64;       // REDUCE: columns per block
+constexpr int UNROLL = 4;    // REDUCE: rows in flight a thread
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+reduce2_kernel(const T* __restrict__ src, T* __restrict__ dst,
+               const __grid_constant__ Rank2Args a) {
+  constexpr int JL = SW / V, IL = THREADS / JL;   // lanes along j, along i
+  __shared__ float part[IL][SW + 1];
+  __shared__ int last;
+  __shared__ Stage2 sh[XS];
+  stages_to_shared(a, sh);
+  __syncthreads();
+  const Values<T> pol{sh, (int)a.nstages};
+  const int64_t m = a.t.rows, n = a.t.cols;
+  const int64_t strip = blockIdx.x / a.splits, split = blockIdx.x % a.splits;
+  const int64_t j0 = strip * SW;
+  const int tj = threadIdx.x % JL, ti = threadIdx.x / JL;
+  const int64_t j = j0 + (int64_t)tj * V;
+  const int64_t per = (m + a.splits - 1) / a.splits;
+  const int64_t i1 = (split + 1) * per < m ? (split + 1) * per : m;
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = reduce_init(a.op);
+  if (j < n) {
+    const int64_t so_c = xdma::term_off(a.t.src_c, j);
+    int64_t i = split * per + ti;
+    const xdma::DimMap& rm = a.t.src_r.map;
+    if (!a.t.src_r.idx && rm.tile == 1 && so_c >= 0) {
+      // rows at a fixed stride: UNROLL loads in flight, then combined in
+      // row order
+      const int64_t step = (int64_t)IL * rm.sgrid;
+      const T* p = src + so_c + i * rm.sgrid;
+      for (; i + (UNROLL - 1) * IL < i1;
+           i += UNROLL * IL, p += UNROLL * step) {
+        xdma::Pack<T, V> x[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          x[u] = xdma::load_pack<T, V>(p + u * step);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          float v[V];
+          pol.template values<V>(x[u], 0, i + (int64_t)u * IL, j, true, v);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] = reduce_op(a.op, acc[e], v[e]);
+        }
+      }
+    }
+    for (; i < i1; i += IL) {
+      float v[V];
+      row_values<T, V>(pol, src, i, xdma::term_off(a.t.src_r, i), so_c, j, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = reduce_op(a.op, acc[e], v[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) part[ti][tj * V + e] = acc[e];
+  __syncthreads();
+  const int col = threadIdx.x;
+  const int64_t c = j0 + col;
+  float tot = 0.f;
+  if (col < SW) {
+    tot = part[0][col];
+    for (int y = 1; y < IL; ++y) tot = reduce_op(a.op, tot, part[y][col]);
+  }
+  if (a.splits > 1) {
+    float* partial = reinterpret_cast<float*>(a.partial);
+    if (col < SW && c < n) partial[split * n + c] = tot;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last = atomicAdd(reinterpret_cast<int*>(a.counter) + strip, 1) ==
+             (int)a.splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (col < SW && c < n) {
+      // the splits in order, eight loads in flight at a time
+      for (int64_t q0 = 0; q0 < a.splits; q0 += 8) {
+        float p[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (q0 + u < a.splits) p[u] = __ldcg(partial + (q0 + u) * n + c);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (q0 + u < a.splits)
+            tot = q0 + u == 0 ? p[u] : reduce_op(a.op, tot, p[u]);
+      }
+    }
+  }
+  if (col < SW && c < a.t.pcols) {
+    const T v = xdma::from_f32<T>(c < n ? xdma::round_to(tot, a.dtype) : 0.f);
+    const T zero = xdma::from_f32<T>(0.f);
+    const int64_t dc = xdma::dim_offset(a.t.dst_c, c);
+    for (int64_t r = 0; r < a.t.prows; ++r)
+      dst[xdma::dim_offset(a.t.dst_r, r) + dc] = r == 0 ? v : zero;
+  }
+}
+
 unsigned grid_for(int64_t work, int64_t per_block) {
   int64_t b = (work + per_block - 1) / per_block;
   if (b < 1) b = 1;
@@ -373,13 +730,79 @@ unsigned grid_for(int64_t work, int64_t per_block) {
   return (unsigned)b;
 }
 
+template <typename T, int V>
+int launch_rows(const Rank2Args& a, const void* src, void* dst, int64_t mode,
+                cudaStream_t s) {
+  const T* x = static_cast<const T*>(src);
+  if (mode == 4) {
+    stat2_kernel<T, V><<<grid_for(a.t.rows, 1), THREADS, 0, s>>>(x, a);
+  } else if (mode == 5) {
+    mask2_kernel<T, V><<<grid_for(a.t.rows / a.block_rows, 1), THREADS, 0, s>>>(
+        x, a);
+  } else {
+    const int64_t blocks = (a.t.pcols + SW - 1) / SW * a.splits;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    reduce2_kernel<T, V><<<(unsigned)blocks, THREADS, 0, s>>>(
+        x, static_cast<T*>(dst), a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_out2(const Rank2Args& a, const void* src, void* dst,
+                cudaStream_t s) {
+  constexpr int V = 16 / sizeof(typename P::In);
+  const int64_t blocks = xdma::tile2_blocks(a.t);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (!xdma::tile2_aligned(a.t, src, dst))
+    return (int)cudaErrorMisalignedAddress;
+  auto fn = xdma::tile2_pick<V, Out2<P>::template K>(a.t);
+  fn<<<(unsigned)blocks, xdma::TILE_THREADS, 0, s>>>(
+      static_cast<const typename P::In*>(src),
+      static_cast<typename P::Out*>(dst), a);
+  return (int)cudaGetLastError();
+}
+
+// OUT copies words (Copy) when the host says no stage changes a value.
+template <typename T, typename W>
+int launch_rank2(const Rank2Args& a, bool copy, const void* src, void* dst,
+                 int64_t mode, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if (mode == 3)
+    return copy ? launch_out2<xdma::Copy<W>>(a, src, dst, s)
+                : launch_out2<Values<T>>(a, src, dst, s);
+  // the row passes read along the columns: packs when the loads run there
+  const bool packed = a.t.load_axis == 1 && a.t.vs > 1;
+  if (packed && (uintptr_t)src % 16) return (int)cudaErrorMisalignedAddress;
+  return packed ? launch_rows<T, V>(a, src, dst, mode, s)
+                : launch_rows<T, 1>(a, src, dst, mode, s);
+}
+
 }  // namespace
 
-// mode 0: output pass into dst; 1: RMSNorm statistics; 2: Compress mask.
+// Generic path (BlockArgs): mode 0 output pass into dst; 1 RMSNorm
+// statistics; 2 Compress mask.  Rank-2 path (Rank2Args): mode 3 OUT, 4
+// STAT, 5 MASK, 6 REDUCE; mode 7 is OUT with words copied unchanged.
 extern "C" int xdma_block_datapath(const void* args, const void* src,
                                    void* dst, int64_t mode, void* stream) {
-  const BlockArgs& a = *static_cast<const BlockArgs*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode >= 3 && mode <= 7) {
+    const Rank2Args& r = *static_cast<const Rank2Args*>(args);
+    if (r.nstages > XS) return (int)cudaErrorInvalidValue;
+    if (r.t.rows == 0 || r.t.cols == 0) return 0;
+    const bool copy = mode == 7;
+    const int64_t m = copy ? 3 : mode;
+    switch (r.dtype) {
+      case xdma::F32:
+        return launch_rank2<float, uint32_t>(r, copy, src, dst, m, s);
+      case xdma::BF16:
+        return launch_rank2<__nv_bfloat16, uint16_t>(r, copy, src, dst, m, s);
+      case xdma::F16:
+        return launch_rank2<__half, uint16_t>(r, copy, src, dst, m, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  const BlockArgs& a = *static_cast<const BlockArgs*>(args);
   if (a.nstages > XS || a.out_rank > XR || a.nphys > XP)
     return (int)cudaErrorInvalidValue;
   if (a.total == 0) return 0;

@@ -3,17 +3,21 @@
 //
 // Replaces the reference's TPU kernel src/repro/kernels/quant.py:34,
 // quantize_tiled (_kernel at :18): for each logical row, in f32,
-// scale = amax / 127 (1.0 when amax == 0), q = clip(round(x / scale), +-127)
-// as int8, written into the (m / tm, n / tn, tm, tn) tiles, with the row's
-// f32 scale in an (m, 1) column.  Rows past (m / tm) * tm are not written,
+// scale = amax / 127 (1.0 when amax == 0 or NaN), q = clip(round(x / scale),
+// +-127) as int8 (0 where the quotient is NaN), written into the
+// (m / tm, n / tn, tm, tn) tiles, with the row's f32 scale in an (m, 1)
+// column.  Rows past (m / tm) * tm are not written,
 // as in the reference.
 //
 // Exactness: values and scales must equal the reference bit for bit.  XLA
 // compiles the reference's amax / 127.0, a division by a constant, into
 // amax * f32(1 / 127) wherever it is traced (its Pallas kernel as the tests
 // run it, jit), so the scale is that product; x / scale is an IEEE division
-// (__fdiv_rn) there and here, and rounding is rintf (half to even, as
-// jnp.round and torch.round).  The build must not use --use_fast_math.
+// (__fdiv_rn) there and here, and rounding is half to even (__float2int_rn,
+// as jnp.round and torch.round).  The row max propagates NaN as jnp.max does, so
+// a row holding a NaN gets scale 1.0 (amax > 0 is false) and a row holding an
+// inf gets scale inf and all-zero values.  The build must not use
+// --use_fast_math.
 //
 // Bound: device-memory bytes: x read once, one byte per element and four per
 // row written.  At one phi4-mini MLP gradient leaf (3072 x 8192 f32) that is
@@ -41,7 +45,7 @@ template <typename T, int V>
 __device__ __forceinline__ float pack_amax(const xdma::Pack<T, V>& p,
                                            float amax) {
 #pragma unroll
-  for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(xdma::to_f32<T>(p.v[e])));
+  for (int e = 0; e < V; ++e) amax = xdma::max_nan(amax, fabsf(xdma::to_f32<T>(p.v[e])));
   return amax;
 }
 
@@ -53,9 +57,10 @@ __device__ __forceinline__ void quant_store(const xdma::Pack<T, V>& p,
   xdma::Pack<int8_t, V> o;
 #pragma unroll
   for (int e = 0; e < V; ++e) {
-    float q = rintf(__fdiv_rn(xdma::to_f32<T>(p.v[e]), scale));
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    o.v[e] = (int8_t)(int)q;
+    // round half to even into int32 (cvt.rni: NaN -> 0, as the reference's
+    // conversion of a NaN quotient; +-inf saturate), then clip to +-127
+    const int q = __float2int_rn(__fdiv_rn(xdma::to_f32<T>(p.v[e]), scale));
+    o.v[e] = (int8_t)min(max(q, -127), 127);
   }
   int64_t jt, jr;
   xdma::divmod(j, a.tn, jt, jr);

@@ -111,7 +111,9 @@ class Kernel:
 
     ``replaces`` names the TPU kernel of the reference it ports, as
     ``file:line``.  Calling the object launches on the current CUDA stream
-    and raises ``RuntimeError`` when the launch status is not 0."""
+    and raises ``RuntimeError`` when the launch status is not 0; a launch
+    made with ``path=`` is also counted in ``paths`` under that name (the
+    kernel's own code path, where it has more than one)."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -121,6 +123,7 @@ class Kernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.replaces = replaces
         self.launches = 0
+        self.paths: Dict[str, int] = {}
         self._fn = None
 
     def _entry(self):
@@ -131,7 +134,7 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, path: Optional[str] = None) -> None:
         fn = self._entry()
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(*args, stream)
@@ -139,6 +142,8 @@ class Kernel:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError_t {status}")
         self.launches += 1
+        if path is not None:
+            self.paths[path] = self.paths.get(path, 0) + 1
 
     def __repr__(self):
         return f"Kernel({self.name!r}, launches={self.launches})"
@@ -155,3 +160,4 @@ def register(kernel: Kernel) -> Kernel:
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.paths.clear()

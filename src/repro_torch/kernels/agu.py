@@ -8,8 +8,10 @@ the reference's reasons (``rank:``, ``nest-incompatible``, ``row-pad``,
 ``block`` so that plans and :func:`agu_stats` agree with the reference.
 
 :meth:`AGUPlan.run` launches kernel 1, ``csrc/agu_relayout.cu``, a
-hand-written CUDA relayout whose grid is its own (32 x 32 tiles of the
-destination through shared memory).  :func:`relayout_plain` is its plain
+hand-written CUDA relayout whose grid is its own (64 x 64 tiles of the
+destination, 16-byte accesses where the layouts' runs allow); its launches
+are counted by path, ``"direct"`` (both sides run along one axis) or
+``"staged"`` (through shared memory).  :func:`relayout_plain` is its plain
 PyTorch version: the layout algebra composed, which the CPU takes.
 """
 from __future__ import annotations
@@ -75,11 +77,7 @@ def record_plan(plan: "AGUPlan") -> None:
 
 # -- kernel 1 ----------------------------------------------------------------
 class _RelayoutArgs(ctypes.Structure):
-    _fields_ = [("rows", ctypes.c_int64), ("cols", ctypes.c_int64),
-                ("prows", ctypes.c_int64), ("pcols", ctypes.c_int64),
-                ("transpose", ctypes.c_int64), ("src_inner", ctypes.c_int64),
-                ("dst_inner", ctypes.c_int64), ("elem_bytes", ctypes.c_int64),
-                ("src", maps.DimMap * 2), ("dst", maps.DimMap * 2)]
+    _fields_ = [("t", maps.Tile2), ("elem_bytes", ctypes.c_int64)]
 
 
 RELAYOUT = _build.register(_build.Kernel(
@@ -103,19 +101,13 @@ def relayout_args(src_layout: L.Layout, dst_layout: L.Layout,
     """Kernel 1's arguments for a relayout of a (m, n) logical array."""
     m, n = logical_shape
     out_logical = (n, m) if transpose else (m, n)
+    src_maps = maps.dim_maps(src_layout, (m, n))
     a = _RelayoutArgs()
-    a.rows, a.cols = out_logical
-    a.prows = out_logical[0] + dst_layout.dim_pad(2, 0)
-    a.pcols = out_logical[1] + dst_layout.dim_pad(2, 1)
-    a.transpose = int(transpose)
-    src_inner = maps.inner_axis(src_layout, 2)
-    a.src_inner = 1 - src_inner if transpose else src_inner
-    a.dst_inner = maps.inner_axis(dst_layout, 2)
+    a.t = maps.tile2(out_logical, (dst_layout.dim_pad(2, 0),
+                                   dst_layout.dim_pad(2, 1)),
+                     src_maps[::-1] if transpose else src_maps, (None, None),
+                     maps.dim_maps(dst_layout, out_logical), 16 // elem_bytes)
     a.elem_bytes = elem_bytes
-    for d, mp in enumerate(maps.dim_maps(src_layout, (m, n))):
-        a.src[d] = maps.DimMap(*mp)
-    for d, mp in enumerate(maps.dim_maps(dst_layout, out_logical)):
-        a.dst[d] = maps.DimMap(*mp)
     return a
 
 
@@ -132,7 +124,10 @@ def _relayout_cuda(x: torch.Tensor, src_layout: L.Layout,
                       device=x.device)
     a = relayout_args(src_layout, dst_layout, (m, n), transpose,
                       x.element_size())
-    RELAYOUT(ctypes.addressof(a), x.data_ptr(), out.data_ptr())
+    t = maps.fit_to(a.t, x, out)
+    direct = t.load_axis == t.store_axis and t.vs == t.vd
+    RELAYOUT(ctypes.addressof(a), x.data_ptr(), out.data_ptr(),
+             path="direct" if direct else "staged")
     return out
 
 

@@ -32,7 +32,7 @@ from repro_torch.core import plugins as P
 from . import _build, maps
 
 __all__ = ["StreamedDatapath", "BlockDatapath", "STREAMED", "BLOCK",
-           "plain"]
+           "plain", "compose", "rank2_path"]
 
 
 # -- shared: constants of value stages ----------------------------------------
@@ -182,6 +182,13 @@ _XR, _XS, _XP = 4, 8, 8
 (_ST_CAST, _ST_SCALE, _ST_BIAS, _ST_RMSNORM, _ST_TRANSPOSE, _ST_GATHER,
  _ST_COMPRESS, _ST_DECOMPRESS, _ST_REDUCE_SUM, _ST_REDUCE_MAX) = range(1, 11)
 _MODE_OUT, _MODE_STAT, _MODE_MASK = 0, 1, 2
+# the rank-2 path: OUT through f32, STAT, MASK, REDUCE, OUT copying words
+_MODE_OUT2, _MODE_STAT2, _MODE_MASK2, _MODE_REDUCE2, _MODE_COPY2 = range(3, 8)
+_VALUE_CODES = (_ST_SCALE, _ST_BIAS, _ST_RMSNORM, _ST_DECOMPRESS)
+_NAN_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC0,
+             torch.float16: 0x7E00}
+_REDUCE_STRIP = 64          # csrc SW: columns per reduce block
+_REDUCE_BLOCKS = 512        # reduce blocks to aim for: about 4 an SM of an H100
 
 
 class _Stage(ctypes.Structure):
@@ -202,6 +209,22 @@ class _BlockArgs(ctypes.Structure):
                 ("pext", ctypes.c_int64 * _XP), ("pdim", ctypes.c_int64 * _XP),
                 ("pw", ctypes.c_int64 * _XP), ("total", ctypes.c_int64),
                 ("reduce_at", ctypes.c_int64)]
+
+
+class _Stage2(ctypes.Structure):
+    _fields_ = [("code", ctypes.c_int64), ("dtype", ctypes.c_int64),
+                ("swap", ctypes.c_int64), ("block_rows", ctypes.c_int64),
+                ("a", ctypes.c_double), ("vec", ctypes.c_int64),
+                ("aux", ctypes.c_int64)]
+
+
+class _Rank2Args(ctypes.Structure):
+    _fields_ = [("t", maps.Tile2), ("nstages", ctypes.c_int64),
+                ("st", _Stage2 * _XS), ("dtype", ctypes.c_int64),
+                ("fill_bits", ctypes.c_int64), ("op", ctypes.c_int64),
+                ("eps", ctypes.c_double), ("block_rows", ctypes.c_int64),
+                ("out", ctypes.c_int64), ("splits", ctypes.c_int64),
+                ("partial", ctypes.c_int64), ("counter", ctypes.c_int64)]
 
 
 BLOCK = _build.register(_build.Kernel(
@@ -230,6 +253,69 @@ class _St:
     def is_reduce(self) -> bool:
         return self.code in (_ST_REDUCE_SUM, _ST_REDUCE_MAX)
 
+    @property
+    def reads_coordinate(self) -> bool:
+        return self.code in (_ST_RMSNORM, _ST_DECOMPRESS) or (
+            self.code in (_ST_SCALE, _ST_BIAS) and self.vec is not None)
+
+
+def _compose_index(f: Optional[torch.Tensor], index: torch.Tensor,
+                   code: int) -> torch.Tensor:
+    """A gather's indices after the composed map ``f`` of the later index
+    stages (None: identity): entries < 0 are fill codes, the later gather's
+    code kept where both failed."""
+    g = index if f is None else index[f.clamp(min=0)]
+    g = torch.where(g < 0, torch.full_like(g, code), g)
+    return g if f is None else torch.where(f < 0, f, g)
+
+
+@dataclasses.dataclass
+class _Composed:
+    """Stages [0, k) of a segment folded into a pass at their end point:
+    ``axes[a]`` is the source logical axis that pass axis ``a`` indexes,
+    ``index[a]`` its composed gather indices (None: identity), ``swaps[s]``
+    whether stage s reads the pass coordinate (r, c) as (c, r)."""
+
+    axes: Tuple[int, int]
+    index: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+    swaps: Tuple[int, ...]
+
+
+def compose(seg: Sequence["_St"], k: int) -> _Composed:
+    """Walk stages [0, k) back from the pass at their end: a Transpose swaps
+    the axes, a gather composes into its axis's index vector with the fill
+    code -(s + 1) of stage s."""
+    axes, index = [0, 1], [None, None]
+    swaps = [0] * k
+    for s in range(k - 1, -1, -1):
+        st = seg[s]
+        swaps[s] = int(axes[0] == 1)
+        if st.code == _ST_TRANSPOSE:
+            axes.reverse()
+        elif st.code == _ST_GATHER:
+            a = axes.index(st.axis)
+            index[a] = _compose_index(index[a], st.index, -(s + 1))
+    return _Composed(tuple(axes), tuple(index), tuple(swaps))
+
+
+def rank2_path(seg: Sequence["_St"], src_rank: int,
+               src_dtype: torch.dtype) -> bool:
+    """Whether kernel 3's rank-2 path takes a launch segment: logical rank 2
+    throughout, one stream dtype, a ReduceStage only last, and no gather
+    after a stage that reads its coordinate (the stage's coordinate is then
+    the pass's, swapped or not)."""
+    if src_rank != 2 or any(len(st.in_shape) != 2 or len(st.out_shape) != 2
+                            or st.dtype != src_dtype for st in seg):
+        return False
+    if any(st.is_reduce for st in seg[:-1]):
+        return False
+    coordinate = False
+    for st in seg:
+        if st.code == _ST_GATHER and coordinate:
+            return False
+        coordinate = coordinate or st.reads_coordinate
+    return True
+
 
 class BlockDatapath:
     """Kernel 3 compiled for one chain, layout pair and input shape/dtype.
@@ -237,9 +323,11 @@ class BlockDatapath:
     Launches, in order, for each launch segment (a chain with more than one
     ReduceStage is cut before each later one, joined by a row-major
     intermediate): a statistics pass per RMSNorm, a mask pass per Compress,
-    then the output pass.  ``GatherScatter`` follows ``jnp.take``: negative
-    indices count from the end, and an index outside ``[-n, n)`` yields
-    NaN."""
+    then the output pass.  Each segment takes the rank-2 path where
+    :func:`rank2_path` allows it, else the generic path; ``BLOCK.paths``
+    counts the launches of each.  ``GatherScatter`` follows ``jnp.take``:
+    negative indices count from the end, and an index outside ``[-n, n)``
+    yields NaN."""
 
     def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
                  dst_layout: L.Layout, in_shape: Sequence[int],
@@ -249,6 +337,7 @@ class BlockDatapath:
         self.in_shape, self.in_dtype = tuple(in_shape), in_dtype
         self.logical = src_layout.logical_shape(self.in_shape)
         self._prepared: Dict[Any, List[_St]] = {}
+        self._composed: Dict[Any, _Composed] = {}
 
     # -- compile --------------------------------------------------------------
     def _compile(self, device) -> List[_St]:
@@ -367,7 +456,8 @@ class BlockDatapath:
         a = self._args(stages, lo, hi, src_layout, src_logical, x.dtype, aux)
         for k, mode, rows in passes:
             a.upto, a.total = k, rows
-            BLOCK(ctypes.addressof(a), x.data_ptr(), None, mode)
+            BLOCK(ctypes.addressof(a), x.data_ptr(), None, mode,
+                  path="generic")
         shape = stages[hi - 1].out_shape if hi > lo else src_logical
         out = torch.empty(dst_layout.physical_shape(shape), dtype=out_dtype,
                           device=x.device)
@@ -380,7 +470,94 @@ class BlockDatapath:
         for k, (e, d, w) in enumerate(phys):
             a.pext[k], a.pdim[k], a.pw[k] = e, d, w
         a.total = out.numel()
-        BLOCK(ctypes.addressof(a), x.data_ptr(), out.data_ptr(), _MODE_OUT)
+        BLOCK(ctypes.addressof(a), x.data_ptr(), out.data_ptr(), _MODE_OUT,
+              path="generic")
+        return out
+
+    # -- the rank-2 path ------------------------------------------------------
+    def _rank2_args(self, stages, lo, hi, k, x, src_layout, aux, extent,
+                    dst_layout=None, out_shape=None) -> _Rank2Args:
+        """Rank-2 arguments of a pass over ``extent`` at point ``k`` of
+        segment [lo, hi): the composed source map of stages [0, k) and,
+        with a ``dst_layout``, the destination's maps."""
+        seg = stages[lo:hi]
+        key = (x.device.type, x.device.index, lo, hi, k)
+        comp = self._composed.get(key)
+        if comp is None:
+            comp = self._composed[key] = compose(seg, k)
+        src_maps = maps.dim_maps(src_layout,
+                                 src_layout.logical_shape(tuple(x.shape)))
+        if dst_layout is None:
+            pads, dst_maps = (0, 0), ((1, 0, 0), (1, 0, 0))
+        else:
+            pads = (dst_layout.dim_pad(2, 0), dst_layout.dim_pad(2, 1))
+            dst_maps = maps.dim_maps(dst_layout, out_shape)
+        a = _Rank2Args()
+        a.t = maps.tile2(extent, pads, [src_maps[ax] for ax in comp.axes],
+                         comp.index, dst_maps, 16 // x.element_size())
+        a.nstages = k
+        for s, st in enumerate(seg[:k]):
+            c = a.st[s]
+            c.code, c.dtype, c.swap = st.code, maps.dtype_code(st.dtype), \
+                comp.swaps[s]
+            c.block_rows, c.a = st.block_rows, st.a
+            c.vec = 0 if st.vec is None else st.vec.data_ptr()
+            buf = aux.get(st.mask_of if st.mask_of >= 0 else lo + s)
+            c.aux = 0 if buf is None else buf.data_ptr()
+        a.dtype = maps.dtype_code(x.dtype)
+        a.fill_bits = _NAN_BITS[x.dtype]
+        return a
+
+    def _launch_rank2(self, stages, lo, hi, x, src_layout, dst_layout,
+                      aux) -> torch.Tensor:
+        seg = stages[lo:hi]
+        dev = x.device
+        for k, st in enumerate(seg):
+            if st.code not in (_ST_RMSNORM, _ST_COMPRESS):
+                continue
+            a = self._rank2_args(stages, lo, hi, k, x, src_layout, aux,
+                                 st.in_shape)
+            if st.code == _ST_RMSNORM:
+                buf = torch.empty(st.in_shape[0], dtype=torch.float32,
+                                  device=dev)
+                a.eps, mode = st.a, _MODE_STAT2
+            else:
+                buf = torch.empty(st.in_shape[0] // st.block_rows,
+                                  dtype=torch.bool, device=dev)
+                a.block_rows, mode = st.block_rows, _MODE_MASK2
+            aux[lo + k] = buf
+            a.out = buf.data_ptr()
+            maps.fit_to(a.t, x, None)
+            BLOCK(ctypes.addressof(a), x.data_ptr(), None, mode, path="rank2")
+        shape = seg[-1].out_shape if seg else tuple(
+            src_layout.logical_shape(tuple(x.shape)))
+        out = torch.empty(dst_layout.physical_shape(shape), dtype=x.dtype,
+                          device=dev)
+        keep = []
+        if seg and seg[-1].is_reduce:
+            st = seg[-1]
+            a = self._rank2_args(stages, lo, hi, len(seg) - 1, x, src_layout,
+                                 aux, st.in_shape, dst_layout, shape)
+            a.t.prows = shape[0] + dst_layout.dim_pad(2, 0)
+            a.t.pcols = shape[1] + dst_layout.dim_pad(2, 1)
+            m, n = st.in_shape
+            strips = -(-a.t.pcols // _REDUCE_STRIP)
+            a.op = st.code
+            a.splits = max(1, min(-(-m // 128), -(-_REDUCE_BLOCKS // strips)))
+            if a.splits > 1:
+                keep = [torch.empty(a.splits * n, dtype=torch.float32,
+                                    device=dev),
+                        torch.zeros(strips, dtype=torch.int32, device=dev)]
+                a.partial, a.counter = (t.data_ptr() for t in keep)
+            mode = _MODE_REDUCE2
+        else:
+            a = self._rank2_args(stages, lo, hi, len(seg), x, src_layout, aux,
+                                 shape, dst_layout, shape)
+            copy = not any(st.code in _VALUE_CODES for st in seg)
+            mode = _MODE_COPY2 if copy else _MODE_OUT2
+        maps.fit_to(a.t, x, out)
+        BLOCK(ctypes.addressof(a), x.data_ptr(), out.data_ptr(), mode,
+              path="rank2")
         return out
 
     def __call__(self, x: torch.Tensor):
@@ -403,9 +580,13 @@ class BlockDatapath:
         for i, (lo, hi) in enumerate(segs):
             final = i == len(segs) - 1
             dst_layout = self.dst_layout if final else L.MN
-            out_dtype = stages[hi - 1].dtype if hi > lo else self.in_dtype
-            v = self._launch_segment(stages, lo, hi, v, src_layout,
-                                     dst_layout, out_dtype, aux)
+            if rank2_path(stages[lo:hi], len(self.logical), v.dtype):
+                v = self._launch_rank2(stages, lo, hi, v, src_layout,
+                                       dst_layout, aux)
+            else:
+                out_dtype = stages[hi - 1].dtype if hi > lo else self.in_dtype
+                v = self._launch_segment(stages, lo, hi, v, src_layout,
+                                         dst_layout, out_dtype, aux)
             src_layout = L.MN
         compress = [s for s, st in enumerate(stages)
                     if st.code == _ST_COMPRESS]

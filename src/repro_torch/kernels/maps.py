@@ -11,14 +11,15 @@ widens the strides.  The same numbers drive ``csrc/xdma_common.cuh``'s
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import layouts as L
 
-__all__ = ["DimMap", "dim_maps", "physical_dims", "inner_axis",
-           "dtype_code", "DTYPE_CODES", "tiled_rows"]
+__all__ = ["DimMap", "dim_maps", "physical_dims",
+           "dtype_code", "DTYPE_CODES", "tiled_rows", "Term", "Tile2",
+           "tile2", "run_axis", "fit_to"]
 
 # dtype codes shared with csrc/xdma_common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -36,6 +37,80 @@ def dtype_code(dtype: torch.dtype) -> int:
 class DimMap(ctypes.Structure):
     _fields_ = [("tile", ctypes.c_int64), ("sgrid", ctypes.c_int64),
                 ("stile", ctypes.c_int64)]
+
+
+class Term(ctypes.Structure):
+    """One tile axis's share of one side's element offset
+    (``csrc/xdma_common.cuh``): the layout map of the logical axis it
+    indexes, and an int64 index vector over the tile axis (0: none)."""
+    _fields_ = [("map", DimMap), ("idx", ctypes.c_int64)]
+
+
+class Tile2(ctypes.Structure):
+    """The rank-2 tiled copy's geometry (``xdma::Tile2``)."""
+    _fields_ = [("rows", ctypes.c_int64), ("cols", ctypes.c_int64),
+                ("prows", ctypes.c_int64), ("pcols", ctypes.c_int64),
+                ("src_r", Term), ("src_c", Term),
+                ("dst_r", DimMap), ("dst_c", DimMap),
+                ("load_axis", ctypes.c_int64), ("store_axis", ctypes.c_int64),
+                ("vs", ctypes.c_int64), ("vd", ctypes.c_int64)]
+
+
+def run_axis(terms: Sequence[Tuple[int, int, int]], extents: Sequence[int],
+             pack: int, indexed: Sequence[bool] = (False, False)
+             ) -> Tuple[int, int]:
+    """``(axis, width)``: the tile axis (0 rows, 1 columns) whose term has
+    unit stride, and the elements an access moves along it — ``pack`` where
+    ``pack`` consecutive positions, starting at a multiple of ``pack``, are
+    consecutive and ``pack``-aligned in memory over the whole ``extents``
+    of that axis, else 1.  ``terms`` are the two axes' ``(tile, sgrid,
+    stile)`` maps; an indexed (gathered) axis never moves packs."""
+    def unit(m):
+        return (m[0] > 1 and m[2] == 1) or (m[0] == 1 and m[1] == 1)
+
+    axis = next((ax for ax in (1, 0) if unit(terms[ax])), None)
+    if axis is None:
+        return 1, 1
+    run, other = terms[axis], terms[1 - axis]
+    strides = [run[1]] if run[0] > 1 else []
+    strides += [other[1]] + ([other[2]] if other[0] > 1 else [])
+    ok = (not indexed[axis] and extents[axis] % pack == 0
+          and (run[0] == 1 or run[0] % pack == 0)
+          and all(st % pack == 0 for st in strides))
+    return axis, pack if ok else 1
+
+
+def tile2(extent: Sequence[int], pads: Sequence[int],
+          src_terms: Sequence[Tuple[int, int, int]],
+          src_index: Sequence[Optional[torch.Tensor]],
+          dst_maps: Sequence[Tuple[int, int, int]], pack: int) -> Tile2:
+    """The tiled copy of a ``extent`` (rows, cols) space whose destination
+    pads it by ``pads``.  ``src_terms`` are the source maps that a tile row
+    and a tile column index (after any swap), ``src_index`` their index
+    vectors (int64 tensors that outlive the launch, or None); ``pack`` is
+    the elements of one 16-byte access."""
+    t = Tile2()
+    t.rows, t.cols = extent
+    t.prows, t.pcols = extent[0] + pads[0], extent[1] + pads[1]
+    for term, m, idx in ((t.src_r, src_terms[0], src_index[0]),
+                         (t.src_c, src_terms[1], src_index[1])):
+        term.map = DimMap(*m)
+        term.idx = 0 if idx is None else idx.data_ptr()
+    t.dst_r, t.dst_c = DimMap(*dst_maps[0]), DimMap(*dst_maps[1])
+    t.load_axis, t.vs = run_axis(src_terms, extent, pack,
+                                 [i is not None for i in src_index])
+    t.store_axis, t.vd = run_axis(dst_maps, (t.prows, t.pcols), pack)
+    return t
+
+
+def fit_to(t: Tile2, src: torch.Tensor, dst: Optional[torch.Tensor]) -> Tile2:
+    """Word accesses on a side whose buffer is not 16-byte aligned (a pack
+    needs an aligned base; the kernels refuse a pack on one that is not)."""
+    if src.data_ptr() % 16:
+        t.vs = 1
+    if dst is not None and dst.data_ptr() % 16:
+        t.vd = 1
+    return t
 
 
 def _strides(layout: L.Layout, logical_shape: Sequence[int]):
@@ -75,11 +150,6 @@ def physical_dims(layout: L.Layout, logical_shape: Sequence[int]
     rank = len(logical_shape)
     return [(e, d, layout.dim_tile(rank, d) if kind == "grid" else 1)
             for e, (d, kind) in zip(extents, dims)]
-
-
-def inner_axis(layout: L.Layout, rank: int) -> int:
-    """The logical dim the layout's innermost physical dim indexes."""
-    return layout._phys_dims(rank)[-1][0]
 
 
 def tiled_rows(x: torch.Tensor, tile_shape: Tuple[int, int], what: str) -> int:

@@ -7,8 +7,11 @@ CUDA tensor :func:`quantize_tiled` launches ``csrc/quantize_tiled.cu``; on a
 CPU tensor it takes the plain version.  Values and scales equal the
 reference's bit for bit: the scale is ``amax * f32(1 / 127)``, which is what
 XLA makes of the reference's ``amax / 127.0``, then an IEEE ``x / scale``
-rounded half to even.  A row that holds a NaN is outside that promise: the
-reference's max propagates it, the kernel's ``fmaxf`` does not.
+rounded half to even.  Non-finite rows keep that promise: the row max
+propagates NaN as ``jnp.max`` does, so a row holding a NaN gets scale 1.0
+(``amax > 0`` is false) and a row holding an inf gets scale inf; a NaN
+quotient (a NaN element, inf / inf) stores 0, as the reference's conversion
+does.
 
 Shapes follow the reference: the columns must be a whole number of tiles,
 and rows past ``(m // tm) * tm`` get no values.  Their scales are left

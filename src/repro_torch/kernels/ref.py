@@ -52,7 +52,10 @@ def quantize_tiled_ref(x: torch.Tensor, tile_shape: Tuple[int, int]):
     # it is traced (its Pallas kernel, jit), so this is the reference's result
     # bit for bit
     scale = torch.where(amax > 0, amax * (1 / 127), torch.ones_like(amax))
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    # a NaN quotient (a NaN element, or inf / inf in a row whose amax is inf)
+    # becomes 0, as the reference's float -> int8 conversion makes it
+    q = torch.where(torch.isnan(q), 0.0, q).to(torch.int8)
     return tile_ref(q, tile_shape), scale
 
 

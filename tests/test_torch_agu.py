@@ -27,7 +27,8 @@ from repro_torch.kernels import agu as pagu  # noqa: E402
 from repro_torch.kernels import ops as pops  # noqa: E402
 from repro_torch.kernels import ref as pref  # noqa: E402
 from repro_torch.kernels import relayout as prk  # noqa: E402
-from torch_parity import bits, reset_global_state, to_torch  # noqa: E402,F401
+from torch_parity import (bits, emulate_tile2,  # noqa: E402,F401
+                          reset_global_state, to_torch)
 
 CANONICAL_PAIRS = [
     ("MN", "MNM8N128", False), ("MN", "MNM16N128", False),
@@ -176,38 +177,60 @@ def test_identity_plan_returns_its_input():
 
 # -- kernel 1's arguments, emulated ------------------------------------------
 def _emulate_relayout(x_flat, a, out_size):
-    """The CUDA kernel's index arithmetic, vectorized: every position of the
-    dst's padded logical space reads (or zero-fills) and writes once."""
-    r = np.arange(a.prows)[:, None]
-    c = np.arange(a.pcols)[None, :]
-    r, c = np.broadcast_arrays(r, c)
-
-    def off(maps2, i0, i1):
-        return sum((i // m.tile) * m.sgrid + (i % m.tile) * m.stile
-                   for m, i in zip(maps2, (i0, i1)))
-
-    inside = (r < a.rows) & (c < a.cols)
-    sr, sc = (c, r) if a.transpose else (r, c)
-    out = np.full(out_size, -1, dtype=x_flat.dtype)
-    dst = off(a.dst, r, c)
-    out[dst[~inside]] = 0
-    out[dst[inside]] = x_flat[off(a.src, sr[inside], sc[inside])]
-    return out
+    """The CUDA kernel's index arithmetic (``xdma::tile2_run`` with the Copy
+    policy): every position of the dst's padded logical space reads (or
+    zero-fills) and writes once, and every 16-byte pack the host chose is
+    whole, consecutive and aligned."""
+    assert a.t.vs in (1, 16 // a.elem_bytes) and a.t.vd in (1, 16 // a.elem_bytes)
+    return emulate_tile2(a.t, x_flat, out_size)
 
 
+@pytest.mark.parametrize("elem_bytes", [1, 2, 4, 8])
 @pytest.mark.parametrize("src,dst,transpose", CANONICAL_PAIRS + [
     ("MNM32N128", "NMM8N128", False), ("NM", "MN", True),
     ("MNM8N8", "MNP64", False)])
-def test_kernel_arguments_reproduce_the_relayout(src, dst, transpose):
+def test_kernel_arguments_reproduce_the_relayout(src, dst, transpose,
+                                                 elem_bytes):
     sl, dl = PL.by_name(src), PL.by_name(dst)
     shape = (128, 384)
     x = torch.arange(int(np.prod(shape)), dtype=torch.int64).reshape(shape)
     xin = sl.from_logical(x)
-    a = pagu.relayout_args(sl, dl, shape, transpose, 8)
+    a = pagu.relayout_args(sl, dl, shape, transpose, elem_bytes)
     want = pagu.relayout_plain(xin, sl, dl, transpose)
     got = _emulate_relayout(xin.reshape(-1).numpy(), a, want.numel())
     np.testing.assert_array_equal(got, want.reshape(-1).numpy())
-    assert a.src_inner in (0, 1) and a.dst_inner in (0, 1)
+    assert a.t.load_axis in (0, 1) and a.t.store_axis in (0, 1)
+
+
+# (src, dst, transpose, shape, elem_bytes) -> (load axis, vs, store axis, vd)
+ACCESS_CASES = {
+    ("MN", "MNM8N128", False, (4096, 4096), 4): (1, 4, 1, 4),
+    ("MNM16N128", "MN", True, (8192, 3072), 2): (0, 8, 1, 8),
+    ("MN", "NM", False, (256, 384), 4): (1, 4, 0, 4),
+    ("MN", "MNP64", False, (128, 384), 1): (1, 16, 1, 16),
+    # extents that are not a whole number of packs: word copies on that side
+    ("MN", "MN", True, (37, 100), 4): (0, 4, 1, 1),
+    ("MN", "NM", False, (36, 102), 2): (1, 1, 0, 1),
+    ("NM", "MNP64", False, (40, 20), 8): (0, 2, 1, 2),
+    ("MN", "MNP64", False, (40, 100), 4): (1, 4, 1, 4),
+    ("MN", "MNP64", False, (40, 102), 4): (1, 1, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ACCESS_CASES))
+def test_kernel_access_widths_and_ragged_shapes(case):
+    """The host's choice of each side's run axis and access width, on shapes
+    that are not a whole number of 64 x 64 tiles or of 16-byte packs."""
+    src, dst, transpose, shape, elem_bytes = case
+    sl, dl = PL.by_name(src), PL.by_name(dst)
+    a = pagu.relayout_args(sl, dl, shape, transpose, elem_bytes)
+    assert (a.t.load_axis, a.t.vs, a.t.store_axis, a.t.vd) == \
+        ACCESS_CASES[case]
+    x = torch.arange(int(np.prod(shape)), dtype=torch.int64).reshape(shape)
+    xin = sl.from_logical(x)
+    want = pagu.relayout_plain(xin, sl, dl, transpose)
+    got = _emulate_relayout(xin.reshape(-1).numpy(), a, want.numel())
+    np.testing.assert_array_equal(got, want.reshape(-1).numpy())
 
 
 def test_relayout_oracle_agrees_with_the_port():

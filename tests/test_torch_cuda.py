@@ -124,6 +124,109 @@ def test_relayout_kernel_bitwise_vs_plain(dtype):
     assert pagu.RELAYOUT.launches == before + len(CANONICAL_PAIRS)
 
 
+# untiled pairs, which take any shape: (src, dst, transpose)
+RAGGED_PAIRS = [("MN", "MN", True), ("MN", "NM", False), ("NM", "MN", True),
+                ("MN", "MNP64", False), ("NM", "MNP64", False),
+                ("MNP64", "NM", False)]
+RAGGED_SHAPES = [(37, 100), (65, 131), (130, 66), (3, 1000)]
+
+
+def _misaligned(x):
+    """``x`` copied to a buffer whose base is one element past a 16-byte
+    boundary, so no access of the kernel may be a 16-byte pack there."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_relayout_kernel_ragged_shapes_bitwise(dtype, shape, misaligned):
+    """Extents that are not a whole number of 64 x 64 tiles or of 16-byte
+    packs, and a source or destination base off 16-byte alignment."""
+    x = _logical(shape, torch.float32, seed=3).to(dtype).cuda()
+    for src, dst, t in RAGGED_PAIRS:
+        sl, dl = PC.by_name(src), PC.by_name(dst)
+        xin = sl.from_logical(x)
+        if misaligned:
+            xin = _misaligned(xin)
+        got = pagu.relayout_kernel(xin, sl, dl, t)
+        assert _equal_bits(got, pagu.relayout_plain(xin, sl, dl, t)), \
+            (src, dst, t)
+
+
+def _block_fn(sl, dl, chain):
+    return ppc.compile_local(PC.XDMADescriptor(
+        src=PC.Endpoint(layout=sl), dst=PC.Endpoint(layout=dl), pre=chain))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_rank2_path_bitwise_on_canonical_pairs(dtype):
+    """Kernel 3's rank-2 path on the 16 canonical pairs: a Transpose where
+    the pair transposes, else a row gather with one index out of range (the
+    NaN fill); every launch counted on the rank-2 path."""
+    x = _logical((256, 384), dtype, seed=4)
+    for src, dst, t in CANONICAL_PAIRS:
+        sl, dl = PC.by_name(src), PC.by_name(dst)
+        idx = np.r_[np.random.default_rng(2).permutation(255), 300]
+        chain = (PC.Transpose(),) if t else (PC.GatherScatter(indices=idx),)
+        fn = _block_fn(sl, dl, chain)
+        xin = sl.from_logical(x)
+        want = fn(xin)
+        before = dict(DP.BLOCK.paths)
+        got = fn(xin.cuda())
+        torch.cuda.synchronize()
+        assert DP.BLOCK.paths.get("rank2", 0) == before.get("rank2", 0) + 1
+        assert DP.BLOCK.paths.get("generic", 0) == before.get("generic", 0)
+        assert _equal_bits(got.cpu(), want), (src, dst, t)
+
+
+# (chain, bitwise) on ragged shapes through the rank-2 path
+RANK2_CHAINS = {
+    "transpose": (lambda s: (PC.Transpose(),), True),
+    "gather_fill": (lambda s: (PC.GatherScatter(indices=np.r_[
+        np.arange(s[0] - 1, 0, -1), s[0] + 7]),), True),
+    "gather_cols_transpose": (lambda s: (PC.GatherScatter(
+        indices=np.arange(s[1] - 1, -1, -1), axis=-1), PC.Transpose()), True),
+    "transpose_scale_vec": (lambda s: (PC.Transpose(), PC.Scale(
+        torch.linspace(0.5, 2, s[0]))), True),
+    "reduce_max": (lambda s: (PC.ReduceStage("max"),), True),
+    "reduce_sum": (lambda s: (PC.ReduceStage("sum"),), False),
+    "transpose_rmsnorm": (lambda s: (PC.Transpose(), PC.RMSNormPlugin()),
+                          False),
+}
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("name", sorted(RANK2_CHAINS))
+def test_block_rank2_path_ragged_vs_plain(name, dtype, shape, misaligned):
+    chain, bitwise = RANK2_CHAINS[name]
+    x = _logical(shape, dtype, seed=6)
+    for src, dst in (("MN", "MN"), ("NM", "MNP64")):
+        sl, dl = PC.by_name(src), PC.by_name(dst)
+        fn = _block_fn(sl, dl, chain(shape))
+        xin = sl.from_logical(x)
+        want = fn(xin)
+        xc = _misaligned(xin.cuda()) if misaligned else xin.cuda()
+        before = DP.BLOCK.paths.get("rank2", 0)
+        got = fn(xc)
+        torch.cuda.synchronize()
+        assert DP.BLOCK.paths.get("rank2", 0) > before
+        got = got.cpu()
+        if bitwise:
+            assert _equal_bits(got, want), (src, dst)
+        else:
+            assert got.dtype == want.dtype and got.shape == want.shape
+            tol = (dict(rtol=2e-2, atol=1e-2) if got.element_size() < 4
+                   else dict(rtol=1e-4, atol=1e-4))
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 def test_relayout_kernel_keeps_nan_payloads_and_negative_zero():
     bits = torch.tensor([0x7FC00001, 0x7F800001, 0x80000000, 0xFFC12345],
                         dtype=torch.int64).to(torch.int32)
@@ -236,6 +339,27 @@ def test_quantize_tiled_kernel_bitwise_vs_plain(m, n, tile, dtype):
     assert _equal_bits(got_v.cpu(), want_v)
     assert _equal_bits(got_s.cpu(), want_s)
     assert got_s[1].item() == 1.0 and got_s[2].item() == 1.0
+
+
+@pytest.mark.parametrize("tile", [(32, 128), (32, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_tiled_kernel_non_finite_rows_bitwise(tile, dtype):
+    """A NaN row: scale 1.0, its NaN element 0; an inf or -inf row: scale
+    inf, all values 0 — values and scales bitwise the plain version's (16-byte
+    packs with (32, 128), one element an access with (32, 40))."""
+    n = 4 * tile[1]
+    x = _quant_input(64, n, torch.float32, seed=17)
+    x[3, 5], x[4, 7], x[5, 9] = float("nan"), float("inf"), float("-inf")
+    x[6, :] = float("nan")
+    x = x.to(dtype)
+    want_v, want_s = FQ.quantize_tiled_plain(x, tile)
+    got_v, got_s = pops.quantize_tiled(x.cuda(), tile)
+    torch.cuda.synchronize()
+    assert _equal_bits(got_v.cpu(), want_v)
+    assert _equal_bits(got_s.cpu(), want_s)
+    assert got_s[3:7, 0].tolist() == [1.0, float("inf"), float("inf"), 1.0]
+    logical = got_v.cpu().permute(0, 2, 1, 3).reshape(64, n)
+    assert logical[3, 5] == 0 and not logical[4:7].any()
 
 
 # (B, Sq, Sk, H, KV, hd, causal, window, dtype)

@@ -172,6 +172,31 @@ def test_quantize_tiled_ref_twin_bitwise():
         np.testing.assert_array_max_ulp(ps.numpy(), np.asarray(se), maxulp=1)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quantize_tiled_non_finite_rows_match_reference(dtype):
+    """A row holding a NaN gets scale 1.0 (its amax is NaN, and NaN > 0 is
+    false), its NaN element 0 and the rest round(x); a row holding +inf or
+    -inf gets scale inf and all zeros (inf / inf is NaN, which converts to
+    0).  The plain version against the reference's kernel in interpret
+    mode."""
+    x = _qx(32, 256, "float32", seed=41)
+    x[3, 5], x[4, 7], x[5, 9] = np.nan, np.inf, -np.inf
+    x = x.astype(DTYPES[dtype])
+    v, s = r_quant(jnp.asarray(x), (32, 128), d_buf=1)
+    pv, ps = pref.quantize_tiled_ref(to_torch(x), (32, 128))
+    np.testing.assert_array_equal(bits(pv), bits(v))
+    np.testing.assert_array_equal(bits(ps), bits(s))
+    assert ps[3:6, 0].tolist() == [1.0, float("inf"), float("inf")]
+    logical = pref.untile_ref(pv).numpy()
+    xf = to_f32(to_torch(x))
+    assert logical[3, 5] == 0 and not logical[4:6].any()
+    want3 = np.clip(np.round(np.delete(xf[3], 5)), -127, 127)
+    np.testing.assert_array_equal(np.delete(logical[3], 5), want3)
+    qv, qs = pops.quantize_tiled(to_torch(x), (32, 128))
+    np.testing.assert_array_equal(bits(qv), bits(v))
+    np.testing.assert_array_equal(bits(qs), bits(s))
+
+
 def test_quantize_tiled_scales_past_the_last_row_tile_are_nan():
     """The reference writes no scale past (m // tm) * tm rows (its
     interpreter leaves NaN); the port writes NaN there."""

@@ -200,7 +200,11 @@ def test_physical_dims_invert_the_writer(name):
 
 
 def test_inner_axis():
-    assert maps.inner_axis(PL.MN, 2) == 1
-    assert maps.inner_axis(PL.NM, 2) == 0
-    assert maps.inner_axis(PL.NMM8N128, 2) == 1
-    assert maps.inner_axis(PL.tiled_layout(8, 128, tile_transposed=True), 2) == 0
+    """The logical axis innermost in a layout's physical order is the one
+    the tiled copy runs its accesses along (``maps.run_axis``), here with
+    16-byte packs of 4 elements."""
+    shape = (64, 256)
+    for layout, axis in ((PL.MN, 1), (PL.NM, 0), (PL.NMM8N128, 1),
+                         (PL.tiled_layout(8, 128, tile_transposed=True), 0)):
+        got = maps.run_axis(maps.dim_maps(layout, shape), shape, 4)
+        assert got == (axis, 4), layout.name

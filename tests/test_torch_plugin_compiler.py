@@ -17,6 +17,7 @@ pytest.importorskip("torch")
 import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -32,6 +33,7 @@ from repro_torch.core import plugin_compiler as ppc  # noqa: E402
 from repro_torch.core import plugins as PP  # noqa: E402
 from repro_torch.core import xdma as px  # noqa: E402
 from repro_torch.kernels import datapath as DP  # noqa: E402
+import torch_parity as P2  # noqa: E402
 from torch_parity import (assert_same_payload, bits, port_desc,  # noqa: E402,F401
                           reset_global_state, to_f32, to_torch)
 
@@ -241,6 +243,35 @@ def test_hypothesis_case_against_reference_and_oracle():
     np.testing.assert_allclose(got, want_ref, rtol=2 ** -6, atol=0.125)
 
 
+_jit_quantize = jax.jit(lambda v: RP.Quantize()(v))
+
+
+def _assert_quantize_bitwise(x, ref, desc, got, tol, context):
+    """A chain ending in Quantize: the int8 values and f32 scales are bitwise
+    the reference's jitted Quantize (what its "auto" and "fused" backends
+    run) of the stream that reaches it, and that stream is the reference's
+    within the chain tolerance.  The stream itself is not bitwise: under jit
+    XLA contracts a Scale followed by a BiasAdd into one fused multiply-add,
+    which the port (and the oracle) round twice."""
+    assert isinstance(ref.plugins[-1], RP.Quantize), context
+    head = dataclasses.replace(ref, plugins=(), pre=(),
+                               post=tuple(ref.plugins[:-1]), backend="fused")
+    stream = PP.apply_chain(desc.plugins[:-1],
+                            desc.src_layout.to_logical(to_torch(np.asarray(x))))
+    want_stream = RC.xdma_copy_jit(x, dataclasses.replace(
+        head, dst=RC.Endpoint.local(RC.MN)))
+    np.testing.assert_allclose(to_f32(stream), to_f32(want_stream),
+                               err_msg=context, **tol)
+    crossed = stream.numpy() if stream.dtype != torch.bfloat16 else \
+        stream.view(torch.int16).numpy().view(jnp.bfloat16)
+    want = _jit_quantize(jnp.asarray(crossed))
+    np.testing.assert_array_equal(
+        bits(got.values), bits(ref.dst_layout.from_logical(want.values)),
+        err_msg=context)
+    np.testing.assert_array_equal(bits(got.scales), bits(want.scales),
+                                  err_msg=context)
+
+
 @pytest.mark.parametrize("i", range(10))
 def test_seeded_local_sweep_matches_reference(i):
     rng = np.random.default_rng(1000 + i)
@@ -254,11 +285,7 @@ def test_seeded_local_sweep_matches_reference(i):
         tol = dict(rtol=2e-2, atol=2e-2) if tol["rtol"] > 1e-4 else \
             dict(rtol=1e-4, atol=1e-4)
     if isinstance(want, RP.QTensor):
-        dv = np.abs(bits(got.values).view(np.int8).astype(np.int32)
-                    - np.asarray(want.values).astype(np.int32))
-        assert dv.max(initial=0) <= 1, repr(case)
-        np.testing.assert_allclose(to_f32(got.scales),
-                                   np.asarray(want.scales), **tol)
+        _assert_quantize_bitwise(x, ref, desc, got, tol, repr(case))
         return
     assert_same_payload(got, want, context=repr(case), **tol)
 
@@ -356,14 +383,18 @@ def _dim_off(m, i):
 
 
 class _Emulated:
-    """Stands in for a Kernel: emulates the launch, counts it."""
+    """Stands in for a Kernel: emulates the launch, counts it (and its path,
+    as ``Kernel.paths`` does)."""
 
     def __init__(self, fn):
         self.fn, self.launches, self.name = fn, 0, "emulated"
+        self.paths = {}
 
-    def __call__(self, *args):
+    def __call__(self, *args, path=None):
         self.fn(*args)
         self.launches += 1
+        if path is not None:
+            self.paths[path] = self.paths.get(path, 0) + 1
 
 
 def _emulate_streamed(args_addr, src, dst):
@@ -489,7 +520,145 @@ class _BlockEmu:
         return v
 
 
+# -- kernel 3's rank-2 path, vectorized over the pass's space ------------------
+_NP = {_F32: np.float32, _BF16: np.uint16, _F16: np.float16}
+
+
+def _round_arr(v, dt):
+    v = np.asarray(v, np.float32)
+    if dt == _BF16:
+        b = v.view(np.uint32)
+        b = (b + np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1))) \
+            & np.uint32(0xFFFF0000)
+        return np.where(np.isnan(v), v, b.view(np.float32))
+    if dt == _F16:
+        return v.astype(np.float16).astype(np.float32)
+    return v
+
+
+def _floats(addr, n, dt):
+    """``n`` elements of dtype code ``dt`` at ``addr`` as float32."""
+    if n == 0:
+        return np.zeros(0, np.float32)
+    raw = np.ctypeslib.as_array((ctypes.c_uint8 * (n * _SIZE[dt]))
+                                .from_address(int(addr))).view(_NP[dt])
+    if dt == _BF16:
+        return (raw.astype(np.uint32) << np.uint32(16)).view(np.float32)
+    return raw.astype(np.float32)
+
+
+def _vec(addr, idx):
+    return _floats(addr, int(np.max(idx)) + 1, _F32)[idx]
+
+
+def _apply2(st, v, r, c):
+    """``apply2`` of csrc/block_datapath.cu on arrays."""
+    i, j = (c, r) if st.swap else (r, c)
+    if st.code == DP._ST_CAST:
+        return _round_arr(v, st.dtype)
+    if st.code in (DP._ST_SCALE, DP._ST_BIAS):
+        k = _vec(st.vec, j) if st.vec else np.float32(st.a)
+        y = v * k if st.code == DP._ST_SCALE else v + k
+        return _round_arr(y, st.dtype)
+    if st.code == DP._ST_RMSNORM:
+        y = (v * _vec(st.aux, i)).astype(np.float32)
+        if st.vec:
+            y = (y * _vec(st.vec, j)).astype(np.float32)
+        return _round_arr(y, st.dtype)
+    if st.code == DP._ST_DECOMPRESS:
+        b = i // st.block_rows
+        mask = np.ctypeslib.as_array((ctypes.c_uint8 * (int(b.max()) + 1))
+                                     .from_address(st.aux))[b]
+        return _round_arr(v * np.where(mask != 0, np.float32(1),
+                                       np.float32(0)), st.dtype)
+    return v
+
+
+def _run2(a, v, start, r, c):
+    """The Values policy: stages [start, nstages) per element, in order."""
+    v = np.asarray(v, np.float32).copy()
+    for s in range(a.nstages):
+        on = start <= s
+        if on.any():
+            v[on] = _apply2(a.st[s], v[on], r[on], c[on])
+    return v
+
+
+def _pass_values(a, src):
+    """Every value of the pass's (rows, cols) space, and the src offsets."""
+    t = a.t
+    r, c = np.broadcast_arrays(np.arange(t.rows)[:, None],
+                               np.arange(t.cols)[None, :])
+    sr, sc = P2._term(t.src_r, r), P2._term(t.src_c, c)
+    so = np.where((sr < 0) | (sc < 0), np.minimum(sr, sc), sr + sc)
+    if t.load_axis == 1 and t.vs > 1:
+        inside = np.ones(r.shape, bool)
+        P2._check_packs(so, 1, t.vs, inside, so >= 0)
+    ok = so >= 0
+    x = _floats(src, int(so.max()) + 1 if ok.any() else 0, a.dtype)
+    v = np.full(r.shape, np.nan, np.float32)
+    v[ok] = x[so[ok]]
+    start = np.where(ok, 0, -so)
+    return _run2(a, v, start, r, c).reshape(r.shape)
+
+
+def _src_words(t, addr, nbytes, word):
+    """The source buffer as far as the pass's offsets reach."""
+    sr = P2._term(t.src_r, np.arange(t.rows))
+    sc = P2._term(t.src_c, np.arange(t.cols))
+    top = int(max(sr.max(), 0) + max(sc.max(), 0)) + 1
+    return np.ctypeslib.as_array((ctypes.c_uint8 * (top * nbytes))
+                                 .from_address(addr)).view(word)
+
+
+def _emulate_rank2(args_addr, src, dst, mode):
+    a = DP._Rank2Args.from_address(args_addr)
+    t = a.t
+    out_size = t.prows * t.pcols
+    if mode == DP._MODE_COPY2:
+        n = _SIZE[a.dtype]
+        word = {4: np.uint32, 2: np.uint16}[n]
+        out = P2.emulate_tile2(t, _src_words(t, src, n, word), out_size,
+                               fill=lambda code, r, c: word(a.fill_bits))
+        ctypes.memmove(dst, out.ctypes.data, out.nbytes)
+        return
+    if mode == DP._MODE_OUT2:
+        x = _src_words(t, src, _SIZE[a.dtype], _NP[a.dtype])
+        x = _floats(x.ctypes.data, x.size, a.dtype)
+        out = P2.emulate_tile2(
+            t, x, out_size,
+            value=lambda v, r, c: _run2(a, v, np.zeros_like(r), r, c),
+            fill=lambda code, r, c: _run2(
+                a, np.full(r.shape, np.nan, np.float32), -code, r, c))
+        _store_all(dst, out, a.dtype)
+        return
+    v = _pass_values(a, src)
+    if mode == DP._MODE_STAT2:
+        ss = (v * v).astype(np.float32).sum(-1, dtype=np.float32)
+        inv = (np.float32(1) / np.sqrt(ss / np.float32(t.cols)
+                                       + np.float32(a.eps))).astype(np.float32)
+        ctypes.memmove(a.out, inv.ctypes.data, inv.nbytes)
+    elif mode == DP._MODE_MASK2:
+        any_ = (v != 0).reshape(-1, a.block_rows * t.cols).any(-1)
+        hit = any_.astype(np.uint8)
+        ctypes.memmove(a.out, hit.ctypes.data, hit.nbytes)
+    else:                                       # REDUCE
+        assert a.splits >= 1 and a.op in (DP._ST_REDUCE_SUM,
+                                          DP._ST_REDUCE_MAX)
+        if a.op == DP._ST_REDUCE_SUM:
+            red = v.sum(0, dtype=np.float32)
+        else:
+            red = np.where(np.isnan(v).any(0), np.float32(np.nan), v.max(0))
+        dm = lambda m, i: (i // m.tile) * m.sgrid + (i % m.tile) * m.stile
+        vals = np.zeros(out_size, np.float32)
+        cols = np.arange(t.cols)
+        vals[dm(t.dst_r, 0) + dm(t.dst_c, cols)] = _round_arr(red, a.dtype)
+        _store_all(dst, vals, a.dtype)
+
+
 def _emulate_block(args_addr, src, dst, mode):
+    if mode >= DP._MODE_OUT2:
+        return _emulate_rank2(args_addr, src, dst, mode)
     a = DP._BlockArgs.from_address(args_addr)
     emu = _BlockEmu(a, src)
     k = a.upto
@@ -569,6 +738,20 @@ def test_streamed_kernel_host_code_under_emulation(name, monkeypatch):
                                    rtol=2e-2, atol=1e-2)
 
 
+# launches of each kernel-3 path per block case
+BLOCK_PATHS = {
+    "compress": {"rank2": 2}, "compress_roundtrip": {"rank2": 2},
+    "gather_cols_neg": {"rank2": 1}, "gather_fill": {"rank2": 1},
+    "gather_rows": {"rank2": 1}, "load_transpose": {"rank2": 1},
+    "reduce_max_bf16": {"rank2": 1}, "reduce_sum": {"rank2": 1},
+    "rmsnorm_rowpad": {"rank2": 2}, "transpose_rmsnorm_sum": {"rank2": 2},
+    # a cast between dtypes; logical rank 3; a segment whose ReduceStage is
+    # not last ([max, transpose]) before one that is ([sum])
+    "hypothesis_case": {"generic": 1}, "rank3_rmsnorm": {"generic": 2},
+    "max_transpose_sum": {"generic": 1, "rank2": 1},
+}
+
+
 @pytest.mark.parametrize("name", sorted(BLOCK_CASES))
 def test_block_kernel_host_code_under_emulation(name, monkeypatch):
     x, plugins, ps, pd = _emulation_input(BLOCK_CASES, name)
@@ -581,6 +764,7 @@ def test_block_kernel_host_code_under_emulation(name, monkeypatch):
                  for p in plugins)
     segments = max(1, sum(isinstance(p, PP.ReduceStage) for p in plugins))
     assert emu.launches == passes + segments
+    assert emu.paths == BLOCK_PATHS[name]
     if isinstance(want, PP.CTensor):
         np.testing.assert_array_equal(bits(got.mask), bits(want.mask))
         got, want = got.values, want.values
@@ -598,3 +782,130 @@ def test_block_segments_cut_before_a_second_reduce():
     prog = DP.BlockDatapath(chain, PL.MN, PL.MN, (16, 32), torch.float32)
     stages = prog._compile("cpu")
     assert prog._segments(stages) == [(0, 2), (2, 4), (4, 5)]
+
+
+# -- kernel 3's path choice and composed index map ------------------------------
+def _idx(values):
+    return np.asarray(values, np.int64)
+
+
+# (src, dst, chain, logical shape, dtype, paths, bitwise)
+PATH_CASES = {
+    "transpose_then_gather": ("MNM8N128", "MN", lambda: (
+        PP.Transpose(), PP.GatherScatter(indices=_perm(256, 4))), (32, 256),
+        torch.bfloat16, {"rank2": 1}, True),
+    "two_gathers_one_axis": ("MN", "MNM8N128", lambda: (
+        PP.GatherScatter(indices=_perm(64, 5)),
+        PP.GatherScatter(indices=_perm(64, 6))), (64, 256), torch.float32,
+        {"rank2": 1}, True),
+    "gather_out_of_range_bf16": ("MN", "MN", lambda: (PP.GatherScatter(
+        indices=_idx([3, -1, 40, -41, 0] + list(range(5, 32)))),),
+        (32, 128), torch.bfloat16, {"rank2": 1}, True),
+    "two_gathers_out_of_range": ("MN", "MN", lambda: (
+        PP.GatherScatter(indices=_idx([1, 99] + list(range(2, 32)))),
+        PP.GatherScatter(indices=_idx([1, 0, 77] + list(range(3, 128))),
+                         axis=-1),
+        PP.GatherScatter(indices=_idx([0, 1, -50] + list(range(3, 32))))),
+        (32, 128), torch.float32, {"rank2": 1}, True),
+    "scale_then_gather_fill": ("MN", "MNP64", lambda: (
+        PP.Scale(2.0), PP.GatherScatter(indices=_idx(
+            list(range(31)) + [64]))), (32, 128), torch.float32,
+        {"rank2": 1}, True),
+    "gather_transpose_vector_scale": ("MN", "MN", lambda: (
+        PP.GatherScatter(indices=_perm(128, 7), axis=-1), PP.Transpose(),
+        PP.Scale(torch.linspace(0.5, 2, 32))), (32, 128), torch.float32,
+        {"rank2": 1}, True),
+    "cast_same_dtype": ("NM", "MNM8N128", lambda: (
+        PP.Cast(torch.float32), PP.Transpose()), (128, 64), torch.float32,
+        {"rank2": 1}, True),
+    "cast_between_dtypes": ("MN", "MN", lambda: (
+        PP.Cast(torch.bfloat16), PP.Transpose()), (32, 128), torch.float32,
+        {"generic": 1}, True),
+    "gather_after_vector_scale": ("MN", "MN", lambda: (
+        PP.Scale(torch.linspace(0.5, 2, 128)),
+        PP.GatherScatter(indices=_perm(32, 8))), (32, 128), torch.float32,
+        {"generic": 1}, True),
+    "stage_after_reduce": ("MN", "MN", lambda: (
+        PP.ReduceStage("max"), PP.Scale(2.0)), (32, 128), torch.float32,
+        {"generic": 1}, True),
+    "rank3_transpose": ("MN", "MN", lambda: (PP.Transpose(),), (4, 16, 128),
+                        torch.float32, {"generic": 1}, True),
+    "decompress_after_transpose": ("MN", "MN", lambda: (
+        PP.Transpose(), PP.Compress(block_rows=8), PP.Decompress()),
+        (128, 32), torch.bfloat16, {"rank2": 2}, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PATH_CASES))
+def test_block_path_choice_under_emulation(name, monkeypatch):
+    """Which chains take the rank-2 path, and that both paths' arguments
+    reproduce the plain version (bitwise: index stages, NaN fills, masks)."""
+    src, dst, chain, shape, dtype, paths, bitwise = PATH_CASES[name]
+    ps, pd = PL.by_name(src), PL.by_name(dst)
+    x = torch.from_numpy(_x(shape, seed=11, zero_rows=8)).to(dtype)
+    x = ps.from_logical(x)
+    plugins = chain()
+    emu = _Emulated(_emulate_block)
+    monkeypatch.setattr(DP, "BLOCK", emu)
+    prog = DP.BlockDatapath(plugins, ps, pd, tuple(x.shape), x.dtype)
+    got = prog.launch(x)
+    want = DP.plain(x, plugins, ps, pd)
+    assert emu.paths == paths
+    if isinstance(want, PP.CTensor):
+        np.testing.assert_array_equal(bits(got.mask), bits(want.mask))
+        got, want = got.values, want.values
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bitwise
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def _stages(chain, shape, dtype=torch.float32):
+    prog = DP.BlockDatapath(chain, PL.MN, PL.MN, shape, dtype)
+    return prog._compile("cpu")
+
+
+def test_composed_map_transpose_then_gather():
+    """Transpose, then a gather of the transposed rows: the pass's row axis
+    indexes the source's columns through the gather's indices."""
+    idx = _perm(96, 3)
+    seg = _stages((PP.Transpose(), PP.GatherScatter(indices=idx)), (16, 96))
+    comp = DP.compose(seg, len(seg))
+    assert comp.axes == (1, 0) and comp.index[1] is None
+    np.testing.assert_array_equal(comp.index[0].numpy(), idx)
+    assert comp.swaps == (0, 0)
+
+
+def test_composed_map_two_gathers_on_one_axis():
+    a, b = _perm(32, 1), _perm(32, 2)
+    seg = _stages((PP.GatherScatter(indices=a), PP.GatherScatter(indices=b)),
+                  (32, 64))
+    comp = DP.compose(seg, 2)
+    assert comp.axes == (0, 1) and comp.index[1] is None
+    np.testing.assert_array_equal(comp.index[0].numpy(), a[b])
+
+
+def test_composed_map_out_of_range_fills():
+    """An index outside [-n, n) composes into the fill code -(g + 1) of its
+    gather g; where two gathers fail, the later one's code stands."""
+    first = _idx([1, 40, 2, 3] + list(range(4, 32)))       # 40 fails
+    second = _idx([1, 0, -33, 2] + list(range(4, 32)))     # -33 fails
+    seg = _stages((PP.GatherScatter(indices=first), PP.Scale(2.0),
+                   PP.GatherScatter(indices=second)), (32, 64))
+    comp = DP.compose(seg, 3)
+    got = comp.index[0].numpy()
+    assert got[0] == -1          # second[0] = 1 -> first[1] = 40 fails at 0
+    assert got[1] == 1           # second[1] = 0 -> first[0] = 1
+    assert got[2] == -3          # second[2] = -33 fails at stage 2
+    assert got[3] == 2           # second[3] = 2 -> first[2] = 2
+    assert DP.rank2_path(seg, 2, torch.float32)
+
+
+def test_composed_map_swap_parity_of_value_stages():
+    """A value stage reads its coordinate swapped under an odd number of
+    later transposes."""
+    seg = _stages((PP.Scale(torch.linspace(1, 2, 64)), PP.Transpose(),
+                   PP.BiasAdd(torch.linspace(1, 2, 32)), PP.Transpose(),
+                   PP.Scale(3.0)), (32, 64))
+    comp = DP.compose(seg, len(seg))
+    assert comp.axes == (0, 1)
+    assert (comp.swaps[0], comp.swaps[2], comp.swaps[4]) == (0, 1, 0)

@@ -65,9 +65,13 @@ def test_transfer_matches_reference_on_every_backend(name, backend):
     if name in EXACT:
         assert_same_payload(got, want, context=name)
     elif name == "quantize":
+        # bitwise against the reference's jitted result: its "pallas"
+        # backend runs the chain eagerly and divides (ROADMAP.md §3 item 2)
+        if backend == "pallas":
+            want = rx.transfer(jnp.asarray(xin),
+                               dataclasses.replace(ref, backend="fused"))
         np.testing.assert_array_equal(bits(got.values), bits(want.values))
-        np.testing.assert_allclose(to_f32(got.scales), np.asarray(want.scales),
-                                   rtol=2e-6)
+        np.testing.assert_array_equal(bits(got.scales), bits(want.scales))
     else:
         tol = O.chain_tolerance(ref)
         assert_same_payload(got, want, context=name, **tol)

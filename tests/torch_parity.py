@@ -5,6 +5,7 @@ arrays cross as numpy, bf16 as its ``uint16`` view (torch does not take
 ``ml_dtypes`` arrays).  A descriptor of the reference crosses as a plain
 spec (:func:`spec_of`) that ``repro_torch.core.descriptor.from_spec`` reads.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -147,3 +148,63 @@ def assert_same_payload(got, want, *, context="", **tol):
     else:
         np.testing.assert_allclose(to_f32(got), to_f32(want), err_msg=context,
                                    **tol)
+
+
+# -- the rank-2 tiled copy's index arithmetic, emulated ------------------------
+def _term(term, i):
+    """``xdma::term_off`` over an index array: offsets, or fill codes < 0."""
+    m = term.map
+    if term.idx:
+        vec = np.ctypeslib.as_array(
+            (ctypes.c_int64 * (int(i.max()) + 1)).from_address(term.idx))
+        j = vec[i]
+        off = (np.maximum(j, 0) // m.tile) * m.sgrid + \
+            (np.maximum(j, 0) % m.tile) * m.stile
+        return np.where(j < 0, j, off)
+    return (i // m.tile) * m.sgrid + (i % m.tile) * m.stile
+
+
+def _check_packs(off, axis, width, whole, live):
+    """Every access of ``width`` positions along ``axis`` that starts at a
+    multiple of ``width`` lies wholly inside or outside ``whole`` and, where
+    ``live``, is consecutive and ``width``-aligned in memory, as a 16-byte
+    pack of the kernel must be."""
+    if width == 1:
+        return
+    o, w, v = (np.moveaxis(a, axis, -1) for a in (off, whole, live))
+    assert o.shape[-1] % width == 0, (o.shape, width)
+    o, w, v = (a.reshape(a.shape[:-1] + (-1, width)) for a in (o, w, v))
+    assert (w.all(-1) | ~w.any(-1)).all(), "a pack straddles the extent"
+    v = v.all(-1)
+    assert (o[..., 0][v] % width == 0).all(), "a pack is not aligned"
+    assert (np.diff(o, axis=-1)[v] == 1).all(), \
+        "a pack is not consecutive in memory"
+
+
+def emulate_tile2(t, src_flat, out_size, value=None, fill=None):
+    """``xdma::tile2_run`` (csrc/xdma_common.cuh) over flat numpy buffers:
+    every position of the destination's padded space is written once, the
+    logical ones from ``value(src_flat[offsets], r, c)`` (default: the words
+    unchanged) or ``fill(codes, r, c)`` where a gather's index failed, the
+    stride padding with zeros.  The access widths the host chose (``vs``,
+    ``vd``) are checked against the offsets they would move as packs."""
+    r, c = np.broadcast_arrays(np.arange(t.prows)[:, None],
+                               np.arange(t.pcols)[None, :])
+    inside = (r < t.rows) & (c < t.cols)
+    sr = _term(t.src_r, np.minimum(r, t.rows - 1))
+    sc = _term(t.src_c, np.minimum(c, t.cols - 1))
+    so = np.where((sr < 0) | (sc < 0), np.minimum(sr, sc), sr + sc)
+    ok = inside & (so >= 0)
+    _check_packs(so, t.load_axis, t.vs, inside, ok)
+    dm = lambda m, i: (i // m.tile) * m.sgrid + (i % m.tile) * m.stile
+    do = dm(t.dst_r, r) + dm(t.dst_c, c)
+    everywhere = np.ones_like(inside)
+    _check_packs(do, t.store_axis, t.vd, everywhere, everywhere)
+    assert np.unique(do).size == do.size, "a destination word written twice"
+    out = np.zeros(out_size, dtype=src_flat.dtype)
+    vals = src_flat[so[ok]]
+    out[do[ok]] = vals if value is None else value(vals, r[ok], c[ok])
+    bad = inside & (so < 0)
+    if bad.any():
+        out[do[bad]] = fill(so[bad], r[bad], c[bad])
+    return out

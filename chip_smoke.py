@@ -27,6 +27,8 @@ run with a non-zero exit.  Phases 2 and 4 also assert the launches by code
 path: kernel 1's ``direct`` and ``staged`` copies, and kernel 3's six
 main-path transfers all on its rank-2 path (a small rank-3 chain on its
 generic path).  Phase 7 holds kernel 5 on NaN, inf and -inf rows too.
+Phase 8 asserts that both bf16 model layers took kernel 6's tensor-core
+path (``mma``) and its small f32 checks the FMA path (``fma``).
 
 The line before the last is one JSON object with each kernel's launches,
 error and times (CUDA events, median of several runs, GPU time only);
@@ -164,6 +166,32 @@ def main():
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
         log(f"[ptxas] {src}: at most {max(regs, default=0)} registers a "
             f"thread, {spills} bytes of spill traffic over its kernels")
+    # kernel 6 instance by instance: "flash_mma_kernel<__nv_bfloat16, 128>";
+    # every tensor-core instance (2 dtypes x 4 head dims) must be found and
+    # must not spill
+    mma_spills = {}
+    for entry in re.split(r"Compiling entry function",
+                          _build.BUILD_LOG.get("flash_attention.cu", ""))[1:]:
+        name = re.search(r"\d(flash_mma_kernel|flash_kernel)I"
+                         r"(6__half|13__nv_bfloat16|f)Li(\d+)", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        if name and regs:
+            dtype = {"f": "float"}.get(name.group(2),
+                                       name.group(2).lstrip("0123456789"))
+            spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", entry))
+            inst = f"{name.group(1)}<{dtype}, {name.group(3)}>"
+            log(f"[ptxas] {inst}: {regs.group(1)} registers, {spill} bytes "
+                f"of spill traffic")
+            if name.group(1) == "flash_mma_kernel":
+                mma_spills[inst] = spill
+    want_inst = {f"flash_mma_kernel<{t}, {hd}>" for t in ("__half", "__nv_bfloat16")
+                 for hd in (16, 32, 64, 128)}
+    check(set(mma_spills) == want_inst,
+          f"kernel6: the build log of flash_attention.cu names tensor-core "
+          f"instances {sorted(mma_spills)}, not {sorted(want_inst)} (a "
+          f"library built without its log: remove build/kernels)")
+    check(not any(mma_spills.values()),
+          f"kernel6: tensor-core instances spill: {mma_spills}")
 
     rows = {}          # kernel name -> JSON row
     pair_times = []
@@ -543,7 +571,12 @@ def main():
                 for _, window, qkv in attn_in]
 
     outs6, counts = drive("kernel6", [FA.FLASH], k6_path)
-    attn_tol = dict(rtol=2e-2, atol=2e-2)
+    check(FA.FLASH.paths == {"mma": len(attn_in)},
+          f"kernel6: the bf16 model layers took paths {FA.FLASH.paths}, "
+          f"not the tensor-core path (mma) each")
+    # unit-variance inputs at hd 128 give nearly flat softmax rows, and
+    # outputs of about 0.02 at late positions: atol stays well under them
+    attn_tol = dict(rtol=2e-2, atol=2e-3)
     sm = [torch.randn(2, 96, h, 64, generator=gen, device=dev)
           for h in (4, 2, 2)]
     assert_close(FA.flash_attention_gqa(*sm, window=24).cpu(),
@@ -556,10 +589,49 @@ def main():
                  FA.flash_attention_plain(*(t.cpu() for t in sm),
                                           causal=False),
                  dict(rtol=2e-5, atol=2e-5), "kernel6 small f32 vs CPU")
+    check(FA.FLASH.paths.get("fma") == 2,
+          f"kernel6: the f32 checks took paths {FA.FLASH.paths}, not fma")
+    sm = [torch.randn(2, 200, h, 32, generator=gen, device=dev).half()
+          for h in (4, 2, 2)]
+    assert_close(FA.flash_attention_gqa(*sm, window=70).cpu(),
+                 FA.flash_attention_gqa_plain(*(t.cpu() for t in sm),
+                                              window=70),
+                 attn_tol, "kernel6 small f16 GQA vs CPU")
+    check(FA.FLASH.paths["mma"] == len(attn_in) + 1,
+          f"kernel6: the f16 check took paths {FA.FLASH.paths}, not mma")
+    log(f"[kernel6] paths: model layers {{'mma': {len(attn_in)}}}, small "
+        f"checks f32 on fma, f16 on mma; all within tolerance")
+    def margin(got, want):
+        """max |got - want|, that over the RMS of ``want``, the RMS, and the
+        least atol that passes at rtol 2e-2: how much of the tolerance the
+        comparison uses."""
+        err = (got.float() - want.float()).abs()
+        rms = want.float().pow(2).mean().sqrt().item()
+        need = (err - 2e-2 * want.float().abs()).max().item()
+        return (f"max abs err {err.max().item()}, "
+                f"{err.max().item() / rms:.4f} of the output's RMS "
+                f"({rms:.5f}); atol needed at rtol 2e-2: {need:.6f}")
+
     for (name, window, qkv), out in zip(attn_in, outs6):
         B, S, H, hd = qkv[0].shape
         want = FA.flash_attention_gqa_plain(*qkv, causal=True, window=window)
         assert_close(out, want, attn_tol, f"kernel6 {name}")
+        log(f"[kernel6] {name}: {margin(out, want)}")
+        # q scaled by 3: peaked scores, outputs of about 0.2-1, so a dropped,
+        # repeated or mis-masked key block moves them far past the tolerance.
+        # Where two heavy keys cancel, one bf16 ulp of their P moves the
+        # output by a few thousandths, and SDPA differs from the plain
+        # version by as much there: hence atol 4e-3 (the run logs the atol
+        # each check needs)
+        peak_tol = dict(rtol=2e-2, atol=4e-3)
+        qs = (qkv[0].float() * 3).to(qkv[0].dtype)
+        got_s = FA.flash_attention_gqa(qs, *qkv[1:], causal=True,
+                                       window=window)
+        want_s = FA.flash_attention_gqa_plain(qs, *qkv[1:], causal=True,
+                                              window=window)
+        assert_close(got_s, want_s, peak_tol, f"kernel6 {name}, q x 3")
+        log(f"[kernel6] {name}, q x 3: {margin(got_s, want_s)}")
+        del qs, got_s, want_s
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in qkv)
         if window is None:
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
@@ -572,8 +644,11 @@ def main():
             lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
             pairs = int(mask.sum())
-        assert_close(lib().transpose(1, 2), want, attn_tol,
+        got_lib = lib().transpose(1, 2)
+        assert_close(got_lib, want, attn_tol,
                      f"kernel6 {name} library yardstick")
+        log(f"[kernel6] {name} library yardstick: {margin(got_lib, want)}")
+        del got_lib
         flops = 4 * B * H * hd * pairs
         r = {"pair": f"flash_attention_gqa {name} B{B} S{S} H{H} "
                      f"KV{qkv[1].shape[2]} hd{hd} window {window}",

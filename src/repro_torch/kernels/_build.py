@@ -37,7 +37,9 @@ _HEADERS = ("xdma_common.cuh",)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}          # source name -> nvcc's stderr
+# source name -> nvcc's output (kept beside the library as ``.log``, and
+# read back from there when the library was built by an earlier process)
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -62,6 +64,8 @@ def _target(source: str) -> Path:
 def _start(source: str) -> Optional[subprocess.Popen]:
     out = _target(source)
     if out.exists():
+        if out.with_suffix(".log").exists():
+            BUILD_LOG[source] = out.with_suffix(".log").read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -79,6 +83,9 @@ def _finish(source: str, proc: Optional[subprocess.Popen]) -> None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+    tmp_log = out.with_suffix(f".{os.getpid()}.logtmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, out.with_suffix(".log"))
     os.replace(tmp, out)                # atomic: concurrent builders agree
 
 

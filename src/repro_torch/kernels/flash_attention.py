@@ -7,7 +7,9 @@ write the finite ``NEG_INF = -1e30``, P rounded to v's dtype before ``P . V``.
 On a CUDA tensor both entry points launch ``csrc/flash_attention.cu``, which
 addresses heads by strides: :func:`flash_attention_gqa` hands it the
 ``(B, S, H, hd)`` / ``(B, S, KV, hd)`` tensors as they are, and query head
-``h`` reads kv head ``h // G``.  On a CPU tensor they take the plain
+``h`` reads kv head ``h // G``.  bf16 and f16 take its tensor-core path
+(``mma.sync``), f32 its FMA path (full f32 products, as the reference's f32
+dot); ``FLASH.paths`` counts the launches of each as ``"mma"`` / ``"fma"``.  On a CPU tensor they take the plain
 version, :func:`flash_attention_plain`, which runs the reference's own
 update over the reference's ``(q_chunk, kv_chunk)`` blocks; the chunks shape
 only that version (the kernel tiles 64 x 64).
@@ -22,10 +24,17 @@ import torch
 from . import _build, maps
 
 __all__ = ["flash_attention", "flash_attention_gqa", "flash_attention_plain",
-           "flash_attention_gqa_plain", "flash_args", "FLASH", "NEG_INF"]
+           "flash_attention_gqa_plain", "flash_args", "FLASH", "PATHS",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
+
+# The kernel's code paths, by their index in FlashArgs.path, and the one each
+# dtype takes: the only place the choice is made (the C entry point launches
+# the path named in the arguments and refuses one that does not fit the dtype)
+PATHS = ("fma", "mma")
+_PATH_OF = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 1}
 
 FLASH = _build.register(_build.Kernel(
     "flash_attention", "flash_attention.cu", "xdma_flash_attention",
@@ -36,7 +45,7 @@ FLASH = _build.register(_build.Kernel(
 class _FlashArgs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int64) for name in (
         "B", "H", "G", "Sq", "Sk", "hd", "causal", "has_window", "window",
-        "dtype")] + [("scale", ctypes.c_double)] + [
+        "dtype", "vec", "path")] + [("scale", ctypes.c_double)] + [
         (name, ctypes.c_int64) for name in (
             "q_sb", "q_sh", "q_ss", "k_sb", "k_sh", "k_ss",
             "v_sb", "v_sh", "v_ss", "o_sb", "o_sh", "o_ss")]
@@ -106,7 +115,9 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
     """Kernel 6's arguments for ``q``/``out`` (B, Sq, H, hd) and ``k``/``v``
     (B, Sk, KV, hd), strided views whose head dim is contiguous; query head
     ``h`` reads kv head ``h // (H // KV)``.  A (BH, S, hd) tensor enters as
-    its (BH, S, 1, hd) view."""
+    its (BH, S, 1, hd) view.  ``vec`` is 1 when every base address and every
+    stride the kernel steps by is a multiple of 16 bytes (the mma path's
+    16-byte copies); else that path moves one element at a time."""
     a = _FlashArgs()
     a.B, a.Sq, a.H, a.hd = q.shape
     a.G = a.H // k.shape[2]
@@ -115,7 +126,9 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
     a.has_window = int(window is not None)
     a.window = 0 if window is None else int(window)
     a.dtype = maps.dtype_code(q.dtype)
+    a.path = _PATH_OF[q.dtype]
     a.scale = a.hd ** -0.5
+    a.vec = 1
     for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
         sb, ss, sh, sd = t.stride()
         if sd != 1 and t.shape[3] > 1:
@@ -123,6 +136,10 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
         setattr(a, f"{name}_sb", sb)
         setattr(a, f"{name}_ss", ss)
         setattr(a, f"{name}_sh", sh)
+        steps = [st for n, st in zip(t.shape[:3], (sb, ss, sh)) if n > 1]
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in steps):
+            a.vec = 0
     return a
 
 
@@ -139,7 +156,7 @@ def _launch(q, k, v, out, *, causal: bool, window):
         raise ValueError("q, k and v must lie on one device")
     a = flash_args(q, k, v, out, causal=causal, window=window)
     FLASH(ctypes.addressof(a), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          out.data_ptr())
+          out.data_ptr(), path=PATHS[a.path])
     return out
 
 

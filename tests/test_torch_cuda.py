@@ -384,6 +384,8 @@ def test_flash_attention_kernel_vs_plain(name):
     tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
            else dict(rtol=2e-2, atol=2e-2))
     before = FA.FLASH.launches
+    path = "fma" if dtype == torch.float32 else "mma"
+    before_path = FA.FLASH.paths.get(path, 0)
     if H == 1:
         fold = lambda t: t[:, :, 0]                       # noqa: E731
         want = FA.flash_attention_plain(fold(q), fold(k), fold(v),
@@ -397,5 +399,69 @@ def test_flash_attention_kernel_vs_plain(name):
                                      causal=causal, window=window)
     torch.cuda.synchronize()
     assert FA.FLASH.launches == before + 1
+    assert FA.FLASH.paths[path] == before_path + 1
     assert got.shape == want.shape and got.dtype == want.dtype
     torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+
+
+def _flash_half_vs_plain(q, k, v, causal, window):
+    """One launch of kernel 6 on its tensor-core path, held within 2e-2 of
+    the plain version."""
+    before = FA.FLASH.paths.get("mma", 0)
+    want = FA.flash_attention_gqa_plain(q.cpu(), k.cpu(), v.cpu(),
+                                        causal=causal, window=window)
+    got = FA.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.FLASH.paths["mma"] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+# (B, Sq, Sk, H, KV, causal, window): each edge of the mma path
+FLASH_HALF_CASES = {
+    "ragged_sk": (2, 200, 150, 1, 1, True, None),
+    "sq_gt_sk": (1, 100, 40, 1, 1, True, None),
+    "no_live_key": (1, 130, 40, 1, 1, False, 8),
+    "window_not_causal": (1, 200, 200, 1, 1, False, 70),
+    "gqa_causal_window": (1, 256, 256, 4, 2, True, 64),
+    "full": (2, 128, 96, 1, 1, False, None),
+}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(FLASH_HALF_CASES))
+def test_flash_attention_mma_path_edges(name, dtype, hd):
+    """Ragged Sk, Sq > Sk, rows with no live key (the reference averages
+    every V row), a window without causal, GQA with a window, and no mask,
+    at every head dim, in bf16 and f16."""
+    B, Sq, Sk, H, KV, causal, window = FLASH_HALF_CASES[name]
+    q = _logical((B * Sq * H, hd), torch.float32, seed=31).reshape(B, Sq, H, hd)
+    k = _logical((B * Sk * KV, hd), torch.float32, seed=32).reshape(B, Sk, KV, hd)
+    v = _logical((B * Sk * KV, hd), torch.float32, seed=33).reshape(B, Sk, KV, hd)
+    q, k = q / 4, k / 4
+    _flash_half_vs_plain(*(t.to(dtype).cuda() for t in (q, k, v)), causal,
+                         window)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_flash_attention_mma_path_strided_gqa_views(aligned, dtype, hd):
+    """q, k and v are strided, non-contiguous views of one packed (B, S,
+    H + 2 KV, hd) buffer, read in place; unaligned, the buffer starts one
+    element past a 16-byte boundary and the kernel moves single elements."""
+    B, S, H, KV = 2, 160, 6, 2
+    n = B * S * (H + 2 * KV) * hd
+    flat = torch.empty(n + 1, dtype=dtype, device="cuda")
+    flat = flat[:n] if aligned else flat[1:]
+    qkv = flat.view(B, S, H + 2 * KV, hd)
+    qkv.copy_(_logical((n // hd, hd), torch.float32, seed=34).reshape(
+        qkv.shape) / 2)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    args = FA.flash_args(q, k, v, torch.empty_like(q), causal=True,
+                         window=48)
+    assert args.vec == int(aligned)
+    _flash_half_vs_plain(q, k, v, True, 48)

@@ -4,10 +4,15 @@ The same numpy inputs go through the reference's Pallas kernel (interpret
 mode, as ``tests/test_flash_kernel.py`` runs it) and through the port on the
 CPU, which takes the plain version: rtol/atol 2e-5 on f32, 2e-2 on bf16.
 The CUDA kernel's algorithm — 64 x 64 tiles, its key-block skip rule, the
-ragged last block, strided heads read in place for GQA — is checked on the
-CPU by an emulation over the kernel's own argument struct; the kernel itself
-by the ``cuda`` tests on a GPU.
+ragged last block, strided heads read in place for GQA, and on the bf16 /
+f16 path the exp2 softmax and masks on edge blocks only — is checked on the
+CPU by an emulation over the kernel's own argument struct; the tensor-core
+path's fragment maps (mma.m16n8k16, ldmatrix, the C -> A reuse of P) by
+products built lane by lane and held bitwise against ``torch.matmul``; the
+kernel itself by the ``cuda`` tests on a GPU.
 """
+import math
+
 import pytest
 
 pytest.importorskip("torch")
@@ -118,10 +123,20 @@ _DTYPE_OF = {0: torch.float32, 1: torch.bfloat16, 2: torch.float16}
 def _emulate_flash(qf, kf, vf, a, out_numel):
     """``csrc/flash_attention.cu`` step by step over flat buffers: 64 x 64
     tiles, the key-block skip rule, keys past Sk at -inf, -1e30 masks, P
-    rounded to the dtype, the output rounded once."""
+    rounded to the dtype, the output rounded once.  f32 follows the FMA path
+    (exp, every block masked); bf16 / f16 the mma path, as ``a.path``
+    names it: scores scaled by f32(hd^-0.5 * log2 e), exp2, and masks applied
+    only on blocks that cross Sk, the causal diagonal or the window's lower
+    edge (the emulation asserts that the other blocks mask nothing)."""
     BQ = BK = 64
+    mma = PF.PATHS[a.path] == "mma"
     d = torch.arange(a.hd)
-    scale = torch.tensor(a.scale, dtype=torch.float32)
+    if mma:
+        scale = torch.tensor(a.scale * math.log2(math.e), dtype=torch.float32)
+        exp = torch.exp2
+    else:
+        scale = torch.tensor(a.scale, dtype=torch.float32)
+        exp = torch.exp
     out = torch.full((out_numel,), float("nan"))
 
     def lo(qp):
@@ -162,11 +177,19 @@ def _emulate_flash(qf, kf, vf, a, out_numel):
                     masked |= kp > qp
                 if a.has_window:
                     masked |= kp <= qp - a.window
-                s = torch.where(masked, PF.NEG_INF, s)
-                s = torch.where(kp >= a.Sk, float("-inf"), s)
+                past = (kp >= a.Sk).expand(BQ, BK)
+                full = (k0 + BK <= a.Sk
+                        and (not a.causal or k0 + BK - 1 <= q0)
+                        and (not a.has_window or k0 > q1 - a.window))
+                if mma and full:
+                    live_rows = rows < a.Sq
+                    assert not (masked | past)[live_rows].any()
+                else:
+                    s = torch.where(masked, PF.NEG_INF, s)
+                    s = torch.where(past, float("-inf"), s)
                 m_new = torch.maximum(m, s.amax(1))
-                corr = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[:, None])
+                corr = exp(m - m_new)
+                p = exp(s - m_new[:, None])
                 l = l * corr + p.sum(1)
                 p = p.to(_DTYPE_OF[a.dtype]).float()
                 acc = acc * corr[:, None] + p @ V
@@ -192,29 +215,37 @@ def _emulated(q, k, v, causal, window, gqa):
     return flat.reshape(out.shape), a
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (96, 96, True, None), (96, 96, False, None), (96, 96, True, 24),
     (200, 200, True, 70), (130, 130, False, 8), (40, 100, False, None),
     (100, 40, True, None), (130, 40, False, 8), (64, 64, True, 0)])
-def test_kernel_algorithm_emulated_matches_reference(Sq, Sk, causal, window):
+def test_kernel_algorithm_emulated_matches_reference(Sq, Sk, causal, window,
+                                                     dtype):
     """Covers the skip rule (windows, causal), ragged blocks, Sq != Sk, rows
     with no live key at all (the reference then averages every V row) and a
-    window of 0."""
-    q, k, v = rand((2, Sq, 16), 50), rand((2, Sk, 16), 51), rand((2, Sk, 16), 52)
+    window of 0, on the FMA path (f32) and the mma path (bf16)."""
+    import ml_dtypes
+    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    q, k, v = (rand((2, n, 16), 50 + i).astype(dt)
+               for i, n in enumerate((Sq, Sk, Sk)))
     got, a = _emulated(*(to_torch(t) for t in (q, k, v)), causal, window,
                        gqa=False)
     assert (a.B, a.H, a.G, a.Sq, a.Sk, a.hd) == (2, 1, 1, Sq, Sk, 16)
     want = r_flash(*(jnp.asarray(t) for t in (q, k, v)), causal=causal,
                    window=window, q_chunk=32, kv_chunk=32)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), to_f32(want),
+                               **(F32_TOL if dtype == "float32" else BF16_TOL))
 
 
 @pytest.mark.parametrize("dtype,window", [("float32", None),
-                                          ("bfloat16", 24)])
+                                          ("bfloat16", 24),
+                                          ("float16", 24)])
 def test_kernel_gqa_args_emulated_match_reference(dtype, window):
     """The GQA form is read in place: per-head strides, kv head h // G."""
     import ml_dtypes
-    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    dt = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16,
+          "float16": np.float16}[dtype]
     q = rand((2, 80, 6, 16), 60).astype(dt)
     k = rand((2, 80, 2, 16), 61).astype(dt)
     v = rand((2, 80, 2, 16), 62).astype(dt)
@@ -226,3 +257,171 @@ def test_kernel_gqa_args_emulated_match_reference(dtype, window):
                  q_chunk=16, kv_chunk=16)
     np.testing.assert_allclose(got.numpy(), to_f32(want),
                                **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.float32, "fma"),
+                                        (torch.bfloat16, "mma"),
+                                        (torch.float16, "mma")])
+def test_kernel_args_name_the_path_by_dtype(dtype, path):
+    """The arguments carry the path the C entry point launches; the wrapper
+    counts the launch under the same label."""
+    q = torch.zeros(1, 8, 2, 16, dtype=dtype)
+    k = torch.zeros(1, 8, 1, 16, dtype=dtype)
+    a = PF.flash_args(q, k, k, torch.empty_like(q), causal=True, window=None)
+    assert PF.PATHS[a.path] == path
+
+
+# -- the mma path's fragment maps, lane by lane ------------------------------
+# The PTX ISA's layouts (mma.m16n8k16 with a floating-point type; ldmatrix),
+# lane = 4 g + t, as the comment at the top of csrc/flash_attention.cu lists
+# them; a register holds two 16-bit values, `half` 0 the low one.
+LANES = torch.arange(32)
+G, T = LANES // 4, LANES % 4
+REG4 = torch.arange(4)[None, :, None]
+REG2 = torch.arange(2)[None, :, None]
+HALF = torch.arange(2)[None, None, :]
+
+
+def a_map():
+    """A (16 x 16, row): reg r, half h of a lane -> (row, col)."""
+    row = G[:, None, None] + 8 * (REG4 & 1) + 0 * HALF
+    col = 2 * T[:, None, None] + HALF + 8 * (REG4 >> 1)
+    return row, col
+
+
+def b_map():
+    """B (16 x 8, col): reg r, half h of a lane -> (k, n)."""
+    k = 2 * T[:, None, None] + HALF + 8 * REG2
+    n = G[:, None, None] + 0 * REG2 + 0 * HALF
+    return k, n
+
+
+def c_map():
+    """C / D (16 x 8, f32): element e of a lane -> (row, col)."""
+    e = torch.arange(4)[None, :]
+    return G[:, None] + 8 * (e >> 1), 2 * T[:, None] + (e & 1)
+
+
+def ldmatrix_map(trans):
+    """ldmatrix.x4: reg i, half h of a lane -> (row, col) in matrix i."""
+    r = G[:, None, None] + 0 * REG4 + 0 * HALF
+    c = 2 * T[:, None, None] + HALF + 0 * REG4
+    return (c, r) if trans else (r, c)
+
+
+# the row and column each lane addresses in the kernel's ldmatrix calls
+def q_address(lane):
+    return (lane & 7) + 8 * ((lane >> 3) & 1), 8 * (lane >> 4)
+
+
+def k_address(lane):
+    return (lane & 7) + 8 * (lane >> 4), 8 * ((lane >> 3) & 1)
+
+
+def v_address(lane):
+    return (lane & 7) + 8 * ((lane >> 3) & 1), 8 * (lane >> 4)
+
+
+def ldmatrix_x4(tile, r0, c0, address, trans=False):
+    """Lanes 8i .. 8i+7 give the rows of matrix i, each 8 values from the
+    column the lane addresses; returns the lanes' registers (32, 4, 2)."""
+    rows, cols = address(LANES)
+    rows, cols = (r0 + rows).view(4, 8), (c0 + cols).view(4, 8)
+    mats = torch.stack([torch.stack([tile[rows[i, j], cols[i, j]:cols[i, j] + 8]
+                                     for j in range(8)]) for i in range(4)])
+    r, c = ldmatrix_map(trans)
+    return mats[REG4.expand(32, 4, 2), r, c]
+
+
+def mma_m16n8k16(d, a, b):
+    """d (32, 4) += A . B from the lanes' fragments, in f32."""
+    A, B, C = torch.zeros(16, 16), torch.zeros(16, 8), torch.zeros(16, 8)
+    A[a_map()] = a
+    B[b_map()] = b
+    C[c_map()] = d
+    return (torch.matmul(A, B) + C)[c_map()]
+
+
+def _small_ints(shape, seed):
+    """Values whose every product and sum is exact in f32 (and in bf16)."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        -3, 4, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("name", ["A", "B", "C", "ldmatrix", "ldmatrix.trans"])
+def test_fragment_maps_cover_each_element_once(name):
+    rows, cols, shape = {
+        "A": (*a_map(), (16, 16)), "B": (*b_map(), (16, 8)),
+        "C": (*c_map(), (16, 8)),
+        "ldmatrix": (*ldmatrix_map(False), (8, 8)),
+        "ldmatrix.trans": (*ldmatrix_map(True), (8, 8))}[name]
+    if name.startswith("ldmatrix"):       # per matrix: (reg i, row, col)
+        flat = (REG4 * 64 + rows * 8 + cols).flatten()
+        assert sorted(flat.tolist()) == list(range(4 * 64))
+    else:
+        flat = (rows * shape[1] + cols).flatten()
+        assert sorted(flat.tolist()) == list(range(shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_mma_fragments_build_scores_bitwise(hd):
+    """S = Q K^T of one 64-query, 64-key block, as the kernel's 4 warps build
+    it: Q's A-fragments by ldmatrix.x4 once, K's B-fragments by ldmatrix.x4
+    (two key n-tiles a call), the f32 C-fragments gathered back by the C
+    map; bitwise torch.matmul's."""
+    LDS = hd + 8
+    Q, K = _small_ints((64, hd), 70), _small_ints((64, hd), 71)
+    sQ, sK = torch.zeros(64, LDS), torch.zeros(64, LDS)
+    sQ[:, :hd], sK[:, :hd] = Q, K
+    S = torch.full((64, 64), float("nan"))
+    for w in range(4):
+        qf = [ldmatrix_x4(sQ, 16 * w, 16 * kk, q_address)
+              for kk in range(hd // 16)]
+        s = [torch.zeros(32, 4) for _ in range(8)]
+        for kk in range(hd // 16):
+            for np_ in range(4):
+                bf = ldmatrix_x4(sK, 16 * np_, 16 * kk, k_address)
+                s[2 * np_] = mma_m16n8k16(s[2 * np_], qf[kk], bf[:, 0:2])
+                s[2 * np_ + 1] = mma_m16n8k16(s[2 * np_ + 1], qf[kk],
+                                              bf[:, 2:4])
+        r, c = c_map()
+        for j in range(8):
+            S[16 * w + r, 8 * j + c] = s[j]
+    assert torch.equal(S, torch.matmul(Q, K.T))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_mma_fragments_build_output_bitwise(hd):
+    """O = P V of one block: P's C-fragments (as the softmax leaves them)
+    reused as A-fragments, V's B-fragments by ldmatrix.x4.trans (two column
+    n-tiles a call); then the epilogue's staging, each lane writing its
+    C-fragment pairs into the warp's 16 rows and reading back 16-byte
+    chunks; bitwise torch.matmul's."""
+    LDS, CPR = hd + 8, hd // 8
+    P, V = _small_ints((64, 64), 72), _small_ints((64, hd), 73)
+    sV = torch.zeros(64, LDS)
+    sV[:, :hd] = V
+    out = torch.full((64, hd), float("nan"))
+    r, c = c_map()
+    for w in range(4):
+        p = [P[16 * w + r, 8 * j + c] for j in range(8)]     # C-fragments
+        acc = [torch.zeros(32, 4) for _ in range(hd // 8)]
+        for kk in range(4):
+            # A regs: C(2kk) c0c1, C(2kk) c2c3, C(2kk+1) c0c1, C(2kk+1) c2c3
+            pa = torch.stack([p[2 * kk + (reg >> 1)][:, 2 * (reg & 1):
+                                                     2 * (reg & 1) + 2]
+                              for reg in range(4)], dim=1)
+            for dp in range(hd // 16):
+                bf = ldmatrix_x4(sV, 16 * kk, 16 * dp, v_address, trans=True)
+                acc[2 * dp] = mma_m16n8k16(acc[2 * dp], pa, bf[:, 0:2])
+                acc[2 * dp + 1] = mma_m16n8k16(acc[2 * dp + 1], pa, bf[:, 2:4])
+        so = torch.full((16, LDS), float("nan"))
+        for j in range(hd // 8):
+            so[r, 8 * j + c] = acc[j]
+        for i in range(16 * CPR // 32):
+            chunk = LANES + 32 * i
+            row, col = chunk // CPR, (chunk % CPR) * 8
+            for lane in range(32):
+                out[16 * w + row[lane], col[lane]:col[lane] + 8] = \
+                    so[row[lane], col[lane]:col[lane] + 8]
+    assert torch.equal(out, torch.matmul(P, V))

@@ -249,6 +249,20 @@ def test_every_kernel_names_a_pallas_call_of_the_reference():
     assert len(sites) == len(_build.KERNELS) == 6
 
 
+def test_build_log_is_read_back_for_a_library_built_earlier(monkeypatch,
+                                                           tmp_path):
+    """A library found built does not start nvcc, and its build log (kept
+    beside it) is what ``BUILD_LOG`` holds for it."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_LOG", {})
+    src = "flash_attention.cu"
+    lib = _build._target(src)
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 99 registers")
+    assert _build.build_all([src]) == [lib]
+    assert _build.BUILD_LOG == {src: "ptxas info    : Used 99 registers"}
+
+
 @pytest.mark.parametrize("fn,args", [
     (pops.rmsnorm_relayout, (None, (16, 128))),
     (pops.quantize_tiled, ((32, 128),))])

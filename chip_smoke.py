@@ -23,19 +23,22 @@ kernel against its plain PyTorch version on the same inputs:
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
 result that disagrees, or a kernel that does not build or launch fails the
-run with a non-zero exit.  Phases 2 and 4 also assert the launches by code
-path: kernel 1's ``direct`` and ``staged`` copies, and kernel 3's six
-main-path transfers all on its rank-2 path (a small rank-3 chain on its
-generic path).  Phase 7 holds kernel 5 on NaN, inf and -inf rows too.
-Phase 8 asserts that both bf16 model layers took kernel 6's tensor-core
-path (``mma``) and its small f32 checks the FMA path (``fma``).
+run with a non-zero exit.  Phases 2-4 also assert the launches by code
+path: kernel 1's ``direct`` and ``staged`` copies, kernel 2's two main-path
+launches on its ``rows`` path (a small NM chain on its generic path), and
+kernel 3's six main-path transfers all on its rank-2 path (a small rank-3
+chain on its generic path).  Phase 3 also times the Prefill store at
+gemma3-27B width (d_model 5376).  Phase 7 holds kernel 5 on NaN, inf and
+-inf rows too.  Phase 8 asserts that both bf16 model layers took kernel 6's
+tensor-core path (``mma``) and its small f32 checks the FMA path (``fma``).
 
 The line before the last is one JSON object with each kernel's launches,
 error and times (CUDA events, median of several runs, GPU time only);
 the last line is ``{"ok": true, "device": {...}}``.  Per-pair times go to
 ``chiprun_out/chip_smoke_times.json``, the compiler's output (registers and
-spills of every kernel) to ``chiprun_out/build_log.txt``.  Without a CUDA device it exits
-non-zero and prints no result.
+spills of every kernel) to ``chiprun_out/build_log.txt``; a tensor-core
+instance of kernel 6 or a rows-path instance of kernel 2 that spills fails
+the run.  Without a CUDA device it exits non-zero and prints no result.
 """
 import json
 import os
@@ -129,6 +132,33 @@ def assert_close(got, want, tol, what):
     check(ok, f"{what}: outside {tol}, max abs err {max_abs_err(got, want)}")
 
 
+def ptxas_entries(text):
+    """(mangled name, registers, bytes of stack frame, bytes of spill
+    traffic) of each entry function in an ``nvcc -Xptxas -v`` log."""
+    found = []
+    for entry in re.split(r"Compiling entry function", text)[1:]:
+        name = re.match(r"\s*'(\w+)'", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        if name and regs:
+            stack = sum(int(b) for b in re.findall(r"(\d+) bytes stack", entry))
+            spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", entry))
+            found.append((name.group(1), int(regs.group(1)), stack, spill))
+    return found
+
+
+def demangled(names):
+    """``names`` as ``c++filt`` reads them, or as they are where it does not
+    run."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+    except OSError:
+        return list(names)
+    read = out.stdout.splitlines()
+    return read if out.returncode == 0 and len(read) == len(names) else \
+        list(names)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -170,18 +200,16 @@ def main():
     # every tensor-core instance (2 dtypes x 4 head dims) must be found and
     # must not spill
     mma_spills = {}
-    for entry in re.split(r"Compiling entry function",
-                          _build.BUILD_LOG.get("flash_attention.cu", ""))[1:]:
+    for mangled, regs, _, spill in ptxas_entries(
+            _build.BUILD_LOG.get("flash_attention.cu", "")):
         name = re.search(r"\d(flash_mma_kernel|flash_kernel)I"
-                         r"(6__half|13__nv_bfloat16|f)Li(\d+)", entry)
-        regs = re.search(r"Used (\d+) registers", entry)
-        if name and regs:
+                         r"(6__half|13__nv_bfloat16|f)Li(\d+)", mangled)
+        if name:
             dtype = {"f": "float"}.get(name.group(2),
                                        name.group(2).lstrip("0123456789"))
-            spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", entry))
             inst = f"{name.group(1)}<{dtype}, {name.group(3)}>"
-            log(f"[ptxas] {inst}: {regs.group(1)} registers, {spill} bytes "
-                f"of spill traffic")
+            log(f"[ptxas] {inst}: {regs} registers, {spill} bytes of spill "
+                f"traffic")
             if name.group(1) == "flash_mma_kernel":
                 mma_spills[inst] = spill
     want_inst = {f"flash_mma_kernel<{t}, {hd}>" for t in ("__half", "__nv_bfloat16")
@@ -192,6 +220,22 @@ def main():
           f"library built without its log: remove build/kernels)")
     check(not any(mma_spills.values()),
           f"kernel6: tensor-core instances spill: {mma_spills}")
+    # kernel 2 instance by instance: 9 dtype pairs on the rows path (none may
+    # spill), 9 x 2 (staged, re-read) on the generic
+    rows_inst = 0
+    k2 = ptxas_entries(_build.BUILD_LOG.get("streamed_datapath.cu", ""))
+    for (mangled, regs, stack, spill), name in zip(
+            k2, demangled([e[0] for e in k2])):
+        short = re.search(r"streamed_\w+_kernel(<[^>]*>)?", name).group(0)
+        log(f"[ptxas] {short}: {regs} registers, {stack} bytes of stack, "
+            f"{spill} bytes of spill traffic")
+        if "streamed_rows_kernel" in mangled:
+            rows_inst += 1
+            check(spill == 0, f"kernel2: rows instance {short} spills")
+    check(rows_inst == 9,
+          f"kernel2: the build log of streamed_datapath.cu names {rows_inst} "
+          f"rows-path instances, not 9 (a library built without its log: "
+          f"remove build/kernels)")
 
     rows = {}          # kernel name -> JSON row
     pair_times = []
@@ -308,6 +352,9 @@ def main():
         return xdma.transfer(xb, store), xdma.transfer(xf, cast)
 
     (y_store, y_cast), counts = drive("kernel2", [datapath.STREAMED], k2_path)
+    check(datapath.STREAMED.paths == {"rows": 2},
+          f"kernel2: paths {datapath.STREAMED.paths}, expected both main-path "
+          f"launches on the rows path")
     check(plugin_compiler.cfg_stats()["fused"] == 2,
           f"kernel2: cfg_stats {plugin_compiler.cfg_stats()}")
     want_store = datapath.plain(xb, store.plugins, L.MN, L.MNM16N128)
@@ -317,18 +364,44 @@ def main():
     assert_close(y_store, want_store, tol_store, "kernel2 rmsnorm store")
     assert_close(y_cast, want_cast, tol_cast, "kernel2 cast/scale/bias")
     k2_err = max_abs_err(y_store, want_store)
-    differ = int((bits(y_store) != bits(want_store)).sum())
-    log(f"[kernel2] rmsnorm store within {tol_store} (max abs err {k2_err}, "
-        f"{differ} of {y_store.numel()} elements differ in bits); "
-        f"cast->scale->bias within {tol_cast} (max abs err "
-        f"{max_abs_err(y_cast, want_cast)}); cfg_stats "
-        f"{plugin_compiler.cfg_stats()}")
+    log(f"[kernel2] launches by path {datapath.STREAMED.paths}; rmsnorm store "
+        f"within {tol_store} (max abs err {k2_err}, "
+        f"{int((bits(y_store) != bits(want_store)).sum())} of "
+        f"{y_store.numel()} elements differ in bits); cast->scale->bias "
+        f"within {tol_cast} (max abs err {max_abs_err(y_cast, want_cast)}, "
+        f"{int((bits(y_cast) != bits(want_cast)).sum())} of {y_cast.numel()} "
+        f"elements differ in bits); cfg_stats {plugin_compiler.cfg_stats()}")
+    # the same store at gemma3-27B width (d_model 5376: 672 packs a row)
+    wg = torch.randn(5376, generator=gen, device=dev).to(torch.bfloat16)
+    xg = torch.randn(8192, 5376, generator=gen, device=dev).to(torch.bfloat16)
+    gstore = describe("MN", "MNM16N128", P.RMSNormPlugin(weight=wg))
+    _build.reset_launches()
+    y_g = xdma.transfer(xg, gstore)
+    check(datapath.STREAMED.paths == {"rows": 1},
+          f"kernel2: the gemma3-width store took {datapath.STREAMED.paths}")
+    want_g = datapath.plain(xg, gstore.plugins, L.MN, L.MNM16N128)
+    assert_close(y_g, want_g, tol_store, "kernel2 gemma3-width store")
+    log(f"[kernel2] gemma3-width store within {tol_store} (max abs err "
+        f"{max_abs_err(y_g, want_g)}, {int((bits(y_g) != bits(want_g)).sum())}"
+        f" of {y_g.numel()} elements differ in bits)")
+    del want_g
+    # a chain whose source runs along the rows takes the generic path
+    sm = L.NM.from_logical(torch.randn(64, 256, generator=gen, device=dev))
+    fn = plugin_compiler.compile_local(describe(
+        "NM", "MNM8N128", *cast_chain, P.RMSNormPlugin()))
+    _build.reset_launches()
+    small = fn(sm)
+    check(datapath.STREAMED.paths == {"generic": 1},
+          f"kernel2: the small NM chain took {datapath.STREAMED.paths}")
+    assert_close(small.cpu(), fn(sm.cpu()), tolerance(cast_chain, sm.dtype),
+                 "kernel2 small NM chain (generic) vs CPU")
     sm = torch.randn(64, 256, generator=gen, device=dev)
     fn = plugin_compiler.compile_local(describe("MN", "MNM8N128", *cast_chain))
     assert_close(fn(sm).cpu(), fn(sm.cpu()), tolerance(cast_chain, sm.dtype),
                  "kernel2 small vs CPU")
     run_store = plugin_compiler.compile_local(store)
-    run_store(xb)
+    run_cast = plugin_compiler.compile_local(cast)
+    run_g = plugin_compiler.compile_local(gstore)
     rows["streamed_datapath"] = {
         "name": "streamed_datapath", "route": "cuda",
         "source": "src/repro_torch/csrc/streamed_datapath.cu",
@@ -340,7 +413,22 @@ def main():
         "bound_ms": bound_ms(nbytes(xb, w, y_store)), "bound_by": "bytes",
         "library_ms": None,
         "shape": "MN->MNM16N128 RMSNorm(weight) 8192x3072 bfloat16"}
-    del y_cast, want_cast, xf
+    for what, f, x, y, d, consts in (
+            ("cast->scale->bias, second main-path launch", run_cast, xf,
+             y_cast, cast, ()),
+            ("gemma3-27B width", run_g, xg, y_g, gstore, (wg,))):
+        pair_times.append({
+            "pair": f"streamed {what}: {d.summary()} "
+                    f"{'x'.join(map(str, x.shape))}",
+            "dtype": str(x.dtype), "ms": gpu_ms(lambda: f(x)),
+            "plain_ms": gpu_ms(lambda: datapath.plain(
+                x, d.plugins, L.MN, L.MNM16N128)),
+            "bound_ms": bound_ms(nbytes(x, *consts, y))})
+        log_case("kernel2", pair_times[-1])
+    k4_g = gpu_ms(lambda: ops.rmsnorm_relayout(xg, wg, (16, 128)))
+    log(f"[kernel4] the gemma3-width store (8192x5376 bf16) on kernel 4: "
+        f"{k4_g:.4f} ms, kernel 2 {pair_times[-1]['ms']:.4f} ms on {card}")
+    del y_cast, want_cast, xf, xg, y_g
 
     # -- phase 4: kernel 3, the block datapath -------------------------------
     xt = L.MNM16N128.from_logical(xb)
@@ -685,6 +773,10 @@ def main():
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the "
             f"bound) on {card}")
+    r2, r4 = rows["streamed_datapath"], rows["rmsnorm_relayout"]
+    log(f"[times] the Prefill store on kernel 2 (xdma.transfer) {r2['ms']:.4f} "
+        f"ms, on kernel 4 (ops.rmsnorm_relayout) {r4['ms']:.4f} ms: kernel 2 "
+        f"takes {r2['ms'] / r4['ms']:.3f}x kernel 4's time on {card}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_times.json"),
               "w") as f:

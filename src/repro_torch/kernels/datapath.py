@@ -2,7 +2,7 @@
 
 * :class:`StreamedDatapath` — kernel 2, ``csrc/streamed_datapath.cu``, the
   port of the reference's ``_compile_streamed``: reader -> a chain of
-  streaming plugins -> writer, one block per logical row.
+  streaming plugins -> writer, a group of threads per logical row.
 * :class:`BlockDatapath` — kernel 3, ``csrc/block_datapath.cu``, the port of
   ``_compile_block``: reader -> any emit-capable chain (Transpose,
   GatherScatter, Compress, Decompress, ReduceStage and the streaming
@@ -32,7 +32,7 @@ from repro_torch.core import plugins as P
 from . import _build, maps
 
 __all__ = ["StreamedDatapath", "BlockDatapath", "STREAMED", "BLOCK",
-           "plain", "compose", "rank2_path"]
+           "plain", "compose", "rank2_path", "stream_path"]
 
 
 # -- shared: constants of value stages ----------------------------------------
@@ -72,7 +72,9 @@ def plain(x, chain, src_layout: L.Layout, dst_layout: L.Layout):
 # -- kernel 2: the streamed datapath ------------------------------------------
 _OP_CAST, _OP_SCALE, _OP_BIAS, _OP_RMSNORM = 1, 2, 3, 4
 _MAX_OPS = 8
-_MAX_ROW_FLOATS = (227 * 1024 - 33 * 4) // 4      # the row lives in smem
+# the kernel's code paths, by their index in StreamArgs.path
+STREAM_PATHS = ("rows", "generic")
+_PATH_ROWS, _PATH_GENERIC = 0, 1
 
 
 class _Op(ctypes.Structure):
@@ -85,7 +87,7 @@ class _StreamArgs(ctypes.Structure):
                 ("pcols", ctypes.c_int64), ("in_dtype", ctypes.c_int64),
                 ("out_dtype", ctypes.c_int64), ("nops", ctypes.c_int64),
                 ("ops", _Op * _MAX_OPS), ("src", maps.DimMap * 2),
-                ("dst", maps.DimMap * 2)]
+                ("dst", maps.DimMap * 2), ("path", ctypes.c_int64)]
 
 
 STREAMED = _build.register(_build.Kernel(
@@ -94,9 +96,33 @@ STREAMED = _build.register(_build.Kernel(
     replaces="src/repro/core/plugin_compiler.py:236"))
 
 
+def stream_path(a: _StreamArgs, src_ptr: int, dst_ptr: int) -> int:
+    """The path kernel 2 takes for the arguments ``a`` (an index into
+    :data:`STREAM_PATHS`): ``rows`` where both sides run along the columns
+    in whole 16-byte packs of the chunk width (the wider of the two sides'
+    packs, as :func:`maps.run_axis` checks it over the source's columns and
+    the destination's padded columns) with a column tile, if any, of a
+    power of two, and the source, the destination and every constant vector
+    start on a 16-byte boundary; ``generic`` otherwise.  The C entry point
+    refuses ``rows`` where it does not fit."""
+    size = {code: dt.itemsize for dt, code in maps.DTYPE_CODES.items()}
+    c = max(16 // size[a.in_dtype], 16 // size[a.out_dtype])
+
+    def terms(dm):
+        return [(m.tile, m.sgrid, m.stile) for m in dm]
+
+    ptrs = [src_ptr, dst_ptr] + [a.ops[k].vec for k in range(a.nops)]
+    fits = (maps.run_axis(terms(a.src), (a.rows, a.cols), c) == (1, c)
+            and maps.run_axis(terms(a.dst), (a.rows, a.pcols), c) == (1, c)
+            and all(m.tile & (m.tile - 1) == 0 for m in (a.src[1], a.dst[1]))
+            and all(p % 16 == 0 for p in ptrs))
+    return _PATH_ROWS if fits else _PATH_GENERIC
+
+
 class StreamedDatapath:
     """Kernel 2 compiled for one chain, layout pair and input shape/dtype.
-    The kernel gives each logical row a block of its own."""
+    Each launch takes the path :func:`stream_path` picks, and
+    ``STREAMED.paths`` counts it under that name."""
 
     def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
                  dst_layout: L.Layout, in_shape: Sequence[int],
@@ -112,10 +138,6 @@ class StreamedDatapath:
 
     def _prepare(self, device) -> Tuple[_StreamArgs, List[torch.Tensor]]:
         m, n = self.logical
-        if n > _MAX_ROW_FLOATS:
-            raise NotImplementedError(
-                f"the streamed kernel stages a row of {n} floats in shared "
-                f"memory; at most {_MAX_ROW_FLOATS}")
         a = _StreamArgs()
         keep: List[torch.Tensor] = []
         a.rows, a.cols = m, n
@@ -173,7 +195,9 @@ class StreamedDatapath:
         args, _ = prepared
         out = torch.empty(self.dst_layout.physical_shape(self.logical),
                           dtype=self.out_dtype, device=x.device)
-        STREAMED(ctypes.addressof(args), x.data_ptr(), out.data_ptr())
+        args.path = stream_path(args, x.data_ptr(), out.data_ptr())
+        STREAMED(ctypes.addressof(args), x.data_ptr(), out.data_ptr(),
+                 path=STREAM_PATHS[args.path])
         return out
 
 

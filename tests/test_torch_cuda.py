@@ -262,6 +262,109 @@ def test_datapath_kernels_vs_plain(name):
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# -- kernel 2's two paths ------------------------------------------------------
+# layouts whose logical rows run along the columns in 16-byte packs (each
+# NMM8N128 tile is row-major): every pair of them takes the rows path
+ROW_LAYOUTS = ("MN", "MNM8N128", "MNM16N128", "MNM32N128", "MNM8N8", "MNP64",
+               "NMM8N128")
+
+# the chains of tests/test_torch_plugin_compiler.py's STREAMED_CASES
+STREAMED_CHAINS = {
+    "rmsnorm_store": lambda s: (PC.RMSNormPlugin(),),
+    "rmsnorm_weight_bf16": lambda s: (PC.RMSNormPlugin(
+        weight=torch.linspace(-2, 2, s[-1]).to(torch.bfloat16)),),
+    "cast_scale_bias": lambda s: (PC.Cast(torch.bfloat16), PC.Scale(1.5),
+                                  PC.BiasAdd(0.25)),
+    "scale_bias_vectors": lambda s: (PC.Scale(torch.linspace(0.5, 2, s[-1])),
+                                     PC.BiasAdd(torch.linspace(-1, 1, s[-1]))),
+    "identity": lambda s: (PC.Identity(),),
+    "cast_f16_rmsnorm": lambda s: (PC.Cast(torch.float16),
+                                   PC.RMSNormPlugin(eps=1e-5)),
+}
+
+
+def _streamed_vs_plain(src, dst, chain, x, path, misaligned=False):
+    """Kernel 2 on the logical ``x`` moved from ``src`` to ``dst``: the launch
+    counted on ``path``, and the result held against the plain version on
+    the CPU (bitwise without an RMSNorm, else within the chain tolerance)."""
+    sl, dl = _layout(src), _layout(dst)
+    xin = sl.from_logical(x)
+    prog = DP.StreamedDatapath(chain, sl, dl, tuple(xin.shape), xin.dtype)
+    want = prog(xin)
+    xc = _misaligned(xin.cuda()) if misaligned else xin.cuda()
+    before = dict(DP.STREAMED.paths)
+    got = prog(xc)
+    torch.cuda.synchronize()
+    for p in DP.STREAM_PATHS:
+        assert DP.STREAMED.paths.get(p, 0) == before.get(p, 0) + (p == path), \
+            (src, dst, path, DP.STREAMED.paths)
+    got = got.cpu()
+    if not any(isinstance(p, PC.RMSNormPlugin) for p in chain):
+        assert _equal_bits(got, want), (src, dst)
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape
+    half = x.element_size() < 4 or any(
+        isinstance(p, PC.Cast) and p.dtype.itemsize < 4 for p in chain)
+    tol = (dict(rtol=2e-2, atol=1e-2) if half
+           else dict(rtol=2e-5, atol=1e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol,
+                               msg=lambda m: f"{src}->{dst}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("name", sorted(STREAMED_CHAINS))
+def test_streamed_rows_path_layout_pairs(name, dtype):
+    shape = (64, 256)
+    x = _logical(shape, dtype, seed=8)
+    chain = STREAMED_CHAINS[name](shape)
+    for src in ROW_LAYOUTS:
+        for dst in ROW_LAYOUTS:
+            _streamed_vs_plain(src, dst, chain, x, "rows")
+
+
+# (src, dst, logical shape): rows that are not a whole number of blocks,
+# widths that are not a power of two (gemma3-27B's d_model among them) or
+# not a whole number of warps' chunks, and a bf16 row wider than one
+# block's registers (re-read)
+RAGGED_STREAMS = [("MN", "MNP64", (37, 256)), ("MN", "MN", (33, 136)),
+                  ("MN", "MNM16N128", (32, 5376)), ("MNP64", "MN", (5, 1000)),
+                  ("MN", "MNM8N128", (8, 24832))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("src,dst,shape", RAGGED_STREAMS)
+def test_streamed_rows_path_ragged(src, dst, shape, dtype):
+    x = _logical(shape, dtype, seed=10)
+    for name in ("rmsnorm_weight_bf16", "cast_scale_bias", "cast_f16_rmsnorm"):
+        _streamed_vs_plain(src, dst, STREAMED_CHAINS[name](shape), x, "rows")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_streamed_generic_path_vs_plain(dtype):
+    """The generic path: a side that runs along the rows, a width that is
+    not a whole number of chunks, and a view one element off a 16-byte
+    boundary."""
+    for name, chain in sorted(STREAMED_CHAINS.items()):
+        for src, dst, shape, off in (("NM", "MNM8N128", (64, 256), False),
+                                     ("MNM16N128", "NM", (32, 384), False),
+                                     ("MN", "MNP64", (24, 250), False),
+                                     ("MN", "MNM16N128", (64, 256), True)):
+            x = _logical(shape, dtype, seed=11)
+            _streamed_vs_plain(src, dst, chain(shape), x, "generic", off)
+
+
+@pytest.mark.parametrize("src,path", [("MN", "rows"), ("NM", "generic")])
+def test_streamed_row_wider_than_shared_memory(src, path):
+    """A 64 x 65,536 f32 RMSNorm transfer (a 256 KiB row): the rows path
+    re-reads what its registers do not hold, the generic path what its
+    shared memory does not."""
+    x = _logical((64, 65536), torch.float32, seed=12)
+    _streamed_vs_plain(src, "MNM8N128", (PC.RMSNormPlugin(),), x, path)
+
+
 @pytest.mark.parametrize("backend", ["auto", "fused", "pallas", "compiled"])
 def test_transfer_on_cuda_matches_cpu(backend):
     descs = [PC.describe("MN", "MNM16N128", backend=backend),

@@ -16,6 +16,7 @@ pytest.importorskip("torch")
 
 import ctypes  # noqa: E402
 import dataclasses  # noqa: E402
+import re  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -32,7 +33,7 @@ from repro_torch.core import layouts as PL  # noqa: E402
 from repro_torch.core import plugin_compiler as ppc  # noqa: E402
 from repro_torch.core import plugins as PP  # noqa: E402
 from repro_torch.core import xdma as px  # noqa: E402
-from repro_torch.kernels import datapath as DP  # noqa: E402
+from repro_torch.kernels import _build, datapath as DP  # noqa: E402
 import torch_parity as P2  # noqa: E402
 from torch_parity import (assert_same_payload, bits, port_desc,  # noqa: E402,F401
                           reset_global_state, to_f32, to_torch)
@@ -397,35 +398,6 @@ class _Emulated:
             self.paths[path] = self.paths.get(path, 0) + 1
 
 
-def _emulate_streamed(args_addr, src, dst):
-    a = DP._StreamArgs.from_address(args_addr)
-    out = {}
-    for i in range(a.rows):
-        row = [_load(src, _dim_off(a.src[0], i) + _dim_off(a.src[1], j),
-                     a.in_dtype) for j in range(a.cols)]
-        for k in range(a.nops):
-            op = a.ops[k]
-            vec = [_f32_at(op.vec, j) for j in range(a.cols)] if op.vec else None
-            if op.code == DP._OP_RMSNORM:
-                ss = np.float32(sum(np.float32(v) * np.float32(v) for v in row))
-                inv = np.float32(1.0) / np.sqrt(np.float32(ss / np.float32(
-                    a.cols) + np.float32(op.a)))
-                row = [_round(np.float32(v * inv) * (vec[j] if vec else 1),
-                              op.dtype) for j, v in enumerate(row)]
-            else:
-                c = [vec[j] if vec else np.float32(op.a)
-                     for j in range(a.cols)]
-                if op.code == DP._OP_SCALE:
-                    row = [np.float32(v * c[j]) for j, v in enumerate(row)]
-                elif op.code == DP._OP_BIAS:
-                    row = [np.float32(v + c[j]) for j, v in enumerate(row)]
-                row = [_round(v, op.dtype) for v in row]
-        for j in range(a.pcols):
-            d = _dim_off(a.dst[0], i) + _dim_off(a.dst[1], j)
-            out[d] = row[j] if j < a.cols else 0.0
-    _store_all(dst, [out[d] for d in range(len(out))], a.out_dtype)
-
-
 class _BlockEmu:
     """csrc/block_datapath.cu's device functions, one element at a time."""
 
@@ -721,21 +693,297 @@ def _emulation_input(cases, name):
     return ps.from_logical(to_torch(x)), chain(PP, shape), ps, pd
 
 
-@pytest.mark.parametrize("name", sorted(STREAMED_CASES))
+# -- kernel 2: csrc/streamed_datapath.cu over its own arguments ----------------
+def _csrc_const(source, name):
+    """A ``constexpr`` of a CUDA source: the emulators follow the kernel's."""
+    text = (_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr \w+ {name} = (\d+);", text).group(1))
+
+
+_CACHE_BYTES, _THREADS, _STAGE_FLOATS = (
+    _csrc_const("streamed_datapath.cu", n)
+    for n in ("CACHE_BYTES", "THREADS", "STAGE_FLOATS"))
+_ITEMSIZE = {code: dt.itemsize for dt, code in DP.maps.DTYPE_CODES.items()}
+
+
+def _fma_sums(vals):
+    """``ss = fma(v, v, ss)`` along each row of ``vals`` (one thread's values
+    in order; zeros past its last leave its sum as it is)."""
+    ss = np.zeros(vals.shape[0], np.float32)
+    for s in range(vals.shape[1]):
+        v = vals[:, s].astype(np.float64)
+        ss = (v * v + ss.astype(np.float64)).astype(np.float32)
+    return ss
+
+
+def _warp_sums(v):
+    """The xor-shuffle tree over the 32 lanes of each row of ``v``."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[..., lanes ^ o]).astype(np.float32)
+    return v
+
+
+def _group_sum(ss):
+    """``xdma::group_reduce<G>`` of the per-thread sums ``ss`` (G of them)."""
+    w = _warp_sums(ss.reshape(-1, 32))[:, 0]
+    r = w[0]
+    for x in w[1:]:
+        r = np.float32(r + x)
+    return r
+
+
+def _block_sum(ss):
+    """``xdma::block_sum`` of the per-thread sums of a block."""
+    s = np.zeros(32, np.float32)
+    w = _warp_sums(ss.reshape(-1, 32))[:, 0]
+    s[:w.size] = w
+    return _warp_sums(s)[0]
+
+
+def _stream_ops(a, v, cols, inv, upto):
+    """``run_ops``: ops [0, upto) of the list on the values ``v`` of columns
+    ``cols``; RMSNorm k scales by ``inv[k]``."""
+    for k in range(upto):
+        op = a.ops[k]
+        if op.code != DP._OP_CAST:
+            c = _vec(op.vec, cols) if op.vec else np.float32(op.a)
+            if op.code == DP._OP_SCALE:
+                v = v * c
+            elif op.code == DP._OP_BIAS:
+                v = v + c
+            else:
+                v = v * inv[k]
+                if op.vec:
+                    v = v * c
+        v = _round_arr(np.asarray(v, np.float32), op.dtype)
+    return v
+
+
+def _rows_geometry(a):
+    """``launch_rows``: columns a chunk (the wider side's 16-byte pack),
+    chunks a thread caches, threads a row."""
+    c = max(16 // _ITEMSIZE[a.in_dtype], 16 // _ITEMSIZE[a.out_dtype])
+    cache = _CACHE_BYTES // (c * _ITEMSIZE[a.in_dtype])
+    tpr = next((t for t in (32, 64, 128) if a.cols // c <= t * cache), 256)
+    return c, cache, tpr
+
+
+def _consecutive_packs(off, c, base, size):
+    """Each row of ``off`` (a chunk's c offsets) is consecutive in memory and
+    starts on a 16-byte boundary, as the chunk's packs must."""
+    assert (np.diff(off, axis=-1) == 1).all(), "a chunk is not consecutive"
+    assert ((base + off[:, 0] * size) % 16 == 0).all(), "a pack is unaligned"
+
+
+class _StreamedEmu:
+    """Kernel 2 on the path its arguments name, over the launch's memory: the
+    offsets each path computes (the rows path a row offset once a row and a
+    column offset once a chunk, the generic path a map per element), the
+    order of each RMSNorm's sum (per thread, then the group's or the block's
+    tree), and in ``reads`` the source elements read: once where the rows
+    path's registers or the generic path's shared memory hold the row, else
+    once for each RMSNorm and once for the store."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def __call__(self, args_addr, src, dst):
+        a = DP._StreamArgs.from_address(args_addr)
+        norms = [k for k in range(a.nops) if a.ops[k].code == DP._OP_RMSNORM]
+        m, n, pn = a.rows, a.cols, a.pcols
+        top = _dim_off(a.src[0], m - 1) + _dim_off(a.src[1], n - 1) + 1
+        x_all = _floats(src, top, a.in_dtype)
+        out = np.zeros(m * pn, np.float32)
+        written = np.zeros(m * pn, np.int64)
+        rows = a.path == DP._PATH_ROWS
+        if rows:
+            c, cache, tpr = _rows_geometry(a)
+            assert n % c == 0 and pn % c == 0, "launch_rows refuses this"
+            assert all(a.ops[k].vec % 16 == 0 for k in range(a.nops))
+            q = np.arange(n // c)
+            cached = min(q.size, tpr * cache)
+            per_row = cached * c + (q.size - cached) * c * (len(norms) + 1)
+        else:
+            assert a.path == DP._PATH_GENERIC
+            staged = n <= _STAGE_FLOATS
+            per_row = n * (1 if staged else len(norms) + 1)
+        cols = np.arange(n)
+        e = np.arange(c) if rows else None
+        for i in range(m):
+            if rows:
+                soff = (_dim_off(a.src[0], i) + _dim_off(a.src[1], q * c)
+                        )[:, None] + e
+                assert (soff.ravel() == _dim_off(a.src[0], i)
+                        + _dim_off(a.src[1], cols)).all()
+                _consecutive_packs(soff, c, src, _ITEMSIZE[a.in_dtype])
+                soff = soff.ravel()
+            else:
+                soff = _dim_off(a.src[0], i) + _dim_off(a.src[1], cols)
+            x = x_all[soff]
+            self.reads += per_row
+            threads = tpr if rows else _THREADS
+            inv = {}
+            for k in norms:
+                v = _stream_ops(a, x, cols, inv, k)
+                # thread t's values in order: its chunks t + tpr * mm (rows)
+                # or its columns t + 256 * mm (generic)
+                unit = c if rows else 1
+                per = -(-(n // unit) // threads)
+                pad = np.zeros(per * threads * unit, np.float32)
+                pad[:n] = v
+                vals = pad.reshape(per, threads, unit).transpose(1, 0, 2)
+                ss = _fma_sums(vals.reshape(threads, per * unit))
+                ss = _group_sum(ss) if rows else _block_sum(ss)
+                inv[k] = np.float32(1.0) / np.sqrt(np.float32(
+                    ss / np.float32(n) + np.float32(a.ops[k].a)))
+            v = _stream_ops(a, x, cols, inv, a.nops)
+            if rows:
+                qp = np.arange(pn // c)
+                doff = (_dim_off(a.dst[0], i) + _dim_off(a.dst[1], qp * c)
+                        )[:, None] + e
+                _consecutive_packs(doff, c, dst, _ITEMSIZE[a.out_dtype])
+                doff = doff.ravel()
+            else:
+                doff = _dim_off(a.dst[0], i) + _dim_off(a.dst[1],
+                                                        np.arange(pn))
+            out[doff[:n]] = v
+            written[doff] += 1
+        assert (written == 1).all(), "a destination element written twice"
+        _store_all(dst, out, a.out_dtype)
+
+
+# kernel 2's path for each STREAMED_CASES entry at its emulation shape
+STREAMED_PATHS = {"cast_f16_rmsnorm": "rows", "cast_scale_bias": "rows",
+                  "identity_nm": "generic", "rmsnorm_store": "rows",
+                  "rmsnorm_weight_bf16": "rows",
+                  "scale_bias_vectors": "rows"}
+
+# more cases of kernel 2 alone: (src, dst, chain, logical shape, dtype, path,
+# reads): each source element read "once" (the row fits the registers or
+# shared memory), "all" of the row again for each RMSNorm (the generic path
+# past shared memory), or the "part" the registers do not hold (rows path)
+STREAMED_EMU_CASES = {
+    "reread_two_rmsnorms": ("MN", "MN", lambda s: (
+        PP.RMSNormPlugin(), PP.Scale(torch.linspace(0.5, 2, s[-1])),
+        PP.RMSNormPlugin(weight=torch.linspace(-1, 1, s[-1]))),
+        (2, 12800), torch.float32, "rows", "part"),
+    "two_rmsnorms_bf16": ("MN", "MNM8N128", lambda s: (
+        PP.RMSNormPlugin(eps=1e-5), PP.BiasAdd(0.5), PP.RMSNormPlugin(
+            weight=torch.linspace(-2, 2, s[-1]).to(torch.bfloat16))),
+        (16, 256), torch.bfloat16, "rows", "once"),
+    "cast_rmsnorm_warp_groups": ("MN", "MNM16N128", lambda s: (
+        PP.Cast(torch.bfloat16), PP.RMSNormPlugin()), (16, 2048),
+        torch.float32, "rows", "once"),
+    "ragged_width": ("MN", "MN", lambda s: (PP.RMSNormPlugin(),), (8, 130),
+                     torch.float32, "generic", "once"),
+    "mnp64_dst": ("MN", "MNP64", lambda s: (PP.RMSNormPlugin(
+        weight=torch.linspace(-2, 2, s[-1])), PP.Scale(0.5)), (16, 256),
+        torch.bfloat16, "rows", "once"),
+    "mnm8n8_f16": ("MNM8N8", "MNM32N128", lambda s: (
+        PP.Scale(torch.linspace(0.5, 2, s[-1])), PP.Cast(torch.float32)),
+        (32, 256), torch.float16, "rows", "once"),
+    "generic_reread_two_rmsnorms": ("NM", "MN", lambda s: (
+        PP.RMSNormPlugin(), PP.Cast(torch.bfloat16), PP.RMSNormPlugin()),
+        (2, 12800), torch.float32, "generic", "all"),
+    "wide_rows": ("MN", "MNM8N128", lambda s: (PP.RMSNormPlugin(),),
+                  (64, 65536), torch.float32, "rows", "part"),
+    "wide_generic": ("NM", "MNM8N128", lambda s: (PP.RMSNormPlugin(),),
+                     (64, 65536), torch.float32, "generic", "all"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAMED_CASES) +
+                         sorted(STREAMED_EMU_CASES))
 def test_streamed_kernel_host_code_under_emulation(name, monkeypatch):
-    x, plugins, ps, pd = _emulation_input(STREAMED_CASES, name)
-    emu = _Emulated(_emulate_streamed)
-    monkeypatch.setattr(DP, "STREAMED", emu)
+    if name in STREAMED_CASES:
+        x, plugins, ps, pd = _emulation_input(STREAMED_CASES, name)
+        path, reads = STREAMED_PATHS[name], "once"
+    else:
+        src, dst, chain, shape, dtype, path, reads = STREAMED_EMU_CASES[name]
+        ps, pd = PL.by_name(src), PL.by_name(dst)
+        x = ps.from_logical(torch.from_numpy(_x(shape, seed=9)).to(dtype))
+        plugins = chain(shape)
+    emu = _StreamedEmu()
+    launched = _Emulated(emu)
+    monkeypatch.setattr(DP, "STREAMED", launched)
     prog = DP.StreamedDatapath(plugins, ps, pd, tuple(x.shape), x.dtype)
     got = prog.launch(x)
     want = DP.plain(x, plugins, ps, pd)
-    assert emu.launches == 1
+    m, n = prog.logical
+    again = m * n * sum(isinstance(p, PP.RMSNormPlugin) for p in plugins)
+    assert launched.launches == 1 and launched.paths == {path: 1}
+    if reads == "once":
+        assert emu.reads == m * n
+    elif reads == "all":
+        assert emu.reads == m * n + again
+    else:
+        assert m * n < emu.reads < m * n + again
     assert got.dtype == want.dtype and got.shape == want.shape
     if not any(isinstance(p, PP.RMSNormPlugin) for p in plugins):
         np.testing.assert_array_equal(bits(got), bits(want))
     else:
-        np.testing.assert_allclose(to_f32(got), to_f32(want),
-                                   rtol=2e-2, atol=1e-2)
+        tol = dict(rtol=2e-2, atol=1e-2) if prog.out_dtype.itemsize < 4 or \
+            x.dtype.itemsize < 4 or any(isinstance(p, PP.Cast)
+                                        for p in plugins) \
+            else dict(rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(to_f32(got), to_f32(want), **tol)
+
+
+# layouts whose logical rows run along the columns in 16-byte packs: each
+# tile of NMM8N128 is row-major, so its columns run 128 elements at a time
+# though its grid of tiles is column-major
+COLUMN_RUNNING = ("MN", "MNM8N128", "MNM16N128", "MNM32N128", "MNM8N8",
+                  "MNP64", "NMM8N128")
+
+
+def _picked(src, dst, dtype, shape=(32, 256), chain=None, x=None):
+    ps, pd = PL.by_name(src), PL.by_name(dst)
+    chain = (PP.RMSNormPlugin(),) if chain is None else chain
+    prog = DP.StreamedDatapath(chain, ps, pd, ps.physical_shape(shape), dtype)
+    a, _ = prog._prepare("cpu")
+    x = torch.empty(ps.physical_shape(shape), dtype=dtype) if x is None else x
+    out = torch.empty(pd.physical_shape(shape), dtype=prog.out_dtype)
+    return DP.STREAM_PATHS[DP.stream_path(a, x.data_ptr(), out.data_ptr())]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_streamed_path_choice(dtype):
+    """``rows`` for every pair of column-running layouts; ``generic`` where
+    a side runs along the rows (NM), for a width that is not a whole number
+    of chunks, and for a source or a constant vector off a 16-byte
+    boundary."""
+    for src in COLUMN_RUNNING:
+        for dst in COLUMN_RUNNING:
+            assert _picked(src, dst, dtype) == "rows", (src, dst)
+        assert _picked("NM", src, dtype) == "generic", src
+        assert _picked(src, "NM", dtype) == "generic", src
+    assert _picked("MN", "MN", dtype, shape=(32, 250)) == "generic"
+    # a cast to a 2-byte stream: 8-column chunks, so 260 columns do not fit
+    half = torch.bfloat16 if dtype != torch.bfloat16 else torch.float16
+    want = "rows" if dtype == torch.float32 else "generic"
+    assert _picked("MN", "MN", dtype, shape=(32, 260)) == want
+    assert _picked("MN", "MN", dtype, shape=(32, 260),
+                   chain=(PP.Cast(half),)) == "generic"
+    off = torch.empty(32 * 256 + 1, dtype=dtype)[1:].view(32, 256)
+    assert _picked("MN", "MN", dtype, x=off) == "generic"
+    weight = torch.linspace(0.5, 2, 257)[1:]          # off by 4 bytes
+    assert _picked("MN", "MN", dtype, chain=(
+        PP.RMSNormPlugin(weight=weight),)) == "generic"
+
+
+@pytest.mark.parametrize("src,path", [("MN", "rows"), ("NM", "generic")])
+def test_streamed_prepares_rows_wider_than_shared_memory(src, path):
+    """A 64 x 65,536 f32 RMSNorm transfer: the row (256 KiB) fits neither
+    the registers nor shared memory; the kernel re-reads it, so the host
+    prepares its arguments as for any width."""
+    ps = PL.by_name(src)
+    prog = DP.StreamedDatapath((PP.RMSNormPlugin(),), ps, PL.MNM8N128,
+                               ps.physical_shape((64, 65536)), torch.float32)
+    a, _ = prog._prepare("cpu")
+    assert (a.rows, a.cols, a.pcols, a.nops) == (64, 65536, 65536, 1)
+    assert _picked(src, "MNM8N128", torch.float32, shape=(64, 65536)) == path
 
 
 # launches of each kernel-3 path per block case

@@ -18,7 +18,19 @@ kernel against its plain PyTorch version on the same inputs:
   3072 x 8192 (the int8 wire codec);
 * ``flash_attention_gqa`` (kernel 6) on a phi4-mini prefill (S 4096, 24
   query / 8 kv heads, hd 128, causal) and a gemma3-27B local layer (32 / 16
-  heads, window 1024), in bf16.
+  heads, window 1024), in bf16;
+* the paper's Fig. 4 (phase 9): kernel 1 beside the three software setups
+  of ``core.baselines`` on the same bytes at 4096 x 4096 f32 (the
+  transposing pair at 512 x 512), all four bitwise equal, each setup's GPU
+  wall time and link utilization logged;
+* the distributed Controller (phase 10): one task graph through
+  ``DistributedScheduler`` (two tenants' Prefill store -> load chains,
+  kernel-1 relayouts, an ``auto`` store, a multicast), held to serial
+  transfers, to its replayed makespan and to its ``links`` counters, and
+  timed against the same transfers issued serially;
+* trace capture and replay (phase 11) of that graph: the ledger's per-link
+  bytes equal the counters, a software-AGU replay is slower than the
+  Frontend's, and the Chrome trace goes to ``chiprun_out/``.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -41,6 +53,7 @@ instance of kernel 6 or a rows-path instance of kernel 2 that spills fails
 the run.  Without a CUDA device it exits non-zero and prints no result.
 """
 import json
+import math
 import os
 import re
 import statistics
@@ -71,7 +84,10 @@ def check(cond, msg):
 
 
 # -- timing: GPU time of one call, the host's enqueue hidden behind a sleep --
-def gpu_ms(fn, reps=7, warmup=2):
+def gpu_ms(fn, reps=7, warmup=2, sleep_cycles=2_000_000):
+    """Median device time of one call: the card sleeps ``sleep_cycles``
+    while the host enqueues the call, so host time longer than that sleep
+    is not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -79,7 +95,7 @@ def gpu_ms(fn, reps=7, warmup=2):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)      # keeps the card busy while we enqueue
+        torch.cuda._sleep(sleep_cycles)   # keeps the card busy while we enqueue
         start.record()
         fn()
         end.record()
@@ -167,7 +183,7 @@ def main():
     from repro_torch.core import plugins as P
     from repro_torch.core import plugin_compiler
     from repro_torch.core import xdma
-    from repro_torch.core.descriptor import describe
+    from repro_torch.core.descriptor import Endpoint, describe
     from repro_torch.kernels import _build, agu, datapath, ops
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_rmsnorm_relayout as FN
@@ -765,6 +781,258 @@ def main():
         "bound_by": "operations", "library_ms": r["library_ms"],
         "shape": r["pair"] + " bfloat16 causal"}
 
+    # -- phase 9: the paper's Fig. 4 on the card -----------------------------
+    # Kernel 1 (xdma.transfer, backend "pallas") beside the three software
+    # setups of core.baselines on the same bytes: (1) a host loop issuing
+    # one device copy per contiguous run, (2) one strided block copy per
+    # tile, (3) a burst copy then a separate transform pass.
+    from repro_torch.core import baselines as BL
+    fig4_setups = (("kernel1", xdma.transfer),
+                   ("sw_loop_1d_dma", BL.sw_loop_1d_dma),
+                   ("sw_loop_2d_dma", BL.sw_loop_2d_dma),
+                   ("copy_then_transform", BL.copy_then_transform))
+    # (src, dst, transpose, n): the transposing pair's setup (1) moves one
+    # element a copy (16.7 M copies at 4096^2), so it runs at 512^2
+    fig4_pairs = [("MN", "MNM8N128", False, 4096),
+                  ("MNM8N128", "MN", False, 4096),
+                  ("MN", "MNM16N128", False, 4096),
+                  ("MNM16N128", "MNM16N128", True, 512)]
+    fig4_in = []
+    for s, d, t, n in fig4_pairs:
+        x = x32 if n == 4096 else x32[:n, :n].contiguous()
+        desc = describe(s, d, *([P.Transpose()] if t else []),
+                        backend="pallas")
+        fig4_in.append((s, d, t, n, L.by_name(s).from_logical(x), desc))
+
+    def fig4_path():
+        return [{name: f(xin, desc) for name, f in fig4_setups}
+                for _, _, _, _, xin, desc in fig4_in]
+
+    fig4_outs, counts = drive("fig4", [agu.RELAYOUT], fig4_path)
+    check(counts["agu_relayout"] == len(fig4_pairs),
+          f"fig4: {counts['agu_relayout']} kernel-1 launches for "
+          f"{len(fig4_pairs)} pairs")
+
+    def wall_ms(fn, reps):
+        """GPU wall time of one call: CUDA events around the whole call, the
+        host loop included (the card waits for the work it issues)."""
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    fig4_rows = []
+    for (s, d, t, n, xin, desc), outs in zip(fig4_in, fig4_outs):
+        for name, _ in fig4_setups[1:]:
+            assert_bitwise(outs[name], outs["kernel1"],
+                           f"fig4 {desc.summary()} {n}x{n}: {name} vs kernel 1")
+        moved = 2 * n * n * 4                     # one read, one write
+        pair_rows = {}
+        for name, f in fig4_setups:
+            # after the warm-up of the drive above: setup (1) is timed once
+            # (a second or more a call), the others take the median of 5
+            calls = 1 if name == "sw_loop_1d_dma" else 5
+            ms = wall_ms(lambda: f(xin, desc), calls)
+            pair_rows[name] = {"ms": ms, "util": moved / (ms * 1e-3)
+                               / HBM_BYTES_PER_S, "timed_calls": calls}
+        # kernel 1's device time, its host dispatch hidden behind a sleep
+        k1_device = gpu_ms(lambda: xdma.transfer(xin, desc))
+        for name, r in pair_rows.items():
+            reps = r["timed_calls"]
+            r["kernel1_factor"] = pair_rows["kernel1"]["util"] / r["util"]
+            r["kernel1_device_ms"] = k1_device
+            r["kernel1_device_factor"] = r["ms"] / k1_device
+            row = {"pair": f"{s}->{d}{' + Transpose' if t else ''}",
+                   "size": f"{n}x{n} float32", "setup": name, **r}
+            if name == "sw_loop_1d_dma":
+                row["copies"] = math.prod(L.relayout_pair(
+                    L.by_name(s), L.by_name(d), (n, n),
+                    transpose=t).runs()[1])
+            if name == "sw_loop_2d_dma":
+                lay = L.by_name(d) if L.by_name(d).is_tiled else L.by_name(s)
+                row["copies"] = (n // lay.tile[0]) * (n // lay.tile[1])
+            fig4_rows.append(row)
+            log(f"[fig4] {row['pair']} {row['size']} {name}: "
+                f"{r['ms']:.4f} ms ({'one call' if reps == 1 else 'median of 5'}"
+                f"), utilization "
+                f"{r['util']:.4%}, kernel 1 {r['kernel1_factor']:.2f}x its "
+                f"utilization ({r['kernel1_device_factor']:.2f}x on kernel "
+                f"1's device time {k1_device:.4f} ms)"
+                + (f", {row['copies']} copies" if "copies" in row else "")
+                + f" on {card}")
+    del fig4_outs, fig4_in
+
+    # -- phase 10: the distributed Controller over the Prefill path ----------
+    # One task graph through DistributedScheduler on host_device(devices=4)
+    # plus one wider host link: two tenants' store->load chains (kernels 2
+    # and 3, phi4-mini width) through one ring pair, kernel-1 relayouts of
+    # 4096^2 f32 on other links (one future-fed, one behind a deps= edge), a
+    # describe("MN", "auto") store resolved against links of two widths, and
+    # a tile store multicast from the host to three devices.
+    from repro_torch.runtime import (DistributedScheduler, Topology, capture,
+                                     telemetry)
+    from repro_torch.runtime import chrometrace
+    from repro_torch.runtime import scheduler as SCH
+
+    def controller_topology():
+        topo = Topology.host_device(devices=4)
+        topo.add_link("host", "dev3", name="h2d3w", width=96)
+        return topo
+
+    tile_k1 = describe("MN", "MNM8N128", backend="pallas")
+    untile_k1 = describe("MNM8N128", "MN", backend="pallas")
+    tile16_k1 = describe("MN", "MNM16N128", backend="pallas")
+    auto_store = describe("MN", L.AUTO)
+    mcast = describe(Endpoint.local(L.MN), Endpoint.multicast(
+        tuple((f"dev{i}", "MNM8N128") for i in (1, 2, 3))))
+
+    def controller_graph(sched):
+        """-> {name: future}: the phase-10 task graph, posted and drained."""
+        futs = {}
+        for tenant in ("a", "b"):
+            futs[f"prefill/{tenant}"] = xdma.XDMAQueue(
+                [store, load], name=f"prefill-{tenant}").submit_to(
+                    sched, xb, link="h2d0", tenant=tenant)
+        futs["tile"] = sched.submit(x32, tile_k1, link="h2d1")
+        futs["untile"] = sched.submit(futs["tile"], untile_k1, link="d2h1")
+        futs["tile16"] = sched.submit(x32, tile16_k1, link="h2d2",
+                                      deps=(futs["prefill/a"],))
+        futs["auto@h2d3"] = sched.submit(x32, auto_store, link="h2d3")
+        futs["auto@h2d3w"] = sched.submit(x32, auto_store, link="h2d3w")
+        mc = sched.submit_multicast(x32, mcast, src="host", label="tiles")
+        for dst in mc.dsts:
+            futs[f"mcast/{dst}"] = mc.future(dst)
+        sched.flush()
+        return futs
+
+    def serial_graph():
+        """The same transfers, issued one after another through transfer()."""
+        s = xdma.transfer(xb, store)
+        loaded = xdma.transfer(s, load)
+        xdma.transfer(xdma.transfer(xb, store), load)
+        tiled = xdma.transfer(x32, tile_k1)
+        xdma.transfer(tiled, untile_k1)
+        xdma.transfer(x32, tile16_k1)
+        xdma.transfer(x32, auto_store)
+        xdma.transfer(x32, auto_store)
+        for _ in range(3):
+            xdma.transfer(x32, describe("MN", "MNM8N128"))
+        return loaded
+
+    telemetry.reset()
+    sched = DistributedScheduler(controller_topology(), name="controller")
+    futs, counts = drive("scheduler", [agu.RELAYOUT, datapath.STREAMED,
+                                       datapath.BLOCK],
+                         lambda: controller_graph(sched))
+    # every output equals a serial transfer of its resolved descriptor, its
+    # input the serial result of its producer
+    serial = {}
+    for name, fut in futs.items():
+        task = sched._tasks[fut.task_id]
+        if name.startswith("prefill/"):
+            want = xdma.transfer(xdma.transfer(xb, store), load)
+        else:
+            src = task.inputs[0]
+            x_in = (serial[next(k for k, f in futs.items()
+                                if f.task_id == src.task_id)]
+                    if isinstance(src, SCH.XDMAFuture) else src)
+            want = xdma.transfer(x_in, task.desc)
+        serial[name] = want
+        assert_bitwise(fut.result(), want, f"scheduler {name} vs serial")
+        check(not task.desc.has_auto, f"scheduler {name}: auto unresolved")
+    resolved = {name: sched._tasks[futs[name].task_id].desc.dst.layout.name
+                for name in ("auto@h2d3", "auto@h2d3w")}
+    rep = sched.report()
+    check(sched.makespan() == rep.makespan,
+          f"scheduler: incremental makespan {sched.makespan()} != replay "
+          f"{rep.makespan}")
+    per_link = {}
+    for t in sched.sim_tasks():
+        if t.resource in sched.topology:
+            per_link[t.resource] = per_link.get(t.resource, 0) + t.nbytes
+    bank = {k[len("bytes:"):]: v for k, v in
+            telemetry.bank("links").as_dict().items() if k.startswith("bytes:")}
+    check(bank == per_link, f"scheduler: links bank {bank} != report "
+          f"{per_link}")
+    rounds = sched._rounds
+    cfg_before = (xdma.cache_stats().hits, xdma.cache_stats().misses)
+    round_keys = list(SCH._ROUND_CACHE)
+    again = DistributedScheduler(controller_topology(), name="again")
+    controller_graph(again)
+    torch.cuda.synchronize()
+    cfg_after = (xdma.cache_stats().hits, xdma.cache_stats().misses)
+    check(cfg_after[1] == cfg_before[1] and cfg_after[0] > cfg_before[0],
+          f"scheduler: the second graph missed the CFG cache "
+          f"({cfg_before} -> {cfg_after})")
+    check(set(SCH._ROUND_CACHE) == set(round_keys) and len(round_keys) > 0,
+          "scheduler: the second graph did not reuse the round cache")
+    log(f"[scheduler] {len(futs)} outputs bitwise equal to serial transfers; "
+        f"{len(sched._tasks)} tasks in {rounds} rounds, makespan "
+        f"{rep.makespan * 1e6:.3f} us (model) == incremental; per-link "
+        f"bytes {per_link}; auto store resolved {resolved}; second graph: "
+        f"CFG cache {cfg_before} -> {cfg_after}, {len(round_keys)} round(s) "
+        f"reused; launches {counts}")
+    sched_ms = wall_ms(lambda: controller_graph(
+        DistributedScheduler(controller_topology())), 5)
+    serial_ms = wall_ms(serial_graph, 5)
+    # the same two with the host's enqueue hidden behind a long sleep of the
+    # card (about 22 ms): the device's own time, and so its idle share
+    sched_dev = gpu_ms(lambda: controller_graph(
+        DistributedScheduler(controller_topology())), reps=5, warmup=1,
+        sleep_cycles=40_000_000)
+    serial_dev = gpu_ms(serial_graph, reps=5, warmup=1,
+                        sleep_cycles=40_000_000)
+    log(f"[scheduler] the graph through the scheduler {sched_ms:.4f} ms, the "
+        f"same transfers issued serially {serial_ms:.4f} ms (GPU wall time, "
+        f"median of 5; information only); device time {sched_dev:.4f} / "
+        f"{serial_dev:.4f} ms, so the card idles "
+        f"{1 - sched_dev / sched_ms:.1%} / {1 - serial_dev / serial_ms:.1%} "
+        f"of the wall time, on {card}")
+    del futs, serial, again
+
+    # -- phase 11: capture and replay ------------------------------------------
+    telemetry.reset("links")
+
+    def traced():
+        with capture(name="controller") as tr:
+            s = DistributedScheduler(controller_topology(), name="traced")
+            controller_graph(s)
+            xdma.transfer(xb, store)
+        return tr, s
+
+    (tr, tsched), counts = drive("trace", [agu.RELAYOUT, datapath.STREAMED,
+                                           datapath.BLOCK], traced)
+    bank = {k[len("bytes:"):]: v for k, v in
+            telemetry.bank("links").as_dict().items() if k.startswith("bytes:")}
+    check(tr.per_link_bytes() == bank,
+          f"trace: per_link_bytes {tr.per_link_bytes()} != links bank {bank}")
+    replays = {}
+    for topo in (Topology.ring(4), Topology.parallel(1)):
+        hw, sw = tr.replay(topo), tr.replay(topo, sw_agu=True)
+        check(sw.makespan > hw.makespan,
+              f"trace: software-AGU replay on {topo.name} "
+              f"({sw.makespan}) not slower than the Frontend's ({hw.makespan})")
+        replays[topo.name] = {"frontend_us": hw.makespan * 1e6,
+                              "sw_agu_us": sw.makespan * 1e6,
+                              "ratio": sw.makespan / hw.makespan}
+    path = os.path.join(ROOT, "chiprun_out", "controller.trace.json")
+    chrometrace.export(chrometrace.trace_events(tr, Topology.ring(4)), path)
+    with open(path) as f:
+        loaded = json.load(f)
+    n_events = chrometrace.validate_events(loaded["traceEvents"])
+    log(f"[trace] {len(tr.events)} events ({tr.by_endpoint()}), per-link "
+        f"bytes equal to the links bank; replays (model us) {replays}; "
+        f"chrome trace {os.path.relpath(path, ROOT)} ({n_events} events) "
+        f"loads back; launches {counts}")
+    del tr, tsched
+
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
@@ -781,7 +1049,13 @@ def main():
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_times.json"),
               "w") as f:
         json.dump({"card": card, "kernels": [rows[n] for n in order],
-                   "cases": pair_times}, f, indent=1)
+                   "cases": pair_times, "fig4": fig4_rows,
+                   "scheduler": {"graph_ms": sched_ms, "serial_ms": serial_ms,
+                                 "graph_device_ms": sched_dev,
+                                 "serial_device_ms": serial_dev,
+                                 "rounds": rounds, "per_link_bytes": per_link,
+                                 "auto_resolved": resolved},
+                   "trace_replays_model_us": replays}, f, indent=1)
     log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                 for n in order]}))
     print(json.dumps({"ok": True, "device": {

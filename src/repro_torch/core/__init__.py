@@ -1,8 +1,9 @@
 """repro_torch.core — XDMA's local datapath as a PyTorch module.
 
 Re-exports the names of ``repro.core`` for the part that is ported: the
-layout IR, the plugins, the descriptor, the engine, the plugin compiler and
-the local ``xdma.transfer`` API.
+layout IR, the plugins, the descriptor (with the page geometry), the
+cost-model autotuner, the engine, the plugin compiler, the local
+``xdma.transfer`` API and the Fig. 4 software baselines.
 """
 from .layouts import (  # noqa: F401
     Layout, MN, NM, MNP64, MNM8N128, MNM16N128, MNM32N128, MNM8N8,
@@ -16,11 +17,17 @@ from .plugins import (  # noqa: F401
     GatherScatter, Compress, Decompress, CTensor, ReduceStage,
     register_plugin, plugin_by_name, registered_plugins,
 )
-from .descriptor import Endpoint, XDMADescriptor, describe, from_spec  # noqa: F401
+from .descriptor import (  # noqa: F401
+    Endpoint, XDMADescriptor, describe, from_spec,
+    page_layout, page_descriptor,
+)
+from . import autotune  # noqa: F401  (best_layout, resolve_descriptor, ...)
+from .autotune import best_layout, resolve_descriptor, autotune_stats  # noqa: F401
 from .engine import xdma_copy, xdma_copy_pallas, reader, writer  # noqa: F401
 from .api import (  # noqa: F401
     XDMAQueue, transfer, cache_stats, clear_cache,
     cache_capacity, set_cache_capacity,
 )
 from . import api as xdma  # noqa: F401  (usage: from repro_torch.core import xdma)
+from . import baselines  # noqa: F401
 from . import plugin_compiler  # noqa: F401  (cfg_stats, compile_local, ...)

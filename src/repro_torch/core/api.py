@@ -14,22 +14,29 @@ the descriptor alone — to one of the local lowering backends:
   relayout)
 
 The kernels run on the device of the buffer: a CUDA tensor launches the
-hand-written kernels, a CPU tensor takes their plain versions.  Remote
-movements (peer, all-to-all, reduce, multicast) and ``auto`` layouts are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+hand-written kernels, a CPU tensor takes their plain versions.  ``auto``
+endpoint layouts resolve through the cost-model autotuner
+(:func:`_resolve_auto`) before lowering.  Remote movements (peer,
+all-to-all, reduce, mesh-axis multicast) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item; a node-addressed
+multicast is routed by ``DistributedScheduler.submit_multicast``, as in the
+reference.
 
 The CFG phase happens **once per descriptor**: the lowered callable is built
 on first use and cached by descriptor identity (an LRU, see
 :func:`cache_stats`).  :class:`XDMAQueue` is the Controller's in-order task
-queue.
+queue; :meth:`XDMAQueue.submit_to` posts it through a scheduler's rings.
 """
 from __future__ import annotations
 
 import collections
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.runtime import telemetry as _tm
 
+from . import autotune as _autotune
 from . import engine
 from . import plugin_compiler
 from . import plugins as P
@@ -37,6 +44,13 @@ from .descriptor import XDMADescriptor
 
 __all__ = ["transfer", "XDMAQueue", "cache_stats", "clear_cache",
            "cache_capacity", "set_cache_capacity"]
+
+
+# -- the movement-plane capture slot -------------------------------------------
+# The ambient TransferTrace installed by repro_torch.runtime.trace.capture(),
+# or None.  Every chokepoint — transfer(), XDMAQueue, DistributedScheduler —
+# shares this one slot; with no capture open the cost is one `is None` check.
+_CAPTURE = None
 
 
 # -- the CFG cache: descriptor -> lowered callable ---------------------------
@@ -104,21 +118,63 @@ def _evict_to_capacity() -> None:
         _BANK.inc("evictions")
 
 
+# Sibling caches holding compositions of the lowerings above (the
+# scheduler's batched rounds) or the searches that pick their layouts: they
+# register here so clear_cache() empties them with the CFG cache.
+_AUX_CACHES: List["collections.OrderedDict"] = []
+_AUX_CACHES.append(_autotune._CACHE)      # memoized layout searches
+_AUX_CACHES.append(_autotune._RESOLVED)   # memoized auto-descriptor resolutions
+
+
 def clear_cache() -> None:
     _CACHE.clear()
     _BANK.clear()
+    for aux in _AUX_CACHES:
+        aux.clear()
 
 
 def _check_ported(desc: XDMADescriptor) -> None:
-    """Refuse what the port cannot lower yet, naming the ROADMAP item."""
+    """Refuse what the port cannot lower, naming the ROADMAP item."""
+    if desc.movement == "multicast" and desc.remote is None:
+        # node-addressed multicast has no single-collective lowering: the
+        # scheduler forks it into per-hop tree tasks
+        raise ValueError(
+            "node-addressed multicast descriptors are routed by "
+            "DistributedScheduler.submit_multicast (they fork into per-hop "
+            "tree tasks), not lowered by transfer(); use "
+            "Endpoint.multicast_axis for the mesh-axis collective spelling")
     if desc.movement != "local":
         raise NotImplementedError(
             f"{desc.movement} movements lower to collectives, which the port "
             "does not have yet (ROADMAP.md §1 item 6, collectives)")
-    if desc.has_auto:
-        raise NotImplementedError(
-            "'auto' layouts are resolved by the cost-model autotuner, which "
-            "the port does not have yet (ROADMAP.md §1 item 4)")
+
+
+def _resolve_auto(desc: XDMADescriptor, x, link=None) -> XDMADescriptor:
+    """Substitute tuned concrete layouts for ``auto`` endpoints against the
+    input buffer.  An auto *src* treats the buffer as already logical.
+    ``link`` is the fabric the movement rides (the scheduler threads its
+    routed link in; plain ``transfer`` tunes for the default fabric)."""
+    if not desc.has_auto:
+        return desc
+    leaf = x.values if isinstance(x, (P.QTensor, P.CTensor)) else x
+    shape = tuple(int(s) for s in leaf.shape)
+    if not desc.src.layout.is_auto:
+        shape = desc.src.layout.logical_shape(shape)
+    return _autotune.resolve_descriptor(desc, shape, leaf.dtype, link=link)
+
+
+def _distinct(x, out):
+    """``out``, or a copy of it where it is the input tensor itself."""
+    return out.clone() if out is x and isinstance(x, torch.Tensor) else out
+
+
+def _fresh(fn: Callable) -> Callable:
+    """The reference jits every lowering but ``pallas``, and a jitted call
+    hands back a new array even for an identity movement.  Where the plain
+    composition hands back its input tensor, copy it: the destination is a
+    buffer of its own, and the trace's provenance (keyed by the identity of
+    a tensor and of its full aliases) sees the reference's edges."""
+    return lambda x: _distinct(x, fn(x))
 
 
 def _compiled_or(desc: XDMADescriptor, compiled: Optional[Callable]) -> Callable:
@@ -137,12 +193,12 @@ def _lower(desc: XDMADescriptor) -> Callable:
         return lambda x: engine.xdma_copy_pallas(x, desc)
     if desc.backend == "compiled":
         # forced single-kernel lowering: raises on non-fusible chains
-        return plugin_compiler.compile_local(desc)
+        return _fresh(plugin_compiler.compile_local(desc))
     if desc.backend == "auto":
         compiled = plugin_compiler.maybe_compile_local(desc)
         if compiled is not None:
-            return _compiled_or(desc, compiled)
-    return lambda x: engine.xdma_copy(x, desc)
+            return _fresh(_compiled_or(desc, compiled))
+    return _fresh(lambda x: engine.xdma_copy(x, desc))
 
 
 def _lowered(desc: XDMADescriptor) -> Callable:
@@ -166,17 +222,25 @@ def transfer(x: Any, desc: XDMADescriptor) -> Any:
     or on the CPU where the kernels' plain versions run); the return value
     is the physical buffer at the dst endpoint, on the same device (a
     :class:`~repro_torch.core.plugins.QTensor` / ``CTensor`` when the chain
-    ends in ``Quantize`` / ``Compress``).  When a
-    :func:`repro_torch.runtime.telemetry.session` is open, the call is timed
-    as an ``xdma.transfer`` span.
+    ends in ``Quantize`` / ``Compress``).  An ``auto`` layout resolves for
+    the default fabric first.  When a
+    :func:`repro_torch.runtime.trace.capture` scope is open the call is
+    recorded into its trace; when a
+    :func:`repro_torch.runtime.telemetry.session` is open, it is timed as an
+    ``xdma.transfer`` span.  Both hooks are one ``is None`` check when off.
     """
     _check_ported(desc)
+    desc = _resolve_auto(desc, x)
     tel = _tm._ACTIVE
     if tel is None:
-        return _lowered(desc)(x)
-    with tel.span("xdma.transfer", track="transfer",
-                  desc=desc.summary(), movement=desc.movement):
-        return _lowered(desc)(x)
+        out = _lowered(desc)(x)
+    else:
+        with tel.span("xdma.transfer", track="transfer",
+                      desc=desc.summary(), movement=desc.movement):
+            out = _lowered(desc)(x)
+    if _CAPTURE is not None:
+        _CAPTURE.record_transfer(x, desc, out)
+    return out
 
 
 # -- the Controller's in-order task queue (paper §II-B) ----------------------
@@ -187,15 +251,16 @@ class XDMAQueue:
     (the reference jits the chain into one program; the port has no jit and
     dispatches each task's kernels in order on the current stream);
     ``run_task(x, i)`` executes one task, for call sites that interleave
-    compute between tasks.  Lowerings are memoized per queue, not in the
-    global CFG cache.
+    compute between tasks.  ``auto`` layouts resolve per task against the
+    value reaching it.  Lowerings are memoized per queue, not in the global
+    CFG cache.
     """
 
     def __init__(self, descriptors: Sequence[XDMADescriptor] = (),
                  name: str = "queue"):
         self.name = name
         self._descs: List[XDMADescriptor] = []
-        self._tasks: Dict[int, Callable] = {}
+        self._tasks: Dict[Tuple, Callable] = {}
         for d in descriptors:
             self.submit(d)
 
@@ -235,34 +300,75 @@ class XDMAQueue:
         return dtype
 
     # -- execution ----------------------------------------------------------
-    def _task(self, i: int) -> Callable:
-        fn = self._tasks.get(i)
+    def _task(self, i: int, desc: XDMADescriptor) -> Callable:
+        # an auto task's resolved form joins the key (resolve_descriptor
+        # memoizes, keeping the resolved object stable)
+        base = self._descs[i]
+        key = (i,) if desc is base else (i, desc.cache_key())
+        fn = self._tasks.get(key)
         if fn is None:
-            fn = self._tasks[i] = _lower(self._descs[i])
+            fn = self._tasks[key] = _lower(desc)
         return fn
 
     def run_task(self, x, i: int):
         """Dispatch task ``i`` alone (in-order use is the caller's contract)."""
+        desc = _resolve_auto(self._descs[i], x)
         tel = _tm._ACTIVE
         if tel is None:
-            return self._task(i)(x)
-        with tel.span("XDMAQueue.run_task", track="queue",
-                      queue=self.name, task=i):
-            return self._task(i)(x)
+            out = self._task(i, desc)(x)
+        else:
+            with tel.span("XDMAQueue.run_task", track="queue",
+                          queue=self.name, task=i):
+                out = self._task(i, desc)(x)
+        if _CAPTURE is not None:
+            _CAPTURE.record_transfer(x, desc, out, source="queue",
+                                     label=f"{self.name}[{i}]")
+        return out
 
     def run(self, x):
         """Dispatch the whole queue in order."""
+        if not self._descs:
+            return x
+
         def chain(v):
-            for i in range(len(self._descs)):
-                v = self._task(i)(v)
-            return v
+            for i, d in enumerate(self._descs):
+                v = self._task(i, _resolve_auto(d, v))(v)
+            return _distinct(x, v)      # the reference's run is one program
 
         tel = _tm._ACTIVE
         if tel is None:
-            return chain(x)
-        with tel.span("XDMAQueue.run", track="queue",
-                      queue=self.name, tasks=len(self)):
-            return chain(x)
+            out = chain(x)
+        else:
+            with tel.span("XDMAQueue.run", track="queue",
+                          queue=self.name, tasks=len(self)):
+                out = chain(x)
+        if _CAPTURE is not None:
+            _CAPTURE.record_queue(self, x, out)
+        return out
+
+    def submit_to(self, sched, x, *, link=None, tenant: str = "",
+                  deps: Sequence = ()):
+        """Post the whole queue through a scheduler's descriptor rings: one
+        ring post (doorbell) per task, chained in order — the async analogue
+        of :meth:`run`, value-identical to it because both dispatch through
+        the same per-descriptor lowering.
+
+        ``link=None`` routes the *first* task by the scheduler's round-robin
+        policy and pins the rest of the chain to the same link.  Returns the
+        final task's :class:`~repro_torch.runtime.scheduler.XDMAFuture`.
+        """
+        if not self._descs:
+            raise ValueError(f"XDMAQueue {self.name!r} is empty: nothing to "
+                             "submit")
+        fut = None
+        for i, d in enumerate(self._descs):
+            fut = sched.submit(x if fut is None else fut, d, link=link,
+                               deps=tuple(deps) if fut is None else (),
+                               tenant=tenant, label=f"{self.name}[{i}]")
+            if link is None:
+                # pin the rest of the chain to the routed link
+                link = sched._tasks[fut.task_id].resource
+        return fut
 
     def summary(self) -> str:
         lines = [f"XDMAQueue({self.name!r}, {len(self)} tasks)"]

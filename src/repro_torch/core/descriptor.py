@@ -14,6 +14,7 @@ how a descriptor of the reference crosses into the port.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,7 +23,8 @@ import torch
 from . import layouts as L
 from . import plugins as P
 
-__all__ = ["Endpoint", "XDMADescriptor", "describe", "from_spec"]
+__all__ = ["Endpoint", "XDMADescriptor", "describe", "from_spec",
+           "page_layout", "page_descriptor"]
 
 _LOCAL = "local"
 _PEER = "peer"
@@ -252,7 +254,7 @@ class XDMADescriptor:
     def has_auto(self) -> bool:
         """True when either endpoint carries the ``auto`` layout placeholder
         — resolved per (shape, dtype, link) by
-        the cost-model autotuner (not ported yet: ``transfer`` refuses it)."""
+        :func:`repro_torch.core.autotune.resolve_descriptor` before lowering."""
         return self.src.layout.is_auto or self.dst.layout.is_auto
 
     @property
@@ -385,6 +387,57 @@ def describe(src: str | L.Layout | Endpoint, dst: str | L.Layout | Endpoint,
     return XDMADescriptor(src=s, dst=d, pre=tuple(plugins) or tuple(pre),
                           post=tuple(post), d_buf=d_buf, channels=channels,
                           backend=backend)
+
+
+@functools.lru_cache(maxsize=None)
+def page_layout(rows: int, cols: int, dtype_name: str) -> L.Layout:
+    """Page-resident physical layout for a (rows, cols) KV page: the
+    reference's pick, through the cost-model autotuner over the
+    accelerator-native tiled candidate pool (the dtype-native tiling first,
+    so it wins ties; plain ``MN`` when nothing tile-aligned fits).
+    ``dtype_name`` is spelled as the reference spells it (``"bfloat16"``).
+    """
+    from . import autotune as _at
+
+    rows, cols = int(rows), int(cols)
+    native = L.layout_for_dtype(dtype_name)
+    candidates = (native,) + tuple(l for l in (L.MNM8N128, L.MNM16N128,
+                                               L.MNM32N128, L.MNM8N8)
+                                   if l is not native)
+    best = _at.best_layout((rows, cols), dtype_name, candidates=candidates)
+    return best or L.MN
+
+
+@functools.lru_cache(maxsize=None)
+def page_descriptor(rows: int, cols: int, dtype_name: str, *,
+                    direction: str = "store",
+                    wire_compress_rows: int = 0,
+                    d_buf: int = 9) -> XDMADescriptor:
+    """The canonical descriptor for one fixed-size KV *page* movement (one
+    lru-cached CFG phase per page geometry).  A page is a (rows, cols)
+    logical matrix held at rest in :func:`page_layout`'s tiling.
+    ``direction``: ``"store"`` (``MN`` -> page layout), ``"load"`` (page
+    layout -> ``MN``) or ``"copy"`` (page layout -> page layout).
+    ``wire_compress_rows > 0`` puts the lossless block-sparse wire codec on
+    the stream (``Compress`` before the link, ``Decompress`` after it).
+    """
+    lay = page_layout(rows, cols, dtype_name)
+    pre: Tuple[P.Plugin, ...] = ()
+    post: Tuple[P.Plugin, ...] = ()
+    if wire_compress_rows:
+        if rows % int(wire_compress_rows):
+            raise ValueError(f"page rows {rows} not divisible by wire "
+                             f"compress block {wire_compress_rows}")
+        pre = (P.Compress(block_rows=int(wire_compress_rows)),)
+        post = (P.Decompress(),)
+    if direction == "store":
+        return describe(L.MN, lay, pre=pre, post=post, d_buf=d_buf)
+    if direction == "load":
+        return describe(lay, L.MN, pre=pre, post=post, d_buf=d_buf)
+    if direction == "copy":
+        return describe(lay, lay, pre=pre, post=post, d_buf=d_buf)
+    raise ValueError(f"unknown page direction {direction!r}; "
+                     "one of 'store', 'load', 'copy'")
 
 
 # -- crossing a plain description into the port ----------------------------

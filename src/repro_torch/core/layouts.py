@@ -43,6 +43,7 @@ __all__ = [
     "by_name",
     "torch_dtype",
     "itemsize",
+    "dtype_info",
 ]
 
 
@@ -62,6 +63,14 @@ def torch_dtype(dtype) -> torch.dtype:
 def itemsize(dtype) -> int:
     """Bytes per element of ``dtype`` (any spelling :func:`torch_dtype` takes)."""
     return torch_dtype(dtype).itemsize
+
+
+def dtype_info(dtype) -> Tuple[int, str]:
+    """``(itemsize, name)`` of ``dtype``, the name spelled as the reference
+    spells it (``"float32"``, ``"bfloat16"``, ``"int8"``): what its cache
+    keys and ``page_layout`` read from ``jnp.dtype(dtype)``."""
+    t = torch_dtype(dtype)
+    return t.itemsize, str(t).replace("torch.", "")
 
 
 def _argsort(perm: Sequence[int]) -> Tuple[int, ...]:
@@ -116,8 +125,9 @@ class Layout:
 
     @property
     def is_auto(self) -> bool:
-        """True for the ``AUTO`` placeholder.  The port has no autotuner
-        yet, so ``transfer`` refuses a descriptor that carries it."""
+        """True for the ``AUTO`` placeholder: resolved to a concrete layout by
+        the cost-model autotuner (``repro_torch.core.autotune``) before
+        lowering."""
         return self.name == "auto"
 
     @property

@@ -9,12 +9,15 @@ runs both packages (the parity tests) counts each side on its own.
   ``repro_torch.core.api.cache_stats()`` (bank ``cfg_cache``),
   ``repro_torch.kernels.agu.agu_stats()`` (bank ``agu``) and
   ``repro_torch.core.plugin_compiler.cfg_stats()`` (bank
-  ``plugin_compiler``).
+  ``plugin_compiler``), ``repro_torch.core.autotune.autotune_stats()``
+  (bank ``autotune``); the scheduler counts into ``links``, ``queues``,
+  ``rings`` and ``multicast``.
 * :class:`Telemetry` — a session: host-clock spans and value histograms.
-  :func:`session` installs one; ``xdma.transfer`` and ``XDMAQueue`` guard
-  their span hooks on a single ``is None`` check.
+  :func:`session` installs one; ``xdma.transfer``, ``XDMAQueue`` and
+  ``DistributedScheduler`` guard their span hooks on a single ``is None``
+  check.
 * :func:`snapshot` — every counter bank, every span, every histogram, plus
-  the three stats surfaces, in one JSON-ready dict.
+  the stats surfaces, in one JSON-ready dict.
 """
 from __future__ import annotations
 
@@ -281,14 +284,16 @@ def snapshot() -> Dict[str, Any]:
     nothing computed).
 
     ``counters`` holds every registered bank; ``surfaces`` re-exports the
-    three stats surfaces verbatim (views over the same banks);
-    ``spans``/``histograms`` are the session's timing data.
+    stats surfaces verbatim (views over the same banks) plus the scheduler's
+    ``links`` / ``rings`` / ``multicast`` banks; ``spans``/``histograms``
+    are the session's timing data.
     """
     a = _ACTIVE
     if a is None:
         return {}
     # lazy imports: the stats surfaces live in modules that import *us*
     from repro_torch.core import api as _api
+    from repro_torch.core import autotune as _at
     from repro_torch.core import plugin_compiler as _pc
     from repro_torch.kernels import agu as _agu
 
@@ -297,7 +302,13 @@ def snapshot() -> Dict[str, Any]:
         "cache_stats": {"hits": cs.hits, "misses": cs.misses,
                         "evictions": cs.evictions, "size": cs.size},
         "agu_stats": _agu.agu_stats(),
+        "autotune_stats": _at.autotune_stats(),
         "cfg_stats": _pc.cfg_stats(),
+        "scheduler_links": bank("links").as_dict(),
+        "scheduler_rings": bank("rings").as_dict(),
+        "multicast_stats": bank("multicast").as_dict(),
+        "pool_stats": {d[len("pool:"):]: b.as_dict()
+                       for d, b in _BANKS.items() if d.startswith("pool:")},
     }
     return {
         "session": a.name,

@@ -568,3 +568,73 @@ def test_flash_attention_mma_path_strided_gqa_views(aligned, dtype, hd):
                          window=48)
     assert args.vec == int(aligned)
     _flash_half_vs_plain(q, k, v, True, 48)
+
+
+# -- the distributed Controller and the Fig. 4 baselines on the card ------------
+def test_scheduler_on_the_card_bitwise_vs_serial_transfer():
+    """A task graph through ``DistributedScheduler`` on CUDA tensors —
+    batched rounds over two links, a chain, a future-fed auto task, a
+    multicast — launches kernels 1-3 and equals serial ``xdma.transfer`` of
+    the same resolved descriptors bitwise; the incremental makespan equals
+    the replay's."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import DistributedScheduler, Topology
+    x = _logical((256, 384), torch.bfloat16, seed=40).cuda()
+    w = torch.linspace(-2, 2, 384).to(torch.bfloat16).cuda()
+    store = PC.describe("MN", "MNM16N128", PC.RMSNormPlugin(weight=w))
+    load = PC.describe("MNM16N128", "MN", PC.Transpose(), backend="compiled")
+    tile = PC.describe("MN", "MNM8N128", backend="pallas")
+    x32 = _logical((256, 384), torch.float32, seed=41).cuda()
+    sched = DistributedScheduler(Topology.host_device(devices=4))
+    _build.reset_launches()
+    f1 = sched.submit(x, store, link="h2d0", tenant="a")
+    f2 = sched.submit(f1, load, link="h2d0", tenant="a")
+    f3 = PC.XDMAQueue([store, load]).submit_to(sched, x, link="h2d1",
+                                               tenant="b")
+    f4 = sched.submit(x32, tile, link="h2d2")
+    f5 = sched.submit(f4, PC.describe("MNM8N128", "auto"), link="d2h2",
+                      deps=(f2,))
+    mc = sched.submit_multicast(x32, PC.describe(
+        PC.Endpoint.local(PC.MN), PC.Endpoint.multicast(
+            (("dev1", "MNM8N128"), ("dev2", "MNM8N128")))), src="host")
+    sched.flush()
+    torch.cuda.synchronize()
+    assert pagu.RELAYOUT.launches > 0 and DP.STREAMED.launches > 0 \
+        and DP.BLOCK.launches > 0
+    s2 = px.transfer(px.transfer(x, store), load)
+    s4 = px.transfer(x32, tile)
+    d5 = sched._tasks[f5.task_id].desc
+    assert not d5.has_auto
+    for got, want in ((f1.result(), px.transfer(x, store)), (f2.result(), s2),
+                      (f3.result(), s2), (f4.result(), s4),
+                      (f5.result(), px.transfer(s4, d5))):
+        assert got.is_cuda and _equal_bits(got, want)
+    for d in ("dev1", "dev2"):
+        assert _equal_bits(mc.result_at(d), px.transfer(
+            x32, PC.describe("MN", "MNM8N128")))
+    assert sched.makespan() == sched.report().makespan
+
+
+@pytest.mark.parametrize("src,dst,transpose", [
+    ("MN", "MNM8N128", False), ("MNM8N128", "MN", False),
+    ("MN", "MNM16N128", False), ("MNM16N128", "MNM16N128", True),
+    ("MNM8N128", "MNM16N128", False), ("MN", "NM", False)])
+def test_baselines_on_the_card_bitwise_vs_kernel1(src, dst, transpose):
+    """The four Fig. 4 setups on CUDA tensors equal kernel 1 bitwise."""
+    from repro_torch.core import baselines as PB
+    x = _logical((256, 256) if transpose else (128, 256), torch.float32,
+                 seed=42).cuda()
+    sl = PC.by_name(src)
+    xin = sl.from_logical(x)
+    desc = PC.describe(src, dst, *([PC.Transpose()] if transpose else []),
+                       backend="pallas")
+    before = pagu.RELAYOUT.launches
+    want = px.transfer(xin, desc)
+    torch.cuda.synchronize()
+    assert pagu.RELAYOUT.launches == before + 1
+    setups = ["sw_loop_1d_dma", "sw_agu_loop", "copy_then_transform"]
+    if dst != "NM":          # the block loop returns NM as its logical matrix
+        setups.append("sw_loop_2d_dma")
+    for name in setups:
+        got = getattr(PB, name)(xin, desc)
+        assert got.is_cuda and _equal_bits(got, want), name

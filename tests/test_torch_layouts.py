@@ -35,8 +35,14 @@ def _logical(name, dtype, seed=0):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
+    # the runtime package resolves its exports lazily, so its modules are
+    # named one by one
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.runtime\n"
+            "import repro_torch.core.baselines, repro_torch.core.autotune, "
+            "repro_torch.runtime.scheduler, repro_torch.runtime.trace, "
+            "repro_torch.runtime.chrometrace, repro_torch.runtime.topology, "
+            "repro_torch.runtime.ring, repro_torch.runtime.simulator\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(repr(bad))\n")

@@ -190,8 +190,22 @@ def test_remote_movements_are_not_ported_yet(endpoint):
 
 
 def test_auto_layouts_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        px.transfer(torch.zeros(8, 128), PC.describe("MN", "auto"))
+    # 'auto' layouts are ported now (ROADMAP §1 item 4): a transfer resolves
+    # them through the cost-model autotuner to the reference's layouts, and
+    # the output is the reference's, bitwise
+    x = np.random.default_rng(3).standard_normal((64, 256)).astype(np.float32)
+    for src, dst, plugins in (("MN", "auto", ()), ("auto", "MN", ()),
+                              ("MN", "auto", ("transpose",))):
+        ref_d = RC.describe(src, dst, *[RP.Transpose() for _ in plugins])
+        port_d = PC.describe(src, dst, *[PC.Transpose() for _ in plugins])
+        want = rx.transfer(jnp.asarray(x), ref_d)
+        got = px.transfer(torch.from_numpy(x.copy()), port_d)
+        assert_same_payload(got, want, context=f"{src}->{dst} {plugins}")
+        ref_r = RC.autotune.resolve_descriptor(ref_d, (64, 256), jnp.float32)
+        port_r = PC.autotune.resolve_descriptor(port_d, (64, 256),
+                                                torch.float32)
+        assert (port_r.src.layout.name, port_r.dst.layout.name) == \
+            (ref_r.src.layout.name, ref_r.dst.layout.name)
 
 
 @pytest.mark.parametrize("name", sorted(DESCS))

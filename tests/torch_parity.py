@@ -12,27 +12,43 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core.autotune as ref_at
+import repro.core.descriptor as ref_descriptor
 import repro.core.plugin_compiler as ref_pc
 import repro.kernels.agu as ref_agu
+import repro.runtime.scheduler as ref_sched
 import repro.runtime.telemetry as ref_tm
 from repro.core import plugins as RP
 from repro.core import xdma as ref_xdma
 
 import repro_torch.core.api as port_api
+import repro_torch.core.autotune as port_at
+import repro_torch.core.descriptor as port_descriptor
 import repro_torch.core.plugin_compiler as port_pc
 import repro_torch.kernels.agu as port_agu
+import repro_torch.runtime.scheduler as port_sched
 import repro_torch.runtime.telemetry as port_tm
 
 
 def _reset_all():
-    ref_xdma.clear_cache()
-    ref_agu.clear_agu_stats()
-    ref_pc.clear_stats()
-    ref_tm.reset()
-    port_api.clear_cache()
-    port_agu.clear_agu_stats()
-    port_pc.clear_stats()
-    port_tm.reset()
+    """Both packages' global state as a fresh process has it: the CFG cache
+    and its siblings (the autotune memos, the scheduler's round cache), the
+    page-geometry memos, agu_stats, cfg_stats and every telemetry bank
+    (cfg_cache, agu, plugin_compiler, autotune, links, queues, rings,
+    multicast)."""
+    for xdma, at, desc, sched, agu, pc, tm in (
+            (ref_xdma, ref_at, ref_descriptor, ref_sched, ref_agu, ref_pc,
+             ref_tm),
+            (port_api, port_at, port_descriptor, port_sched, port_agu, port_pc,
+             port_tm)):
+        xdma.clear_cache()
+        at.clear_cache()
+        sched._ROUND_CACHE.clear()
+        desc.page_layout.cache_clear()
+        desc.page_descriptor.cache_clear()
+        agu.clear_agu_stats()
+        pc.clear_stats()
+        tm.reset()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -208,3 +224,154 @@ def emulate_tile2(t, src_flat, out_size, value=None, fill=None):
     if bad.any():
         out[do[bad]] = fill(so[bad], r[bad], c[bad])
     return out
+
+
+# -- one scenario on both packages ----------------------------------------------
+class Side:
+    """One package under a common spelling, so a scenario written once runs
+    on the reference (``"ref"``) and on the port (``"port"``).  ``rand``
+    draws the reference's seeded input; the port gets the same values."""
+
+    def __init__(self, name):
+        self.name = name
+        if name == "ref":
+            import jax.numpy as jnp
+            import repro.core as C
+            import repro.runtime as R
+            self.dtypes = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+                           "int8": jnp.int8, "float16": jnp.float16}
+            self.asarray = jnp.asarray
+        else:
+            import repro_torch.core as C
+            import repro_torch.runtime as R
+            self.dtypes = {"float32": torch.float32,
+                           "bfloat16": torch.bfloat16, "int8": torch.int8,
+                           "float16": torch.float16}
+            self.asarray = to_torch
+        self.C, self.R = C, R
+        self.xdma = C.xdma
+        self.autotune = C.autotune
+        import importlib
+        pkg = "repro" if name == "ref" else "repro_torch"
+        for mod in ("topology", "ring", "simulator", "scheduler", "trace",
+                    "telemetry", "chrometrace"):
+            setattr(self, mod, importlib.import_module(f"{pkg}.runtime.{mod}"))
+        self.L = importlib.import_module(f"{pkg}.core.layouts")
+        self.descriptor = importlib.import_module(f"{pkg}.core.descriptor")
+
+    def rand(self, shape, seed=0, dtype="float32"):
+        import jax.numpy as jnp
+        a = jnp.asarray(np.random.default_rng(seed).standard_normal(shape),
+                        {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+                         "float16": jnp.float16}[dtype])
+        return a if self.name == "ref" else to_torch(a)
+
+
+SIDES = ("ref", "port")
+
+
+def on_both(scenario, *args, values_tol=None, **kw):
+    """Run ``scenario(side, ...)`` on the reference and on the port, each
+    from a fresh state, and hold the port's result equal to the
+    reference's: everything it returns through :func:`norm` (reports,
+    completion times, counters: exact), except under ``"values"``, a list
+    of outputs held by :func:`assert_same_payload` (bitwise, or within
+    ``values_tol`` for float chains).  Returns the two raw results."""
+    out = {}
+    for name in SIDES:
+        _reset_all()
+        out[name] = scenario(Side(name), *args, **kw)
+    _reset_all()
+    ref, port = out["ref"], out["port"]
+    if isinstance(ref, dict):
+        rv, pv = ref.get("values", ()), port.get("values", ())
+        assert len(rv) == len(pv)
+        for i, (got, want) in enumerate(zip(pv, rv)):
+            assert_same_payload(got, want, context=f"values[{i}]",
+                                **(values_tol or {}))
+        strip = lambda d: {k: v for k, v in d.items() if k != "values"}
+        got, want = norm(strip(port)), norm(strip(ref))
+    else:
+        got, want = norm(port), norm(ref)
+    assert got == want, first_difference(got, want)
+    return ref, port
+
+
+def first_difference(got, want, path="result"):
+    """Where two :func:`norm` structures first differ, for the message."""
+    if type(got) is not type(want):
+        return f"{path}: {type(got).__name__} vs {type(want).__name__}"
+    if isinstance(got, dict):
+        if set(got) != set(want):
+            return f"{path}: keys {sorted(set(got) ^ set(want), key=repr)}"
+        for k in got:
+            if got[k] != want[k]:
+                return first_difference(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(got, (list, tuple)):
+        if len(got) != len(want):
+            return f"{path}: length {len(got)} vs {len(want)}"
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                return first_difference(g, w, f"{path}[{i}]")
+    return f"{path}: port {got!r:.300} vs reference {want!r:.300}"
+
+
+def dtype_name(d):
+    """A dtype of either package (or a name) as the reference spells it."""
+    if isinstance(d, str):
+        return d
+    if isinstance(d, torch.dtype):
+        return str(d).replace("torch.", "")
+    return np.dtype(d).name
+
+
+def norm(v):
+    """A structure of either package as plain comparable data: arrays and
+    tensors by dtype, shape and bits; dataclasses by class name and fields
+    (a descriptor by its summary and layouts); dtypes by name."""
+    import jax
+    from repro.core.descriptor import XDMADescriptor as RD
+    from repro_torch.core.descriptor import XDMADescriptor as PD
+    from repro_torch.core import plugins as PP
+    if isinstance(v, (RD, PD)):
+        return ("desc", v.summary(), v.src.layout.name, v.dst.layout.name,
+                tuple(sorted(n for n, _ in (v.dst.dsts or ()))))
+    if isinstance(v, (RP.QTensor, PP.QTensor)):
+        return ("QTensor", norm(v.values), norm(v.scales))
+    if isinstance(v, (RP.CTensor, PP.CTensor)):
+        return ("CTensor", norm(v.values), norm(v.mask))
+    if isinstance(v, (torch.Tensor, jax.Array, np.ndarray)):
+        return ("array", dtype_name(v.dtype), tuple(v.shape),
+                bits(v).tobytes())
+    if isinstance(v, (torch.dtype, np.dtype)):
+        return ("dtype", dtype_name(v))
+    if isinstance(v, type) and not dataclasses.is_dataclass(v):
+        return ("dtype", np.dtype(v).name)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return (type(v).__name__,) + tuple(
+            (f.name, norm(getattr(v, f.name))) for f in dataclasses.fields(v))
+    if isinstance(v, dict):
+        return {k: norm(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(norm(x) for x in v)
+    return v
+
+
+BANKS = ("links", "queues", "rings", "multicast", "autotune", "cfg_cache")
+
+
+def sched_record(S, sched):
+    """What a scheduler run leaves for comparison: its replayed report,
+    completion queue, per-resource dispatch order, per-task rounds,
+    per-link bytes, the incremental makespan and the counter banks."""
+    rep = sched.report()
+    per_link = {}
+    for t in sched.sim_tasks():
+        if t.resource in sched.topology:
+            per_link[t.resource] = per_link.get(t.resource, 0) + t.nbytes
+    return {"report": rep, "completions": list(sched.completions),
+            "dispatched": dict(sched._dispatched),
+            "rounds": {tid: t.round for tid, t in sched._tasks.items()},
+            "sim_tasks": sched.sim_tasks(), "per_link": per_link,
+            "makespan": sched.makespan(),
+            "banks": {d: S.telemetry.bank(d).as_dict() for d in BANKS}}

@@ -31,6 +31,21 @@ kernel against its plain PyTorch version on the same inputs:
 * trace capture and replay (phase 11) of that graph: the ledger's per-link
   bytes equal the counters, a software-AGU replay is slower than the
   Frontend's, and the Chrome trace goes to ``chiprun_out/``.
+* the collectives (phase 12): a world of 4 ranks on the one card over gloo
+  (``sharding.run_spmd``; the ranks load the kernels built here): the int8
+  reduce codec and its error feedback on a phi4-mini gradient leaf (3072 x
+  8192 f32) against float64 and bitwise against the port's CPU run of the
+  same four inputs, the plain reduce, a phi4-mini KV shard (8192 tokens x 8
+  kv heads x 128, bf16) around the ring through a transposing src side
+  (kernel 3) and a Cast -> Scale dst side (kernel 2), and an MoE dispatch
+  all-to-all at mixtral-8x7b width (4 x 2048 tokens x 4096, bf16), plain
+  and with the int8 codec; each rank logs its times and host-hop bytes;
+* the movement-plane consumers (phase 13): the KV store and load and 8
+  round trips through the scheduler, a page pool of 4096 tokens through
+  store, load, evict, restore and defrag (stats equal to its CPU run),
+  checkpoints of one phi4-mini decoder layer (plain, ``auto`` layout,
+  down-cast, async; restored onto the card and onto the CPU) and staging of
+  three qwen2-vl-7b input batches.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -39,7 +54,8 @@ run with a non-zero exit.  Phases 2-4 also assert the launches by code
 path: kernel 1's ``direct`` and ``staged`` copies, kernel 2's two main-path
 launches on its ``rows`` path (a small NM chain on its generic path), and
 kernel 3's six main-path transfers all on its rank-2 path (a small rank-3
-chain on its generic path).  Phase 3 also times the Prefill store at
+chain on its generic path).  Phase 12 checks the launches in every rank
+(kernels 2 and 3), phase 13 in its process (kernels 1, 2 and 3).  Phase 3 also times the Prefill store at
 gemma3-27B width (d_model 5376).  Phase 7 holds kernel 5 on NaN, inf and
 -inf rows too.  Phase 8 asserts that both bf16 model layers took kernel 6's
 tensor-core path (``mma``) and its small f32 checks the FMA path (``fma``).
@@ -56,6 +72,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -209,6 +226,333 @@ def demangled(names):
     read = out.stdout.splitlines()
     return read if out.returncode == 0 and len(read) == len(names) else \
         list(names)
+
+
+# -- phase 12: the collectives, one process a rank -----------------------------
+RANKS = 4
+GRAD_SHAPE = (3072, 8192)        # phi4-mini MLP gradient leaf, f32: 96 MiB
+KV_SHAPE = (1, 8192, 8, 128)     # phi4-mini KV shard, bf16: 16 MiB
+MOE_SHAPE = (4 * 2048, 4096)     # mixtral-8x7b dispatch buffer, bf16: 64 MiB
+# -- phase 13: one phi4-mini decoder layer's weights (bf16: 201 MB), a pool
+# of 128 pages of 32 tokens of the KV shard, qwen2-vl-7b input batches
+LAYER = {"qkv": (3072, 5120), "o": (3072, 3072), "gate_up": (3072, 16384),
+         "down": (8192, 3072)}
+D_MODEL = 3072
+POOL_PAGES = 128
+VLM = dict(vocab=152064, seq_len=4096, global_batch=4, d_model=3584)
+
+
+def rank_inputs(r, dev):
+    """Rank ``r``'s gradient leaf, KV shard and MoE dispatch buffer, drawn on
+    the card from its own seed, so any rank can draw any rank's."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + r)
+    g = torch.randn(GRAD_SHAPE, generator=gen, device=dev)
+    kv = torch.randn(KV_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    moe = torch.randn(MOE_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    return g, kv, moe
+
+
+def wall_ms_synced(fn, reps=3):
+    """Median wall time of ``fn`` with the card synchronized before and
+    after (a collective's time is its slowest rank's)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase12_rank(mesh, card):
+    """One rank of phase 12: the reduce codec, the plain reduce, the KV
+    tunnel (kernel-3 and kernel-2 sides) and the MoE all-to-all, on the
+    card; held to float64, to the rolled plain results and to the port's
+    plain CPU run of the same four inputs over the same group."""
+    from repro_torch import core as C
+    from repro_torch import sharding as S
+    from repro_torch.core import remote, xdma
+    from repro_torch.core.descriptor import Endpoint
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import telemetry
+    from repro_torch.serving.transfer import cross_stage_transfer
+
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    dev, n, r = mesh.device, mesh.world_size, S.axis_index("x")
+    tag = f"[collectives rank {r}]"
+    ring = tuple((i, (i + 1) % n) for i in range(n))
+    g, kv, moe = rank_inputs(r, dev)
+    codec = C.reduce_descriptor("x", n, compressed=True)
+    plain = C.reduce_descriptor("x", n)
+    peer_cast = C.describe(Endpoint.local(C.MN), Endpoint.peer("x", ring),
+                           post=(C.Cast(torch.float32), C.Scale(0.125)))
+    a2a = C.describe(Endpoint.local(C.MN), Endpoint.all_to_all("x", 0, 0))
+    a2a_codec = C.describe(Endpoint.local(C.MN), Endpoint.all_to_all("x", 0, 0),
+                           pre=(C.Quantize(),),
+                           post=(C.Dequantize(torch.bfloat16),))
+    mat = kv.reshape(KV_SHAPE[1], -1)
+    ops = {
+        "reduce codec": lambda: xdma.transfer(g, codec),
+        "feedback": lambda: C.compressed_psum_with_feedback(
+            g, torch.zeros_like(g), "x", n),
+        "reduce plain": lambda: xdma.transfer(g, plain),
+        "kv tunnel, transpose (kernel-3 src side)":
+            lambda: cross_stage_transfer(kv, "x", ring, transpose=True),
+        "kv tunnel, Cast -> Scale (kernel-2 dst side)":
+            lambda: xdma.transfer(mat, peer_cast),
+        "moe all_to_all": lambda: xdma.transfer(moe, a2a),
+        "moe all_to_all int8": lambda: xdma.transfer(moe, a2a_codec),
+    }
+    _build.reset_launches()
+    telemetry.reset("wire")
+    out = {k: f() for k, f in ops.items()}
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    wire = remote.wire_stats()
+    check(counts["streamed_datapath"] > 0 and counts["block_datapath"] > 0,
+          f"{tag} the side kernels did not launch: {counts}")
+    check(mesh.backend == "gloo", f"{tag} backend {mesh.backend}, not gloo")
+    check(wire.get("host_hop_bytes", 0) > 0, f"{tag} no host hop counted")
+    # float64 sums of the four ranks' leaves, the rolled plain results
+    exact = sum(rank_inputs(j, dev)[0].double() for j in range(n))
+    _, prev_kv, _ = rank_inputs((r - 1) % n, dev)
+    scale = float(exact.abs().max())
+    red = out["reduce codec"]
+    rel = float((red.double() - exact).abs().max()) / scale
+    check(rel < 0.02, f"{tag} reduce codec {rel} off float64 (bound 0.02)")
+    fb_red, fb_err = out["feedback"]
+    rel_fb = float((fb_red.double() - exact).abs().max()) / scale
+    check(rel_fb < 0.02 and float(fb_err.abs().max()) < float(g.abs().max()),
+          f"{tag} error feedback {rel_fb}")
+    assert_close(out["reduce plain"].double(), exact,
+                 dict(rtol=1e-5, atol=1e-5), f"{tag} plain reduce vs float64")
+    assert_bitwise(out["kv tunnel, transpose (kernel-3 src side)"],
+                   prev_kv.reshape(1, KV_SHAPE[1], -1).transpose(-1, -2),
+                   f"{tag} kv tunnel transpose vs rolled plain")
+    assert_bitwise(out["kv tunnel, Cast -> Scale (kernel-2 dst side)"],
+                   prev_kv.reshape(KV_SHAPE[1], -1).float() * 0.125,
+                   f"{tag} kv tunnel Cast -> Scale vs rolled plain")
+    chunk = MOE_SHAPE[0] // n
+    for j in range(n):
+        src = rank_inputs(j, dev)[2][r * chunk:(r + 1) * chunk]
+        assert_bitwise(out["moe all_to_all"][j * chunk:(j + 1) * chunk], src,
+                       f"{tag} moe all_to_all block from rank {j}")
+    # the port's plain CPU run of the same four inputs, over the same group
+    cpu = {"reduce codec": xdma.transfer(g.cpu(), codec),
+           "feedback": C.compressed_psum_with_feedback(
+               g.cpu(), torch.zeros(GRAD_SHAPE), "x", n),
+           "moe all_to_all int8": xdma.transfer(moe.cpu(), a2a_codec),
+           "moe all_to_all": xdma.transfer(moe.cpu(), a2a)}
+    for k, want in cpu.items():
+        got = out[k] if k != "feedback" else out[k][0]
+        want = want if k != "feedback" else want[0]
+        assert_bitwise(got.cpu(), want, f"{tag} {k}: card vs CPU run")
+    assert_bitwise(out["feedback"][1].cpu(), cpu["feedback"][1],
+                   f"{tag} feedback residual: card vs CPU run")
+    del cpu, exact
+    times, hops = {}, {}
+    for k, f in ops.items():
+        telemetry.reset("wire")
+        times[k] = wall_ms_synced(f)
+        hops[k] = remote.wire_stats().get("host_hop_bytes", 0) // 3
+    # the host hop alone: the gradient leaf to the host and back
+    hop_ms = wall_ms_synced(lambda: g.cpu().to(dev))
+    # the side kernels' device time, rank 0 alone on the card
+    side_ms = {}
+    if r == 0:
+        from repro_torch.core import plugin_compiler
+        src_side = plugin_compiler.compile_side(C.MN, (C.Transpose(),),
+                                                side="src")
+        dst_side = plugin_compiler.compile_side(
+            C.MN, peer_cast.post, side="dst")
+        flat = kv.reshape(1, KV_SHAPE[1], -1)
+        side_ms = {"kernel-3 src side (transpose)": gpu_ms(
+                       lambda: src_side(flat)),
+                   "kernel-2 dst side (Cast -> Scale)": gpu_ms(
+                       lambda: dst_side(mat))}
+    import torch.distributed as dist
+    dist.barrier()
+    for k in ops:
+        log(f"{tag} {k}: {times[k]:.3f} ms wall (median of 3), host hop "
+            f"{hops[k]} bytes a call, on {card}")
+    log(f"{tag} launches {counts}; reduce codec {rel:.5f} of max off "
+        f"float64; wire {wire}")
+    return {"times": times, "hops": hops, "hop_ms": hop_ms, "rel": rel,
+            "side_ms": side_ms,
+            "counts": counts, "wire": wire, "backend": mesh.backend_note}
+
+
+def phase13(dev, gen, card, drive, wall_ms):
+    """Phase 13: the movement-plane consumers on ``dev``: the KV store and
+    load and 8 round trips through the scheduler, a page pool of 4096
+    tokens through every page op, checkpoints of one decoder layer (plain,
+    auto layout, down-cast, async) and input staging of qwen2-vl batches.
+    Every output is held to its plain version (the pool also to its CPU
+    run); returns the times."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import layouts as L
+    from repro_torch.data.pipeline import SyntheticLM, prefetch_staged, \
+        stage_batch
+    from repro_torch.kernels import agu, datapath
+    from repro_torch.runtime import DistributedScheduler, Topology
+    from repro_torch.serving import PagedKVPool, paginate
+    from repro_torch.serving import transfer as KV
+
+    kv = torch.randn(KV_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+    shards = [torch.randn(KV_SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(8)]
+    # the pool holds the shard's first POOL_PAGES * 32 tokens
+    pool_mat = kv.reshape(KV_SHAPE[1], -1)[:POOL_PAGES * 32].clone()
+    pool_mat.view(POOL_PAGES, 32, -1)[::4, 8:16] = 0   # blocks Compress skips
+    weights = {k: (torch.randn(shp, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16) for k, shp in LAYER.items()}
+    weights["input_norm"] = torch.ones(D_MODEL, device=dev,
+                                       dtype=torch.bfloat16)
+    master = {k: torch.randn(shp, generator=gen, device=dev) * 0.02
+              for k, shp in LAYER.items()}
+    ds = SyntheticLM(seed=SEED, family="vlm", **VLM)
+    batches = [ds.batch_at(i) for i in range(3)]
+    ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+
+    def pool_run(mat, device):
+        """Store, load, evict, restore and defrag the pages on ``device``;
+        -> (loaded pages, pages after the round trip, stats)."""
+        pool = PagedKVPool(POOL_PAGES, 32, compress_block=8,
+                           name=f"kv@{device}")
+        sched = DistributedScheduler(Topology.host_device(2), name="pool")
+        pool.bind(sched)
+        pages = paginate(mat, 32)
+        pids = [pool.alloc(mat.shape[1], "bfloat16") for _ in pages]
+        for pid, page in zip(pids, pages):
+            pool.store(pid, page)
+        sched.flush(); pool.commit()
+        loads = [pool.load(pid) for pid in pids]
+        sched.flush()
+        loaded = [f.result() for f in loads]
+        for pid in pids[::4]:
+            pool.evict(pid)
+        sched.flush(); pool.commit()
+        for pid in pids[1::4]:
+            pool.free(pid)
+        for pid in pids[::4]:
+            pool.restore(pid)
+        sched.flush(); pool.commit()
+        pool.defrag()
+        sched.flush(); pool.commit()
+        kept = [pid for i, pid in enumerate(pids) if i % 4 != 1]
+        back = [pool.load(pid) for pid in kept]
+        sched.flush()
+        return loaded, [f.result() for f in back], pool.stats
+
+    def consumers():
+        tiled = KV.kv_prefill_store(kv)
+        loaded = KV.kv_load_transposed(tiled)
+        outs, sched = KV.kv_roundtrips_overlapped(
+            shards, scheduler=DistributedScheduler(Topology.host_device(2)))
+        pool_out = pool_run(pool_mat, dev)
+        ck = {}
+        for name, kw, tree in (("plain", {}, weights),
+                               ("auto", {"stage_layout": "auto"}, weights),
+                               ("down-cast", {"stage_dtype": torch.bfloat16},
+                                master)):
+            m = CheckpointManager(os.path.join(ckpt_root, name), keep=1, **kw)
+            m.save(1, tree)
+            ck[name] = m.restore(1, tree, device=dev)
+        a = CheckpointManager(os.path.join(ckpt_root, "async"), keep=1)
+        a.save(2, weights, blocking=False)
+        ck["async"] = a.restore(2, weights, device=dev)
+        staged = list(prefetch_staged(iter(batches), torch.bfloat16, depth=2,
+                                      device=dev))
+        return tiled, loaded, outs, sched, pool_out, ck, staged
+
+    (tiled, loaded, kv_outs, kv_sched, (pages_loaded, pages_back, pool_stats),
+     ck, staged), counts = drive("consumers", [agu.RELAYOUT, datapath.STREAMED,
+                                              datapath.BLOCK], consumers)
+    # the KV store and load against their plain versions
+    store_d = KV._store_desc("bfloat16", 9, 1e-6)
+    want_tiled = datapath.plain(kv.reshape(1, KV_SHAPE[1], -1),
+                                store_d.plugins, L.MN, store_d.dst.layout)
+    assert_close(tiled, want_tiled, tolerance(store_d.plugins, kv.dtype),
+                 "consumers kv store (RMSNorm) vs plain")
+    load_d = KV._load_desc(16, 128, 9)
+    assert_bitwise(loaded, datapath.plain(tiled, load_d.plugins,
+                                          load_d.src.layout, L.MN),
+                   "consumers kv load (transpose) vs plain")
+    for i, (shard, got) in enumerate(zip(shards, kv_outs)):
+        assert_bitwise(got, KV.kv_load_transposed(KV.kv_prefill_store(shard)),
+                       f"consumers kv round trip {i} vs serial")
+    rep = kv_sched.report()
+    log(f"[consumers] kv store within tolerance, load bitwise; 8 round trips "
+        f"on host_device(2): makespan {rep.makespan * 1e6:.3f} us (model)")
+    # the pool: round trips bitwise, stats equal to the CPU run's
+    pages = paginate(pool_mat, 32)
+    for i, (got, want) in enumerate(zip(pages_loaded, pages)):
+        assert_bitwise(got, want, f"consumers pool load {i}")
+    kept = [p for i, p in enumerate(pages) if i % 4 != 1]
+    for i, (got, want) in enumerate(zip(pages_back, kept)):
+        assert_bitwise(got, want, f"consumers pool page {i} after evict, "
+                       f"restore and defrag")
+    cpu_loaded, cpu_back, cpu_stats = pool_run(pool_mat.cpu(), "cpu")
+    check(pool_stats == cpu_stats, f"consumers pool stats {pool_stats} != "
+          f"the CPU run's {cpu_stats}")
+    for got, want in zip(pages_back, cpu_back):
+        assert_bitwise(got.cpu(), want, "consumers pool: card vs CPU run")
+    log(f"[consumers] pool: {POOL_PAGES} pages bitwise through store, load, "
+        f"evict, restore and defrag; stats {pool_stats} == the CPU run's")
+    # the checkpoints: bitwise onto the card, and onto the CPU
+    for name, tree in ck.items():
+        src = master if name == "down-cast" else weights
+        for k, w in src.items():
+            want = w.to(torch.bfloat16).float() if name == "down-cast" else w
+            check(tree[k].device.type == dev.type, f"consumers ckpt {name} "
+                  f"{k} not on {dev}")
+            assert_bitwise(tree[k], want, f"consumers ckpt {name} {k}")
+    for name in ("plain", "auto"):
+        back = CheckpointManager(os.path.join(ckpt_root, name)).restore(
+            1, weights, device="cpu")
+        for k, w in weights.items():
+            assert_bitwise(back[k], w.cpu(), f"consumers ckpt {name} {k} "
+                           f"restored on the CPU")
+    log(f"[consumers] checkpoints (plain, auto layout, down-cast, async) "
+        f"bitwise onto the card and onto the CPU")
+    # input staging: bitwise equal to stage_batch, on the card
+    for i, (got, b) in enumerate(zip(staged, batches)):
+        want = stage_batch(b, torch.bfloat16, device=dev)
+        for k in want:
+            check(got[k].device.type == dev.type,
+                  f"consumers staging {k} not on {dev}")
+            assert_bitwise(got[k], want[k], f"consumers staging batch {i} {k}")
+    log(f"[consumers] 3 qwen2-vl batches staged to bf16 on the card, bitwise "
+        f"stage_batch; launches {counts}")
+    # times (GPU wall time of one call, the host included)
+    cons = {
+        "kv store (RMSNorm, 1x8192x1024 bf16)":
+            wall_ms(lambda: KV.kv_prefill_store(kv), 5),
+        "kv load (transpose)": wall_ms(lambda: KV.kv_load_transposed(tiled), 5),
+        "8 kv round trips through the scheduler": wall_ms(
+            lambda: KV.kv_roundtrips_overlapped(shards, scheduler=(
+                DistributedScheduler(Topology.host_device(2)))), 3),
+        f"pool: {POOL_PAGES} pages through every op": wall_ms(
+            lambda: pool_run(pool_mat, dev), 3),
+        "stage one qwen2-vl batch (235 MB f32 -> bf16)": wall_ms(
+            lambda: stage_batch(batches[0], torch.bfloat16, device=dev), 3),
+    }
+    for k, path in (("checkpoint save, plain (201 MB bf16)", "plain"),
+                    ("checkpoint save, auto layout", "auto")):
+        kw = {"stage_layout": "auto"} if path == "auto" else {}
+        m = CheckpointManager(os.path.join(ckpt_root, path + "-t"), keep=1,
+                              **kw)
+        cons[k] = wall_ms(lambda: m.save(1, weights), 3)
+        cons[k.replace("save", "restore")] = wall_ms(
+            lambda: m.restore(1, weights, device=dev), 3)
+    for k, ms in cons.items():
+        log(f"[consumers] {k}: {ms:.3f} ms (GPU wall time) on {card}")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    del kv, shards, tiled, loaded, kv_outs, pages_loaded, pages_back, ck
+    del staged, weights, master, batches
+    return cons
 
 
 def main():
@@ -1073,6 +1417,36 @@ def main():
         f"loads back; launches {counts}")
     del tr, tsched
 
+    # -- phase 12: the collectives, 4 ranks on the one card ---------------------
+    # A world of 4 processes over gloo (NCCL needs a card a rank); the
+    # kernels were built above, so the ranks load the built libraries.
+    import tempfile
+    from repro_torch import sharding as S
+    backend, note = S.pick_backend(RANKS, "cuda")
+    log(f"[collectives] backend: {note}")
+    check(backend == "gloo", f"collectives: {RANKS} ranks on one card took "
+          f"{backend}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-spmd-") as work:
+        ranks = S.run_spmd(phase12_rank, (RANKS,), ("x",), args=(card,),
+                           device="cuda", workdir=work)
+    coll_s = time.perf_counter() - t0
+    coll = {k: statistics.median(rk["times"][k] for rk in ranks)
+            for k in ranks[0]["times"]}
+    for k, ms in coll.items():
+        log(f"[collectives] {k}: {ms:.3f} ms wall (median over ranks), host "
+            f"hop {ranks[0]['hops'][k]} bytes a call a rank, on {card}")
+    for k, ms in ranks[0]["side_ms"].items():
+        log(f"[collectives] {k} alone: {ms:.4f} ms of device time (rank 0 "
+            f"alone on the card) on {card}")
+    log(f"[collectives] the gradient leaf (96 MiB) to the host and back "
+        f"alone: {statistics.median(rk['hop_ms'] for rk in ranks):.3f} ms on "
+        f"{card}; phase {coll_s:.1f} s with 4 process starts; launches by "
+        f"rank {[rk['counts'] for rk in ranks]}")
+
+    # -- phase 13: the movement-plane consumers, one process -------------------
+    cons = phase13(dev, gen, card, drive, wall_ms)
+
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
@@ -1095,7 +1469,11 @@ def main():
                                  "serial_device_ms": serial_dev,
                                  "rounds": rounds, "per_link_bytes": per_link,
                                  "auto_resolved": resolved},
-                   "trace_replays_model_us": replays}, f, indent=1)
+                   "trace_replays_model_us": replays,
+                   "collectives": {"backend": ranks[0]["backend"],
+                                   "ms": coll, "ranks": ranks,
+                                   "phase_s": coll_s},
+                   "consumers_ms": cons}, f, indent=1)
     log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                 for n in order]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,33 @@
 """xdma.transfer(): the single entry point for every XDMA data movement
-(PyTorch port, local movements).
+(PyTorch port).
 
 The twin of ``repro.core.api``.  :func:`transfer` consumes a
 :class:`~repro_torch.core.descriptor.XDMADescriptor` and dispatches — from
-the descriptor alone — to one of the local lowering backends:
+the descriptor alone — to one of the lowering backends:
 
-* backend ``auto``     -> one datapath kernel (``plugin_compiler``) when the
-  plugin chain is emit-capable, else the plain composition
-  (``engine.xdma_copy``), as the reference's policy records it
-* backend ``fused``    -> ``engine.xdma_copy`` (the plain composition)
-* backend ``compiled`` -> ``plugin_compiler.compile_local`` (forced)
-* backend ``pallas``   -> ``engine.xdma_copy_pallas`` (kernel 1, the AGU
-  relayout)
+* local + backend ``auto``     -> one datapath kernel (``plugin_compiler``)
+  when the plugin chain is emit-capable, else the plain composition
+  (``engine.xdma_copy``), as the reference's policy records it; an empty
+  chain is a pure relayout (``engine.relayout_copy``: kernel 1 on the card)
+* local + backend ``fused``    -> ``engine.xdma_copy`` (the plain composition)
+* local + backend ``compiled`` -> ``plugin_compiler.compile_local`` (forced)
+* local + backend ``pallas``   -> ``engine.xdma_copy_pallas`` (kernel 1, the
+  AGU relayout)
+* dst peer                     -> ``remote.xdma_ppermute``   (tunnel)
+* dst all_to_all               -> ``remote.xdma_all_to_all`` (MoE dispatch)
+* dst reduce                   -> ``remote.compressed_psum`` / ``xdma_psum``
+* dst multicast (mesh-axis)    -> ``remote.xdma_ppermute``   (rotating hop)
 
 The kernels run on the device of the buffer: a CUDA tensor launches the
-hand-written kernels, a CPU tensor takes their plain versions.  ``auto``
-endpoint layouts resolve through the cost-model autotuner
-(:func:`_resolve_auto`) before lowering.  Remote movements (peer,
-all-to-all, reduce, mesh-axis multicast) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item; a node-addressed
-multicast is routed by ``DistributedScheduler.submit_multicast``, as in the
-reference.
+hand-written kernels, a CPU tensor takes their plain versions.  Remote
+movements run inside an SPMD body, one call per rank, their axis a process
+group registered in :mod:`repro_torch.sharding`; each endpoint side with an
+emit-capable chain is one datapath kernel
+(``plugin_compiler.maybe_compile_side``).  ``auto`` endpoint layouts
+resolve through the cost-model autotuner (:func:`_resolve_auto`) before
+lowering.  A node-addressed multicast is routed by
+``DistributedScheduler.submit_multicast``, as in the reference, and raises
+here.
 
 The CFG phase happens **once per descriptor**: the lowered callable is built
 on first use and cached by descriptor identity (an LRU, see
@@ -40,6 +47,7 @@ from . import autotune as _autotune
 from . import engine
 from . import plugin_compiler
 from . import plugins as P
+from . import remote
 from .descriptor import XDMADescriptor
 
 __all__ = ["transfer", "XDMAQueue", "cache_stats", "clear_cache",
@@ -134,19 +142,14 @@ def clear_cache() -> None:
 
 
 def _check_ported(desc: XDMADescriptor) -> None:
-    """Refuse what the port cannot lower, naming the ROADMAP item."""
+    """Refuse a node-addressed multicast: it has no single-collective
+    lowering; the scheduler forks it into per-hop tree tasks."""
     if desc.movement == "multicast" and desc.remote is None:
-        # node-addressed multicast has no single-collective lowering: the
-        # scheduler forks it into per-hop tree tasks
         raise ValueError(
             "node-addressed multicast descriptors are routed by "
             "DistributedScheduler.submit_multicast (they fork into per-hop "
             "tree tasks), not lowered by transfer(); use "
             "Endpoint.multicast_axis for the mesh-axis collective spelling")
-    if desc.movement != "local":
-        raise NotImplementedError(
-            f"{desc.movement} movements lower to collectives, which the port "
-            "does not have yet (ROADMAP.md §1 item 6, collectives)")
 
 
 def _resolve_auto(desc: XDMADescriptor, x, link=None) -> XDMADescriptor:
@@ -188,7 +191,9 @@ def _compiled_or(desc: XDMADescriptor, compiled: Optional[Callable]) -> Callable
 
 
 def _lower(desc: XDMADescriptor) -> Callable:
-    """Build the Data-phase callable for a local descriptor (the CFG phase)."""
+    """Build the Data-phase callable for a descriptor (the CFG phase)."""
+    if desc.movement != "local":
+        return _lower_remote(desc)
     if desc.backend == "pallas":
         return lambda x: engine.xdma_copy_pallas(x, desc)
     if desc.backend == "compiled":
@@ -198,7 +203,82 @@ def _lower(desc: XDMADescriptor) -> Callable:
         compiled = plugin_compiler.maybe_compile_local(desc)
         if compiled is not None:
             return _fresh(_compiled_or(desc, compiled))
+        if not desc.plugins:
+            return _fresh(lambda x: engine.relayout_copy(x, desc))
     return _fresh(lambda x: engine.xdma_copy(x, desc))
+
+
+def _lower_remote(desc: XDMADescriptor) -> Callable:
+    """Reader -> pre host -> link -> post host -> writer, run in every rank.
+    Each endpoint side with a fully emit-capable chain is one datapath
+    kernel (reader + pre chain / post chain + writer); other sides keep the
+    composition the remote backends apply around the collective."""
+    movement, ep = desc.movement, desc.remote
+    src_side = dst_side = None
+    if movement in ("peer", "all_to_all", "multicast"):
+        src_side = plugin_compiler.maybe_compile_side(
+            desc.src.layout, desc.pre, side="src", d_buf=desc.d_buf)
+        dst_side = plugin_compiler.maybe_compile_side(
+            desc.dst.layout, desc.post, side="dst", d_buf=desc.d_buf)
+
+    def run_remote(x):
+        fuse_src = (src_side is not None
+                    and not isinstance(x, (P.QTensor, P.CTensor)))
+        if fuse_src and len(x.shape) >= 2:   # reduce-style flat payloads skip
+            desc.validate(desc.src.layout.logical_shape(tuple(x.shape)))
+        if fuse_src:
+            logical = src_side(x)            # one kernel: reader + pre chain
+            pre = ()
+        else:
+            logical = engine.reader(x, desc.src.layout)
+            pre = desc.pre
+            if getattr(logical, "ndim", 0) >= 2:
+                desc.validate(tuple(logical.shape))
+        post = desc.post if dst_side is None else ()
+        if movement in ("peer", "multicast"):
+            # mesh-axis multicast is the rotating one-hop broadcast: the same
+            # collective as peer, recorded as multicast in the ledger
+            y = remote.xdma_ppermute(logical, ep.axis, list(ep.perm),
+                                     pre=pre, post=post)
+        elif movement == "all_to_all":
+            y = remote.xdma_all_to_all(logical, ep.axis,
+                                       split_axis=ep.split_axis,
+                                       concat_axis=ep.concat_axis,
+                                       pre=pre, post=post)
+        else:
+            # reduce: a Quantize/Dequantize pair around the link is the wire
+            # codec, which compressed_psum owns (it re-quantizes between its
+            # two phases); other plugins run on their hosts.  A Dequantize
+            # with no pre Quantize is not a codec: it stays on the post host
+            # and fails loudly on a plain tensor.
+            pre_rest = tuple(p for p in desc.pre
+                             if not isinstance(p, P.Quantize))
+            codec = len(pre_rest) != len(desc.pre)
+            post_rest = (tuple(p for p in desc.post
+                               if not isinstance(p, P.Dequantize))
+                         if codec else desc.post)
+            y = P.apply_chain(pre_rest, logical)
+            if codec:
+                deq = [p for p in desc.post if isinstance(p, P.Dequantize)]
+                out_dtype = deq[0].dtype if deq else y.dtype
+                y = remote.compressed_psum(y, ep.axis, ep.axis_size,
+                                           out_dtype=out_dtype)
+            else:
+                y = remote.xdma_psum(y, ep.axis)
+            y = P.apply_chain(post_rest, y)
+        if dst_side is not None:
+            if not isinstance(y, (P.QTensor, P.CTensor)):
+                return dst_side(y)           # one kernel: post chain + writer
+            y = P.apply_chain(desc.post, y)  # payload pytree: composition
+        if isinstance(y, P.QTensor):
+            return P.QTensor(values=engine.writer(y.values, desc.dst.layout),
+                             scales=y.scales)
+        if isinstance(y, P.CTensor):
+            return P.CTensor(values=engine.writer(y.values, desc.dst.layout),
+                             mask=y.mask)
+        return engine.writer(y, desc.dst.layout)
+
+    return run_remote
 
 
 def _lowered(desc: XDMADescriptor) -> Callable:
@@ -222,8 +302,10 @@ def transfer(x: Any, desc: XDMADescriptor) -> Any:
     or on the CPU where the kernels' plain versions run); the return value
     is the physical buffer at the dst endpoint, on the same device (a
     :class:`~repro_torch.core.plugins.QTensor` / ``CTensor`` when the chain
-    ends in ``Quantize`` / ``Compress``).  An ``auto`` layout resolves for
-    the default fabric first.  When a
+    ends in ``Quantize`` / ``Compress``).  A remote movement is called in
+    every rank of an SPMD body whose mesh registers the endpoint's axis
+    (:mod:`repro_torch.sharding`).  An ``auto`` layout resolves for the
+    default fabric first.  When a
     :func:`repro_torch.runtime.trace.capture` scope is open the call is
     recorded into its trace; when a
     :func:`repro_torch.runtime.telemetry.session` is open, it is timed as an
@@ -245,7 +327,7 @@ def transfer(x: Any, desc: XDMADescriptor) -> Any:
 
 # -- the Controller's in-order task queue (paper §II-B) ----------------------
 class XDMAQueue:
-    """An ordered sequence of local XDMA tasks.
+    """An ordered sequence of XDMA tasks.
 
     ``run(x)`` chains every task in submission order through its lowering
     (the reference jits the chain into one program; the port has no jit and

@@ -24,7 +24,7 @@ from . import layouts as L
 from . import plugins as P
 
 __all__ = ["Endpoint", "XDMADescriptor", "describe", "from_spec",
-           "page_layout", "page_descriptor"]
+           "reduce_descriptor", "page_layout", "page_descriptor"]
 
 _LOCAL = "local"
 _PEER = "peer"
@@ -387,6 +387,20 @@ def describe(src: str | L.Layout | Endpoint, dst: str | L.Layout | Endpoint,
     return XDMADescriptor(src=s, dst=d, pre=tuple(plugins) or tuple(pre),
                           post=tuple(post), d_buf=d_buf, channels=channels,
                           backend=backend)
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_descriptor(axis, axis_size: int, *,
+                      compressed: bool = False) -> XDMADescriptor:
+    """The canonical all-reduce task over ``axis`` (a mesh-axis name, or a
+    tuple of names for a multi-axis reduction): a ``reduce`` endpoint that
+    lowers to the plain all-reduce, or, when ``compressed``, to the int8
+    wire codec (Quantize pre-writer / Dequantize post-reader) of
+    ``compressed_psum``.  One lru-cached CFG phase per (axis, size, codec)."""
+    pre = (P.Quantize(),) if compressed else ()
+    post = (P.Dequantize(),) if compressed else ()
+    return XDMADescriptor(dst=Endpoint.reduce(axis, axis_size),
+                          pre=pre, post=post)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,11 @@
-"""The XDMA plugin compiler: lower a local descriptor's whole datapath into
-one hand-written kernel (PyTorch port).
+"""The XDMA plugin compiler: lower a descriptor's datapath into one
+hand-written kernel per endpoint side (PyTorch port).
 
-The twin of ``repro.core.plugin_compiler``'s local part.  Paper Fig. 2(c)
-puts the plugin hosts *inside* the reader -> writer datapath; this module
-compiles ``reader -> pre-chain -> post-chain -> writer`` into one kernel
-program, from one of two templates:
+The twin of ``repro.core.plugin_compiler``.  Paper Fig. 2(c) puts the
+plugin hosts *inside* the reader -> writer datapath; this module compiles
+``reader -> pre-chain -> post-chain -> writer`` (a local movement) or
+``reader -> pre-chain`` / ``post-chain -> writer`` (the two sides of a
+remote movement) into one kernel program each, from one of two templates:
 
 * **streamed** (kernel 2, :class:`~repro_torch.kernels.datapath.StreamedDatapath`)
   — every plugin is row-local and shape-preserving (``streaming=True``) and
@@ -27,11 +28,12 @@ import torch
 
 from repro_torch.runtime import telemetry as _tm
 
+from . import layouts as L
 from . import plugins as P
 from .descriptor import XDMADescriptor
 
-__all__ = ["can_fuse", "compile_local", "maybe_compile_local", "cfg_stats",
-           "clear_stats"]
+__all__ = ["can_fuse", "compile_local", "compile_side", "maybe_compile_local",
+           "maybe_compile_side", "cfg_stats", "clear_stats"]
 
 
 # -- fusion accounting (one event per CFG phase, not per Data phase) ---------
@@ -177,3 +179,45 @@ def maybe_compile_local(desc: XDMADescriptor) -> Optional[Callable]:
     if not ok:
         return None
     return compile_local(desc)
+
+
+def compile_side(layout: L.Layout, chain: Sequence[P.Plugin], *, side: str,
+                 d_buf: int = 9) -> Callable:
+    """One endpoint side of a remote movement as one kernel program.
+
+    ``side='src'``: reader + pre-chain (physical src buffer -> link
+    payload); ``side='dst'``: post-chain + writer (link payload -> physical
+    dst buffer).  The identity layout stands in for the link end."""
+    chain = tuple(chain)
+    reason = _chain_fusible(chain)
+    if reason is not None:
+        raise ValueError(f"side is not fusible ({reason})")
+    if side == "src":
+        src_layout, dst_layout = layout, L.MN
+    elif side == "dst":
+        src_layout, dst_layout = L.MN, layout
+    else:
+        raise ValueError(f"side must be 'src' or 'dst', got {side!r}")
+    return _specializing(chain, src_layout, dst_layout, d_buf,
+                         lambda shape: None)
+
+
+def maybe_compile_side(layout: L.Layout, chain: Sequence[P.Plugin], *,
+                       side: str, d_buf: int = 9) -> Optional[Callable]:
+    """Side-fusion policy for remote movements: fuse a non-empty, fully
+    emit-capable chain whose payload stays a plain tensor (QTensor /
+    CTensor payloads split the stream across the collective), else None.
+    A side with no plugins is not a fallback: there is no chain to fuse."""
+    chain = tuple(chain)
+    if not chain:
+        return None
+    reason = _chain_fusible(chain)
+    if reason is None:
+        for p in chain:
+            if p.pytree_payload:
+                reason = f"pytree-payload:{p.name}"
+                break
+    _record(reason is None, reason or "")
+    if reason is not None:
+        return None
+    return compile_side(layout, chain, side=side, d_buf=d_buf)

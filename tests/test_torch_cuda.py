@@ -638,3 +638,115 @@ def test_baselines_on_the_card_bitwise_vs_kernel1(src, dst, transpose):
     for name in setups:
         got = getattr(PB, name)(xin, desc)
         assert got.is_cuda and _equal_bits(got, want), name
+
+
+# -- remote movements and the movement-plane consumers on the card --------------
+def test_remote_sides_launch_their_kernels_on_a_size_one_axis():
+    """On a size-1 axis the collectives move nothing, so each remote
+    descriptor is its two endpoint sides: kernel 2 for a Cast -> Scale post
+    side, kernel 3 for a transposing src side, bitwise the CPU run."""
+    from repro_torch import sharding as S
+    E = PC.Endpoint
+    x = _logical((64, 256), torch.float32, seed=3)
+    descs = [(PC.describe(E.local(PC.MN), E.peer("x", [(0, 0)]),
+                          post=(PC.Cast(torch.bfloat16), PC.Scale(0.5))),
+              DP.STREAMED),
+             (PC.describe(E.local(PC.MN), E.peer("x", [(0, 0)], PC.MNM8N8),
+                          pre=(PC.Transpose(),)), DP.BLOCK),
+             (PC.describe(E.local(PC.MN), E.all_to_all("x", 0, 1),
+                          pre=(PC.Quantize(),),
+                          post=(PC.Dequantize(torch.float32),)), None)]
+    with S.local_axis("x"):
+        for desc, kernel in descs:
+            before = kernel.launches if kernel is not None else 0
+            got = px.transfer(x.cuda(), desc)
+            torch.cuda.synchronize()
+            if kernel is not None:
+                assert kernel.launches == before + 1, desc.summary()
+            assert got.is_cuda and _equal_bits(got.cpu(), px.transfer(x, desc))
+        g = _logical((3, 1000), torch.float32, seed=4)
+        got = PC.compressed_psum(g.cuda(), "x", 1)
+        assert _equal_bits(got.cpu(), PC.compressed_psum(g, "x", 1))
+
+
+def test_a_gloo_world_on_one_card_matches_the_cpu_world(tmp_path):
+    """Two ranks on one card over gloo (NCCL needs a card a rank): every
+    output bitwise the CPU world's, the side kernels launched, the host hop
+    counted in the wire bank."""
+    import torch_remote_cases as RC
+    from repro_torch import sharding as S
+    from repro_torch.kernels import _build
+    _build.build_all()                   # the ranks load the built libraries
+    card = S.run_spmd(RC.card_body, (2,), ("x",), args=("cuda",),
+                      device="cuda", workdir=str(tmp_path / "card"))
+    cpu = S.run_spmd(RC.card_body, (2,), ("x",), args=("cpu",),
+                     device="cpu", workdir=str(tmp_path / "cpu"))
+    for a, b in zip(card, cpu):
+        assert a["backend"] == "gloo"
+        for k in ("cast_scale", "transpose", "a2a_codec", "reduce_codec"):
+            assert _equal_bits(a[k], b[k]), k
+        assert a["launches"]["streamed_datapath"] >= 1
+        assert a["launches"]["block_datapath"] >= 1
+        assert a["wire"]["host_hop_bytes"] > 0
+        assert "host_hop_bytes" not in b["wire"]
+
+
+def test_consumers_land_on_the_card(tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLM, stage_batch
+    from repro_torch.runtime import DistributedScheduler, Topology
+    from repro_torch.serving import PagedKVPool, transfer as T
+    kv = _logical((1, 256, 8, 128), torch.bfloat16, seed=5).cuda()
+    tiled = T.kv_prefill_store(kv)
+    back = T.kv_load_transposed(tiled)
+    assert back.is_cuda and _equal_bits(
+        back.cpu(), T.kv_load_transposed(T.kv_prefill_store(kv.cpu())))
+    pool = PagedKVPool(4, 32)
+    sched = DistributedScheduler(Topology.host_device(2))
+    pool.bind(sched)
+    mat = kv.reshape(256, 1024)[:32]
+    pid = pool.alloc(1024, "bfloat16")
+    pool.store(pid, mat)
+    sched.flush(); pool.commit()
+    pool.evict(pid)
+    sched.flush(); pool.commit()
+    pool.restore(pid)
+    sched.flush(); pool.commit()
+    f = pool.load(pid)
+    sched.flush()
+    assert f.result().is_cuda and _equal_bits(f.result(), mat)
+    t = {"w": _logical((64, 128), torch.bfloat16, seed=6).cuda(),
+         "step": torch.tensor(3)}
+    m = CheckpointManager(str(tmp_path), stage_layout="auto")
+    m.save(1, t, blocking=False)
+    on_card = m.restore(1, t)
+    assert on_card["w"].is_cuda and _equal_bits(on_card["w"], t["w"])
+    on_cpu = m.restore(1, t, device="cpu")
+    assert _equal_bits(on_cpu["w"], t["w"].cpu())
+    ds = SyntheticLM(vocab=64, seq_len=8, global_batch=2, family="vlm",
+                     d_model=16)
+    staged = stage_batch(ds.batch_at(0), torch.bfloat16)
+    assert all(v.is_cuda for v in staged.values())
+    assert _equal_bits(staged["embeds"].cpu(), stage_batch(
+        ds.batch_at(0), torch.bfloat16, device="cpu")["embeds"])
+
+
+@pytest.mark.parametrize("src,dst", [("MN", "MNM16N128"), ("MNM16N128", "MN"),
+                                     ("MNM16N128", "MNM16N128"),
+                                     ("MN", "NM")])
+def test_empty_chain_relayouts_take_kernel1_on_the_card(src, dst):
+    """An empty chain under backend "auto" (page stores and loads, the
+    checkpoint's at-rest layouts, multicast hops) runs on kernel 1 on the
+    card, bitwise the plain composition the CPU runs; agu_stats keeps
+    counting only the "pallas" backend."""
+    x = _logical((64, 1024), torch.bfloat16, seed=7)
+    xin = _layout(src).from_logical(x)
+    desc = PC.describe(src, dst)
+    stats = pagu.agu_stats()
+    before = pagu.RELAYOUT.launches
+    got = px.transfer(xin.cuda(), desc)
+    torch.cuda.synchronize()
+    identity = src == dst
+    assert pagu.RELAYOUT.launches == before + (0 if identity else 1)
+    assert pagu.agu_stats() == stats
+    assert got.is_cuda and _equal_bits(got.cpu(), px.transfer(xin, desc))

@@ -43,6 +43,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.runtime.scheduler, repro_torch.runtime.trace, "
             "repro_torch.runtime.chrometrace, repro_torch.runtime.topology, "
             "repro_torch.runtime.ring, repro_torch.runtime.simulator\n"
+            "import repro_torch.sharding, repro_torch.core.remote, "
+            "repro_torch.serving, repro_torch.serving.transfer, "
+            "repro_torch.serving.paged, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint, "
+            "repro_torch.checkpoint.manager\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(repr(bad))\n")

@@ -183,10 +183,15 @@ def test_remote_movements_are_not_ported_yet(endpoint):
     desc = PC.XDMADescriptor(dst=ep)
     assert desc.movement == ("multicast" if endpoint.startswith("multicast")
                              else endpoint)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # remote movements are ported now (ROADMAP §1 item 6): they lower to
+    # collectives over a registered mesh axis (tests/test_torch_remote.py),
+    # and outside one they raise, naming the axis
+    with pytest.raises(LookupError, match="'x' is not registered"):
         px.transfer(torch.zeros(8, 128), desc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        px.XDMAQueue([desc])
+    q = px.XDMAQueue([desc])
+    assert len(q) == 1 and not q.is_local
+    with pytest.raises(LookupError, match="'x' is not registered"):
+        q.run(torch.zeros(8, 128))
 
 
 def test_auto_layouts_are_not_ported_yet():

@@ -31,8 +31,9 @@ kernel against its plain PyTorch version on the same inputs:
 * trace capture and replay (phase 11) of that graph: the ledger's per-link
   bytes equal the counters, a software-AGU replay is slower than the
   Frontend's, and the Chrome trace goes to ``chiprun_out/``.
-* the collectives (phase 12): a world of 4 ranks on the one card over gloo
-  (``sharding.run_spmd``; the ranks load the kernels built here): the int8
+* the collectives (phase 12): a world of 4 ranks, on the one card over gloo
+  (NCCL where there is a card a rank; ``sharding.run_spmd``; the ranks
+  load the kernels built here): the int8
   reduce codec and its error feedback on a phi4-mini gradient leaf (3072 x
   8192 f32) against float64 and bitwise against the port's CPU run of the
   same four inputs, the plain reduce, a phi4-mini KV shard (8192 tokens x 8
@@ -81,6 +82,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -312,8 +314,13 @@ def phase12_rank(mesh, card):
     wire = remote.wire_stats()
     check(counts["streamed_datapath"] > 0 and counts["block_datapath"] > 0,
           f"{tag} the side kernels did not launch: {counts}")
-    check(mesh.backend == "gloo", f"{tag} backend {mesh.backend}, not gloo")
-    check(wire.get("host_hop_bytes", 0) > 0, f"{tag} no host hop counted")
+    want_backend = S.pick_backend(n, "cuda")[0]
+    check(mesh.backend == want_backend,
+          f"{tag} backend {mesh.backend}, not {want_backend}")
+    # gloo on CUDA tensors crosses through the host; NCCL never does
+    hop = wire.get("host_hop_bytes", 0)
+    check(hop > 0 if mesh.backend == "gloo" else hop == 0,
+          f"{tag} {hop} host-hop bytes under {mesh.backend}")
     # float64 sums of the four ranks' leaves, the rolled plain results
     exact = sum(rank_inputs(j, dev)[0].double() for j in range(n))
     _, prev_kv, _ = rank_inputs((r - 1) % n, dev)
@@ -338,12 +345,22 @@ def phase12_rank(mesh, card):
         src = rank_inputs(j, dev)[2][r * chunk:(r + 1) * chunk]
         assert_bitwise(out["moe all_to_all"][j * chunk:(j + 1) * chunk], src,
                        f"{tag} moe all_to_all block from rank {j}")
-    # the port's plain CPU run of the same four inputs, over the same group
-    cpu = {"reduce codec": xdma.transfer(g.cpu(), codec),
-           "feedback": C.compressed_psum_with_feedback(
-               g.cpu(), torch.zeros(GRAD_SHAPE), "x", n),
-           "moe all_to_all int8": xdma.transfer(moe.cpu(), a2a_codec),
-           "moe all_to_all": xdma.transfer(moe.cpu(), a2a)}
+    # the port's plain CPU run of the same four inputs, over the same ranks
+    # (a gloo group of its own where the mesh runs NCCL, which takes no CPU
+    # tensors)
+    import contextlib
+    import torch.distributed as dist
+    cpu_axis = contextlib.nullcontext()
+    if mesh.backend != "gloo":
+        cpu_axis = S.axis_scope([S.MeshAxis(
+            "x", n, r, dist.new_group(list(range(n)), backend="gloo"),
+            "gloo")])
+    with cpu_axis:
+        cpu = {"reduce codec": xdma.transfer(g.cpu(), codec),
+               "feedback": C.compressed_psum_with_feedback(
+                   g.cpu(), torch.zeros(GRAD_SHAPE), "x", n),
+               "moe all_to_all int8": xdma.transfer(moe.cpu(), a2a_codec),
+               "moe all_to_all": xdma.transfer(moe.cpu(), a2a)}
     for k, want in cpu.items():
         got = out[k] if k != "feedback" else out[k][0]
         want = want if k != "feedback" else want[0]
@@ -371,7 +388,6 @@ def phase12_rank(mesh, card):
                        lambda: src_side(flat)),
                    "kernel-2 dst side (Cast -> Scale)": gpu_ms(
                        lambda: dst_side(mat))}
-    import torch.distributed as dist
     dist.barrier()
     for k in ops:
         log(f"{tag} {k}: {times[k]:.3f} ms wall (median of 3), host hop "
@@ -518,12 +534,19 @@ def phase13(dev, gen, card, drive, wall_ms):
     log(f"[consumers] checkpoints (plain, auto layout, down-cast, async) "
         f"bitwise onto the card and onto the CPU")
     # input staging: bitwise equal to stage_batch, on the card
+    # and to its plain version: floats cast to bf16, integer ids unchanged
     for i, (got, b) in enumerate(zip(staged, batches)):
         want = stage_batch(b, torch.bfloat16, device=dev)
+        check(sorted(got) == sorted(b), f"consumers staging keys {sorted(got)}")
         for k in want:
             check(got[k].device.type == dev.type,
                   f"consumers staging {k} not on {dev}")
             assert_bitwise(got[k], want[k], f"consumers staging batch {i} {k}")
+            plain = torch.from_numpy(np.ascontiguousarray(b[k])).to(dev)
+            if plain.is_floating_point():
+                plain = plain.to(torch.bfloat16)
+            assert_bitwise(got[k], plain,
+                           f"consumers staging batch {i} {k} vs plain")
     log(f"[consumers] 3 qwen2-vl batches staged to bf16 on the card, bitwise "
         f"stage_batch; launches {counts}")
     # times (GPU wall time of one call, the host included)
@@ -1418,14 +1441,13 @@ def main():
     del tr, tsched
 
     # -- phase 12: the collectives, 4 ranks on the one card ---------------------
-    # A world of 4 processes over gloo (NCCL needs a card a rank); the
-    # kernels were built above, so the ranks load the built libraries.
+    # A world of 4 processes: gloo on one card (NCCL needs a card a rank),
+    # NCCL where there are 4; the kernels were built above, so the ranks
+    # load the built libraries.
     import tempfile
     from repro_torch import sharding as S
     backend, note = S.pick_backend(RANKS, "cuda")
     log(f"[collectives] backend: {note}")
-    check(backend == "gloo", f"collectives: {RANKS} ranks on one card took "
-          f"{backend}")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-spmd-") as work:
         ranks = S.run_spmd(phase12_rank, (RANKS,), ("x",), args=(card,),

@@ -2,17 +2,29 @@
 
 The port keeps the reference's orders where they reach a record: the
 checkpoint's array names and ``meta.json``, the labels of a weight
-broadcast.  JAX visits a dict's keys sorted, a list or tuple in order, and
-treats ``None`` as an empty node; every other object is a leaf.
+broadcast, a payload's bytes on the scheduler's links.  JAX visits a dict's
+keys sorted, a list or tuple in order, a ``QTensor``'s values then scales
+and a ``CTensor``'s values then mask (registered nodes, their children by
+position), and treats ``None`` as an empty node; every other object is a
+leaf.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+from repro_torch.core.plugins import CTensor, QTensor
+
 __all__ = ["flatten_with_paths", "path_key", "tree_map_with_path",
            "unflatten", "leaves"]
 
 # a path is a tuple of ("key", dict key) / ("idx", position) entries
+
+
+def _children(tree) -> Tuple:
+    """A payload carrier's children, in the reference's flattening order."""
+    if isinstance(tree, QTensor):
+        return (tree.values, tree.scales)
+    return (tree.values, tree.mask)
 
 
 def _walk(tree, path, out: List[Tuple[Tuple, Any]]):
@@ -21,8 +33,10 @@ def _walk(tree, path, out: List[Tuple[Tuple, Any]]):
     if isinstance(tree, dict):
         for k in sorted(tree):
             _walk(tree[k], path + (("key", k),), out)
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
+    elif isinstance(tree, (list, tuple, QTensor, CTensor)):
+        children = (tree if isinstance(tree, (list, tuple))
+                    else _children(tree))
+        for i, v in enumerate(children):
             _walk(v, path + (("idx", i),), out)
     else:
         out.append((path, tree))
@@ -57,6 +71,8 @@ def _rebuild(tree, it):
             return children
         return (type(tree)(*children) if hasattr(tree, "_fields")
                 else type(tree)(children))
+    if isinstance(tree, (QTensor, CTensor)):
+        return type(tree)(*(_rebuild(v, it) for v in _children(tree)))
     return next(it)
 
 

@@ -119,12 +119,13 @@ def save_pytree(tree, directory: str,
 def restore_pytree(template, directory: str, device=None, *,
                    physical: bool = False):
     """Restore into the structure of ``template`` (leaves with ``shape``)
-    as host tensors, or on ``device`` when one is given.
+    on ``device``: the card when None, the host when ``"cpu"``.
 
     Leaves saved with an at-rest layout (``meta.json`` ``layouts``) are
-    un-staged to logical on the host by default; ``physical=True`` returns
+    un-staged to logical on ``device`` by default; ``physical=True`` returns
     them in their stored physical form (the manager then routes the
     un-staging relayout through the movement plane)."""
+    dev = torch.device("cuda" if device is None else device)
     with np.load(os.path.join(directory, "arrays.npz")) as z:
         data = {k: z[k] for k in z.files}
     with open(os.path.join(directory, "meta.json")) as f:
@@ -136,7 +137,7 @@ def restore_pytree(template, directory: str, device=None, *,
         key = _pytree.path_key(path)
         if key not in data:
             raise KeyError(f"checkpoint missing leaf {key}")
-        a = _to_tensor(data[key], key in bf16)
+        a = _to_tensor(data[key], key in bf16).to(dev)
         lay = layouts.get(key)
         if lay is not None:
             logical = tuple(lay.logical_shape(tuple(a.shape)))
@@ -148,7 +149,7 @@ def restore_pytree(template, directory: str, device=None, *,
         elif tuple(a.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: ckpt shape {tuple(a.shape)} != "
                              f"template {tuple(leaf.shape)}")
-        leaves.append(a if device is None else a.to(device))
+        leaves.append(a)
     return _pytree.unflatten(template, leaves)
 
 

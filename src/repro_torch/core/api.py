@@ -8,7 +8,8 @@ the descriptor alone — to one of the lowering backends:
 * local + backend ``auto``     -> one datapath kernel (``plugin_compiler``)
   when the plugin chain is emit-capable, else the plain composition
   (``engine.xdma_copy``), as the reference's policy records it; an empty
-  chain is a pure relayout (``engine.relayout_copy``: kernel 1 on the card)
+  chain is a pure relayout (``engine.xdma_copy_pallas`` untallied: kernel 1
+  on the card)
 * local + backend ``fused``    -> ``engine.xdma_copy`` (the plain composition)
 * local + backend ``compiled`` -> ``plugin_compiler.compile_local`` (forced)
 * local + backend ``pallas``   -> ``engine.xdma_copy_pallas`` (kernel 1, the
@@ -190,6 +191,18 @@ def _compiled_or(desc: XDMADescriptor, compiled: Optional[Callable]) -> Callable
     return run
 
 
+def _relayout(desc: XDMADescriptor) -> Callable:
+    """An empty chain under ``auto``: the AGU lowering (kernel 1 on the
+    card, its plain version on the CPU), untallied; payload carriers take
+    the composition."""
+    def run(x):
+        if not isinstance(x, torch.Tensor):
+            return engine.xdma_copy(x, desc)
+        desc.validate(desc.src_layout.logical_shape(tuple(x.shape)))
+        return engine.xdma_copy_pallas(x, desc, tally=False)
+    return run
+
+
 def _lower(desc: XDMADescriptor) -> Callable:
     """Build the Data-phase callable for a descriptor (the CFG phase)."""
     if desc.movement != "local":
@@ -204,7 +217,7 @@ def _lower(desc: XDMADescriptor) -> Callable:
         if compiled is not None:
             return _fresh(_compiled_or(desc, compiled))
         if not desc.plugins:
-            return _fresh(lambda x: engine.relayout_copy(x, desc))
+            return _fresh(_relayout(desc))
     return _fresh(lambda x: engine.xdma_copy(x, desc))
 
 

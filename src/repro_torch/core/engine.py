@@ -10,12 +10,8 @@ The twin of ``repro.core.engine``.  Two lowerings of one local descriptor:
   which in the port is the hand-written Hopper kernel
   (:mod:`repro_torch.kernels.agu`).  Pure relayouts and relayout+transpose
   on 2D logical data lower through it; other chains fall back to
-  :func:`xdma_copy`, and ``agu_stats()`` records why.
-
-:func:`relayout_copy` is the plain relayout of an empty chain under
-``backend="auto"`` (the reference jits :func:`xdma_copy` there): on a CUDA
-tensor it runs on kernel 1 where the planner covers the pair, and the
-plain composition everywhere else, the same bytes either way.
+  :func:`xdma_copy`, and ``agu_stats()`` records why.  ``backend="auto"`` lowers an empty chain the same way, untallied (the
+  reference jits :func:`xdma_copy` there: the same bytes).
 """
 from __future__ import annotations
 
@@ -25,8 +21,7 @@ from . import layouts as L
 from . import plugins as P
 from .descriptor import XDMADescriptor
 
-__all__ = ["xdma_copy", "xdma_copy_pallas", "relayout_copy", "reader",
-           "writer"]
+__all__ = ["xdma_copy", "xdma_copy_pallas", "reader", "writer"]
 
 
 def reader(x: torch.Tensor, layout: L.Layout) -> torch.Tensor:
@@ -64,36 +59,22 @@ def xdma_copy(x, desc: XDMADescriptor):
     return writer(logical, desc.dst_layout)
 
 
-def xdma_copy_pallas(x, desc: XDMADescriptor):
+def xdma_copy_pallas(x, desc: XDMADescriptor, *, tally: bool = True):
     """Lowering through the generic AGU kernel (kernel 1).
 
     Supports pure relayout and relayout+transpose on 2D logical data for any
     layout pair the pattern planner covers.  Other plugin chains fall back to
-    :func:`xdma_copy` (tallied in ``agu_stats()``).
+    :func:`xdma_copy` (tallied in ``agu_stats()`` unless ``tally=False``).
     """
     from repro_torch.kernels import agu, ops as kops
 
     pure_transpose = (len(desc.plugins) == 1
                       and isinstance(desc.plugins[0], P.Transpose))
     if desc.plugins and not pure_transpose:
-        agu.record_fallback("plugin-chain")
+        if tally:
+            agu.record_fallback("plugin-chain")
         return xdma_copy(x, desc)
     return kops.relayout(x, src_layout=desc.src_layout,
                          dst_layout=desc.dst_layout,
-                         transpose=pure_transpose, d_buf=desc.d_buf)
-
-
-def relayout_copy(x, desc: XDMADescriptor):
-    """An empty-chain movement: a pure relayout.  A CUDA tensor whose layout
-    pair the AGU planner covers takes kernel 1 (not tallied in
-    ``agu_stats()``, which counts the ``pallas`` backend as the reference
-    does); anything else, and every CPU tensor, the plain composition."""
-    if isinstance(x, torch.Tensor) and x.is_cuda and not desc.plugins:
-        from repro_torch.kernels import agu
-        logical = desc.src_layout.logical_shape(tuple(x.shape))
-        desc.validate(logical)
-        plan, _ = agu.plan_relayout(desc.src_layout, desc.dst_layout,
-                                    logical, d_buf=desc.d_buf)
-        if plan is not None:
-            return plan.run(x)
-    return xdma_copy(x, desc)
+                         transpose=pure_transpose, d_buf=desc.d_buf,
+                         tally=tally)

@@ -20,12 +20,20 @@ __all__ = ["relayout", "rmsnorm_relayout", "quantize_tiled"]
 
 
 def relayout(x: torch.Tensor, *, src_layout: L.Layout, dst_layout: L.Layout,
-             transpose: bool = False, d_buf: int = 9) -> torch.Tensor:
+             transpose: bool = False, d_buf: int = 9,
+             tally: bool = True) -> torch.Tensor:
+    """``src_layout`` -> ``dst_layout`` (optionally swapping the last two
+    logical dims) through kernel 1 where the planner covers the pair, the
+    plain composition elsewhere; ``tally=False`` leaves ``agu_stats()``
+    alone (the ``auto`` backend's empty chains, which the reference lowers
+    without the AGU kernel and does not count)."""
     logical = src_layout.logical_shape(tuple(x.shape))
     plan, reason = agu.plan_relayout(src_layout, dst_layout, logical,
                                      transpose=transpose, d_buf=d_buf)
     if plan is not None:
-        agu.record_plan(plan)
+        if tally:
+            agu.record_plan(plan)
         return plan.run(x)
-    agu.record_fallback(reason)
+    if tally:
+        agu.record_fallback(reason)
     return agu.relayout_plain(x, src_layout, dst_layout, transpose)

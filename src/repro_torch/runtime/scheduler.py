@@ -56,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import _pytree
 from repro_torch.core import api as _api
 from repro_torch.core import autotune as _autotune
 from repro_torch.core import layouts as _L
@@ -118,20 +119,8 @@ def _payload(x: Any) -> Any:
 
 def _leaves(value: Any) -> List[Any]:
     """The leaves of a payload in the order JAX's pytree flattening gives
-    the reference's: a QTensor's values then scales, a CTensor's values then
-    mask, tuples and lists in order, dicts by sorted key; ``None`` has no
-    leaves; anything else (a tensor, an array, a scalar) is one leaf."""
-    if value is None:
-        return []
-    if isinstance(value, _P.QTensor):
-        return _leaves(value.values) + _leaves(value.scales)
-    if isinstance(value, _P.CTensor):
-        return _leaves(value.values) + _leaves(value.mask)
-    if isinstance(value, (tuple, list)):
-        return [leaf for v in value for leaf in _leaves(v)]
-    if isinstance(value, dict):
-        return [leaf for k in sorted(value) for leaf in _leaves(value[k])]
-    return [value]
+    the reference's (:func:`repro_torch._pytree.leaves`)."""
+    return _pytree.leaves(value)
 
 
 def _leaf_nbytes(leaf: Any) -> Optional[int]:

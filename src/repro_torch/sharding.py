@@ -14,6 +14,7 @@ registered under its name for the duration of an SPMD body:
   the world group unasked;
 * :func:`local_axis` registers an axis of size 1 with no group, where every
   collective is the identity (the reference's size-1 ``shard_map``);
+  :func:`axis_scope` registers any axes for the scope of a block;
 * :func:`run_spmd` is the counterpart of ``shard_map_compat``: it spawns one
   process per rank, runs one body in each inside its mesh, and returns what
   each rank's body returned.
@@ -36,17 +37,19 @@ import itertools
 import logging
 import math
 import os
-import tempfile
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["Axes", "CPU_AXES", "constrain", "kv_cache_spec", "spec",
            "MeshAxis", "Mesh", "mesh_axis", "axis_index", "axis_size",
-           "local_axis", "registered_axes", "pick_backend", "init_mesh",
-           "run_spmd"]
+           "axis_scope", "local_axis", "registered_axes", "pick_backend",
+           "init_mesh", "run_spmd"]
 
 _LOG = logging.getLogger(__name__)
+
+# how long a rank waits for the others at a collective before it fails
+_TIMEOUT_S = 300.0
 
 
 # -- role conventions (plain data) ---------------------------------------------
@@ -154,7 +157,9 @@ def axis_size(name) -> int:
 
 
 @contextlib.contextmanager
-def _registered(axes: Sequence[MeshAxis]) -> Iterator[None]:
+def axis_scope(axes: Sequence[MeshAxis]) -> Iterator[None]:
+    """Register ``axes`` for the scope of a ``with`` block (an axis of the
+    same name registered before comes back after it)."""
     saved = dict(_AXES)
     for ax in axes:
         _AXES[ax.name] = ax
@@ -169,7 +174,7 @@ def local_axis(name):
     """Register ``name`` as an axis of size 1 with no process group, for the
     scope of a ``with`` block: every collective over it is the identity, as
     in the reference's size-1 ``shard_map``."""
-    return _registered([MeshAxis(name, 1, 0)])
+    return axis_scope([MeshAxis(name, 1, 0)])
 
 
 # -- process groups ---------------------------------------------------------------
@@ -210,7 +215,7 @@ class Mesh:
         return math.prod(self.shape)
 
     def __enter__(self):
-        self._scope = _registered(list(self.axes.values()))
+        self._scope = axis_scope(list(self.axes.values()))
         self._scope.__enter__()
         return self
 
@@ -219,8 +224,7 @@ class Mesh:
 
 
 def init_mesh(rank: int, shape: Sequence[int], axis_names: Sequence[str], *,
-              store_path: str, device="cuda",
-              timeout_s: float = 300.0) -> Mesh:
+              store_path: str, device="cuda") -> Mesh:
     """Start this rank's default process group (a ``FileStore`` at
     ``store_path``, shared by every rank and new for each world) and one
     group per mesh axis.  Ranks are laid out row-major over ``shape``, as
@@ -242,7 +246,7 @@ def init_mesh(rank: int, shape: Sequence[int], axis_names: Sequence[str], *,
         torch.cuda.set_device(dev)
     dist.init_process_group(
         backend, store=dist.FileStore(store_path, world), rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        world_size=world, timeout=datetime.timedelta(seconds=_TIMEOUT_S))
     coords = _unravel(rank, shape)
     axes: Dict[Any, MeshAxis] = {}
     for i, name in enumerate(axis_names):
@@ -291,11 +295,10 @@ def _to_cpu(v):
     return v
 
 
-def _worker(rank, body, shape, axis_names, args, device, workdir, timeout_s):
+def _worker(rank, body, shape, axis_names, args, device, workdir):
     import torch.distributed as dist
     mesh = init_mesh(rank, shape, axis_names,
-                     store_path=os.path.join(workdir, "store"), device=device,
-                     timeout_s=timeout_s)
+                     store_path=os.path.join(workdir, "store"), device=device)
     try:
         with mesh:
             out = body(mesh, *args)
@@ -307,9 +310,8 @@ def _worker(rank, body, shape, axis_names, args, device, workdir, timeout_s):
 
 
 def run_spmd(body: Callable, shape: Sequence[int] = (8,),
-             axis_names: Sequence[str] = ("x",), *, args: Tuple = (),
-             device="cuda", workdir: Optional[str] = None,
-             timeout_s: float = 300.0) -> List[Any]:
+             axis_names: Sequence[str] = ("x",), *, workdir: str,
+             args: Tuple = (), device="cuda") -> List[Any]:
     """Run ``body(mesh, *args)`` once per rank of a mesh of ``shape``, each
     rank a process of its own (``spawn``), inside its :class:`Mesh`; return
     each rank's result, its tensors moved to the CPU, in rank order.
@@ -317,20 +319,15 @@ def run_spmd(body: Callable, shape: Sequence[int] = (8,),
     ``body`` must be importable by name (a module-level function).  The
     ranks run on ``device``: CUDA by default, the CPU when asked.  A rank
     that raises fails the run: the others are stopped and the error is
-    raised here with the rank's traceback.  ``workdir`` (new and empty, or
-    None for a temporary one) holds the store and the results."""
+    raised here with the rank's traceback.  ``workdir`` (new and empty)
+    holds the store and the results."""
     import torch.multiprocessing as mp
     shape = tuple(int(s) for s in shape)
-    with contextlib.ExitStack() as stack:
-        if workdir is None:
-            workdir = stack.enter_context(
-                tempfile.TemporaryDirectory(prefix="spmd-"))
-        os.makedirs(workdir, exist_ok=True)
-        mp.start_processes(_worker, args=(body, shape, tuple(axis_names),
-                                          tuple(args), str(device), workdir,
-                                          timeout_s),
-                           nprocs=math.prod(shape), join=True,
-                           start_method="spawn")
-        return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
-                           weights_only=False)
-                for r in range(math.prod(shape))]
+    os.makedirs(workdir, exist_ok=True)
+    mp.start_processes(_worker, args=(body, shape, tuple(axis_names),
+                                      tuple(args), str(device), workdir),
+                       nprocs=math.prod(shape), join=True,
+                       start_method="spawn")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                       weights_only=False)
+            for r in range(math.prod(shape))]

@@ -375,7 +375,8 @@ def _ckpt_roundtrip(S, tmp):
     root = os.path.join(tmp, S.name)
     t = _tree(S)
     ck.save_pytree(t, os.path.join(root, "c"))
-    back = ck.restore_pytree(_template(S, t), os.path.join(root, "c"))
+    back = ck.restore_pytree(_template(S, t), os.path.join(root, "c"),
+                              **_on(S))
     assert str(back["params"]["b"].dtype).endswith("bfloat16")
     for a, b in zip(_leaves(S, t), _leaves(S, back)):
         np.testing.assert_array_equal(bits(a), bits(b))
@@ -425,7 +426,7 @@ def _layout_staging(S, tmp):
     back = m.restore(1, _template(S, t), **_on(S))
     plain = ck.CheckpointManager(os.path.join(root, "auto")).restore(
         1, _template(S, t), **_on(S))
-    host = ck.restore_pytree(_template(S, t), step1)
+    host = ck.restore_pytree(_template(S, t), step1, **_on(S))
     for k in t:
         for got in (back, plain, host):
             np.testing.assert_array_equal(bits(got[k]), bits(t[k]))
@@ -524,7 +525,7 @@ def test_checkpoints_cross_between_the_packages(tmp_path, writer,
     want = _cross_tree(r)
     for reader in (ckr.CheckpointManager(str(tmp_path)).restore(
                        5, _template(r, want), **_on(r)),
-                   ckr.restore_pytree(_template(r, want), step)):
+                   ckr.restore_pytree(_template(r, want), step, **_on(r))):
         for a, b in zip(_leaves(r, want), _leaves(r, reader)):
             assert str(a.dtype) == str(b.dtype)
             np.testing.assert_array_equal(bits(a), bits(b))
@@ -554,3 +555,46 @@ def test_port_staging_lands_on_the_card_by_default():
     from repro_torch.data.pipeline import stage_batch
     with pytest.raises((RuntimeError, AssertionError), match="CUDA|cuda"):
         stage_batch({"x": np.ones((2, 4), np.float32)}, torch.bfloat16)
+
+
+def test_port_restore_pytree_lands_on_the_card_by_default(tmp_path):
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    t = {"w": torch.zeros(8, 16)}
+    save_pytree(t, str(tmp_path))
+    assert restore_pytree(t, str(tmp_path), "cpu")["w"].device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA|cuda"):
+        restore_pytree(t, str(tmp_path))
+
+
+def test_payload_carriers_flatten_in_the_reference_order():
+    """A tree holding QTensor / CTensor payloads: the checkpoint's leaf names
+    and the scheduler's payload bytes equal the reference's."""
+    import jax.numpy as jnp
+    from repro.checkpoint import manager as RM
+    from repro.core import plugins as RP
+    from repro.runtime import scheduler as RS
+    from repro_torch import _pytree
+    from repro_torch.core import plugins as PP
+    from repro_torch.runtime import scheduler as PS
+    rng = np.random.default_rng(3)
+    vals = rng.integers(-127, 128, (4, 8)).astype(np.int8)
+    scales = rng.standard_normal((4, 1)).astype(np.float32)
+    dense = rng.standard_normal((2, 8, 16)).astype(np.float32)
+    mask = np.array([[True, False], [False, True]])
+
+    def tree(P, arr):
+        return {"q": [P.QTensor(arr(vals), arr(scales)), None],
+                "c": (P.CTensor(arr(dense), arr(mask)), arr(scales))}
+
+    want = RM._flatten_with_paths(tree(RP, jnp.asarray))
+    got_tree = tree(PP, torch.from_numpy)
+    got = {_pytree.path_key(p): leaf
+           for p, leaf in _pytree.flatten_with_paths(got_tree)}
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    assert PS._nbytes(got_tree) == RS._nbytes(tree(RP, jnp.asarray))
+    back = _pytree.unflatten(got_tree, _pytree.leaves(got_tree))
+    assert isinstance(back["q"][0], PP.QTensor)
+    assert isinstance(back["c"][0], PP.CTensor) and back["q"][1] is None
+    assert torch.equal(back["c"][0].mask, got_tree["c"][0].mask)

@@ -670,9 +670,10 @@ def test_remote_sides_launch_their_kernels_on_a_size_one_axis():
 
 
 def test_a_gloo_world_on_one_card_matches_the_cpu_world(tmp_path):
-    """Two ranks on one card over gloo (NCCL needs a card a rank): every
-    output bitwise the CPU world's, the side kernels launched, the host hop
-    counted in the wire bank."""
+    """Two ranks on the card(s): over gloo on one card (NCCL needs a card a
+    rank), over NCCL on two.  Every output bitwise the CPU world's, the side
+    kernels launched, the host hop counted in the wire bank under gloo and
+    absent under NCCL."""
     import torch_remote_cases as RC
     from repro_torch import sharding as S
     from repro_torch.kernels import _build
@@ -682,12 +683,15 @@ def test_a_gloo_world_on_one_card_matches_the_cpu_world(tmp_path):
     cpu = S.run_spmd(RC.card_body, (2,), ("x",), args=("cpu",),
                      device="cpu", workdir=str(tmp_path / "cpu"))
     for a, b in zip(card, cpu):
-        assert a["backend"] == "gloo"
+        assert a["backend"] == S.pick_backend(2, "cuda")[0]
         for k in ("cast_scale", "transpose", "a2a_codec", "reduce_codec"):
             assert _equal_bits(a[k], b[k]), k
         assert a["launches"]["streamed_datapath"] >= 1
         assert a["launches"]["block_datapath"] >= 1
-        assert a["wire"]["host_hop_bytes"] > 0
+        if a["backend"] == "gloo":
+            assert a["wire"]["host_hop_bytes"] > 0
+        else:
+            assert "host_hop_bytes" not in a["wire"]
         assert "host_hop_bytes" not in b["wire"]
 
 

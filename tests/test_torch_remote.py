@@ -349,7 +349,7 @@ def test_a_two_axis_mesh_groups_ranks_row_major(tmp_path):
 def test_a_failing_rank_fails_the_run(tmp_path):
     with pytest.raises(Exception, match="rank 1 fails on purpose"):
         S.run_spmd(RC.failing_body, (2,), ("x",), device="cpu",
-                   workdir=str(tmp_path), timeout_s=60)
+                   workdir=str(tmp_path))
 
 
 def test_backend_follows_the_cards():

@@ -46,7 +46,14 @@ kernel against its plain PyTorch version on the same inputs:
   store, load, evict, restore and defrag (stats equal to its CPU run),
   checkpoints of one phi4-mini decoder layer (plain, ``auto`` layout,
   down-cast, async; restored onto the card and onto the CPU) and staging of
-  three qwen2-vl-7b input batches.
+  three qwen2-vl-7b input batches;
+* the serving path (phase 14): full-width phi4-mini (32 layers, f32 master
+  weights from the port's seeded initializer) served by ``ServingEngine``,
+  B 4 x 1024-token prompts, 16 greedy steps, its bf16 KV cache through the
+  scheduler's plane every step (kernel 1 each way): tokens and final cache
+  bitwise the planeless loop's, decode logits against the forward's, one
+  decoder layer in f32 against its CPU run, and the seven non-MoE smoke
+  archs' tokens against their CPU runs.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -56,7 +63,11 @@ path: kernel 1's ``direct`` and ``staged`` copies, kernel 2's two main-path
 launches on its ``rows`` path (a small NM chain on its generic path), and
 kernel 3's six main-path transfers all on its rank-2 path (a small rank-3
 chain on its generic path).  Phase 12 checks the launches in every rank
-(kernels 2 and 3), phase 13 in its process (kernels 1, 2 and 3).  Phase 3 also times the Prefill store at
+(kernels 2 and 3), phase 13 in its process (kernels 1, 2 and 3), phase 14
+kernel 1 on the serving plane.  Phase 4 also drives the chains kernels 2
+and 3 once refused (integer streams, nine streamed ops, logical rank 5),
+and phase 8 kernel 6 at head dims 8, 80, 192 and 256 and with bf16 q and
+f32 k / v.  Phase 3 also times the Prefill store at
 gemma3-27B width (d_model 5376).  Phase 7 holds kernel 5 on NaN, inf and
 -inf rows too.  Phase 8 asserts that both bf16 model layers took kernel 6's
 tensor-core path (``mma``) and its small f32 checks the FMA path (``fma``).
@@ -578,6 +589,236 @@ def phase13(dev, gen, card, drive, wall_ms):
     return cons
 
 
+# -- phase 14: the serving path, full phi4-mini through ServingEngine ----------
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 4, 1024, 16, 2048
+LAYER_TOKENS = 512
+DECODE_LOGIT_TOL = 2e-3        # x max|logit|: tests/test_models.py:62
+
+
+def device_busy_ms(prof):
+    """Device time of the kernels a torch.profiler window recorded (one
+    stream, so their sum is the busy time); 0 when it saw none."""
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        total += t
+    return total / 1e3
+
+
+def phase14(dev, gen, card, drive):
+    """Phase 14: the serving path on the card.  Full-width phi4-mini (32
+    layers) from the port's seeded initializer served by ``ServingEngine``;
+    its tokens and final cache bitwise those of the planeless loop, kernel
+    1 launched on the plane, decode logits against the forward's; one
+    decoder layer in f32 against its CPU run; the seven non-MoE smoke archs
+    against their CPU runs.  Returns the times."""
+    import dataclasses
+    from repro_torch import _pytree, configs
+    from repro_torch.kernels import agu
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine
+
+    cfg = configs.get_config("phi4_mini_3p8b")
+    t_phase = time.perf_counter()
+
+    def log14(msg):
+        log(f"[serving {time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    nparam = sum(t.numel() for t in _pytree.leaves(params))
+    log14(f"phi4-mini {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}: {nparam} f32 parameters "
+        f"({nparam * 4 / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(cfg, params, max_len=SERVE_MAX_LEN)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    batch = {"tokens": prompts}
+
+    def serve():
+        return eng.generate(batch, SERVE_STEPS)
+
+    toks, counts = drive("serving", [agu.RELAYOUT], serve)
+    cache = eng.last_cache
+    log14(f"kernel 1 on the plane by path {agu.RELAYOUT.paths}; "
+        f"launches {counts}")
+    leaves = _pytree.leaves(cache)
+    plane_bytes = 4 * sum(t.numel() * t.element_size() for t in leaves
+                          if t.dim() >= 2 and t.is_floating_point())
+    # 1. the plane is value-preserving: the tokens and the final cache are
+    # bitwise those of the planeless loop (prefill, then greedy decode
+    # steps, no movement), whose logits check 3 reads
+    c = lm.init_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, device=dev)
+    logits, c = lm.prefill(cfg, params, batch, c)
+    dec, toks0 = [], []
+    for i in range(SERVE_STEPS):
+        dec.append(logits[:, -1])
+        toks0.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+        logits, c = lm.decode_step(cfg, params, toks0[-1], c)
+    toks0 = torch.cat(toks0, 1)
+    assert_bitwise(toks, toks0, "serving tokens, plane vs planeless")
+    for a, b in zip(leaves, _pytree.leaves(c)):
+        assert_bitwise(a, b, "serving final cache, plane vs planeless")
+    check(int(cache["pos"]) == SERVE_PROMPT + SERVE_STEPS,
+          f"serving: cache position {int(cache['pos'])}")
+    log14(f"tokens and final cache bitwise the planeless loop's "
+          f"({len(leaves)} leaves); first row {toks[0].tolist()}")
+    del c, logits
+    # 3. decode logits against the forward's at the same positions: in
+    # f32, as the reference's own checks run it (tests/test_models.py:62,
+    # tests/test_serving.py:26), within 2e-3 of max|logit|, greedy tokens
+    # equal to the forward's argmax where the top-2 margin clears that.
+    # The served bf16 run's deviation is logged beside it.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    c = lm.init_cache(cfg32, SERVE_BATCH, SERVE_MAX_LEN, torch.float32,
+                      device=dev)
+    logits, c = lm.prefill(cfg32, params, batch, c)
+    dec32, toks32 = [], []
+    for i in range(SERVE_STEPS):
+        dec32.append(logits[:, -1])
+        toks32.append(torch.argmax(logits[:, -1], -1)[:, None])
+        logits, c = lm.decode_step(cfg32, params, toks32[-1], c)
+    del c, logits
+    dec32, toks32 = torch.stack(dec32, 1), torch.cat(toks32, 1)
+
+    def forward_at(model_cfg, gen_toks):
+        # the whole sequence (1040 tokens: the reference's chunking splits
+        # it into two 520-token chunks; 1039 is prime and would make
+        # 1-token ones)
+        seq = torch.cat([prompts, gen_toks.to(prompts.dtype)], 1)
+        full, _ = lm.forward(model_cfg, params, {"tokens": seq})
+        return full[:, SERVE_PROMPT - 1:SERVE_PROMPT - 1 + SERVE_STEPS].float()
+
+    fwd32 = forward_at(cfg32, toks32)
+    scale = float(fwd32.abs().max())
+    err = float((dec32 - fwd32).abs().max())
+    check(err <= DECODE_LOGIT_TOL * scale,
+          f"serving: f32 decode logits {err} off the forward's, over "
+          f"{DECODE_LOGIT_TOL} x max|logit| {scale}")
+    top2 = fwd32.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > DECODE_LOGIT_TOL * scale
+    same = dec32.argmax(-1) == fwd32.argmax(-1)
+    check(bool(same[clear].all()),
+          "serving: greedy tokens differ from the forward's argmax where "
+          "the margin exceeds the tolerance")
+    del dec32, fwd32
+    fwd = forward_at(cfg, toks)
+    dec = torch.stack(dec, 1).float()
+    bf_err = float((dec - fwd).abs().max())
+    bf_scale = float(fwd.abs().max())
+    log14(f"decode vs forward logits, f32: max abs err {err} "
+          f"({err / scale:.2e} of max|logit| {scale}; tolerance "
+          f"{DECODE_LOGIT_TOL}); argmax equal at all {int(clear.sum())} of "
+          f"{clear.numel()} positions whose top-2 margin clears it; the "
+          f"served bf16 run: max abs err {bf_err} ({bf_err / bf_scale:.4f} of "
+          f"max|logit| {bf_scale}), {int((dec.argmax(-1) == fwd.argmax(-1)).sum())}"
+          f" of {clear.numel()} argmax equal; f32 and bf16 greedy tokens "
+          f"agree on {int((toks32 == toks).sum())} of {toks.numel()}")
+    del dec, fwd
+    # times: prefill, a decode step with and without the plane, the plane
+    cache_p = lm.init_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, device=dev)
+    prefill_ms = gpu_ms(lambda: lm.prefill(cfg, params, batch, cache_p),
+                        reps=3, warmup=1)
+    tok1 = toks[:, :1]
+    step_ms = gpu_ms(lambda: lm.decode_step(cfg, params, tok1, cache),
+                     reps=5, warmup=1)
+    sched = eng._new_scheduler()
+    plane = lambda c: eng._cache_through_plane(sched, c, "t")  # noqa: E731
+    step_plane_ms = gpu_ms(
+        lambda: plane(lm.decode_step(cfg, params, tok1, cache)[1]), reps=5,
+        warmup=1)
+    plane_ms = gpu_ms(lambda: plane(cache), reps=5, warmup=1)
+    plane_bound = bound_ms(plane_bytes)
+    # the card's idle share over one generate call
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(batch, SERVE_STEPS)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(prof)
+    idle = f"{1 - busy / gen_ms:.1%}" if busy > 0 else "not measured"
+    times = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+             "decode_step_with_plane_ms": step_plane_ms,
+             "plane_ms": plane_ms, "plane_bound_ms": plane_bound,
+             "plane_bytes": plane_bytes, "generate_wall_ms": gen_ms,
+             "generate_device_ms": busy}
+    log14(f"B{SERVE_BATCH} x {SERVE_PROMPT} tokens, {SERVE_STEPS} "
+        f"steps: prefill {prefill_ms:.3f} ms; a decode step "
+        f"{step_ms:.3f} ms without the plane, {step_plane_ms:.3f} ms with "
+        f"it; the plane alone {plane_ms:.3f} ms of device time for "
+        f"{plane_bytes / 2 ** 30:.2f} GiB (bound {plane_bound:.3f} ms, "
+        f"{plane_bound / plane_ms:.1%} of it); generate {gen_ms:.1f} ms wall, "
+        f"{busy:.1f} ms of device time, the card idle {idle} (GPU times: "
+        f"CUDA events; device busy: torch.profiler) on {card}")
+    del cache, cache_p, eng, toks, toks0, leaves
+    # 4. one decoder layer at full width in f32, card vs CPU (one thread)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    layer = lm.period_slice(params["blocks"], 0)[0]
+    x = torch.randn(1, LAYER_TOKENS, cfg.d_model, generator=gen, device=dev)
+    pos = torch.arange(LAYER_TOKENS, device=dev)[None]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, _ = lm._apply_slot(cfg32, cfg.period[0], layer, x, pos)
+        got = got.cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    layer_cpu = _pytree.tree_map_with_path(lambda p, t: t.cpu(), layer)
+    want, _ = on_cpu_one_thread(lm._apply_slot, cfg32, cfg.period[0],
+                                layer_cpu, x.cpu(), pos.cpu())
+    lscale = float(want.abs().max())
+    lerr = max_abs_err(got, want)
+    check(lerr <= 1e-5 * lscale,
+          f"serving: f32 layer on the card {lerr} off its CPU run (max|out| "
+          f"{lscale})")
+    log14(f"one phi4-mini layer, 1 x {LAYER_TOKENS} tokens f32 (TF32 "
+        f"off): max abs err {lerr} against its CPU run ({lerr / lscale:.2e} "
+        f"of max|out|, tolerance 1e-5)")
+    del params, layer, layer_cpu, got, want, x
+    torch.cuda.empty_cache()
+    # 5. the seven non-MoE smoke archs: the card's tokens are the CPU's
+    smoke = {}
+    for arch in configs.ARCHS:
+        scfg = dataclasses.replace(configs.smoke_config(arch),
+                                   dtype=torch.float32)
+        if any(s.moe for s in scfg.period + scfg.tail):
+            continue
+        sp = lm.init_params(scfg, SEED, device="cpu")
+        g = torch.Generator().manual_seed(SEED)
+        b = {}
+        if scfg.family == "vlm":
+            b["embeds"] = torch.randn(2, 8, scfg.d_model, generator=g)
+            p3 = torch.arange(8)[None].expand(2, 8)
+            b["positions"] = torch.stack([p3, p3, p3])
+        else:
+            b["tokens"] = torch.randint(0, scfg.vocab, (2, 8), generator=g)
+        if scfg.family == "audio":
+            b["audio_embeds"] = torch.randn(2, scfg.encoder_seq,
+                                            scfg.d_model, generator=g)
+        want = on_cpu_one_thread(lambda: ServingEngine(
+            scfg, sp, max_len=32, cache_dtype=torch.float32,
+            device="cpu").generate(dict(b), 6))
+        sp_dev = _pytree.tree_map_with_path(lambda p, t: t.to(dev), sp)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = ServingEngine(scfg, sp_dev, max_len=32,
+                                cache_dtype=torch.float32).generate(
+                                    dict(b), 6).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        assert_bitwise(got, want, f"serving {arch} smoke tokens, card vs CPU")
+        smoke[arch] = got[0].tolist()
+    log14(f"{len(smoke)} smoke archs (f32): the card's tokens are "
+        f"the CPU's: {smoke}")
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -615,24 +856,29 @@ def main():
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
         log(f"[ptxas] {src}: at most {max(regs, default=0)} registers a "
             f"thread, {spills} bytes of spill traffic over its kernels")
-    # kernel 6 instance by instance: "flash_mma_kernel<__nv_bfloat16, 128>";
-    # every tensor-core instance (2 dtypes x 4 head dims) must be found and
-    # must not spill
+    # kernel 6 instance by instance: "flash_mma_kernel<__nv_bfloat16, 128,
+    # true>" (true: the head dim is the instance width); every tensor-core
+    # instance (2 dtypes x 4 widths x full or not) must be found and must
+    # not spill
     mma_spills = {}
     for mangled, regs, _, spill in ptxas_entries(
             _build.BUILD_LOG.get("flash_attention.cu", "")):
         name = re.search(r"\d(flash_mma_kernel|flash_kernel)I"
-                         r"(6__half|13__nv_bfloat16|f)Li(\d+)", mangled)
+                         r"(6__half|13__nv_bfloat16|f)Li(\d+)E(Lb([01])E)?",
+                         mangled)
         if name:
             dtype = {"f": "float"}.get(name.group(2),
                                        name.group(2).lstrip("0123456789"))
-            inst = f"{name.group(1)}<{dtype}, {name.group(3)}>"
+            full = ("" if name.group(5) is None
+                    else ", " + ("true" if name.group(5) == "1" else "false"))
+            inst = f"{name.group(1)}<{dtype}, {name.group(3)}{full}>"
             log(f"[ptxas] {inst}: {regs} registers, {spill} bytes of spill "
                 f"traffic")
             if name.group(1) == "flash_mma_kernel":
                 mma_spills[inst] = spill
-    want_inst = {f"flash_mma_kernel<{t}, {hd}>" for t in ("__half", "__nv_bfloat16")
-                 for hd in (16, 32, 64, 128)}
+    want_inst = {f"flash_mma_kernel<{t}, {hd}, {full}>"
+                 for t in ("__half", "__nv_bfloat16")
+                 for hd in (16, 32, 64, 128) for full in ("true", "false")}
     check(set(mma_spills) == want_inst,
           f"kernel6: the build log of flash_attention.cu names tensor-core "
           f"instances {sorted(mma_spills)}, not {sorted(want_inst)} (a "
@@ -901,6 +1147,48 @@ def main():
           f"expected its statistics and output passes on the generic path")
     assert_close(small.cpu(), fn(sm.cpu()), tolerance((), sm.dtype),
                  "kernel3 small rank-3 chain vs CPU")
+    # the chains kernels 2 and 3 once refused (ROADMAP §3, fault 1): an
+    # int8 gather, an int32 transpose, nine Scales into MNM8N128 (kernel 2
+    # in two launches), a Scale at logical rank 5, integer arithmetic (int8
+    # Scale, BiasAdd, ReduceStage sum widening to int32), an int32 -> f32
+    # cast after a transpose
+    ints = lambda shape, lo, hi, dt: torch.randint(   # noqa: E731
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int64).to(dt)
+    fault1 = [
+        ("gather int8", describe("MN", "MN", P.GatherScatter(
+            indices=torch.randperm(64, generator=gen, device=dev)),
+            backend="compiled"), ints((64, 128), -128, 128, torch.int8)),
+        ("transpose int32", describe("MN", "MNM8N128", P.Transpose(),
+                                     backend="compiled"),
+         ints((128, 256), -2 ** 31, 2 ** 31, torch.int32)),
+        ("nine scales", describe("MN", "MNM8N128", *(
+            P.Scale(1.0 + k / 64) for k in range(9)), backend="compiled"),
+         torch.randn(64, 256, generator=gen, device=dev)),
+        ("scale rank 5", describe("MN", "MN", P.Scale(2.5),
+                                  backend="compiled"),
+         torch.randn(2, 2, 2, 8, 128, generator=gen, device=dev)),
+        ("int8 scale, bias, sum", describe(
+            "MN", "MN", P.Scale(3), P.BiasAdd(-7), P.ReduceStage("sum"),
+            backend="compiled"), ints((64, 128), -128, 128, torch.int8)),
+        ("int32 transpose, cast f32, scale", describe(
+            "MN", "MNM8N128", P.Transpose(), P.Cast(torch.float32),
+            P.Scale(0.5), backend="compiled"),
+         ints((128, 256), -1000, 1000, torch.int32))]
+    f1_out, f1_counts = drive(
+        "fault1", [datapath.BLOCK, datapath.STREAMED],
+        lambda: [xdma.transfer(x, d) for _, d, x in fault1])
+    for (what, d, x), got in zip(fault1, f1_out):
+        want = plain(x, d)
+        if got.dtype.is_floating_point:
+            assert_close(got, want, tolerance(d.plugins, x.dtype),
+                         f"fault1 {what}")
+        else:
+            assert_bitwise(got, want, f"fault1 {what}")
+    log(f"[fault1] {len(fault1)} chains the kernels once refused: integer "
+        f"results bitwise, float within the chain tolerance; launches "
+        f"{f1_counts}, kernel 3 by path {datapath.BLOCK.paths}, kernel 2 by "
+        f"path {datapath.STREAMED.paths}")
+    del f1_out
     run_load = plugin_compiler.compile_local(load)
     run_load(xt)
     lib = lambda: xt.permute(1, 3, 0, 2).reshape(3072, 8192)
@@ -1112,6 +1400,50 @@ def main():
           f"kernel6: the f16 check took paths {FA.FLASH.paths}, not mma")
     log(f"[kernel6] paths: model layers {{'mma': {len(attn_in)}}}, small "
         f"checks f32 on fma, f16 on mma; all within tolerance")
+    # head dims between the instance widths (hd 8: the qwen2 smoke width;
+    # 80; 192 takes the FMA path in bf16) and mixed dtypes (cast up to
+    # their promotion, the result in q's dtype), GQA with a window
+    hd_cases = (("hd 8 bf16", 8, torch.bfloat16, torch.bfloat16, "mma"),
+                ("hd 80 bf16", 80, torch.bfloat16, torch.bfloat16, "mma"),
+                ("hd 192 bf16", 192, torch.bfloat16, torch.bfloat16, "fma"),
+                ("bf16 q, f32 k/v", 64, torch.bfloat16, torch.float32, "fma"))
+    for what, hd, q_dt, kv_dt, path in hd_cases:
+        sm = [torch.randn(2, 160, h, hd, generator=gen, device=dev) / s_
+              for h, s_ in ((4, 4), (2, 4), (2, 1))]
+        sm = [sm[0].to(q_dt), sm[1].to(kv_dt), sm[2].to(kv_dt)]
+        before = dict(FA.FLASH.paths)
+        got = FA.flash_attention_gqa(*sm, causal=True, window=64)
+        torch.cuda.synchronize()
+        check(FA.FLASH.paths.get(path, 0) == before.get(path, 0) + 1,
+              f"kernel6 {what}: paths {FA.FLASH.paths}, expected one {path}")
+        want = on_cpu_one_thread(FA.flash_attention_gqa_plain,
+                                 *(t.cpu() for t in sm), causal=True,
+                                 window=64)
+        check(got.dtype == q_dt, f"kernel6 {what}: output {got.dtype}")
+        assert_close(got.cpu(), want, attn_tol, f"kernel6 {what} vs CPU")
+        log(f"[kernel6] {what} ({path}): max abs err "
+            f"{max_abs_err(got.cpu(), want)} within {attn_tol}")
+    # the widest instance, timed: hd 256 (FMA path in bf16), S 2048, 8 heads
+    wide = [torch.randn(1, 2048, 8, 256, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3)]
+    wide_out = FA.flash_attention_gqa(*wide, causal=True)
+    assert_close(wide_out, FA.flash_attention_gqa_plain(*wide, causal=True),
+                 attn_tol, "kernel6 hd 256 bf16")
+    wt = [t.transpose(1, 2).contiguous() for t in wide]
+    wflops = 4 * 8 * 256 * (2048 * 2049 // 2)
+    wide_ms = gpu_ms(lambda: FA.flash_attention_gqa(*wide, causal=True),
+                     reps=5)
+    wide_lib = gpu_ms(lambda: F.scaled_dot_product_attention(
+        *wt, is_causal=True), reps=5)
+    log(f"[kernel6] hd 256 bf16 (fma path) B1 S2048 H8: {wide_ms:.4f} ms, "
+        f"SDPA {wide_lib:.4f} ms, bound "
+        f"{max(wflops / BF16_FLOPS, nbytes(*wide, wide_out) / HBM_BYTES_PER_S) * 1e3:.4f}"
+        f" ms ({wflops / wide_ms / 1e9:.1f} TFLOP/s) on {card}")
+    pair_times.append({"pair": "flash_attention_gqa hd256 B1 S2048 H8 KV8 "
+                               "causal (fma path)", "dtype": "torch.bfloat16",
+                       "ms": wide_ms, "library_ms": wide_lib,
+                       "flops": wflops})
+    del wide, wt, wide_out
     def margin(got, want):
         """max |got - want|, that over the RMS of ``want``, the RMS, and the
         least atol that passes at rtol 2e-2: how much of the tolerance the
@@ -1469,6 +1801,9 @@ def main():
     # -- phase 13: the movement-plane consumers, one process -------------------
     cons = phase13(dev, gen, card, drive, wall_ms)
 
+    # -- phase 14: the serving path, full phi4-mini through ServingEngine ------
+    serving = phase14(dev, gen, card, drive)
+
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
@@ -1495,7 +1830,7 @@ def main():
                    "collectives": {"backend": ranks[0]["backend"],
                                    "ms": coll, "ranks": ranks,
                                    "phase_s": coll_s},
-                   "consumers_ms": cons}, f, indent=1)
+                   "consumers_ms": cons, "serving": serving}, f, indent=1)
     log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                 for n in order]}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 // the whole array in one grid step.  On top of the streaming plugins it runs
 // Transpose, GatherScatter (a take along any axis), Compress (values plus a
 // raw bool mask, one flag per block_rows rows), Decompress and ReduceStage
-// (sum or max over the rows), for logical rank 2 to 4.
+// (sum or max over the rows), for logical rank 2 to 8, on float streams
+// (f32, bf16, f16) and integer streams (int8, uint8, int16, int32, int64).
 //
 // Bound: device-memory bytes.  Index stages and value stages are a few
 // operations per element; each input element is read once (a Compress or
@@ -23,9 +24,10 @@
 // hoisted out of the element loop and 16-byte accesses (xdma::tile2_run,
 // shared with kernel 1), and row passes that read along the rows.
 //
-// The generic path takes the rest (logical ranks 3-4, a cast between
+// The generic path takes the rest (logical ranks 3-8, a cast between
 // dtypes, a gather after a stage that reads its coordinate, stages after a
-// ReduceStage).  Its output pass gives each thread one element of the
+// ReduceStage, an integer stream that does more than move words).  Its
+// values travel as f32 on a float stream and as int64 on an integer one.  Its output pass gives each thread one element of the
 // destination buffer in physical order (coalesced writes, zeros into stride
 // padding): it maps the physical index back to a logical coordinate, walks
 // it back through the index stages to a source offset, loads, and applies
@@ -44,7 +46,7 @@
 
 namespace {
 
-constexpr int XR = 4;        // max logical rank
+constexpr int XR = 8;        // max logical rank
 constexpr int XS = 8;        // max stages per launch
 constexpr int XP = 2 * XR;   // max physical dims
 constexpr int THREADS = 256;
@@ -62,7 +64,8 @@ struct Stage {
   int64_t keepdims;     // REDUCE
   int64_t block_rows;   // COMPRESS / DECOMPRESS
   double a;             // SCALE / BIAS constant, RMSNORM eps
-  int64_t vec;          // f32 vector over the last axis (SCALE/BIAS/RMSNORM weight) or 0
+  int64_t vec;          // vector over the last axis or 0: SCALE / BIAS in the
+                        // carrier's type (f32 or int64), the RMSNORM weight f32
   int64_t aux;          // GATHER: int64 indices; RMSNORM: f32 inverse RMS per row;
                         // COMPRESS / DECOMPRESS: uint8 mask
   int64_t in_rank;
@@ -85,24 +88,124 @@ struct BlockArgs {
   int64_t pw[XP];         //   its weight in that logical coordinate
   int64_t total;          // OUT: dst elements; STAT: rows; MASK: mask entries
   int64_t reduce_at;      // index of the one ReduceStage in [0, upto), or -1
+  int64_t carrier;        // 0: values travel as f32; 1: as int64 words
 };
 
-__device__ __forceinline__ float load_any(const void* p, int64_t i,
-                                          int64_t dt) {
-  if (dt == xdma::BF16)
-    return xdma::to_f32(static_cast<const __nv_bfloat16*>(p)[i]);
-  if (dt == xdma::F16) return xdma::to_f32(static_cast<const __half*>(p)[i]);
-  return static_cast<const float*>(p)[i];
+// -- the carriers: f32 for float streams, int64 for integer streams ---------
+// The host cuts a chain where the stream changes between float and integer,
+// so one launch has one carrier; a Cast that crosses is the first stage of
+// its launch and converts on load (an integer to the nearest float, a float
+// toward zero).  Integer results wrap to the stream dtype's width, as XLA's
+// integer arithmetic does.
+__device__ __forceinline__ long long wrap_to(long long v, int64_t dt) {
+  switch (dt) {
+    case xdma::I8: return (signed char)v;
+    case xdma::U8: return (unsigned char)v;
+    case xdma::I16: return (short)v;
+    case xdma::I32: return (int)v;
+    default: return v;
+  }
 }
 
+template <typename C> __device__ __forceinline__ C of_float(float v);
+template <> __device__ __forceinline__ float of_float<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ long long of_float<long long>(float v) {
+  return __float2ll_rz(v);
+}
+template <typename C> __device__ __forceinline__ C of_int(long long v);
+template <> __device__ __forceinline__ float of_int<float>(long long v) {
+  return __ll2float_rn(v);
+}
+template <> __device__ __forceinline__ long long of_int<long long>(long long v) {
+  return v;
+}
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(long long v) {
+  return __ll2float_rn(v);
+}
+__device__ __forceinline__ long long as_int(float v) { return __float2ll_rz(v); }
+__device__ __forceinline__ long long as_int(long long v) { return v; }
+
+// Round to the stream dtype: to nearest even for a float, wrap an integer.
+__device__ __forceinline__ float round_c(float v, int64_t dt) {
+  return xdma::round_to(v, dt);
+}
+__device__ __forceinline__ long long round_c(long long v, int64_t dt) {
+  return wrap_to(v, dt);
+}
+__device__ __forceinline__ float mul_c(float a, float b) { return a * b; }
+__device__ __forceinline__ long long mul_c(long long a, long long b) {
+  return (long long)((unsigned long long)a * (unsigned long long)b);
+}
+__device__ __forceinline__ float add_c(float a, float b) { return a + b; }
+__device__ __forceinline__ long long add_c(long long a, long long b) {
+  return (long long)((unsigned long long)a + (unsigned long long)b);
+}
+
+// jnp.take's fill for an index out of range: NaN, or the integer dtype's
+// minimum (signed) or maximum (unsigned).
+template <typename C> __device__ __forceinline__ C fill_of(int64_t dt);
+template <> __device__ __forceinline__ float fill_of<float>(int64_t) {
+  return __int_as_float(0x7fc00000);
+}
+template <> __device__ __forceinline__ long long fill_of<long long>(int64_t dt) {
+  switch (dt) {
+    case xdma::I8: return -128;
+    case xdma::U8: return 255;
+    case xdma::I16: return -32768;
+    case xdma::I32: return -2147483647LL - 1;
+    default: return (long long)0x8000000000000000ULL;
+  }
+}
+
+template <typename C>
+__device__ __forceinline__ C load_any(const void* p, int64_t i, int64_t dt) {
+  switch (dt) {
+    case xdma::BF16:
+      return of_float<C>(xdma::to_f32(static_cast<const __nv_bfloat16*>(p)[i]));
+    case xdma::F16:
+      return of_float<C>(xdma::to_f32(static_cast<const __half*>(p)[i]));
+    case xdma::F32: return of_float<C>(static_cast<const float*>(p)[i]);
+    case xdma::I8: return of_int<C>(static_cast<const signed char*>(p)[i]);
+    case xdma::U8: return of_int<C>(static_cast<const unsigned char*>(p)[i]);
+    case xdma::I16: return of_int<C>(static_cast<const short*>(p)[i]);
+    case xdma::I32: return of_int<C>(static_cast<const int*>(p)[i]);
+    default: return of_int<C>(static_cast<const long long*>(p)[i]);
+  }
+}
+
+template <typename C>
 __device__ __forceinline__ void store_any(void* p, int64_t i, int64_t dt,
-                                          float v) {
-  if (dt == xdma::BF16)
-    static_cast<__nv_bfloat16*>(p)[i] = xdma::from_f32<__nv_bfloat16>(v);
-  else if (dt == xdma::F16)
-    static_cast<__half*>(p)[i] = xdma::from_f32<__half>(v);
-  else
-    static_cast<float*>(p)[i] = v;
+                                          C v) {
+  switch (dt) {
+    case xdma::BF16:
+      static_cast<__nv_bfloat16*>(p)[i] =
+          xdma::from_f32<__nv_bfloat16>(as_float(v));
+      break;
+    case xdma::F16:
+      static_cast<__half*>(p)[i] = xdma::from_f32<__half>(as_float(v));
+      break;
+    case xdma::F32: static_cast<float*>(p)[i] = as_float(v); break;
+    case xdma::I8: static_cast<signed char*>(p)[i] = (signed char)as_int(v); break;
+    case xdma::U8:
+      static_cast<unsigned char*>(p)[i] = (unsigned char)as_int(v);
+      break;
+    case xdma::I16: static_cast<short*>(p)[i] = (short)as_int(v); break;
+    case xdma::I32: static_cast<int*>(p)[i] = (int)as_int(v); break;
+    default: static_cast<long long*>(p)[i] = as_int(v); break;
+  }
+}
+
+// A SCALE / BIAS constant in the carrier's type, at last-axis index j.
+__device__ __forceinline__ float konst(const Stage& st, int64_t j, float*) {
+  return st.vec ? reinterpret_cast<const float*>(st.vec)[j] : (float)st.a;
+}
+__device__ __forceinline__ long long konst(const Stage& st, int64_t j,
+                                           long long*) {
+  return st.vec ? reinterpret_cast<const long long*>(st.vec)[j]
+                : (long long)st.a;
 }
 
 __device__ __forceinline__ bool is_reduce(int64_t code) {
@@ -120,7 +223,7 @@ __device__ __forceinline__ int64_t linear(const int64_t* c,
 // Walk a coordinate back from the output of stage `hi - 1` to the input of
 // stage `lo`.  co[s] receives the input coordinate of stage s.  Returns the
 // index of a gather stage whose index was out of range (its output is the
-// NaN fill), or -1.
+// fill), or -1.
 __device__ __forceinline__ int walk_back(const BlockArgs& a, int lo, int hi,
                                          int64_t (*co)[XR]) {
   for (int s = hi - 1; s >= lo; --s) {
@@ -141,30 +244,30 @@ __device__ __forceinline__ int walk_back(const BlockArgs& a, int lo, int hi,
 }
 
 // Apply value stage s to v, whose logical coordinate (stage s input) is c.
-__device__ __forceinline__ float apply(const Stage& st, float v,
-                                       const int64_t* c) {
+template <typename C>
+__device__ __forceinline__ C apply(const Stage& st, C v, const int64_t* c) {
   const int r = (int)st.in_rank;
-  const float* vec = reinterpret_cast<const float*>(st.vec);
   switch (st.code) {
     case ST_CAST:
-      return xdma::round_to(v, st.dtype);
+      return round_c(v, st.dtype);
     case ST_SCALE:
-      return xdma::round_to(v * (vec ? vec[c[r - 1]] : (float)st.a), st.dtype);
+      return round_c(mul_c(v, konst(st, c[r - 1], (C*)nullptr)), st.dtype);
     case ST_BIAS:
-      return xdma::round_to(v + (vec ? vec[c[r - 1]] : (float)st.a), st.dtype);
-    case ST_RMSNORM: {
+      return round_c(add_c(v, konst(st, c[r - 1], (C*)nullptr)), st.dtype);
+    case ST_RMSNORM: {   // in f32, then back to the stream dtype
+      const float* vec = reinterpret_cast<const float*>(st.vec);
       const float inv =
           reinterpret_cast<const float*>(st.aux)[linear(c, st.in_shape, r - 1)];
-      float y = v * inv;
+      float y = as_float(v) * inv;
       if (vec) y = y * vec[c[r - 1]];
-      return xdma::round_to(y, st.dtype);
+      return round_c(of_float<C>(y), st.dtype);
     }
     case ST_DECOMPRESS: {
       const int64_t nb = st.in_shape[r - 2] / st.block_rows;
       const int64_t m = linear(c, st.in_shape, r - 2) * nb +
                         c[r - 2] / st.block_rows;
       const bool keep = reinterpret_cast<const uint8_t*>(st.aux)[m] != 0;
-      return xdma::round_to(v * (keep ? 1.f : 0.f), st.dtype);
+      return round_c(mul_c(v, (C)(keep ? 1 : 0)), st.dtype);
     }
     default:  // TRANSPOSE, GATHER, COMPRESS: values pass unchanged
       return v;
@@ -173,33 +276,43 @@ __device__ __forceinline__ float apply(const Stage& st, float v,
 
 // Value after stages [0, k) at the coordinate already in co[k]; there is no
 // ReduceStage in [0, k).
-__device__ __forceinline__ float eval_plain(const BlockArgs& a,
-                                            const void* src, int k,
-                                            int64_t (*co)[XR]) {
+template <typename C>
+__device__ __forceinline__ C eval_plain(const BlockArgs& a, const void* src,
+                                        int k, int64_t (*co)[XR]) {
   const int fill = walk_back(a, 0, k, co);
-  float v;
+  C v;
   int start;
   if (fill >= 0) {
-    v = __int_as_float(0x7fc00000);   // jnp.take's NaN fill
+    v = fill_of<C>(a.st[fill].dtype);   // jnp.take's fill
     start = fill + 1;
   } else {
     int64_t off = 0;
     for (int d = 0; d < a.src_rank; ++d)
       off += xdma::dim_offset(a.src[d], co[0][d]);
-    v = load_any(src, off, a.in_dtype);
+    v = load_any<C>(src, off, a.in_dtype);
     start = 0;
   }
-  for (int s = start; s < k; ++s) v = apply(a.st[s], v, co[s]);
+  for (int s = start; s < k; ++s) v = apply<C>(a.st[s], v, co[s]);
   return v;
 }
 
-__device__ __forceinline__ float reduce_init(int64_t code) {
+template <typename C> __device__ __forceinline__ C reduce_init(int64_t code);
+template <> __device__ __forceinline__ float reduce_init<float>(int64_t code) {
   return code == ST_REDUCE_SUM ? 0.f : -__int_as_float(0x7f800000);
+}
+template <>
+__device__ __forceinline__ long long reduce_init<long long>(int64_t code) {
+  return code == ST_REDUCE_SUM ? 0LL : (long long)0x8000000000000000ULL;
 }
 
 __device__ __forceinline__ float reduce_op(int64_t code, float acc, float v) {
   if (code == ST_REDUCE_SUM) return acc + v;
   return (acc != acc || (v <= acc)) ? acc : v;   // max, NaN propagates
+}
+__device__ __forceinline__ long long reduce_op(int64_t code, long long acc,
+                                               long long v) {
+  if (code == ST_REDUCE_SUM) return add_c(acc, v);   // wraps at the end
+  return v > acc ? v : acc;
 }
 
 // Input coordinate of ReduceStage st for row r, from its output coordinate.
@@ -218,28 +331,29 @@ __device__ __forceinline__ void reduce_input(const Stage& st,
 
 // Value after stages [0, k) at the coordinate in co[k], a ReduceStage
 // included (one thread loops over all of its rows).
-__device__ float eval(const BlockArgs& a, const void* src, int k,
-                      int64_t (*co)[XR]) {
+template <typename C>
+__device__ C eval(const BlockArgs& a, const void* src, int k,
+                  int64_t (*co)[XR]) {
   const int R = (int)a.reduce_at;
-  if (R < 0 || R >= k) return eval_plain(a, src, k, co);
+  if (R < 0 || R >= k) return eval_plain<C>(a, src, k, co);
   const int fill = walk_back(a, R + 1, k, co);
-  float v;
+  C v;
   int start;
   if (fill >= 0) {
-    v = __int_as_float(0x7fc00000);
+    v = fill_of<C>(a.st[fill].dtype);
     start = fill + 1;
   } else {
     const Stage& st = a.st[R];
     int64_t inner[XS + 1][XR];
-    float acc = reduce_init(st.code);
+    C acc = reduce_init<C>(st.code);
     for (int64_t r = 0; r < st.in_shape[st.in_rank - 2]; ++r) {
       reduce_input(st, co[R + 1], r, inner[R]);
-      acc = reduce_op(st.code, acc, eval_plain(a, src, R, inner));
+      acc = reduce_op(st.code, acc, eval_plain<C>(a, src, R, inner));
     }
-    v = xdma::round_to(acc, st.dtype);
+    v = round_c(acc, st.dtype);
     start = R + 1;
   }
-  for (int s = start; s < k; ++s) v = apply(a.st[s], v, co[s]);
+  for (int s = start; s < k; ++s) v = apply<C>(a.st[s], v, co[s]);
   return v;
 }
 
@@ -260,6 +374,7 @@ __device__ __forceinline__ bool phys_to_logical(const BlockArgs& a, int64_t p,
 }
 
 // Output pass without a ReduceStage: one thread per dst element.
+template <typename C>
 __global__ void __launch_bounds__(THREADS)
 out_kernel(const void* __restrict__ src, void* __restrict__ dst,
            BlockArgs a) {
@@ -268,19 +383,20 @@ out_kernel(const void* __restrict__ src, void* __restrict__ dst,
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
   for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        p < a.total; p += step) {
-    float v = 0.f;
-    if (phys_to_logical(a, p, co[k])) v = eval_plain(a, src, k, co);
-    store_any(dst, p, a.out_dtype, v);
+    C v = 0;
+    if (phys_to_logical(a, p, co[k])) v = eval_plain<C>(a, src, k, co);
+    store_any<C>(dst, p, a.out_dtype, v);
   }
 }
 
 constexpr int RX = 32, RY = 32;   // reduce block: 32 outputs x 32 row lanes
 
 // Output pass with a ReduceStage at a.reduce_at: 32 threads per output.
+template <typename C>
 __global__ void __launch_bounds__(RX * RY)
 out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
                   BlockArgs a) {
-  __shared__ float part[RY][RX + 1];
+  __shared__ C part[RY][RX + 1];
   int64_t co[XS + 1][XR];
   const int k = (int)a.upto, R = (int)a.reduce_at;
   const Stage& st = a.st[R];
@@ -291,37 +407,38 @@ out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
     const int64_t p = base + tx;
     const bool live = p < a.total && phys_to_logical(a, p, co[k]);
     const int fill = live ? walk_back(a, R + 1, k, co) : -1;
-    float acc = reduce_init(st.code);
+    C acc = reduce_init<C>(st.code);
     if (live && fill < 0) {
       int64_t inner[XS + 1][XR];
       for (int64_t r = ty; r < rows; r += RY) {
         reduce_input(st, co[R + 1], r, inner[R]);
-        acc = reduce_op(st.code, acc, eval_plain(a, src, R, inner));
+        acc = reduce_op(st.code, acc, eval_plain<C>(a, src, R, inner));
       }
     }
     part[ty][tx] = acc;
     __syncthreads();
     if (ty == 0 && p < a.total) {
-      float v = 0.f;
+      C v = 0;
       if (live) {
         int start = fill + 1;
         if (fill < 0) {
-          float tot = part[0][tx];
+          C tot = part[0][tx];
           for (int y = 1; y < RY; ++y) tot = reduce_op(st.code, tot, part[y][tx]);
-          v = xdma::round_to(tot, st.dtype);
+          v = round_c(tot, st.dtype);
           start = R + 1;
         } else {
-          v = __int_as_float(0x7fc00000);
+          v = fill_of<C>(a.st[fill].dtype);
         }
-        for (int s = start; s < k; ++s) v = apply(a.st[s], v, co[s]);
+        for (int s = start; s < k; ++s) v = apply<C>(a.st[s], v, co[s]);
       }
-      store_any(dst, p, a.out_dtype, v);
+      store_any<C>(dst, p, a.out_dtype, v);
     }
     __syncthreads();
   }
 }
 
 // RMSNorm statistics of stage a.upto: one block per row of its input space.
+template <typename C>
 __global__ void __launch_bounds__(THREADS)
 stat_kernel(const void* __restrict__ src, BlockArgs a) {
   __shared__ float scratch[33];
@@ -339,7 +456,7 @@ stat_kernel(const void* __restrict__ src, BlockArgs a) {
         rem /= st.in_shape[d];
       }
       co[k][r - 1] = j;
-      const float v = eval(a, src, k, co);
+      const float v = as_float(eval<C>(a, src, k, co));
       ss += v * v;
     }
     ss = xdma::block_sum(ss, scratch);
@@ -350,6 +467,7 @@ stat_kernel(const void* __restrict__ src, BlockArgs a) {
 }
 
 // Compress mask of stage a.upto: one block per (lead, row block) entry.
+template <typename C>
 __global__ void __launch_bounds__(THREADS)
 mask_kernel(const void* __restrict__ src, BlockArgs a) {
   int64_t co[XS + 1][XR];
@@ -370,7 +488,7 @@ mask_kernel(const void* __restrict__ src, BlockArgs a) {
       }
       co[k][r - 2] = blk * st.block_rows + t / n;
       co[k][r - 1] = t % n;
-      any = eval(a, src, k, co) != 0.f;
+      any = eval<C>(a, src, k, co) != (C)0;
     }
     any = __syncthreads_or(any);
     if (threadIdx.x == 0) reinterpret_cast<uint8_t*>(st.aux)[e] = any ? 1 : 0;
@@ -647,7 +765,7 @@ reduce2_kernel(const T* __restrict__ src, T* __restrict__ dst,
   const int64_t i1 = (split + 1) * per < m ? (split + 1) * per : m;
   float acc[V];
 #pragma unroll
-  for (int e = 0; e < V; ++e) acc[e] = reduce_init(a.op);
+  for (int e = 0; e < V; ++e) acc[e] = reduce_init<float>(a.op);
   if (j < n) {
     const int64_t so_c = xdma::term_off(a.t.src_c, j);
     int64_t i = split * per + ti;
@@ -778,6 +896,33 @@ int launch_rank2(const Rank2Args& a, bool copy, const void* src, void* dst,
                 : launch_rows<T, 1>(a, src, dst, mode, s);
 }
 
+// An integer stream on the rank-2 path only moves words (the host sends it
+// there only then).
+template <typename W>
+int launch_rank2_words(const Rank2Args& a, bool copy, const void* src,
+                       void* dst, int64_t mode, cudaStream_t s) {
+  if (!copy || mode != 3) return (int)cudaErrorInvalidValue;
+  return launch_out2<xdma::Copy<W>>(a, src, dst, s);
+}
+
+template <typename C>
+int launch_generic(const BlockArgs& a, const void* src, void* dst,
+                   int64_t mode, cudaStream_t s) {
+  if (mode == 0 && a.reduce_at < 0) {
+    out_kernel<C><<<grid_for(a.total, THREADS), THREADS, 0, s>>>(src, dst, a);
+  } else if (mode == 0) {
+    out_reduce_kernel<C><<<grid_for(a.total, RX), dim3(RX, RY), 0, s>>>(
+        src, dst, a);
+  } else if (mode == 1) {
+    stat_kernel<C><<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
+  } else if (mode == 2) {
+    mask_kernel<C><<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Generic path (BlockArgs): mode 0 output pass into dst; 1 RMSNorm
@@ -799,24 +944,22 @@ extern "C" int xdma_block_datapath(const void* args, const void* src,
         return launch_rank2<__nv_bfloat16, uint16_t>(r, copy, src, dst, m, s);
       case xdma::F16:
         return launch_rank2<__half, uint16_t>(r, copy, src, dst, m, s);
+      case xdma::I8:
+      case xdma::U8:
+        return launch_rank2_words<uint8_t>(r, copy, src, dst, m, s);
+      case xdma::I16:
+        return launch_rank2_words<uint16_t>(r, copy, src, dst, m, s);
+      case xdma::I32:
+        return launch_rank2_words<uint32_t>(r, copy, src, dst, m, s);
+      case xdma::I64:
+        return launch_rank2_words<uint64_t>(r, copy, src, dst, m, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   const BlockArgs& a = *static_cast<const BlockArgs*>(args);
-  if (a.nstages > XS || a.out_rank > XR || a.nphys > XP)
+  if (a.nstages > XS || a.out_rank > XR || a.src_rank > XR || a.nphys > XP)
     return (int)cudaErrorInvalidValue;
   if (a.total == 0) return 0;
-  if (mode == 0 && a.reduce_at < 0) {
-    out_kernel<<<grid_for(a.total, THREADS), THREADS, 0, s>>>(src, dst, a);
-  } else if (mode == 0) {
-    out_reduce_kernel<<<grid_for(a.total, RX), dim3(RX, RY), 0, s>>>(
-        src, dst, a);
-  } else if (mode == 1) {
-    stat_kernel<<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
-  } else if (mode == 2) {
-    mask_kernel<<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return a.carrier ? launch_generic<long long>(a, src, dst, mode, s)
+                   : launch_generic<float>(a, src, dst, mode, s);
 }

@@ -22,8 +22,15 @@
 // causal) that is 103 GFLOP, 0.104 ms at 989 TFLOP/s bf16, while the bytes
 // (q, k, v, o) take 0.020 ms.
 //
-// Two paths.  The wrapper picks one by dtype (flash_attention.py, _PATH_OF)
-// and names it in FlashArgs.path, which is also the label it counts the launch
+// Head dims.  Each path is compiled for instance widths HD (16, 32, 64, 128;
+// the FMA path also 256) and runs a head dim hd <= HD on the next larger
+// instance: columns hd .. HD - 1 are zero in shared memory (they add nothing
+// to q . k or P . V) and are not stored, and the scale is hd^-0.5 of the true
+// hd.  A head dim of 129 to 256 takes the FMA path in every dtype (the mma
+// path would hold 2 x 128 accumulator and Q registers a thread there).
+//
+// Two paths.  The wrapper picks one by dtype and head dim (flash_attention.py,
+// _path) and names it in FlashArgs.path, which is also the label it counts the launch
 // under (FLASH.paths["fma"] / ["mma"]); xdma_flash_attention launches the
 // path named there and refuses a path that does not take the dtype.  Nothing
 // falls back at run time.
@@ -59,7 +66,8 @@
 //   word; K and V take turns in one buffer.  Each thread owns a 4 x 4 patch
 //   of the 64 x 64 score tile (rows 4 ty .. 4 ty + 3, columns tx + 16 j) and
 //   a 4 x hd/16 patch of the output; the 16 threads of a row reduce its max
-//   and sum by shuffles.
+//   and sum by shuffles.  On bf16 / f16 (head dims above 128 only) P is
+//   rounded to the dtype before P . V, as on the mma path.
 //
 // Both address heads by strides, so the GQA form (B, S, H, hd) is read in
 // place and query head h reads kv head h / G: nothing is transposed or
@@ -133,15 +141,18 @@ __device__ __forceinline__ void key_range(const FlashArgs& a, int64_t q0,
 }
 
 // ---------------------------------------------------------------- f32 path
+// A 64-row tile of positions [first, first + 64) as f32 (pitch HD + 1); rows
+// at or past `limit` and columns at or past `hd` are zero.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, const T* base,
                                           int64_t stride, int64_t first,
-                                          int64_t limit) {
+                                          int64_t limit, int64_t hd) {
   constexpr int LD = HD + 1;
   for (int idx = threadIdx.x; idx < 64 * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD;
     const int64_t p = first + r;
-    dst[r * LD + d] = p < limit ? xdma::to_f32<T>(base[p * stride + d]) : 0.f;
+    dst[r * LD + d] =
+        p < limit && d < hd ? xdma::to_f32<T>(base[p * stride + d]) : 0.f;
   }
 }
 
@@ -163,7 +174,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* ob = o + b * a.o_sb + h * a.o_sh;
   const float scale = (float)a.scale;
 
-  load_tile<T, HD>(sQ, qb, a.q_ss, q0, a.Sq);
+  load_tile<T, HD>(sQ, qb, a.q_ss, q0, a.Sq, a.hd);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -179,7 +190,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int64_t k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();                        // sKV (V) and sP are free
-    load_tile<T, HD>(sKV, kb, a.k_ss, k0, a.Sk);
+    load_tile<T, HD>(sKV, kb, a.k_ss, k0, a.Sk, a.hd);
     __syncthreads();
 
     float s[4][4];
@@ -227,7 +238,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         psum += p;
-        sP[(ty * 4 + i) * LDP + tx + 16 * j] = p;
+        // P in the dtype for P . V (no change on f32)
+        sP[(ty * 4 + i) * LDP + tx + 16 * j] =
+            xdma::to_f32<T>(xdma::from_f32<T>(p));
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -239,7 +252,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();                        // K is read, P is written
-    load_tile<T, HD>(sKV, vb, a.v_ss, k0, a.Sk);
+    load_tile<T, HD>(sKV, vb, a.v_ss, k0, a.Sk, a.hd);
     __syncthreads();
 
 #pragma unroll 4
@@ -263,7 +276,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      ob[qp * a.o_ss + tx + 16 * c] = xdma::from_f32<T>(__fdiv_rn(acc[i][c], denom));
+      if (tx + 16 * c < a.hd)
+        ob[qp * a.o_ss + tx + 16 * c] =
+            xdma::from_f32<T>(__fdiv_rn(acc[i][c], denom));
   }
 }
 
@@ -340,34 +355,41 @@ template <> struct Mma<__half> {
 };
 
 // A 64-row tile of positions [first, first + 64) into shared memory (pitch
-// HD + 8); rows at or past `limit` are zero.
-template <typename T, int HD>
+// HD + 8); rows at or past `limit` are zero.  Unless FULL (hd == HD),
+// columns at or past `hd` are zero too: a 16-byte chunk wholly inside or
+// wholly past hd moves by cp.async where `vec`, one that straddles hd one
+// element at a time.  (FULL compiles the checks away: the instance widths
+// the models use pay nothing for the others.)
+template <typename T, int HD, bool FULL>
 __device__ __forceinline__ void mma_load_tile(T* dst, const T* base,
                                               int64_t stride, int64_t first,
-                                              int64_t limit, bool vec) {
+                                              int64_t limit, bool vec,
+                                              int64_t hd) {
   constexpr int LDS = HD + 8, CPR = HD / 8;        // 16-byte chunks a row
 #pragma unroll
   for (int i = 0; i < 64 * CPR / MMA_THREADS; ++i) {
     const int c = threadIdx.x + i * MMA_THREADS, r = c / CPR, col = (c % CPR) * 8;
     const int64_t p = first + r;
-    const bool ok = p < limit;
+    const bool ok = p < limit && (FULL || col < hd);
     T* d = dst + r * LDS + col;
-    const T* s = base + (ok ? p : 0) * stride + col;
-    if (vec) {
+    const T* s = FULL ? base + (ok ? p : 0) * stride + col
+                      : base + (ok ? p * stride + col : 0);
+    if (vec && (FULL || col + 8 <= hd || !ok)) {
       cp_async16(d, s, ok);
     } else {
       uint4 pack = make_uint4(0, 0, 0, 0);
       T* e = reinterpret_cast<T*>(&pack);
       if (ok) {
 #pragma unroll
-        for (int x = 0; x < 8; ++x) e[x] = s[x];
+        for (int x = 0; x < 8; ++x)
+          if (FULL || col + x < hd) e[x] = s[x];
       }
       *reinterpret_cast<uint4*>(d) = pack;
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool FULL>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, FlashArgs a) {
@@ -396,10 +418,10 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nblk = (int)((kend - kbeg + BK - 1) / BK);
 
   // commit groups: Q, then K / V of the first block
-  mma_load_tile<T, HD>(sQ, qb, a.q_ss, q0, a.Sq, vec);
+  mma_load_tile<T, HD, FULL>(sQ, qb, a.q_ss, q0, a.Sq, vec, a.hd);
   cp_async_commit();
-  mma_load_tile<T, HD>(sK, kb, a.k_ss, kbeg, a.Sk, vec);
-  mma_load_tile<T, HD>(sV, vb, a.v_ss, kbeg, a.Sk, vec);
+  mma_load_tile<T, HD, FULL>(sK, kb, a.k_ss, kbeg, a.Sk, vec, a.hd);
+  mma_load_tile<T, HD, FULL>(sV, vb, a.v_ss, kbeg, a.Sk, vec, a.hd);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();                          // Q has landed
@@ -431,8 +453,10 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<0>();
     __syncthreads();
     if (it + 1 < nblk) {
-      mma_load_tile<T, HD>(sK + (st ^ 1) * TILE, kb, a.k_ss, k0 + BK, a.Sk, vec);
-      mma_load_tile<T, HD>(sV + (st ^ 1) * TILE, vb, a.v_ss, k0 + BK, a.Sk, vec);
+      mma_load_tile<T, HD, FULL>(sK + (st ^ 1) * TILE, kb, a.k_ss, k0 + BK, a.Sk, vec,
+                           a.hd);
+      mma_load_tile<T, HD, FULL>(sV + (st ^ 1) * TILE, vb, a.v_ss, k0 + BK, a.Sk, vec,
+                           a.hd);
       cp_async_commit();
     }
     const T* Ks = sK + st * TILE;
@@ -547,15 +571,16 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 16 * CPR / 32; ++i) {
     const int c = lane + 32 * i, r = c / CPR, col = (c % CPR) * 8;
     const int64_t qp = q0 + warp * 16 + r;
-    if (qp >= a.Sq) continue;
+    if (qp >= a.Sq || (!FULL && col >= a.hd)) continue;
     const uint4 pack = *reinterpret_cast<const uint4*>(so + r * LDS + col);
     T* dst = ob + qp * a.o_ss + col;
-    if (vec) {
+    if (vec && (FULL || col + 8 <= a.hd)) {
       *reinterpret_cast<uint4*>(dst) = pack;
     } else {
       const T* e = reinterpret_cast<const T*>(&pack);
 #pragma unroll
-      for (int x = 0; x < 8; ++x) dst[x] = e[x];
+      for (int x = 0; x < 8; ++x)
+        if (FULL || col + x < a.hd) dst[x] = e[x];
     }
   }
 }
@@ -584,7 +609,9 @@ int launch_hd(const FlashArgs& a, const void* q, const void* k, const void* v,
               void* o, cudaStream_t s) {
   if constexpr (MMA) {
     constexpr size_t smem = sizeof(T) * 5 * 64 * (HD + 8);
-    return launch<T>(flash_mma_kernel<T, HD>, MMA_THREADS, smem, a, q, k, v,
+    return launch<T>(a.hd == HD ? flash_mma_kernel<T, HD, true>
+                                : flash_mma_kernel<T, HD, false>,
+                     MMA_THREADS, smem, a, q, k, v,
                      o, s);
   } else {
     constexpr size_t smem =
@@ -593,16 +620,24 @@ int launch_hd(const FlashArgs& a, const void* q, const void* k, const void* v,
   }
 }
 
+// The instance for head dim a.hd: the next larger width of 16, 32, 64, 128.
 template <typename T, bool MMA>
 int dispatch(const FlashArgs& a, const void* q, const void* k, const void* v,
              void* o, cudaStream_t s) {
-  switch (a.hd) {
-    case 16: return launch_hd<T, 16, MMA>(a, q, k, v, o, s);
-    case 32: return launch_hd<T, 32, MMA>(a, q, k, v, o, s);
-    case 64: return launch_hd<T, 64, MMA>(a, q, k, v, o, s);
-    case 128: return launch_hd<T, 128, MMA>(a, q, k, v, o, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (a.hd < 1) return (int)cudaErrorInvalidValue;
+  if (a.hd <= 16) return launch_hd<T, 16, MMA>(a, q, k, v, o, s);
+  if (a.hd <= 32) return launch_hd<T, 32, MMA>(a, q, k, v, o, s);
+  if (a.hd <= 64) return launch_hd<T, 64, MMA>(a, q, k, v, o, s);
+  if (a.hd <= 128) return launch_hd<T, 128, MMA>(a, q, k, v, o, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Head dims 129 to 256, every dtype: the FMA kernel's 256-wide instance.
+template <typename T>
+int dispatch_wide(const FlashArgs& a, const void* q, const void* k,
+                  const void* v, void* o, cudaStream_t s) {
+  if (a.hd <= 128 || a.hd > 256) return (int)cudaErrorInvalidValue;
+  return launch_hd<T, 256, false>(a, q, k, v, o, s);
 }
 
 }  // namespace
@@ -615,6 +650,13 @@ extern "C" int xdma_flash_attention(const void* args, const void* q,
   if (a.H <= 0 || a.G <= 0 || a.H % a.G) return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Sq == 0) return 0;
   if (a.Sk <= 0) return (int)cudaErrorInvalidValue;
+  if (a.path == FMA_PATH && a.hd > 128) {
+    if (a.dtype == xdma::F32) return dispatch_wide<float>(a, q, k, v, o, s);
+    if (a.dtype == xdma::BF16)
+      return dispatch_wide<__nv_bfloat16>(a, q, k, v, o, s);
+    if (a.dtype == xdma::F16) return dispatch_wide<__half>(a, q, k, v, o, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (a.path == FMA_PATH && a.dtype == xdma::F32)
     return dispatch<float, false>(a, q, k, v, o, s);
   if (a.path == MMA_PATH && a.dtype == xdma::BF16)

@@ -16,10 +16,18 @@
 
 namespace xdma {
 
-// dtype codes, shared with repro_torch/kernels/maps.py
+// dtype codes, shared with repro_torch/kernels/maps.py; the integer codes
+// are kernel 3's only
 constexpr int64_t F32 = 0;
 constexpr int64_t BF16 = 1;
 constexpr int64_t F16 = 2;
+constexpr int64_t I8 = 3;
+constexpr int64_t U8 = 4;
+constexpr int64_t I16 = 5;
+constexpr int64_t I32 = 6;
+constexpr int64_t I64 = 7;
+
+__host__ __device__ __forceinline__ bool is_int(int64_t dt) { return dt >= I8; }
 
 struct DimMap {
   int64_t tile;   // tile factor of the logical dim (1 when untiled)

@@ -13,9 +13,10 @@ are rounded to the stream dtype as jnp's rules require (``Scale`` and
 ``BiasAdd`` cast their constant to the stream dtype first), so one binary
 serves every chain.  On a CPU tensor each takes its plain version — the
 plugins' ``__call__`` composed with the layout algebra — and on a CUDA
-tensor it launches its kernel or raises.  The kernels run float32, bfloat16
-and float16 streams; a scale, bias or weight is a scalar or a vector over
-the last logical axis.
+tensor it launches its kernel or raises.  Kernel 2 runs float32, bfloat16
+and float16 streams, kernel 3 those and int8, uint8, int16, int32 and int64
+streams (a :class:`StreamedDatapath` hands an integer stream to kernel 3);
+a scale, bias or weight is a scalar or a vector over the last logical axis.
 """
 from __future__ import annotations
 
@@ -39,12 +40,14 @@ __all__ = ["StreamedDatapath", "BlockDatapath", "STREAMED", "BLOCK",
 def _column_const(value: Any, n: int, dtype: torch.dtype, device
                   ) -> Tuple[float, Optional[torch.Tensor]]:
     """A scale / bias / weight constant cast to ``dtype`` (jnp's rule), as
-    (scalar, None) or (0.0, f32 vector over the last axis on ``device``)."""
+    (scalar, None) or (0.0, vector over the last axis on ``device``): f32
+    for a float stream, int64 for an integer one (kernel 3's carriers)."""
     c = P.as_tensor(value).to(dtype)
+    wide = torch.float32 if dtype.is_floating_point else torch.int64
     if c.numel() == 1:
-        return float(c.reshape(()).to(torch.float32)), None
+        return float(c.reshape(()).to(wide)), None
     if c.numel() == n and all(s == 1 for s in c.shape[:-1]):
-        vec = c.reshape(n).to(torch.float32).to(device).contiguous()
+        vec = c.reshape(n).to(wide).to(device).contiguous()
         return 0.0, vec
     raise NotImplementedError(
         f"the datapath kernels take a scalar or a vector over the last axis "
@@ -122,7 +125,14 @@ def stream_path(a: _StreamArgs, src_ptr: int, dst_ptr: int) -> int:
 class StreamedDatapath:
     """Kernel 2 compiled for one chain, layout pair and input shape/dtype.
     Each launch takes the path :func:`stream_path` picks, and
-    ``STREAMED.paths`` counts it under that name."""
+    ``STREAMED.paths`` counts it under that name.
+
+    A chain of more than ``_MAX_OPS`` ops runs as several launches of
+    ``_MAX_OPS`` ops or fewer, joined by row-major buffers in the stream
+    dtype of the point between them: every op rounds to that dtype, so the
+    buffers lose nothing.  An integer stream (an integer input, or a Cast to
+    an integer dtype) runs on kernel 3, which moves integer words and does
+    integer arithmetic."""
 
     def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
                  dst_layout: L.Layout, in_shape: Sequence[int],
@@ -135,6 +145,23 @@ class StreamedDatapath:
             raise ValueError("the streamed datapath runs rank-2 logical data")
         self.out_dtype = P.chain_out_dtype(self.chain, in_dtype)
         self._prepared: Dict[Any, Tuple[_StreamArgs, List[torch.Tensor]]] = {}
+        ops = [p for p in self.chain if not isinstance(p, P.Identity)]
+        dtypes = [P.chain_out_dtype(ops[:k], in_dtype)
+                  for k in range(len(ops) + 1)]
+        self._block: Optional[BlockDatapath] = None
+        self._parts: Optional[List[StreamedDatapath]] = None
+        if not all(d.is_floating_point for d in dtypes):
+            self._block = BlockDatapath(self.chain, src_layout, dst_layout,
+                                        in_shape, in_dtype)
+        elif len(ops) > _MAX_OPS:
+            self._parts = []
+            layout, shape = src_layout, self.in_shape
+            for k in range(0, len(ops), _MAX_OPS):
+                last = k + _MAX_OPS >= len(ops)
+                self._parts.append(StreamedDatapath(
+                    ops[k:k + _MAX_OPS], layout,
+                    dst_layout if last else L.MN, shape, dtypes[k]))
+                layout, shape = L.MN, self.logical
 
     def _prepare(self, device) -> Tuple[_StreamArgs, List[torch.Tensor]]:
         m, n = self.logical
@@ -188,6 +215,12 @@ class StreamedDatapath:
     def launch(self, x: torch.Tensor) -> torch.Tensor:
         """Launch kernel 2 on ``x``'s device and stream."""
         _check_input(x, self.in_shape, self.in_dtype)
+        if self._block is not None:
+            return self._block.launch(x)
+        if self._parts is not None:
+            for part in self._parts:
+                x = part.launch(x)
+            return x
         key = (x.device.type, x.device.index)
         prepared = self._prepared.get(key)
         if prepared is None:
@@ -202,15 +235,18 @@ class StreamedDatapath:
 
 
 # -- kernel 3: the block datapath ---------------------------------------------
-_XR, _XS, _XP = 4, 8, 8
+_XR, _XS, _XP = 8, 8, 16
 (_ST_CAST, _ST_SCALE, _ST_BIAS, _ST_RMSNORM, _ST_TRANSPOSE, _ST_GATHER,
  _ST_COMPRESS, _ST_DECOMPRESS, _ST_REDUCE_SUM, _ST_REDUCE_MAX) = range(1, 11)
 _MODE_OUT, _MODE_STAT, _MODE_MASK = 0, 1, 2
 # the rank-2 path: OUT through f32, STAT, MASK, REDUCE, OUT copying words
 _MODE_OUT2, _MODE_STAT2, _MODE_MASK2, _MODE_REDUCE2, _MODE_COPY2 = range(3, 8)
 _VALUE_CODES = (_ST_SCALE, _ST_BIAS, _ST_RMSNORM, _ST_DECOMPRESS)
-_NAN_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC0,
-             torch.float16: 0x7E00}
+# a failed gather's fill word (jnp.take): NaN, or the integer's min / max
+_FILL_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC0,
+              torch.float16: 0x7E00, torch.int8: 0x80, torch.uint8: 0xFF,
+              torch.int16: 0x8000, torch.int32: 0x80000000,
+              torch.int64: -2 ** 63}
 _REDUCE_STRIP = 64          # csrc SW: columns per reduce block
 _REDUCE_BLOCKS = 512        # reduce blocks to aim for: about 4 an SM of an H100
 
@@ -232,7 +268,7 @@ class _BlockArgs(ctypes.Structure):
                 ("out_dtype", ctypes.c_int64), ("nphys", ctypes.c_int64),
                 ("pext", ctypes.c_int64 * _XP), ("pdim", ctypes.c_int64 * _XP),
                 ("pw", ctypes.c_int64 * _XP), ("total", ctypes.c_int64),
-                ("reduce_at", ctypes.c_int64)]
+                ("reduce_at", ctypes.c_int64), ("carrier", ctypes.c_int64)]
 
 
 class _Stage2(ctypes.Structure):
@@ -327,9 +363,13 @@ def rank2_path(seg: Sequence["_St"], src_rank: int,
     """Whether kernel 3's rank-2 path takes a launch segment: logical rank 2
     throughout, one stream dtype, a ReduceStage only last, and no gather
     after a stage that reads its coordinate (the stage's coordinate is then
-    the pass's, swapped or not)."""
+    the pass's, swapped or not); on an integer stream, only stages that
+    move words (its copy)."""
     if src_rank != 2 or any(len(st.in_shape) != 2 or len(st.out_shape) != 2
                             or st.dtype != src_dtype for st in seg):
+        return False
+    if not src_dtype.is_floating_point and any(
+            st.code not in (_ST_CAST, _ST_TRANSPOSE, _ST_GATHER) for st in seg):
         return False
     if any(st.is_reduce for st in seg[:-1]):
         return False
@@ -349,9 +389,11 @@ class BlockDatapath:
     intermediate): a statistics pass per RMSNorm, a mask pass per Compress,
     then the output pass.  Each segment takes the rank-2 path where
     :func:`rank2_path` allows it, else the generic path; ``BLOCK.paths``
-    counts the launches of each.  ``GatherScatter`` follows ``jnp.take``:
+    counts the launches of each.  A chain is also cut where its stream
+    changes between float and integer, so that a launch carries its values
+    in one type (f32 or int64).  ``GatherScatter`` follows ``jnp.take``:
     negative indices count from the end, and an index outside ``[-n, n)``
-    yields NaN."""
+    yields NaN (an integer stream: its dtype's min, or max if unsigned)."""
 
     def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
                  dst_layout: L.Layout, in_shape: Sequence[int],
@@ -409,6 +451,8 @@ class BlockDatapath:
             elif isinstance(p, P.ReduceStage):
                 st.code = _ST_REDUCE_SUM if p.op == "sum" else _ST_REDUCE_MAX
                 st.keepdims = int(p.keepdims)
+                if p.op == "sum":           # jnp.sum widens narrow integers
+                    st.dtype = P._sum_dtype(dtype)
             else:
                 raise ValueError(f"{p.name!r} has no block-datapath stage")
             shape = st.out_shape = tuple(p.out_logical_shape(shape))
@@ -417,17 +461,20 @@ class BlockDatapath:
                 raise NotImplementedError(
                     f"the block kernel runs logical ranks 2..{_XR}")
             stages.append(st)
-        maps.dtype_code(self.in_dtype)        # raises on a dtype the kernel
+        maps.dtype_code(self.in_dtype, True)  # raises on a dtype the kernel
         for st in stages:                     # does not run
-            maps.dtype_code(st.dtype)
+            maps.dtype_code(st.dtype, True)
         return stages
 
     def _segments(self, stages: List[_St]) -> List[Tuple[int, int]]:
         """Stage ranges of the launch segments: at most one ReduceStage and
-        at most ``_XS`` stages each."""
+        at most ``_XS`` stages each, and one carrier: a stage whose stream
+        turns between float and integer starts a segment."""
         segs, lo, has_reduce = [], 0, False
         for s, st in enumerate(stages):
-            if (st.is_reduce and has_reduce) or s - lo == _XS:
+            crosses = s > lo and (st.dtype.is_floating_point
+                                  != stages[s - 1].dtype.is_floating_point)
+            if (st.is_reduce and has_reduce) or s - lo == _XS or crosses:
                 segs.append((lo, s))
                 lo, has_reduce = s, False
             has_reduce = has_reduce or st.is_reduce
@@ -444,7 +491,7 @@ class BlockDatapath:
         a.reduce_at = -1
         for k, st in enumerate(stages[lo:hi]):
             c = a.st[k]
-            c.code, c.dtype = st.code, maps.dtype_code(st.dtype)
+            c.code, c.dtype = st.code, maps.dtype_code(st.dtype, True)
             c.axis, c.keepdims, c.block_rows, c.a = (st.axis, st.keepdims,
                                                      st.block_rows, st.a)
             c.vec = 0 if st.vec is None else st.vec.data_ptr()
@@ -456,7 +503,9 @@ class BlockDatapath:
                 c.in_shape[d] = e
             if st.is_reduce:
                 a.reduce_at = k
-        a.in_dtype = maps.dtype_code(src_dtype)
+        a.in_dtype = maps.dtype_code(src_dtype, True)
+        a.carrier = int(not (stages[hi - 1].dtype if hi > lo
+                             else src_dtype).is_floating_point)
         a.src_rank = len(src_logical)
         for d, mp in enumerate(maps.dim_maps(src_layout, src_logical)):
             a.src[d] = maps.DimMap(*mp)
@@ -487,7 +536,7 @@ class BlockDatapath:
                           device=x.device)
         phys = maps.physical_dims(dst_layout, shape)
         a.upto, a.out_rank = hi - lo, len(shape)
-        a.out_dtype = maps.dtype_code(out_dtype)
+        a.out_dtype = maps.dtype_code(out_dtype, True)
         for d, e in enumerate(shape):
             a.out_shape[d] = e
         a.nphys = len(phys)
@@ -522,14 +571,14 @@ class BlockDatapath:
         a.nstages = k
         for s, st in enumerate(seg[:k]):
             c = a.st[s]
-            c.code, c.dtype, c.swap = st.code, maps.dtype_code(st.dtype), \
-                comp.swaps[s]
+            c.code, c.dtype, c.swap = (st.code, maps.dtype_code(st.dtype, True),
+                                       comp.swaps[s])
             c.block_rows, c.a = st.block_rows, st.a
             c.vec = 0 if st.vec is None else st.vec.data_ptr()
             buf = aux.get(st.mask_of if st.mask_of >= 0 else lo + s)
             c.aux = 0 if buf is None else buf.data_ptr()
-        a.dtype = maps.dtype_code(x.dtype)
-        a.fill_bits = _NAN_BITS[x.dtype]
+        a.dtype = maps.dtype_code(x.dtype, True)
+        a.fill_bits = _FILL_BITS[x.dtype]
         return a
 
     def _launch_rank2(self, stages, lo, hi, x, src_layout, dst_layout,

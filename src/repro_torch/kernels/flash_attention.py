@@ -9,7 +9,12 @@ addresses heads by strides: :func:`flash_attention_gqa` hands it the
 ``(B, S, H, hd)`` / ``(B, S, KV, hd)`` tensors as they are, and query head
 ``h`` reads kv head ``h // G``.  bf16 and f16 take its tensor-core path
 (``mma.sync``), f32 its FMA path (full f32 products, as the reference's f32
-dot); ``FLASH.paths`` counts the launches of each as ``"mma"`` / ``"fma"``.  On a CPU tensor they take the plain
+dot), and so does a head dim above 128 in every dtype; ``FLASH.paths``
+counts the launches of each as ``"mma"`` / ``"fma"``.  The kernel takes
+any head dim up to 256, on the next larger of its instance widths with the
+columns past ``hd`` zero; q, k and v of different dtypes are cast up to
+their promoted dtype first (exactly) and the result comes back in q's
+dtype, as the reference's dots promote.  On a CPU tensor they take the plain
 version, :func:`flash_attention_plain`, which runs the reference's own
 update over the reference's ``(q_chunk, kv_chunk)`` blocks; the chunks shape
 only that version (the kernel tiles 64 x 64).
@@ -28,13 +33,19 @@ __all__ = ["flash_attention", "flash_attention_gqa", "flash_attention_plain",
            "NEG_INF"]
 
 NEG_INF = -1e30
-_HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256          # the widest instance (csrc: the FMA path's)
+_MMA_HEAD_DIM = 128         # the widest tensor-core instance
 
-# The kernel's code paths, by their index in FlashArgs.path, and the one each
-# dtype takes: the only place the choice is made (the C entry point launches
-# the path named in the arguments and refuses one that does not fit the dtype)
+# The kernel's code paths, by their index in FlashArgs.path
 PATHS = ("fma", "mma")
 _PATH_OF = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 1}
+
+
+def _path(dtype: torch.dtype, hd: int) -> int:
+    """The path a launch takes: the only place the choice is made (the C
+    entry point launches the path named in the arguments and refuses one
+    that does not fit the dtype and head dim)."""
+    return _PATH_OF[dtype] if hd <= _MMA_HEAD_DIM else 0
 
 FLASH = _build.register(_build.Kernel(
     "flash_attention", "flash_attention.cu", "xdma_flash_attention",
@@ -126,7 +137,7 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
     a.has_window = int(window is not None)
     a.window = 0 if window is None else int(window)
     a.dtype = maps.dtype_code(q.dtype)
-    a.path = _PATH_OF[q.dtype]
+    a.path = _path(q.dtype, a.hd)
     a.scale = a.hd ** -0.5
     a.vec = 1
     for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
@@ -144,19 +155,24 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
 
 
 def _launch(q, k, v, out, *, causal: bool, window):
-    """Kernel 6 over (B, S, heads, hd) views; writes ``out``."""
-    if not (q.dtype == k.dtype == v.dtype):
+    """Kernel 6 over (B, S, heads, hd) views; writes ``out`` (q's dtype)."""
+    if not 1 <= q.shape[3] <= MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"the flash kernel takes one dtype for q, k and v, not "
-            f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[3] not in _HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash kernel takes head dims {_HEAD_DIMS}, not {q.shape[3]}")
+            f"the flash kernel takes head dims 1..{MAX_HEAD_DIM}, not "
+            f"{q.shape[3]}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    a = flash_args(q, k, v, out, causal=causal, window=window)
+    dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                v.dtype)
+    maps.dtype_code(dtype)                  # raises on a dtype it does not run
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    res = out if out.dtype == dtype else torch.empty(
+        out.shape, dtype=dtype, device=out.device)
+    a = flash_args(q, k, v, res, causal=causal, window=window)
     FLASH(ctypes.addressof(a), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          out.data_ptr(), path=PATHS[a.path])
+          res.data_ptr(), path=PATHS[a.path])
+    if res is not out:
+        out.copy_(res)
     return out
 
 

@@ -18,20 +18,28 @@ import torch
 from repro_torch.core import layouts as L
 
 __all__ = ["DimMap", "dim_maps", "physical_dims",
-           "dtype_code", "DTYPE_CODES", "tiled_rows", "Term", "Tile2",
+           "dtype_code", "DTYPE_CODES", "INT_CODES", "tiled_rows", "Term",
+           "Tile2",
            "tile2", "run_axis", "fit_to"]
 
-# dtype codes shared with csrc/xdma_common.cuh
+# dtype codes shared with csrc/xdma_common.cuh: the float streams every
+# kernel runs, and the integer streams kernel 3 runs as well
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+INT_CODES = {torch.int8: 3, torch.uint8: 4, torch.int16: 5, torch.int32: 6,
+             torch.int64: 7}
 
 
-def dtype_code(dtype: torch.dtype) -> int:
-    try:
-        return DTYPE_CODES[dtype]
-    except KeyError:
-        raise NotImplementedError(
-            f"the datapath kernels run float32/bfloat16/float16 streams, "
-            f"not {dtype}") from None
+def dtype_code(dtype: torch.dtype, integers: bool = False) -> int:
+    """The dtype's code; integer dtypes only where ``integers`` (kernel 3)."""
+    code = DTYPE_CODES.get(dtype)
+    if code is None and integers:
+        code = INT_CODES.get(dtype)
+    if code is None:
+        kinds = "float32/bfloat16/float16" + (
+            " and int8/uint8/int16/int32/int64" if integers else "")
+        raise NotImplementedError(f"the kernel runs {kinds} streams, not "
+                                  f"{dtype}")
+    return code
 
 
 class DimMap(ctypes.Structure):

@@ -1,0 +1,305 @@
+"""GQA attention: flash-chunked train/prefill, cached decode, cross-attention.
+
+The twin of ``repro.layers.attention``, in plain torch (the reference's
+layers run ``chunked_attention``, not the flash kernel): scores never
+materialize beyond (q_chunk x kv_chunk) tiles, with an f32 running max and
+denominator; bf16 dots take f32 inputs and accumulate in f32 (the
+reference's ``preferred_element_type``).  The reference's head-parallel and
+sequence-parallel choices follow its mesh axes, which the port reads the
+same way (no axis set: the block-sparse schedule).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from .norms import rms_norm
+from .rope import rope_for
+from ._init import Init
+
+NEG_INF = -1e30
+_F32 = torch.float32
+
+
+def init_attn(init: Init, cfg, *, cross: bool = False):
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": init.normal((d, H * hd), d ** -0.5),
+        "wk": init.normal((d, KV * hd), d ** -0.5),
+        "wv": init.normal((d, KV * hd), d ** -0.5),
+        "wo": init.normal((H * hd, d), (H * hd) ** -0.5),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = init.zeros((H * hd,))
+        p["bk"] = init.zeros((KV * hd,))
+        p["bv"] = init.zeros((KV * hd,))
+    if cfg.qk_norm:
+        p["q_norm"] = init.ones((hd,))
+        p["k_norm"] = init.ones((hd,))
+    return p
+
+
+def _chunk_of(n: int, want: int) -> int:
+    c = max(1, min(want, n))
+    while n % c:
+        c -= 1
+    return c
+
+
+def _chunk_pairs(nq, nk, qc, kc, q_offset, Sk, causal, window
+                 ) -> List[Tuple[int, int]]:
+    """Static block-sparse schedule: (qi, kj) chunk pairs intersecting the
+    attention mask band; fully-masked pairs are never emitted."""
+    pairs = []
+    for qi in range(nq):
+        q_lo = q_offset + qi * qc
+        q_hi = q_lo + qc - 1
+        for kj in range(nk):
+            k_lo, k_hi = kj * kc, kj * kc + kc - 1
+            if causal and k_lo > q_hi:
+                continue                      # entirely in the future
+            if window is not None and k_hi <= q_lo - window:
+                continue                      # entirely beyond the window
+            pairs.append((qi, kj))
+    return pairs
+
+
+def _blocks(q, k, v, q_chunk, kv_chunk):
+    """q -> (nq, B, KV, G, qc, hd) scaled by hd^-0.5 in f32 and rounded back;
+    k, v -> (nk, B, KV, kc, hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qc, kc = _chunk_of(Sq, q_chunk), _chunk_of(Sk, kv_chunk)
+    nq, nk = Sq // qc, Sk // kc
+    qt = (q.to(_F32) * hd ** -0.5).to(q.dtype)
+    qt = qt.reshape(B, nq, qc, KV, G, hd).permute(1, 0, 3, 4, 2, 5)
+    kt = k.reshape(B, nk, kc, KV, hd).permute(1, 0, 3, 2, 4)
+    vt = v.reshape(B, nk, kc, KV, hd).permute(1, 0, 3, 2, 4)
+    return qt, kt, vt, (B, Sq, H, hd, KV, G, qc, kc, nq, nk)
+
+
+def _pair_update(m, l, acc, qb, kb, vb, qp, kp, causal, window):
+    """One (q-chunk, kv-chunk) step of the online softmax."""
+    s = torch.einsum("bkgqh,bkch->bkgqc", qb.to(_F32), kb.to(_F32))
+    if causal or window is not None:
+        bias = torch.zeros((qp.numel(), kp.numel()), dtype=_F32,
+                           device=s.device)
+        if causal:
+            bias = torch.where(kp[None, :] <= qp[:, None], bias, NEG_INF)
+        if window is not None:
+            bias = torch.where(kp[None, :] > qp[:, None] - window, bias,
+                               NEG_INF)
+        s = s + bias
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bkgqc,bkch->bkgqh", p.to(vb.dtype).to(_F32), vb.to(_F32))
+    return m_new, l, acc
+
+
+def _finish(acc, l, B, Sq, H, hd, dtype):
+    out = acc / torch.clamp(l, min=1e-30)[..., None]   # (nq,B,KV,G,qc,hd)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, hd).to(dtype)
+
+
+def chunked_attention_dense(q, k, v, *, causal=True, window=None,
+                            q_offset=0, q_chunk=1024, kv_chunk=1024):
+    """Flash attention, dense schedule (every q-chunk scans every
+    kv-chunk): the reference's schedule when q is sequence-sharded."""
+    qt, kt, vt, (B, Sq, H, hd, KV, G, qc, kc, nq, nk) = _blocks(
+        q, k, v, q_chunk, kv_chunk)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qp = q_offset + qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, KV, G, qc), NEG_INF, dtype=_F32, device=dev)
+        l = torch.zeros((B, KV, G, qc), dtype=_F32, device=dev)
+        acc = torch.zeros((B, KV, G, qc, hd), dtype=_F32, device=dev)
+        for kj in range(nk):
+            kp = kj * kc + torch.arange(kc, device=dev)
+            m, l, acc = _pair_update(m, l, acc, qt[qi], kt[kj], vt[kj], qp,
+                                     kp, causal, window)
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None,
+                      q_offset=0, q_chunk=1024, kv_chunk=1024):
+    """Flash-style attention with block-sparse pair scheduling.
+
+    q (B,Sq,H,hd); k,v (B,Sk,KV,hd); f32 running max/denominator, one pass
+    over the valid (q-chunk, kv-chunk) pairs in the reference's order."""
+    qt, kt, vt, (B, Sq, H, hd, KV, G, qc, kc, nq, nk) = _blocks(
+        q, k, v, q_chunk, kv_chunk)
+    dev = q.device
+    m = torch.full((nq, B, KV, G, qc), NEG_INF, dtype=_F32, device=dev)
+    l = torch.zeros((nq, B, KV, G, qc), dtype=_F32, device=dev)
+    acc = torch.zeros((nq, B, KV, G, qc, hd), dtype=_F32, device=dev)
+    for qi, kj in _chunk_pairs(nq, nk, qc, kc, q_offset, k.shape[1], causal,
+                               window):
+        qp = q_offset + qi * qc + torch.arange(qc, device=dev)
+        kp = kj * kc + torch.arange(kc, device=dev)
+        m[qi], l[qi], acc[qi] = _pair_update(m[qi], l[qi], acc[qi], qt[qi],
+                                             kt[kj], vt[kj], qp, kp, causal,
+                                             window)
+    return _finish(acc, l, B, Sq, H, hd, q.dtype)
+
+
+def _mask_valid(s, length, Smax):
+    """Mask scores (B,KV,G,Smax) beyond the valid cache prefix.  ``length``
+    is a scalar (uniform batch) or a (B,) vector of per-request lengths
+    (continuous batching, where ragged requests share one decode step)."""
+    pos = torch.arange(Smax, device=s.device)
+    if isinstance(length, torch.Tensor) and length.dim():
+        lv = torch.clamp(length.to(s.device), max=Smax)
+        valid = pos[None] < lv[:, None]                       # (B, Smax)
+        return torch.where(valid[:, None, None, :], s, NEG_INF)
+    valid = pos < min(int(length), Smax)
+    return torch.where(valid[None, None, None], s, NEG_INF)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, rolling=False):
+    """q (B,1,H,hd); caches (B,Smax,KV,hd); length = #valid tokens.
+
+    ``rolling=True`` marks a circular window cache: once full, every slot is
+    valid (slot order is irrelevant because K carries RoPE already)."""
+    B, _, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qh = q[:, 0].reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qh.to(_F32),
+                     k_cache.to(_F32)) * hd ** -0.5
+    s = _mask_valid(s, length, Smax)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).to(_F32),
+                       v_cache.to(_F32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_xdma(q, kt_cache, v_cache, length):
+    """Decode against the XDMA layout-optimal cache: K stored transposed
+    (B,KV,hd,Smax), V stored (B,KV,Smax,hd)."""
+    B, _, H, hd = q.shape
+    KV, Smax = kt_cache.shape[1], kt_cache.shape[3]
+    G = H // KV
+    qh = q[:, 0].reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bkhs->bkgs", qh.to(_F32),
+                     kt_cache.to(_F32)) * hd ** -0.5
+    s = _mask_valid(s, length, Smax)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bksh->bkgh", p.to(v_cache.dtype).to(_F32),
+                       v_cache.to(_F32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _is_vector(pos) -> bool:
+    return isinstance(pos, torch.Tensor) and pos.dim() >= 1
+
+
+def _slot(cache_pos, Smax, window):
+    """The cache slot a decode step writes: the rolled position of a window
+    cache, else the position clamped to the last slot."""
+    if _is_vector(cache_pos):
+        return (cache_pos % Smax if window is not None
+                else torch.clamp(cache_pos, max=Smax - 1))
+    p = int(cache_pos)
+    return p % Smax if window is not None else min(p, Smax - 1)
+
+
+def _plus_one(cache_pos):
+    return cache_pos + 1 if _is_vector(cache_pos) else int(cache_pos) + 1
+
+
+def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
+               cache=None, cache_pos=None, kv_x=None, apply_rope=True,
+               cross=False):
+    """Full attention sublayer.
+
+    train/prefill: ``cache=None`` -> flash-chunked attention over x (or kv_x
+    for cross-attention).  decode: ``cache`` = {"k","v"} (B,Smax,KV,hd), or
+    under ``cfg.xdma_cache`` K (B,KV,hd,Smax) and V (B,KV,Smax,hd), plus
+    ``cache_pos`` — a scalar (uniform batch) or a (B,) vector of per-request
+    positions (ragged continuous batching); returns (out, new_cache).  The
+    cache passed in is not modified.
+    """
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    mspec, ms = cfg.axes.model, cfg.axes.model_size
+    head_ok = bool(mspec) and bool(ms) and H % ms == 0 and KV % ms == 0
+    head_repeat = (not head_ok) and bool(mspec) and bool(ms) and H % ms == 0
+    q_seq_ax = (None if head_ok or head_repeat or not mspec
+                else (mspec if S > 1 else None))
+
+    def proj(y, w, b=None):
+        o = y @ w.to(dt)
+        if b is not None:
+            o = o + b.to(dt)
+        return o
+
+    q = proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+
+    is_cross = cross or (kv_x is not None)
+    if cache is not None and is_cross:
+        # cross-attn decode: encoder K/V precomputed in cache, never updated
+        out = decode_attention(q, cache["k"], cache["v"], cache["len"])
+        return proj(out.reshape(B, S, H * hd), p["wo"]), cache
+
+    src = kv_x if is_cross else x
+    k = proj(src, p["wk"], p.get("bk")).reshape(B, src.shape[1], KV, hd)
+    v = proj(src, p["wv"], p.get("bv")).reshape(B, src.shape[1], KV, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    if apply_rope and not is_cross:
+        q = rope_for(cfg, q, positions)
+        k = rope_for(cfg, k, positions)
+
+    if cache is None:
+        k_att, v_att = k, v
+        if head_repeat and S > 1:
+            k_att = torch.repeat_interleave(k, H // KV, dim=2)
+            v_att = torch.repeat_interleave(v, H // KV, dim=2)
+        impl = (chunked_attention_dense if q_seq_ax is not None
+                else chunked_attention)
+        out = impl(q, k_att, v_att, causal=causal and not is_cross,
+                   window=window, q_chunk=min(1024, S),
+                   kv_chunk=min(1024, src.shape[1]))
+    elif cfg.xdma_cache:
+        # XDMA layout-optimal cache: K stored transposed, V dot-contiguous
+        Smax = cache["k"].shape[3]
+        slot = _slot(cache_pos, Smax, window)
+        dt_c = cache["k"].dtype
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        if _is_vector(cache_pos):
+            bidx = torch.arange(B, device=ck.device)
+            ck[bidx, :, :, slot] = k[:, 0].to(dt_c)
+            cv[bidx, :, slot, :] = v[:, 0].to(dt_c)
+        else:
+            ck[:, :, :, slot] = k[:, 0].to(dt_c)
+            cv[:, :, slot, :] = v[:, 0].to(dt_c)
+        cache = dict(cache, k=ck, v=cv)
+        out = decode_attention_xdma(q, ck, cv, _plus_one(cache_pos))
+    else:
+        Smax = cache["k"].shape[1]
+        slot = _slot(cache_pos, Smax, window)
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        if _is_vector(cache_pos):
+            bidx = torch.arange(B, device=ck.device)
+            ck[bidx, slot] = k[:, 0].to(ck.dtype)
+            cv[bidx, slot] = v[:, 0].to(cv.dtype)
+        else:
+            ck[:, slot:slot + S] = k.to(ck.dtype)
+            cv[:, slot:slot + S] = v.to(cv.dtype)
+        cache = dict(cache, k=ck, v=cv)
+        out = decode_attention(q, ck, cv, _plus_one(cache_pos),
+                               rolling=window is not None)
+
+    y = proj(out.reshape(B, S, H * hd), p["wo"])
+    return y, cache

@@ -159,6 +159,8 @@ class XDMAFuture:
         t = self._sched._tasks[self.task_id]
         while not t.done:
             self._sched.step()
+        if t.value is _RELEASED:
+            raise RuntimeError(f"task {t.id}'s output was released")
         return t.value
 
     def __repr__(self):
@@ -213,6 +215,9 @@ class MulticastFuture:
         state = "done" if self.done() else "pending"
         return (f"MulticastFuture({len(self._delivery)} dsts, "
                 f"{len(self.tree.hops)} hops, {state})")
+
+
+_RELEASED = object()        # a task output dropped by ``release``
 
 
 @dataclasses.dataclass
@@ -733,6 +738,22 @@ class DistributedScheduler:
         """Drain every ring (runs scheduling rounds until idle)."""
         while self.step():
             pass
+
+    def release(self, futures: Sequence[XDMAFuture]) -> None:
+        """Drop the outputs and inputs of finished tasks, those of
+        ``futures`` and of the tasks they depend on, once the caller holds
+        what it needs (a serving loop moving its cache every step would
+        otherwise keep every step's buffers alive).  Their timeline, bytes
+        and ledger stay; ``result()`` of a released task raises."""
+        todo = [f.task_id for f in futures]
+        while todo:
+            t = self._tasks[todo.pop()]
+            if not t.done:
+                raise ValueError(f"task {t.id} has not run; nothing to "
+                                 f"release")
+            if t.value is not _RELEASED:
+                t.value, t.inputs = _RELEASED, ()
+                todo.extend(t.deps)
 
     @property
     def pending(self) -> int:

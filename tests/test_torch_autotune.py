@@ -10,8 +10,8 @@ candidate order is part of the contract), and every ``auto`` transfer's
 output bitwise.  A sweep of shapes x {f32, bf16, int8} x {default, wide,
 narrow link} and the page geometries of the serving pool
 (``repro.serving.paged``: 32-row pages, and the rows and widths its tests
-use) hold the same.  The reference's KV-plane case waits for ROADMAP §1
-item 7 (``serving/transfer.py``).
+use) hold the same, and so do the KV plane's store/load pairs
+(``serving.transfer.kv_plane_descs``).
 """
 import pytest
 
@@ -237,6 +237,31 @@ def _page_layouts(S, dtype_name):
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16", "int8"])
 def test_page_layout_bit_identical_to_historical_rule(dtype_name):
     on_both(_page_layouts, dtype_name)
+
+
+def _kv_plane_pairs(S, dtype_name):
+    import importlib
+    pkg = "repro" if S.name == "ref" else "repro_torch"
+    kv_plane_descs = importlib.import_module(
+        f"{pkg}.serving.transfer").kv_plane_descs
+    L = S.L
+    out = []
+    for rows, d in [(64, 512), (64, 48), (31, 512), (64, 100), (32, 1024),
+                    (16, 128)]:
+        store, load = kv_plane_descs(rows, d, dtype_name)
+        tiled = L.layout_for_dtype(dtype_name)
+        tm, tn = tiled.tile
+        if rows % tm == 0 and d % tn == 0:      # the historical rule
+            assert store.dst.layout is tiled and load.src.layout is tiled
+        else:
+            assert store.dst.layout is L.MN and load.src.layout is L.MN
+        out.append([d.summary() for d in (store, load)])
+    return out
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_kv_plane_descs_match_historical_alignment_rule(dtype_name):
+    on_both(_kv_plane_pairs, dtype_name)
 
 
 # the serving pool's page geometries: DEFAULT_PAGE_ROWS = 32 and the row

@@ -82,6 +82,33 @@ CHAINS = {
     "two_reduces": ("MN", "MN", lambda s: (
         PC.ReduceStage("max"), PC.Transpose(), PC.ReduceStage("sum")),
         (64, 256), torch.float32, False),
+    # the chains kernels 2 and 3 once refused (ROADMAP §3, fault 1)
+    "gather_int8": ("MN", "MN", lambda s: (PC.GatherScatter(
+        indices=np.random.default_rng(3).permutation(s[0])),), (64, 128),
+        torch.int8, True),
+    "gather_fill_int32": ("MN", "MNM8N128", lambda s: (PC.GatherScatter(
+        indices=np.r_[np.arange(s[0] - 2), -1, s[0] + 3]),), (128, 256),
+        torch.int32, True),
+    "transpose_int32": ("MN", "MNM8N128", lambda s: (PC.Transpose(),),
+                        (128, 256), torch.int32, True),
+    "nine_scales": ("MN", "MNM8N128", lambda s: tuple(
+        PC.Scale(1.0 + k / 64) for k in range(9)), (64, 256), torch.float32,
+        False),
+    "scale_rank5": ("MN", "MN", lambda s: (PC.Scale(2.5),), (2, 2, 2, 8, 128),
+                    torch.float32, False),
+    "int_arith_sum": ("MN", "MN", lambda s: (
+        PC.Scale(3), PC.BiasAdd(-7), PC.ReduceStage("sum")), (64, 128),
+        torch.int8, True),
+    "int_to_float_cast": ("MN", "MNM8N128", lambda s: (
+        PC.Transpose(), PC.Cast(torch.float32), PC.Scale(0.5)), (128, 256),
+        torch.int32, True),
+    "compress_int16": ("MN", "MN", lambda s: (
+        PC.Compress(block_rows=8), PC.Decompress()), (256, 256), torch.int16,
+        True),
+    "int64_rank3": ("MN", "MN", lambda s: (
+        PC.Transpose(), PC.GatherScatter(indices=np.arange(s[0])[::-1],
+                                         axis=0)), (4, 32, 128), torch.int64,
+        True),
 }
 
 
@@ -517,6 +544,49 @@ def _flash_half_vs_plain(q, k, v, causal, window):
     torch.cuda.synchronize()
     assert FA.FLASH.paths["mma"] == before + 1
     assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 80, 100, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_any_head_dim_vs_plain(dtype, hd):
+    """A head dim between the kernel's instance widths runs on the next
+    larger one (columns past hd zero, scale hd^-0.5 of the true hd); above
+    128 every dtype takes the FMA path.  GQA with a causal window."""
+    B, S, H, KV = 1, 150, 4, 2
+    q, k, v = (_logical((B * S * n, hd), torch.float32, seed=40 + i)
+               .reshape(B, S, n, hd) / (4 if i < 2 else 1)
+               for i, n in enumerate((H, KV, KV)))
+    path = "fma" if dtype == torch.float32 or hd > 128 else "mma"
+    before = FA.FLASH.paths.get(path, 0)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    want = FA.flash_attention_gqa_plain(q, k, v, causal=True, window=64)
+    got = FA.flash_attention_gqa(q.cuda(), k.cuda(), v.cuda(), causal=True,
+                                 window=64)
+    torch.cuda.synchronize()
+    assert FA.FLASH.paths[path] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2e-2, atol=2e-2))
+    torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.bfloat16)])
+def test_flash_attention_mixed_dtypes_vs_plain(q_dtype, kv_dtype):
+    """q, k and v cast up to their promoted dtype before the launch; the
+    result in q's dtype."""
+    q = _logical((2 * 96, 64), torch.float32, seed=45).reshape(2, 96, 64) / 4
+    k = _logical((2 * 96, 64), torch.float32, seed=46).reshape(2, 96, 64) / 4
+    v = _logical((2 * 96, 64), torch.float32, seed=47).reshape(2, 96, 64)
+    q, k, v = q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    got = FA.flash_attention(q.cuda(), k.cuda(), v.cuda(), causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype and got.shape == want.shape
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
                                atol=2e-2)
 

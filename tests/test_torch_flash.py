@@ -271,6 +271,74 @@ def test_kernel_args_name_the_path_by_dtype(dtype, path):
     assert PF.PATHS[a.path] == path
 
 
+@pytest.mark.parametrize("dtype,hd,path", [
+    (torch.bfloat16, 8, "mma"), (torch.float16, 80, "mma"),
+    (torch.bfloat16, 128, "mma"), (torch.bfloat16, 192, "fma"),
+    (torch.float32, 256, "fma")])
+def test_kernel_args_name_the_path_by_head_dim(dtype, hd, path):
+    """A head dim between the instance widths keeps its dtype's path and
+    its own scale; above 128 every dtype takes the FMA path."""
+    q = torch.zeros(1, 8, 2, hd, dtype=dtype)
+    k = torch.zeros(1, 8, 1, hd, dtype=dtype)
+    a = PF.flash_args(q, k, k, torch.empty_like(q), causal=True, window=None)
+    assert PF.PATHS[a.path] == path
+    assert a.hd == hd and a.scale == hd ** -0.5
+
+
+# -- head dims between the kernel's instance widths, and mixed dtypes --------
+@pytest.mark.parametrize("hd", [8, 80])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_any_head_dim_matches_reference(hd, dtype):
+    """The reference's Pallas kernel takes any head dim (its blocks are
+    (1, qc, hd)); so does the port: hd 8 is the qwen2 smoke width, 80 lies
+    between the kernel's instances."""
+    import ml_dtypes
+    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    arrays = [rand((2, 96, hd), 70 + i).astype(dt) for i in range(3)]
+    got, want = _both(r_flash, PF.flash_attention, arrays, causal=True,
+                      window=40, q_chunk=32, kv_chunk=32)
+    np.testing.assert_allclose(got, want,
+                               **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+@pytest.mark.parametrize("hd,dtype", [(8, "bfloat16"), (80, "float16"),
+                                      (192, "bfloat16"), (100, "float32")])
+def test_kernel_any_head_dim_emulated_matches_reference(hd, dtype):
+    """The kernel's arguments at a head dim between its instances (and
+    above 128, where bf16 takes the FMA path with P rounded to bf16)."""
+    import ml_dtypes
+    dt = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16,
+          "float16": np.float16}[dtype]
+    q, k, v = (rand((1, 100, hd), 80 + i).astype(dt) for i in range(3))
+    got, a = _emulated(*(to_torch(t) for t in (q, k, v)), True, 50,
+                       gqa=False)
+    assert a.hd == hd
+    want = r_flash(*(jnp.asarray(t) for t in (q, k, v)), causal=True,
+                   window=50, q_chunk=20, kv_chunk=20)
+    np.testing.assert_allclose(got.numpy(), to_f32(want),
+                               **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("bfloat16", "float32"),
+                                              ("float32", "bfloat16")])
+def test_flash_mixed_dtypes_match_reference(q_dtype, kv_dtype):
+    """q, k and v of different dtypes: the reference's dots promote, and
+    the result takes q's dtype."""
+    import ml_dtypes
+    dts = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
+    q = rand((2, 64, 32), 90).astype(dts[q_dtype])
+    k, v = (rand((2, 64, 32), 91 + i).astype(dts[kv_dtype]) for i in range(2))
+    got, want = _both(r_flash, PF.flash_attention, [q, k, v], causal=True,
+                      q_chunk=32, kv_chunk=32)
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+def test_flash_kernel_refuses_head_dims_above_256():
+    q = torch.zeros(1, 8, 1, 264)
+    with pytest.raises(NotImplementedError, match="1..256"):
+        PF._launch(q, q, q, torch.empty_like(q), causal=True, window=None)
+
+
 # -- the mma path's fragment maps, lane by lane ------------------------------
 # The PTX ISA's layouts (mma.m16n8k16 with a floating-point type; ldmatrix),
 # lane = 4 g + t, as the comment at the top of csrc/flash_attention.cu lists

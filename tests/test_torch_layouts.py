@@ -48,6 +48,15 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.serving.paged, repro_torch.data, "
             "repro_torch.data.pipeline, repro_torch.checkpoint, "
             "repro_torch.checkpoint.manager\n"
+            "import repro_torch.configs, repro_torch.configs.base, "
+            "repro_torch.layers, repro_torch.layers.norms, "
+            "repro_torch.layers.rope, repro_torch.layers.embedding, "
+            "repro_torch.layers.mlp, repro_torch.layers.attention, "
+            "repro_torch.layers.mamba, repro_torch.layers.xlstm, "
+            "repro_torch.models, repro_torch.models.lm, "
+            "repro_torch.serving.engine\n"
+            "from repro_torch import configs\n"
+            "[configs.get_config(a) for a in configs.ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(repr(bad))\n")

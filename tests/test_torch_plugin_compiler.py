@@ -323,11 +323,92 @@ def test_decompress_without_compress_raises():
         prog._compile("cpu")
 
 
+# The chains the reference's ``compiled`` backend runs that kernels 2 and 3
+# once refused (ROADMAP §3, fault 1): integer streams, more than 8 streamed
+# ops, logical rank above 4.  Integer outputs are held bitwise, float ones
+# within the oracle's chain tolerance.
+FAULT1_CASES = {
+    "gather_int8": ("MN", "MN", lambda M: (
+        M.GatherScatter(indices=_perm(64, 3)),), (64, 128), np.int8),
+    "transpose_int32": ("MN", "MNM8N128", lambda M: (M.Transpose(),),
+                        (128, 256), np.int32),
+    "nine_scales": ("MN", "MNM8N128", lambda M: tuple(
+        M.Scale(1.0 + k / 64) for k in range(9)), (64, 256), np.float32),
+    "scale_rank5": ("MN", "MN", lambda M: (M.Scale(2.5),),
+                    (2, 2, 2, 8, 128), np.float32),
+    # integer arithmetic follows jnp's promotion: the constant cast to the
+    # stream dtype, int8 wrapping, jnp.sum widening int8 to int32
+    "int_arith_sum": ("MN", "MN", lambda M: (
+        M.Scale(3), M.BiasAdd(-7), M.ReduceStage("sum")), (64, 128), np.int8),
+    "int_to_float_cast": ("MN", "MNM8N128", lambda M: (
+        M.Transpose(), M.Cast(jnp.float32 if M is RP else torch.float32),
+        M.Scale(0.5)), (128, 256), np.int32),
+}
+
+
+def _fault1(name):
+    src, dst, chain, shape, dtype = FAULT1_CASES[name]
+    rng = np.random.default_rng(21)
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, shape, endpoint=True).astype(dtype)
+    else:
+        x = rng.standard_normal(shape).astype(dtype)
+    ref = RC.describe(src, dst, *chain(RP), backend="compiled")
+    return ref, port_desc(ref), x
+
+
+@pytest.mark.parametrize("name", sorted(FAULT1_CASES))
+def test_fault1_cases_match_reference_compiled(name):
+    ref, desc, xin = _fault1(name)
+    want = rx.transfer(jnp.asarray(xin), ref)
+    got = px.transfer(to_torch(xin), desc)
+    if np.issubdtype(np.asarray(want).dtype, np.integer):
+        assert_same_payload(got, want, context=name)
+    else:
+        assert_same_payload(got, want, context=name, **_tol(ref, xin.dtype))
+
+
+@pytest.mark.parametrize("name", sorted(FAULT1_CASES))
+def test_fault1_cases_compile_for_the_kernels(name):
+    """The kernels' host code takes every case: the program the port
+    compiles for it prepares its launches (stage lists, segments, paths)."""
+    _, desc, xin = _fault1(name)
+    fn = ppc.compile_local(desc)
+    fn(to_torch(xin))
+    (prog,) = fn.kernels.values()
+    block = prog if isinstance(prog, DP.BlockDatapath) else prog._block
+    if block is None:                       # kernel 2, in parts of <= 8 ops
+        parts = prog._parts or [prog]
+        assert sum(len(p.chain) for p in parts) == len(desc.plugins)
+        assert all(len(p.chain) <= DP._MAX_OPS for p in parts)
+        for p in parts:
+            p._prepare("cpu")
+        return
+    stages = block._compile("cpu")
+    for lo, hi in block._segments(stages):
+        floats = {st.dtype.is_floating_point for st in stages[lo:hi]}
+        assert len(floats) <= 1, "a launch carries one kind of value"
+
+
 def test_kernels_refuse_integer_streams():
-    prog = DP.BlockDatapath((PP.Transpose(),), PL.MN, PL.MN, (16, 32),
-                            torch.int8)
-    with pytest.raises(NotImplementedError, match="float32"):
-        prog._compile("cpu")
+    """The kernels no longer refuse integer streams: the int8 gather is
+    bitwise the reference's ``compiled`` backend, on kernel 3's rank-2 path
+    (a word copy).  They still refuse dtypes they do not run (bool,
+    float64)."""
+    ref, desc, xin = _fault1("gather_int8")
+    want = rx.transfer(jnp.asarray(xin), ref)
+    got = px.transfer(to_torch(xin), desc)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    prog = DP.BlockDatapath(desc.plugins, PL.MN, PL.MN, xin.shape, torch.int8)
+    stages = prog._compile("cpu")
+    assert [DP.rank2_path(stages[lo:hi], 2, torch.int8)
+            for lo, hi in prog._segments(stages)] == [True]
+    for dtype in (torch.bool, torch.float64):
+        prog = DP.BlockDatapath((PP.Transpose(),), PL.MN, PL.MN, (16, 32),
+                                dtype)
+        with pytest.raises(NotImplementedError, match="float32"):
+            prog._compile("cpu")
 
 
 def test_gather_follows_jnp_take_out_of_range():
@@ -408,7 +489,7 @@ class _BlockEmu:
         for s in range(hi - 1, lo - 1, -1):
             st = self.a.st[s]
             r = st.in_rank
-            co[s] = list(co[s + 1][:r]) + [0] * (4 - r)
+            co[s] = list(co[s + 1][:r]) + [0] * (DP._XR - r)
             if st.code == DP._ST_TRANSPOSE:
                 co[s][r - 2], co[s][r - 1] = co[s + 1][r - 1], co[s + 1][r - 2]
             elif st.code == DP._ST_GATHER:
@@ -474,12 +555,12 @@ class _BlockEmu:
                 else np.float32(-np.inf)
             for r in range(st.in_shape[n - 2]):
                 out = co[R + 1]
-                inner = [[0] * 4 for _ in range(9)]
+                inner = [[0] * DP._XR for _ in range(9)]
                 if st.keepdims:
                     inner[R] = list(out)
                 else:
                     inner[R] = list(out[:n - 2]) + [0, out[n - 2]] + \
-                        [0] * (4 - n)
+                        [0] * (DP._XR - n)
                 inner[R][n - 2] = r
                 x = self.eval_plain(R, inner)
                 if st.code == DP._ST_REDUCE_SUM:
@@ -634,11 +715,11 @@ def _emulate_block(args_addr, src, dst, mode):
     a = DP._BlockArgs.from_address(args_addr)
     emu = _BlockEmu(a, src)
     k = a.upto
-    co = [[0] * 4 for _ in range(9)]
+    co = [[0] * DP._XR for _ in range(9)]
     if mode == DP._MODE_OUT:
         vals = []
         for p in range(a.total):
-            c = [0] * 4
+            c = [0] * DP._XR
             rem = p
             for q in range(a.nphys - 1, -1, -1):
                 c[a.pdim[q]] += (rem % a.pext[q]) * a.pw[q]
@@ -658,7 +739,7 @@ def _emulate_block(args_addr, src, dst, mode):
             lead = np.unravel_index(row, shape[:-1])
             ss = np.float32(0.0)
             for j in range(shape[-1]):
-                co[k] = list(lead) + [j] + [0] * (4 - r)
+                co[k] = list(lead) + [j] + [0] * (DP._XR - r)
                 v = emu.eval(k, co)
                 ss = np.float32(ss + v * v)
             inv = np.float32(1.0) / np.sqrt(np.float32(
@@ -672,7 +753,7 @@ def _emulate_block(args_addr, src, dst, mode):
         hit = 0
         for t in range(st.block_rows * shape[-1]):
             co[k] = lead_c + [blk * st.block_rows + t // shape[-1],
-                              t % shape[-1]] + [0] * (4 - r)
+                              t % shape[-1]] + [0] * (DP._XR - r)
             if emu.eval(k, co) != 0:
                 hit = 1
                 break

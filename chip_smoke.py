@@ -53,7 +53,24 @@ kernel against its plain PyTorch version on the same inputs:
   scheduler's plane every step (kernel 1 each way): tokens and final cache
   bitwise the planeless loop's, decode logits against the forward's, one
   decoder layer in f32 against its CPU run, and the seven non-MoE smoke
-  archs' tokens against their CPU runs.
+  archs' tokens against their CPU runs;
+* continuous batching (phase 15) on the same model: four 32-token prompts
+  arriving together, bitwise ``ServingEngine.generate``'s tokens, then a
+  stream of eight requests (16, 32 and 48 prompt tokens) through
+  ``ContinuousBatchingEngine`` and ``StaticBatchEngine`` over a page pool
+  of 75 % of the stream's peak: preemption forced, every restored page
+  bitwise its evicted buffer, tokens equal each request's fixed-batch run
+  where the top-2 margin clears the tie rule (kernel 1 stores and loads
+  pages, kernel 3 runs the evict / restore wire codec);
+* an MoE model served (phase 16): qwen3-moe-30b-a3b at full width, 8 of
+  its 48 layers, through ``ServingEngine`` (tokens and cache bitwise the
+  planeless loop's), one MoE layer in f32 against its CPU run (router
+  probabilities, expert ids, output), the three MoE smoke configs' tokens
+  against their CPU runs;
+* MoE expert-parallel dispatch (phase 17): 4 ranks on the card, one
+  qwen3-moe layer's experts split 32 a rank: the EP path against the local
+  path, the int8 wire, the scheduled chunked dispatch, the ring
+  all-gather.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -64,10 +81,11 @@ launches on its ``rows`` path (a small NM chain on its generic path), and
 kernel 3's six main-path transfers all on its rank-2 path (a small rank-3
 chain on its generic path).  Phase 12 checks the launches in every rank
 (kernels 2 and 3), phase 13 in its process (kernels 1, 2 and 3), phase 14
-kernel 1 on the serving plane.  Phase 4 also drives the chains kernels 2
+kernel 1 on the serving plane, phase 15 kernels 1 and 3 on the page pool,
+phase 16 kernel 1 on the MoE model's plane.  Phase 4 also drives the chains kernels 2
 and 3 once refused (integer streams, nine streamed ops, logical rank 5),
-and phase 8 kernel 6 at head dims 8, 80, 192 and 256 and with bf16 q and
-f32 k / v.  Phase 3 also times the Prefill store at
+and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (the last
+two on its chunked path, timed) and with bf16 q and f32 k / v.  Phase 3 also times the Prefill store at
 gemma3-27B width (d_model 5376).  Phase 7 holds kernel 5 on NaN, inf and
 -inf rows too.  Phase 8 asserts that both bf16 model layers took kernel 6's
 tensor-core path (``mma``) and its small f32 checks the FMA path (``fma``).
@@ -733,6 +751,37 @@ def phase14(dev, gen, card, drive):
         warmup=1)
     plane_ms = gpu_ms(lambda: plane(cache), reps=5, warmup=1)
     plane_bound = bound_ms(plane_bytes)
+
+    def plane_library(c):
+        """The plane's relayouts as one PyTorch call each: every cache leaf
+        as its (rows, KV x hd) matrix to MNM16N128 and back."""
+        outs = []
+        for t in _pytree.leaves(c):
+            if t.dim() >= 2 and t.is_floating_point():
+                m = t.reshape(-1, t.shape[-2] * t.shape[-1])
+                R, C = m.shape
+                tiled = m.view(R // 16, 16, C // 128, 128).permute(
+                    0, 2, 1, 3).contiguous()
+                outs.append(tiled.permute(0, 2, 1, 3).contiguous().view(
+                    t.shape))
+        return outs
+    for t, u in zip([t for t in leaves if t.dim() >= 2
+                     and t.is_floating_point()], plane_library(cache)):
+        assert_bitwise(u, t, "serving plane library yardstick")
+    plane_lib_ms = gpu_ms(lambda: plane_library(cache), reps=5, warmup=1)
+    from repro_torch.core import layouts as L
+
+    def plane_plain(c):
+        """The plane's relayouts by kernel 1's plain version."""
+        outs = []
+        for t in _pytree.leaves(c):
+            if t.dim() >= 2 and t.is_floating_point():
+                m = t.reshape(-1, t.shape[-2] * t.shape[-1])
+                tiled = agu.relayout_plain(m, L.MN, L.MNM16N128, False)
+                outs.append(agu.relayout_plain(tiled, L.MNM16N128, L.MN,
+                                               False))
+        return outs
+    plane_plain_ms = gpu_ms(lambda: plane_plain(cache), reps=3, warmup=1)
     # the card's idle share over one generate call
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -746,6 +795,8 @@ def phase14(dev, gen, card, drive):
     times = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
              "decode_step_with_plane_ms": step_plane_ms,
              "plane_ms": plane_ms, "plane_bound_ms": plane_bound,
+             "plane_library_ms": plane_lib_ms,
+             "plane_plain_ms": plane_plain_ms,
              "plane_bytes": plane_bytes, "generate_wall_ms": gen_ms,
              "generate_device_ms": busy}
     log14(f"B{SERVE_BATCH} x {SERVE_PROMPT} tokens, {SERVE_STEPS} "
@@ -753,7 +804,10 @@ def phase14(dev, gen, card, drive):
         f"{step_ms:.3f} ms without the plane, {step_plane_ms:.3f} ms with "
         f"it; the plane alone {plane_ms:.3f} ms of device time for "
         f"{plane_bytes / 2 ** 30:.2f} GiB (bound {plane_bound:.3f} ms, "
-        f"{plane_bound / plane_ms:.1%} of it); generate {gen_ms:.1f} ms wall, "
+        f"{plane_bound / plane_ms:.1%} of it; the same relayouts as "
+        f"permute().contiguous() {plane_lib_ms:.3f} ms, by kernel 1's plain "
+        f"version {plane_plain_ms:.3f} ms); generate "
+        f"{gen_ms:.1f} ms wall, "
         f"{busy:.1f} ms of device time, the card idle {idle} (GPU times: "
         f"CUDA events; device busy: torch.profiler) on {card}")
     del cache, cache_p, eng, toks, toks0, leaves
@@ -765,13 +819,13 @@ def phase14(dev, gen, card, drive):
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        got, _ = lm._apply_slot(cfg32, cfg.period[0], layer, x, pos)
+        got, _, _ = lm._apply_slot(cfg32, cfg.period[0], layer, x, pos)
         got = got.cpu()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     layer_cpu = _pytree.tree_map_with_path(lambda p, t: t.cpu(), layer)
-    want, _ = on_cpu_one_thread(lm._apply_slot, cfg32, cfg.period[0],
-                                layer_cpu, x.cpu(), pos.cpu())
+    want, _, _ = on_cpu_one_thread(lm._apply_slot, cfg32, cfg.period[0],
+                                   layer_cpu, x.cpu(), pos.cpu())
     lscale = float(want.abs().max())
     lerr = max_abs_err(got, want)
     check(lerr <= 1e-5 * lscale,
@@ -780,7 +834,7 @@ def phase14(dev, gen, card, drive):
     log14(f"one phi4-mini layer, 1 x {LAYER_TOKENS} tokens f32 (TF32 "
         f"off): max abs err {lerr} against its CPU run ({lerr / lscale:.2e} "
         f"of max|out|, tolerance 1e-5)")
-    del params, layer, layer_cpu, got, want, x
+    del layer, layer_cpu, got, want, x
     torch.cuda.empty_cache()
     # 5. the seven non-MoE smoke archs: the card's tokens are the CPU's
     smoke = {}
@@ -816,7 +870,481 @@ def phase14(dev, gen, card, drive):
         smoke[arch] = got[0].tolist()
     log14(f"{len(smoke)} smoke archs (f32): the card's tokens are "
         f"the CPU's: {smoke}")
+    return times, cfg, params
+
+
+# -- phase 15: continuous batching at full phi4-mini width ----------------------
+CB_PAGE_ROWS, CB_MAX_BATCH, CB_MAX_LEN = 32, 4, 64
+CB_ALIGNED = dict(n=4, prompt=32, max_new=8)      # (a): arriving together
+CB_STREAM = dict(n=8, prompts=(16, 32, 48), max_new=6)   # (b): under load
+CB_MARGIN = 2e-3               # x max|logit|: phase 14's tie rule
+
+
+def greedy_with_logits(cfg, params, tokens, n, max_len, cache_dtype):
+    """The planeless loop (prefill, then greedy decode steps), which
+    ``ServingEngine.generate`` equals bitwise: (tokens (B, n), the logits
+    each token was picked from (B, n, V) in f32)."""
+    from repro_torch.models import lm
+    c = lm.init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
+                      device=tokens.device)
+    logits, c = lm.prefill(cfg, params, {"tokens": tokens}, c)
+    toks, lgs = [], []
+    for i in range(n):
+        lgs.append(logits[:, -1].float())
+        toks.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+        if i + 1 < n:
+            logits, c = lm.decode_step(cfg, params, toks[-1], c)
+    return torch.cat(toks, 1), torch.stack(lgs, 1)
+
+
+def phase15(dev, gen, card, drive, cfg, params):
+    """Phase 15: continuous batching on the card at phi4-mini width (the
+    phase-14 parameters).  (a) four 32-token prompts arriving together,
+    bitwise ``ServingEngine.generate``; (b) eight requests of 16, 32 and 48
+    prompt tokens at a fixed gap through ``ContinuousBatchingEngine`` and
+    ``StaticBatchEngine`` with a pool of 75 % of the stream's peak pages:
+    every request completes, the continuous engine preempts, evicted pages
+    come back bitwise, tokens equal each request's own fixed-batch run where the
+    top-2 margin clears the tie rule.  Kernels 1 and 3 must launch (kernel
+    3 on the continuous engine's preemptions).  Returns the times."""
+    from repro_torch.kernels import agu, datapath
+    from repro_torch.serving import (ContinuousBatchingEngine, PagedKVPool,
+                                     ServingEngine, StaticBatchEngine,
+                                     trace_stream, uniform_stream)
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+
+    def log15(msg):
+        log(f"[continuous {time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    class CheckedPool(PagedKVPool):
+        """The engine's pool, holding every restored page to the at-rest
+        buffer it had before its eviction, bitwise."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.before, self.restoring, self.checked = {}, [], 0
+
+        def evict(self, pid, **kw):
+            self.before[pid] = self._pages[pid].data
+            return super().evict(pid, **kw)
+
+        def restore(self, pid, **kw):
+            self.restoring.append(pid)
+            return super().restore(pid, **kw)
+
+        def commit(self):
+            landed = super().commit()
+            for pid in self.restoring:
+                assert_bitwise(self._pages[pid].data, self.before.pop(pid),
+                               f"continuous: page {pid} after its restore")
+                self.checked += 1
+            self.restoring.clear()
+            return landed
+
+    bf16 = torch.bfloat16
+    kw = dict(max_len=CB_MAX_LEN, max_batch=CB_MAX_BATCH, cache_dtype=bf16,
+              page_rows=CB_PAGE_ROWS)
+    # (a) prompts arriving together: the fixed-batch engine's tokens
+    a = CB_ALIGNED
+    reqs = uniform_stream(cfg, a["n"], 0.0, prompt_len=a["prompt"],
+                          max_new=a["max_new"], seed=SEED)
+    probe = ContinuousBatchingEngine(cfg, params, **kw)
+    pages_a = sum(probe._footprint(r.total_len) for r in reqs)
+    eng_a = ContinuousBatchingEngine(cfg, params, capacity_pages=pages_a,
+                                     **kw)
+    t0 = time.perf_counter()
+    rep_a, counts = drive("continuous (a)", [agu.RELAYOUT],
+                          lambda: eng_a.serve(reqs))
+    wall_a = (time.perf_counter() - t0) * 1e3
+    toks = torch.from_numpy(np.stack([r.tokens for r in reqs])).to(dev)
+    fixed = ServingEngine(cfg, params, max_len=CB_MAX_LEN,
+                          cache_dtype=bf16).generate({"tokens": toks},
+                                                     a["max_new"]).cpu()
+    check(rep_a.n_requests == a["n"] and rep_a.preemptions == 0,
+          f"continuous (a): {rep_a.summary()}")
+    for r in reqs:
+        assert_bitwise(torch.from_numpy(rep_a.tokens[r.rid]), fixed[r.rid],
+                       f"continuous (a) request {r.rid} vs ServingEngine")
+    step_s = rep_a.elapsed_s / rep_a.steps
+    log15(f"(a) {a['n']} x {a['prompt']}-token prompts arriving together, "
+          f"{a['max_new']} tokens each: tokens bitwise ServingEngine."
+          f"generate's; {rep_a.steps} steps, {wall_a / rep_a.steps:.1f} ms "
+          f"wall a step, simulated makespan {rep_a.elapsed_s * 1e6:.3f} us "
+          f"({step_s * 1e6:.3f} us a step); pool {rep_a.pool_stats}; "
+          f"launches {counts}")
+    # (b) a stream under load: a fixed gap of half a simulated step, the
+    # three prompt lengths in turn (uniform_stream draws one length), a
+    # pool of 75 % of the pages the four largest requests hold at their end
+    b = CB_STREAM
+    trace = [(i * step_s / 2, b["prompts"][i % len(b["prompts"])],
+              b["max_new"]) for i in range(b["n"])]
+    stream = trace_stream(cfg, trace, seed=SEED)
+    peak = sum(sorted(probe._footprint(r.total_len - 1)
+                      for r in stream)[-CB_MAX_BATCH:])
+    cap = int(0.75 * peak)
+    times = {"aligned_wall_ms_per_step": wall_a / rep_a.steps,
+             "aligned_makespan_s": rep_a.elapsed_s}
+    reports = {}
+    # the continuous engine must preempt (kernel 3 runs the evict / restore
+    # codec); the static gang admits only when empty, so at this gap its
+    # gangs may fit the pool, and its preemptions are logged
+    for name, cls, kernels in (
+            ("continuous", ContinuousBatchingEngine,
+             [agu.RELAYOUT, datapath.BLOCK]),
+            ("static", StaticBatchEngine, [agu.RELAYOUT])):
+        pool = CheckedPool(cap, CB_PAGE_ROWS)
+        eng = cls(cfg, params, pool=pool, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rep, counts = drive(f"{name} (b)", kernels,
+                                lambda: eng.serve(stream))
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = device_busy_ms(prof)
+        idle = f"{1 - busy / wall:.1%}" if busy > 0 else "not measured"
+        st = rep.pool_stats
+        check(rep.n_requests == b["n"],
+              f"{name} (b): {rep.n_requests} of {b['n']} requests completed")
+        check(rep.preemptions >= 1 or name == "static", f"{name} (b): no "
+              f"preemption with a pool of {cap} pages: {rep.summary()}")
+        check(st["restores"] == st["evictions"] and pool.checked
+              == st["restores"], f"{name} (b): restores {st['restores']}, "
+              f"evictions {st['evictions']}, checked {pool.checked}")
+        moves = {k: st[k] / rep.steps for k in ("stores", "loads",
+                                                  "evictions", "restores",
+                                                  "defrag_moves")}
+        log15(f"(b) {name}: {rep.summary()}; {rep.steps} steps, "
+              f"{wall / rep.steps:.1f} ms wall a step ({wall:.0f} ms), "
+              f"simulated makespan {rep.elapsed_s * 1e6:.3f} us; page "
+              f"movements a step {moves}; every restored page bitwise its "
+              f"evicted buffer ({pool.checked}); pool of {cap} pages "
+              f"(peak bound {peak}); the card idle {idle} over serve "
+              f"({busy:.1f} ms of device time); launches {counts} on {card}")
+        times[name] = {"wall_ms_per_step": wall / rep.steps, "wall_ms": wall,
+                       "steps": rep.steps, "makespan_s": rep.elapsed_s,
+                       "preemptions": rep.preemptions, "pool": st,
+                       "moves_per_step": moves, "device_ms": busy}
+        reports[name] = rep
+    # each request against its own fixed-batch run (the planeless loop,
+    # which ServingEngine equals bitwise), up to the first position where
+    # the fixed run's top-2 margin is within the tie rule
+    excluded, compared = 0, 0
+    for r in stream:
+        ft, fl = greedy_with_logits(cfg, params, torch.from_numpy(
+            r.tokens[None].astype(np.int32)).to(dev), r.max_new,
+            CB_MAX_LEN, bf16)
+        ft, fl = ft[0].cpu(), fl[0].cpu()
+        top2 = fl.topk(2, -1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= CB_MARGIN * float(fl.abs().max())
+        for name, rep in reports.items():
+            got = torch.from_numpy(rep.tokens[r.rid])
+            for i in range(r.max_new):
+                if tie[i]:
+                    excluded += 1
+                    if got[i] != ft[i]:
+                        break            # a tie went the other way: stop
+                    continue
+                check(got[i] == ft[i], f"continuous (b) {name} request "
+                      f"{r.rid} token {i}: {int(got[i])} vs the fixed "
+                      f"batch's {int(ft[i])}, margin clear")
+                compared += 1
+    log15(f"(b) tokens equal each request's fixed-batch run at {compared} "
+          f"positions; {excluded} positions within the tie rule "
+          f"({CB_MARGIN} x max|logit|) excluded; continuous makespan "
+          f"{reports['continuous'].elapsed_s * 1e6:.3f} us vs static "
+          f"{reports['static'].elapsed_s * 1e6:.3f} us (simulated)")
+    times.update(tie_excluded=excluded, compared=compared,
+                 phase_s=time.perf_counter() - t_phase)
     return times
+
+
+# -- phase 16: an MoE model served at full width --------------------------------
+MOE_PERIODS = 8                # of qwen3-moe-30b-a3b's 48 (80 GB card)
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 4, 256, 8
+MOE_MAX_LEN = MOE_PROMPT + MOE_STEPS + 8
+
+
+def phase16(dev, gen, card, drive):
+    """Phase 16: qwen3-moe-30b-a3b at full width (d_model 2048, 128 experts
+    top-8), cut to 8 of its 48 layers, served by ``ServingEngine`` (B 4 x
+    256 prompt tokens, 8 greedy steps, the bf16 cache through the plane):
+    tokens and cache bitwise the planeless loop's; one MoE decoder layer in
+    f32 against its one-thread CPU run (router probabilities, expert ids,
+    output); the three MoE smoke configs' tokens against their CPU runs.
+    Returns the times."""
+    import dataclasses
+    from repro_torch import _pytree, configs
+    from repro_torch.kernels import agu
+    from repro_torch.layers import moe as MOE
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+
+    def log16(msg):
+        log(f"[moe serving {time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    full = configs.get_config("qwen3_moe_30b_a3b")
+    cfg = dataclasses.replace(full, n_periods=MOE_PERIODS)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    nparam = sum(t.numel() for t in _pytree.leaves(params))
+    log16(f"qwen3-moe {cfg.n_layers} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, vocab "
+          f"{cfg.vocab}: {nparam} f32 parameters ({nparam * 4 / 1e9:.2f} GB) "
+          f"made on the card in {time.perf_counter() - t_phase:.1f} s")
+    eng = ServingEngine(cfg, params, max_len=MOE_MAX_LEN)
+    prompts = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT),
+                            generator=gen, device=dev)
+    batch = {"tokens": prompts}
+    toks, counts = drive("moe serving", [agu.RELAYOUT],
+                         lambda: eng.generate(batch, MOE_STEPS))
+    cache = eng.last_cache
+    # the plane is value-preserving: tokens and cache bitwise the loop's
+    c = lm.init_cache(cfg, MOE_BATCH, MOE_MAX_LEN, device=dev)
+    logits, c = lm.prefill(cfg, params, batch, c)
+    toks0 = []
+    for _ in range(MOE_STEPS):
+        toks0.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+        logits, c = lm.decode_step(cfg, params, toks0[-1], c)
+    assert_bitwise(toks, torch.cat(toks0, 1), "moe serving tokens, plane vs "
+                   "planeless")
+    leaves = _pytree.leaves(cache)
+    for x_, y_ in zip(leaves, _pytree.leaves(c)):
+        assert_bitwise(x_, y_, "moe serving final cache, plane vs planeless")
+    log16(f"B{MOE_BATCH} x {MOE_PROMPT} tokens, {MOE_STEPS} steps: tokens and "
+          f"final cache bitwise the planeless loop's; first row "
+          f"{toks[0].tolist()}; launches {counts}")
+    del c, logits
+    plane_bytes = 4 * sum(t.numel() * t.element_size() for t in leaves
+                          if t.dim() >= 2 and t.is_floating_point())
+    cache_p = lm.init_cache(cfg, MOE_BATCH, MOE_MAX_LEN, device=dev)
+    prefill_ms = gpu_ms(lambda: lm.prefill(cfg, params, batch, cache_p),
+                        reps=3, warmup=1)
+    tok1 = toks[:, :1]
+    step_ms = gpu_ms(lambda: lm.decode_step(cfg, params, tok1, cache),
+                     reps=5, warmup=1)
+    sched = eng._new_scheduler()
+    plane_ms = gpu_ms(lambda: eng._cache_through_plane(sched, cache, "t"),
+                      reps=5, warmup=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(batch, MOE_STEPS)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(prof)
+    idle = f"{1 - busy / gen_ms:.1%}" if busy > 0 else "not measured"
+    times = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+             "plane_ms": plane_ms, "plane_bound_ms": bound_ms(plane_bytes),
+             "plane_bytes": plane_bytes, "generate_wall_ms": gen_ms,
+             "generate_device_ms": busy,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log16(f"prefill {prefill_ms:.3f} ms; a decode step {step_ms:.3f} ms; the "
+          f"plane {plane_ms:.4f} ms of device time for {plane_bytes} bytes "
+          f"(bound {times['plane_bound_ms']:.4f} ms); generate {gen_ms:.1f} "
+          f"ms wall, {busy:.1f} ms of device time, the card idle {idle}; "
+          f"peak {times['peak_gb']:.1f} GB on {card}")
+    del cache, cache_p, eng, toks, toks0, leaves
+    # one MoE decoder layer at full width in f32 (TF32 off), card vs CPU
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    spec = cfg.period[0]
+    layer = lm.period_slice(params["blocks"], 0)[0]
+    x = torch.randn(1, LAYER_TOKENS, cfg.d_model, generator=gen, device=dev)
+    pos = torch.arange(LAYER_TOKENS, device=dev)[None]
+
+    def run_layer(p, xx, pp):
+        """The layer's output, the MoE sublayer's input and residual, and
+        its routing, by spies on lm._ffn and moe._route."""
+        rec = {}
+        ffn, route = lm._ffn, MOE._route
+
+        def spy_ffn(c_, s_, p_, x_, mesh):
+            rec["x_mid"] = x_
+            return ffn(c_, s_, p_, x_, mesh)
+
+        def spy_route(c_, w, tokens):
+            out = route(c_, w, tokens)
+            rec["tokens"], rec["route"] = tokens, out
+            return out
+        lm._ffn, MOE._route = spy_ffn, spy_route
+        try:
+            out, _, _ = lm._apply_slot(cfg32, spec, p, xx, pp)
+        finally:
+            lm._ffn, MOE._route = ffn, route
+        return out, rec
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, rec_g = run_layer(layer, x, pos)
+        probs_g = torch.softmax(rec_g["tokens"] @ layer["ffn"]["router"], -1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    layer_cpu = _pytree.tree_map_with_path(lambda p, t: t.cpu(), layer)
+    want, rec_c = on_cpu_one_thread(run_layer, layer_cpu, x.cpu(), pos.cpu())
+    probs_c = on_cpu_one_thread(lambda: torch.softmax(
+        rec_c["tokens"] @ layer_cpu["ffn"]["router"], -1))
+    perr = max_abs_err(probs_g.cpu(), probs_c)
+    check(perr <= 1e-5, f"moe layer: router probabilities {perr} off the "
+          f"CPU's")
+    eidx_g, eidx_c = rec_g["route"][1].cpu(), rec_c["route"][1]
+    flips = (eidx_g != eidx_c).any(-1).nonzero().flatten().tolist()
+    if flips:
+        # a near-tie (the k-th and (k+1)-th probabilities within 1e-5) may
+        # pick another expert on the card: the CPU runs the dispatch onwards
+        # from the card's routing instead
+        top = probs_c.topk(cfg.top_k + 1, -1).values
+        gap = (top[:, -2] - top[:, -1])[flips]
+        check(bool((gap < 1e-5).all()), f"moe layer: tokens {flips} routed "
+              f"apart with k-th gaps {gap.tolist()}")
+        gates_g = rec_g["route"][0].cpu()
+
+        def cpu_from_card_routing():
+            t = rec_c["tokens"]
+            T, d = t.shape
+            buf, slot, keep, order, _ = MOE._dispatch(
+                cfg32, t, eidx_g, gates_g, MOE._capacity(cfg32, T))
+            out = MOE._expert_ffn(cfg32, layer_cpu["ffn"], buf)
+            y = MOE._combine(cfg32, out, slot, keep, order, gates_g, T, d)
+            return rec_c["x_mid"] + y.reshape(rec_c["x_mid"].shape)
+        want = on_cpu_one_thread(cpu_from_card_routing)
+        log16(f"moe layer: tokens {flips} took other experts on the card "
+              f"(k-th gaps {gap.tolist()}, under 1e-5); the CPU reference "
+              f"runs the dispatch from the card's routing")
+    lscale = float(want.abs().max())
+    lerr = max_abs_err(got.cpu(), want)
+    check(lerr <= 1e-5 * lscale, f"moe layer: f32 layer on the card {lerr} "
+          f"off its CPU run (max|out| {lscale})")
+    log16(f"one qwen3-moe layer, 1 x {LAYER_TOKENS} tokens f32 (TF32 off): "
+          f"router probabilities within {perr} of the CPU's, expert ids "
+          f"equal at {LAYER_TOKENS - len(flips)} of {LAYER_TOKENS} tokens, "
+          f"output max abs err {lerr} ({lerr / lscale:.2e} of max|out|, "
+          f"tolerance 1e-5)")
+    times.update(layer_err=lerr / lscale, router_err=perr, flips=len(flips))
+    del params, layer, layer_cpu, got, want, x, rec_g, rec_c
+    torch.cuda.empty_cache()
+    # the three MoE smoke configs: the card's tokens are the CPU's
+    smoke = {}
+    for arch in configs.ARCHS:
+        scfg = dataclasses.replace(configs.smoke_config(arch),
+                                   dtype=torch.float32)
+        if not any(s.moe for s in scfg.period + scfg.tail):
+            continue
+        sp = lm.init_params(scfg, SEED, device="cpu")
+        b = {"tokens": torch.randint(0, scfg.vocab, (2, 8),
+                                     generator=torch.Generator().manual_seed(
+                                         SEED))}
+        want = on_cpu_one_thread(lambda: ServingEngine(
+            scfg, sp, max_len=32, cache_dtype=torch.float32,
+            device="cpu").generate(dict(b), 6))
+        sp_dev = _pytree.tree_map_with_path(lambda p, t: t.to(dev), sp)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = ServingEngine(scfg, sp_dev, max_len=32,
+                                cache_dtype=torch.float32).generate(
+                                    dict(b), 6).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        assert_bitwise(got, want, f"moe serving {arch} smoke tokens, card vs "
+                       f"CPU")
+        smoke[arch] = got[0].tolist()
+    log16(f"{len(smoke)} MoE smoke archs (f32): the card's tokens are the "
+          f"CPU's: {smoke}")
+    times["phase_s"] = time.perf_counter() - t_phase
+    return times
+
+
+# -- phase 17: MoE expert-parallel dispatch on 4 ranks --------------------------
+EP_X = (2, 512, 2048)          # (B, S, d_model) of qwen3-moe, f32
+
+
+def phase17_rank(mesh, card):
+    """One rank of phase 17: one qwen3-moe layer's MoE at full width (this
+    rank's 32 of 128 experts; every rank draws the whole layer from one
+    seed and reads its shard), x (2, 512, 2048) f32 replicated: the EP path
+    against the local path, the int8 wire, the scheduled chunked dispatch at
+    capacity factor 1.0 against the unscheduled one, and the ring all-gather
+    against a gather of the shards.  The path moves its buffers with
+    empty-chain collectives and the int8 codec's composition (no side of it
+    fuses, as in the reference), so it launches no datapath kernel: the
+    launches on the int8 wire are logged, the side-fusion reasons held."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch import sharding as S
+    from repro_torch.core import plugin_compiler
+    from repro_torch.kernels import _build
+    from repro_torch.layers import moe as MOE
+    from repro_torch.layers._init import Init
+    from repro_torch.runtime import DistributedScheduler, Topology
+
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    dev, n, r = mesh.device, mesh.world_size, S.axis_index("model")
+    tag = f"[moe ep rank {r}]"
+    cfg = configs.get_config("qwen3_moe_30b_a3b")
+    # capacity factor 8: no token drops on either path, as the reference's
+    # EP test sets it (each rank routes its own sequence slice)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                              capacity_factor=8.0).with_axes(
+        S.Axes(batch=(), model="model", model_size=n, batch_size=1))
+    local = cfg.with_axes(S.CPU_AXES)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = MOE.init_moe(Init(gen, dev), cfg)
+    x = torch.randn(EP_X, generator=gen, device=dev)
+    y_local, _ = MOE.moe_apply(local, p, x)
+    scale = float(y_local.abs().max())
+    out = {}
+    y_ep, _ = MOE.moe_apply(cfg, p, x, mesh=mesh)
+    out["ep_rel"] = float((y_ep - y_local).abs().max()) / scale
+    check(out["ep_rel"] < 5e-4, f"{tag} EP vs local {out['ep_rel']}")
+    int8 = dataclasses.replace(cfg, moe_wire_int8=True)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    plugin_compiler.clear_stats()
+    y_q, _ = MOE.moe_apply(int8, p, x, mesh=mesh)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    # the int8 wire's Quantize / Dequantize have no emit form, so neither
+    # side fuses into a datapath kernel (the reference's side-fusion policy,
+    # its cfg_stats reasons): the codec runs as the plugins' composition
+    wire = plugin_compiler.cfg_stats()
+    check(wire["fused"] == 0 and set(wire["reasons"]) == {
+        "no-emit:quantize_int8", "no-emit:dequantize_int8"},
+          f"{tag} the int8 wire's sides: {wire}")
+    out["int8_rel"] = float((y_q - y_local).abs().max()) / scale
+    check(out["int8_rel"] < 0.05, f"{tag} int8 wire vs local "
+          f"{out['int8_rel']}")
+    tight = dataclasses.replace(cfg, capacity_factor=1.0)
+    y_t, _ = MOE.moe_apply(tight, p, x, mesh=mesh)
+    sched = DistributedScheduler(Topology.parallel(2, prefix="a2a"),
+                                 name="moe")
+    y_ts, _ = MOE.moe_apply(tight, p, x, mesh=mesh, scheduler=sched)
+    torch.testing.assert_close(y_ts, y_t, rtol=1e-5, atol=1e-6)
+    out["sched_err"] = float((y_ts - y_t).abs().max())
+    shards = torch.randn((n,) + (EP_X[0], EP_X[1] // n, EP_X[2]),
+                         generator=gen, device=dev)
+    ring = MOE._ring_all_gather(shards[r], "model", n)
+    assert_bitwise(ring, torch.cat(list(shards), 1),
+                   f"{tag} ring all-gather vs the shards")
+    times = {
+        "ep_ms": wall_ms_synced(lambda: MOE.moe_apply(cfg, p, x, mesh=mesh)),
+        "int8_ms": wall_ms_synced(lambda: MOE.moe_apply(int8, p, x,
+                                                        mesh=mesh)),
+        "sched_ms": wall_ms_synced(lambda: MOE.moe_apply(
+            tight, p, x, mesh=mesh, scheduler=DistributedScheduler(
+                Topology.parallel(2, prefix="a2a"), name="moe"))),
+        "local_ms": wall_ms_synced(lambda: MOE.moe_apply(local, p, x))}
+    log(f"{tag} EP vs local {out['ep_rel']:.2e}, int8 wire {out['int8_rel']:.4f}"
+        f" (bounds 5e-4, 0.05), scheduled vs unscheduled at capacity 1.0 max "
+        f"abs {out['sched_err']}, ring all-gather bitwise; launches on the "
+        f"int8 wire {counts}, its sides {wire}; wall ms a call {times} on "
+        f"{card}")
+    return {"out": out, "counts": counts, "wire_sides": wire, "times": times,
+            "backend": mesh.backend_note}
 
 
 def main():
@@ -863,7 +1391,8 @@ def main():
     mma_spills = {}
     for mangled, regs, _, spill in ptxas_entries(
             _build.BUILD_LOG.get("flash_attention.cu", "")):
-        name = re.search(r"\d(flash_mma_kernel|flash_kernel)I"
+        name = re.search(r"\d(flash_mma_kernel|flash_kernel|"
+                         r"flash_chunked_kernel)I"
                          r"(6__half|13__nv_bfloat16|f)Li(\d+)E(Lb([01])E)?",
                          mangled)
         if name:
@@ -1433,17 +1962,66 @@ def main():
     wflops = 4 * 8 * 256 * (2048 * 2049 // 2)
     wide_ms = gpu_ms(lambda: FA.flash_attention_gqa(*wide, causal=True),
                      reps=5)
+    wide_plain = gpu_ms(lambda: FA.flash_attention_gqa_plain(*wide,
+                                                             causal=True),
+                        reps=3, warmup=1)
     wide_lib = gpu_ms(lambda: F.scaled_dot_product_attention(
         *wt, is_causal=True), reps=5)
     log(f"[kernel6] hd 256 bf16 (fma path) B1 S2048 H8: {wide_ms:.4f} ms, "
-        f"SDPA {wide_lib:.4f} ms, bound "
+        f"plain {wide_plain:.4f} ms, SDPA {wide_lib:.4f} ms, bound "
         f"{max(wflops / BF16_FLOPS, nbytes(*wide, wide_out) / HBM_BYTES_PER_S) * 1e3:.4f}"
         f" ms ({wflops / wide_ms / 1e9:.1f} TFLOP/s) on {card}")
     pair_times.append({"pair": "flash_attention_gqa hd256 B1 S2048 H8 KV8 "
                                "causal (fma path)", "dtype": "torch.bfloat16",
-                       "ms": wide_ms, "library_ms": wide_lib,
-                       "flops": wflops})
+                       "ms": wide_ms, "plain_ms": wide_plain,
+                       "library_ms": wide_lib, "flops": wflops})
     del wide, wt, wide_out
+    # head dims above 256 (the chunked path): B1 S2048 H8, causal and with
+    # a window, f32 and bf16, against the plain version; bf16 causal timed
+    # beside its bound, the plain version and SDPA
+    for hd in (320, 512):
+        for dt in (torch.float32, torch.bfloat16):
+            for window in (None, 512):
+                qkv = [(torch.randn(1, 2048, 8, hd, generator=gen, device=dev)
+                        / s_).to(dt) for s_ in (4, 4, 1)]
+                before = FA.FLASH.paths.get("chunked", 0)
+                got = FA.flash_attention_gqa(*qkv, causal=True, window=window)
+                torch.cuda.synchronize()
+                check(FA.FLASH.paths.get("chunked", 0) == before + 1,
+                      f"kernel6 hd {hd}: paths {FA.FLASH.paths}, expected one "
+                      f"chunked")
+                want = FA.flash_attention_gqa_plain(*qkv, causal=True,
+                                                    window=window)
+                tol = (dict(rtol=2e-5, atol=2e-5) if dt == torch.float32
+                       else attn_tol)
+                what = f"kernel6 hd {hd} {dt} window {window}"
+                assert_close(got, want, tol, what)
+                log(f"[kernel6] {what} (chunked): max abs err "
+                    f"{max_abs_err(got, want)} within {tol}")
+                if dt == torch.bfloat16 and window is None:
+                    timed = qkv
+        qkv = timed
+        flops = 4 * 8 * hd * (2048 * 2049 // 2)
+        qt = [t.transpose(1, 2).contiguous() for t in qkv]
+        ms = gpu_ms(lambda: FA.flash_attention_gqa(*qkv, causal=True),
+                    reps=5)
+        plain = gpu_ms(lambda: FA.flash_attention_gqa_plain(*qkv,
+                                                            causal=True),
+                       reps=3, warmup=1)
+        lib = gpu_ms(lambda: F.scaled_dot_product_attention(
+            *qt, is_causal=True), reps=5)
+        bound = max(flops / BF16_FLOPS,
+                    nbytes(*qkv, got) / HBM_BYTES_PER_S) * 1e3
+        log(f"[kernel6] hd {hd} bf16 (chunked path) B1 S2048 H8 causal: "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound / ms:.1%} of the bound) on {card}")
+        pair_times.append({"pair": f"flash_attention_gqa hd{hd} B1 S2048 H8 "
+                                   f"KV8 causal (chunked path)",
+                           "dtype": "torch.bfloat16", "ms": ms,
+                           "plain_ms": plain, "library_ms": lib,
+                           "bound_ms": bound, "flops": flops})
+        del qkv, qt, got, want, timed
     def margin(got, want):
         """max |got - want|, that over the RMS of ``want``, the RMS, and the
         least atol that passes at rtol 2e-2: how much of the tolerance the
@@ -1802,7 +2380,29 @@ def main():
     cons = phase13(dev, gen, card, drive, wall_ms)
 
     # -- phase 14: the serving path, full phi4-mini through ServingEngine ------
-    serving = phase14(dev, gen, card, drive)
+    serving, cfg14, params14 = phase14(dev, gen, card, drive)
+
+    # -- phase 15: continuous batching on the phase-14 model ---------------------
+    continuous = phase15(dev, gen, card, drive, cfg14, params14)
+    del params14
+    torch.cuda.empty_cache()
+
+    # -- phase 16: an MoE model served at full width -----------------------------
+    moe_serving = phase16(dev, gen, card, drive)
+
+    # -- phase 17: MoE expert-parallel dispatch, 4 ranks on the one card ---------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-") as work:
+        ep = S.run_spmd(phase17_rank, (RANKS,), ("model",), args=(card,),
+                        device="cuda", workdir=work)
+    ep_s = time.perf_counter() - t0
+    moe_ep = {k: statistics.median(rk["times"][k] for rk in ep)
+              for k in ep[0]["times"]}
+    log(f"[moe ep] 4 ranks ({ep[0]['backend']}): wall ms a call (median over "
+        f"ranks) {moe_ep}; EP vs local {[rk['out']['ep_rel'] for rk in ep]}, "
+        f"int8 wire {[rk['out']['int8_rel'] for rk in ep]}; launches on the "
+        f"int8 wire by rank {[rk['counts'] for rk in ep]}; phase {ep_s:.1f} s "
+        f"with 4 process starts on {card}")
 
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
@@ -1830,7 +2430,10 @@ def main():
                    "collectives": {"backend": ranks[0]["backend"],
                                    "ms": coll, "ranks": ranks,
                                    "phase_s": coll_s},
-                   "consumers_ms": cons, "serving": serving}, f, indent=1)
+                   "consumers_ms": cons, "serving": serving,
+                   "continuous": continuous, "moe_serving": moe_serving,
+                   "moe_ep": {"ms": moe_ep, "ranks": ep, "phase_s": ep_s}},
+                  f, indent=1)
     log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                 for n in order]}))
     print(json.dumps({"ok": True, "device": {

@@ -27,13 +27,16 @@
 // instance: columns hd .. HD - 1 are zero in shared memory (they add nothing
 // to q . k or P . V) and are not stored, and the scale is hd^-0.5 of the true
 // hd.  A head dim of 129 to 256 takes the FMA path in every dtype (the mma
-// path would hold 2 x 128 accumulator and Q registers a thread there).
+// path would hold 2 x 128 accumulator and Q registers a thread there).  A
+// head dim above 256 takes the chunked path in every dtype: its tiles would
+// not fit in shared memory whole, so it loops over the head dim at run time.
 //
-// Two paths.  The wrapper picks one by dtype and head dim (flash_attention.py,
-// _path) and names it in FlashArgs.path, which is also the label it counts the launch
-// under (FLASH.paths["fma"] / ["mma"]); xdma_flash_attention launches the
-// path named there and refuses a path that does not take the dtype.  Nothing
-// falls back at run time.
+// Three paths.  The wrapper picks one by dtype and head dim
+// (flash_attention.py, _path) and names it in FlashArgs.path, which is also
+// the label it counts the launch under (FLASH.paths["fma"] / ["mma"] /
+// ["chunked"]); xdma_flash_attention launches the path named there and refuses
+// a path that does not take the dtype or head dim.  Nothing falls back at
+// run time.
 //
 // * bf16 / f16: flash_mma_kernel, on the tensor cores (the FlashAttention-2
 //   design on mma.sync.m16n8k16).  One block of 4 warps covers 64 query rows
@@ -68,6 +71,12 @@
 //   a 4 x hd/16 patch of the output; the 16 threads of a row reduce its max
 //   and sum by shuffles.  On bf16 / f16 (head dims above 128 only) P is
 //   rounded to the dtype before P . V, as on the mma path.
+// * hd > 256, every dtype: flash_chunked_kernel, the FMA kernel's arithmetic
+//   (and its sum order) over the head dim in chunks: scores summed over
+//   64-column chunks of Q and K, the output in 256-column slices, one grid z
+//   index a slice, each slice with its own full online softmax (the scores
+//   are recomputed per slice).  Bound as above; it runs at FMA rate, far
+//   below it.
 //
 // Both address heads by strides, so the GQA form (B, S, H, hd) is read in
 // place and query head h reads kv head h / G: nothing is transposed or
@@ -104,7 +113,7 @@ constexpr int BQ = 64, BK = 64, THREADS = 256, MMA_THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 constexpr double LOG2E = 1.4426950408889634;
 // FlashArgs.path, the index of its label in flash_attention.py's PATHS
-constexpr int64_t FMA_PATH = 0, MMA_PATH = 1;
+constexpr int64_t FMA_PATH = 0, MMA_PATH = 1, CHUNKED_PATH = 2;
 
 struct FlashArgs {
   int64_t B, H, G;     // batch, query heads, query heads per kv head
@@ -112,7 +121,8 @@ struct FlashArgs {
   int64_t causal, has_window, window;
   int64_t dtype;       // q, k, v and o share it
   int64_t vec;         // 1: every base and stride is 16-byte aligned
-  int64_t path;        // FMA_PATH (f32) or MMA_PATH (bf16 / f16)
+  int64_t path;        // FMA_PATH (f32), MMA_PATH (bf16 / f16), CHUNKED_PATH
+                       // (hd > 256, every dtype)
   double scale;        // hd^-0.5, rounded to f32 in the kernel
   int64_t q_sb, q_sh, q_ss;   // element strides: batch, head, position
   int64_t k_sb, k_sh, k_ss;
@@ -278,6 +288,142 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c)
       if (tx + 16 * c < a.hd)
         ob[qp * a.o_ss + tx + 16 * c] =
+            xdma::from_f32<T>(__fdiv_rn(acc[i][c], denom));
+  }
+}
+
+// ------------------------------------------------- head dims above 256
+// flash_chunked_kernel: the FMA kernel's arithmetic for any head dim, every
+// dtype.  Block z of the grid owns output columns [z DC, z DC + DC) of one
+// (batch * head, 64-query block).  For each key block it accumulates the
+// scores over 64-column chunks of Q and K (the same d order as flash_kernel,
+// so the same sums), runs the full online softmax, and adds P . V for its own
+// DC columns of V.  Each column block recomputes the scores: ceil(hd / DC)
+// times the q . k work, in exchange for tiles that fit in shared memory at
+// any hd.  Q is re-read a chunk at a time for every key block (from L2).
+template <typename T, int DC>
+__global__ void __launch_bounds__(THREADS)
+flash_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, FlashArgs a) {
+  constexpr int CW = 64, LC = CW + 1, LDV = DC + 1, LDP = BK + 1;
+  constexpr int NC = DC / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;                 // BQ x LC: a 64-column chunk of Q
+  float* sK = sQ + BQ * LC;         // BK x LC: the same chunk of K
+  float* sP = sK + BK * LC;         // BQ x LDP
+  float* sV = sP + BQ * LDP;        // BK x LDV: this block's columns of V
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * BQ;
+  const int64_t d0 = (int64_t)blockIdx.z * DC;
+  const int64_t bh = blockIdx.x, b = bh / a.H, h = bh % a.H, hk = h / a.G;
+  const T* qb = q + b * a.q_sb + h * a.q_sh;
+  const T* kb = k + b * a.k_sb + hk * a.k_sh;
+  const T* vb = v + b * a.v_sb + hk * a.v_sh;
+  T* ob = o + b * a.o_sb + h * a.o_sh;
+  const float scale = (float)a.scale;
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  int64_t kbeg, kend;
+  key_range(a, q0, kbeg, kend);
+
+  for (int64_t k0 = kbeg; k0 < kend; k0 += BK) {
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int64_t c0 = 0; c0 < a.hd; c0 += CW) {
+      __syncthreads();                      // sQ, sK (and sP, sV) are free
+      load_tile<T, CW>(sQ, qb + c0, a.q_ss, q0, a.Sq, a.hd - c0);
+      load_tile<T, CW>(sK, kb + c0, a.k_ss, k0, a.Sk, a.hd - c0);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < CW; ++d) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * LC + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LC + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t qp = q0 + ty * 4 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int64_t kp = k0 + tx + 16 * j;
+        float val = s[i][j] * scale;
+        if (kp >= a.Sk) {
+          val = -INFINITY;                  // past the last key: p = 0
+        } else {
+          if (a.causal && kp > qp) val = NEG_INF;
+          if (a.has_window && kp <= qp - a.window) val = NEG_INF;
+        }
+        s[i][j] = val;
+        mx = fmaxf(mx, val);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        psum += p;
+        sP[(ty * 4 + i) * LDP + tx + 16 * j] =
+            xdma::to_f32<T>(xdma::from_f32<T>(p));
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l[i] = l[i] * corr + psum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+    }
+
+    load_tile<T, DC>(sV, vb + d0, a.v_ss, k0, a.Sk, a.hd - d0);
+    __syncthreads();                        // P and V are written
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[4], vv[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) vv[c] = sV[kk * LDV + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t qp = q0 + ty * 4 + i;
+    if (qp >= a.Sq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (d0 + tx + 16 * c < a.hd)
+        ob[qp * a.o_ss + d0 + tx + 16 * c] =
             xdma::from_f32<T>(__fdiv_rn(acc[i][c], denom));
   }
 }
@@ -588,15 +734,18 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(void (*kern)(const T*, const T*, const T*, T*, FlashArgs),
            int threads, size_t smem, const FlashArgs& a, const void* q,
-           const void* k, const void* v, void* o, cudaStream_t stream) {
+           const void* k, const void* v, void* o, cudaStream_t stream,
+           int64_t nz = 1) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t nq = (a.Sq + BQ - 1) / BQ, nbh = a.B * a.H;
-  if (nq > 65535 || nbh > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kern<<<dim3((unsigned)nbh, (unsigned)nq), threads, smem, stream>>>(
+  if (nq > 65535 || nz > 65535 || nbh > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  kern<<<dim3((unsigned)nbh, (unsigned)nq, (unsigned)nz), threads, smem,
+         stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), a);
   return (int)cudaGetLastError();
@@ -640,6 +789,19 @@ int dispatch_wide(const FlashArgs& a, const void* q, const void* k,
   return launch_hd<T, 256, false>(a, q, k, v, o, s);
 }
 
+// Head dims above 256, every dtype: flash_chunked_kernel, one block a 256-wide
+// column slice of the output.
+template <typename T>
+int dispatch_chunked(const FlashArgs& a, const void* q, const void* k,
+                     const void* v, void* o, cudaStream_t s) {
+  constexpr int DC = 256;
+  if (a.hd <= 256) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = sizeof(float) * ((BQ + BK) * (64 + 1) +
+                                           BQ * (BK + 1) + BK * (DC + 1));
+  return launch<T>(flash_chunked_kernel<T, DC>, THREADS, smem, a, q, k, v, o,
+                   s, (a.hd + DC - 1) / DC);
+}
+
 }  // namespace
 
 extern "C" int xdma_flash_attention(const void* args, const void* q,
@@ -650,6 +812,13 @@ extern "C" int xdma_flash_attention(const void* args, const void* q,
   if (a.H <= 0 || a.G <= 0 || a.H % a.G) return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Sq == 0) return 0;
   if (a.Sk <= 0) return (int)cudaErrorInvalidValue;
+  if (a.path == CHUNKED_PATH) {
+    if (a.dtype == xdma::F32) return dispatch_chunked<float>(a, q, k, v, o, s);
+    if (a.dtype == xdma::BF16)
+      return dispatch_chunked<__nv_bfloat16>(a, q, k, v, o, s);
+    if (a.dtype == xdma::F16) return dispatch_chunked<__half>(a, q, k, v, o, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (a.path == FMA_PATH && a.hd > 128) {
     if (a.dtype == xdma::F32) return dispatch_wide<float>(a, q, k, v, o, s);
     if (a.dtype == xdma::BF16)

@@ -9,10 +9,12 @@ addresses heads by strides: :func:`flash_attention_gqa` hands it the
 ``(B, S, H, hd)`` / ``(B, S, KV, hd)`` tensors as they are, and query head
 ``h`` reads kv head ``h // G``.  bf16 and f16 take its tensor-core path
 (``mma.sync``), f32 its FMA path (full f32 products, as the reference's f32
-dot), and so does a head dim above 128 in every dtype; ``FLASH.paths``
-counts the launches of each as ``"mma"`` / ``"fma"``.  The kernel takes
-any head dim up to 256, on the next larger of its instance widths with the
-columns past ``hd`` zero; q, k and v of different dtypes are cast up to
+dot), and so does a head dim of 129 to 256 in every dtype; a head dim above
+256 takes its chunked path (the FMA path's arithmetic over the head dim in
+chunks), in every dtype; ``FLASH.paths`` counts the launches of each as
+``"mma"`` / ``"fma"`` / ``"chunked"``.  Up to 256 the kernel runs a head dim
+on the next larger of its instance widths with the columns past ``hd``
+zero; q, k and v of different dtypes are cast up to
 their promoted dtype first (exactly) and the result comes back in q's
 dtype, as the reference's dots promote.  On a CPU tensor they take the plain
 version, :func:`flash_attention_plain`, which runs the reference's own
@@ -33,11 +35,11 @@ __all__ = ["flash_attention", "flash_attention_gqa", "flash_attention_plain",
            "NEG_INF"]
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256          # the widest instance (csrc: the FMA path's)
+_FMA_HEAD_DIM = 256         # the widest FMA instance; above it, chunked
 _MMA_HEAD_DIM = 128         # the widest tensor-core instance
 
 # The kernel's code paths, by their index in FlashArgs.path
-PATHS = ("fma", "mma")
+PATHS = ("fma", "mma", "chunked")
 _PATH_OF = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 1}
 
 
@@ -45,6 +47,8 @@ def _path(dtype: torch.dtype, hd: int) -> int:
     """The path a launch takes: the only place the choice is made (the C
     entry point launches the path named in the arguments and refuses one
     that does not fit the dtype and head dim)."""
+    if hd > _FMA_HEAD_DIM:
+        return PATHS.index("chunked")
     return _PATH_OF[dtype] if hd <= _MMA_HEAD_DIM else 0
 
 FLASH = _build.register(_build.Kernel(
@@ -156,10 +160,8 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
 
 def _launch(q, k, v, out, *, causal: bool, window):
     """Kernel 6 over (B, S, heads, hd) views; writes ``out`` (q's dtype)."""
-    if not 1 <= q.shape[3] <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the flash kernel takes head dims 1..{MAX_HEAD_DIM}, not "
-            f"{q.shape[3]}")
+    if q.shape[3] < 1:
+        raise ValueError(f"head dim {q.shape[3]}: nothing to attend over")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
     dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype),

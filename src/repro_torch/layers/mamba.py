@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._cumsum import cumsum
 from .norms import rms_norm
 from ._init import Init
 
@@ -54,7 +55,7 @@ def _causal_conv(xin, w, state=None):
 
 def _ssd_chunk(h, xc, dtc, Bc, Cc, la):
     """One chunk of the SSD scan.  h: (B,Hm,P,N)."""
-    cum = torch.cumsum(la, dim=1)                         # (B,Q,Hm)
+    cum = cumsum(la, 1)                                   # (B,Q,Hm)
     total = cum[:, -1]                                    # (B,Hm)
     y_inter = torch.einsum("bqn,bqh,bhpn->bqhp", Cc, torch.exp(cum), h)
     dot = torch.einsum("bqn,bkn->bqk", Cc, Bc)

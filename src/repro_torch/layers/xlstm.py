@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .norms import rms_norm
+from ._cumsum import cumsum
 from ._init import Init
 
 _F32 = torch.float32
@@ -38,7 +39,7 @@ def _mlstm_chunk(state, q, k, v, li, lf):
     """state: (C (B,H,hd,hd), n (B,H,hd), m (B,H)); one chunk of inputs."""
     C, n, m = state
     B, Q, H, hd = q.shape
-    Fc = torch.cumsum(lf, dim=1)                          # (B,Q,H)
+    Fc = cumsum(lf, 1)                                    # (B,Q,H)
     b = li - Fc                                           # log i_j - F_j
     b_run = torch.cummax(b, dim=1).values                 # running max, j<=i
     m_intra = Fc + b_run

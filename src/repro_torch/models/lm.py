@@ -1,11 +1,13 @@
-"""Stacked decoder LM covering the dense / hybrid / SSM / VLM / audio
-families (PyTorch port: the twin of ``repro.models.lm``).
+"""Stacked decoder LM covering the dense / MoE / hybrid / SSM / VLM /
+audio families (PyTorch port: the twin of ``repro.models.lm``).
 
 The depth is ``n_periods`` stacked copies of a heterogeneous ``period``
 (tuple of LayerSpec) plus an optional unstacked ``tail``; the parameters and
 caches of a period slot are stacked on a leading ``n_periods`` axis, as the
 reference's are, and a Python loop walks the copies where the reference
-scans.  A slot with ``spec.moe`` raises: MoE layers are ROADMAP §1 item 8b.
+scans.  ``mesh=`` reaches the MoE slots (:func:`repro_torch.layers.moe.
+moe_apply`); called in every rank of an SPMD body, the batch is the rank's
+block.
 
 Modes:
   forward(...)                       train / prefill logits (+ MoE aux)
@@ -31,6 +33,7 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import embedding as E
 from repro_torch.layers import mamba as M
 from repro_torch.layers import mlp as F
+from repro_torch.layers import moe as MOE
 from repro_torch.layers import xlstm as X
 from repro_torch.layers._init import Init
 from repro_torch.layers.norms import init_rms, rms_norm
@@ -39,17 +42,8 @@ from repro_torch.layers.rope import rope_for
 __all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache",
            "params_from_numpy", "period_slice"]
 
-_MOE_WAITS = ("MoE layers (layers/moe.py) are not ported yet: ROADMAP §1 "
-              "item 8b")
-
-
 def _device(device):
     return torch.device("cuda" if device is None else device)
-
-
-def _check_ported(spec: LayerSpec) -> None:
-    if spec.moe:
-        raise NotImplementedError(_MOE_WAITS)
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +64,9 @@ def _init_slot(init: Init, cfg: ModelConfig, spec: LayerSpec):
         p["slstm"] = X.init_slstm(init, cfg)
     if spec.ffn:
         p["norm_ffn"] = init_rms(init, cfg.d_model)
-        if cfg.ffn_kind == "gelu":
+        if spec.moe:
+            p["ffn"] = MOE.init_moe(init, cfg)
+        elif cfg.ffn_kind == "gelu":
             p["ffn"] = F.init_gelu_mlp(init, cfg.d_model, cfg.d_ff)
         else:
             p["ffn"] = F.init_swiglu(init, cfg.d_model, cfg.d_ff)
@@ -83,8 +79,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the card unless
     given ``"cpu"``).  The values are not JAX's."""
     cfg.validate()
-    for spec in cfg.period + cfg.tail:
-        _check_ported(spec)
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     init = Init(gen, dev)
@@ -162,16 +156,22 @@ def _constrain_slot_params(cfg, tree):
     return _pytree.tree_map_with_path(cast, tree)
 
 
-def _ffn(cfg, spec, p, x):
+def _ffn(cfg, spec, p, x, mesh):
+    """The FFN sublayer: ``(x + ffn(norm(x)), aux)``."""
     h = rms_norm(x, p["norm_ffn"]["scale"], cfg.norm_eps)
+    if spec.moe:
+        out, aux = MOE.moe_apply(cfg, p["ffn"], h, mesh=mesh)
+        return x + out, aux
     if cfg.ffn_kind == "gelu":
-        return x + F.gelu_mlp(cfg, p["ffn"], h)
-    return x + F.swiglu(cfg, p["ffn"], h)
+        return x + F.gelu_mlp(cfg, p["ffn"], h), _zero_aux(x)
+    return x + F.swiglu(cfg, p["ffn"], h), _zero_aux(x)
 
 
 def _apply_slot(cfg, spec: LayerSpec, p, x, positions, *, cache=None,
-                cache_pos=None, enc_out=None, cross_cache=None, causal=True):
-    _check_ported(spec)
+                cache_pos=None, enc_out=None, cross_cache=None, mesh=None,
+                causal=True):
+    """One slot: ``(x, new_cache, aux)``."""
+    aux = _zero_aux(x)
     new_cache = {}
     h = rms_norm(x, p["norm_mix"]["scale"], cfg.norm_eps)
     if spec.kind == ATTN:
@@ -198,8 +198,8 @@ def _apply_slot(cfg, spec: LayerSpec, p, x, positions, *, cache=None,
             new_cache.update(mc)
         x = x + out
     if spec.ffn:
-        x = _ffn(cfg, spec, p, x)
-    return x, new_cache
+        x, aux = _ffn(cfg, spec, p, x, mesh)
+    return x, new_cache, aux
 
 
 def _zero_aux(x):
@@ -273,7 +273,7 @@ def _encode(cfg, params, audio_embeds):
     pos = torch.arange(x.shape[1], device=x.device)[None].expand(x.shape[:2])
     for i in range(cfg.encoder_layers):
         p = _constrain_slot_params(enc_cfg, period_slice(params["encoder"], i))
-        x, _ = _apply_slot(enc_cfg, spec, p, x, pos, causal=False)
+        x, _, _ = _apply_slot(enc_cfg, spec, p, x, pos, causal=False)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
@@ -297,19 +297,25 @@ def _inputs(cfg, params, batch):
 # ---------------------------------------------------------------------------
 # forward (train / prefill without cache)
 # ---------------------------------------------------------------------------
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, *, mesh=None):
     """batch: {tokens (B,S)} or {embeds}, optional {positions}, optional
-    {audio_embeds} for enc-dec.  Returns (logits, aux)."""
+    {audio_embeds} for enc-dec.  Returns (logits, aux): aux sums the MoE
+    slots' load-balance losses."""
     x, positions, enc_out = _inputs(cfg, params, batch)
+    aux_total = _zero_aux(x)
     for i in range(cfg.n_periods):
         slot_params = _constrain_slot_params(
             cfg, period_slice(params["blocks"], i))
         for spec, p in zip(cfg.period, slot_params):
-            x, _ = _apply_slot(cfg, spec, p, x, positions, enc_out=enc_out)
+            x, _, a = _apply_slot(cfg, spec, p, x, positions,
+                                  enc_out=enc_out, mesh=mesh)
+            aux_total = aux_total + a
     for spec, p in zip(cfg.tail, params["tail"]):
-        x, _ = _apply_slot(cfg, spec, p, x, positions, enc_out=enc_out)
+        x, _, a = _apply_slot(cfg, spec, p, x, positions, enc_out=enc_out,
+                              mesh=mesh)
+        aux_total = aux_total + a
     x = rms_norm(x, params["norm_final"]["scale"], cfg.norm_eps)
-    return E.lm_head(cfg, params["embed"], x), _zero_aux(x)
+    return E.lm_head(cfg, params["embed"], x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -351,9 +357,9 @@ def _write_kv_cache(cfg, attn_p, x_normed, positions, slot_cache):
     return dict(slot_cache, k=ck, v=cv)
 
 
-def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None):
+def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None,
+                  mesh=None):
     """Apply one slot in prefill mode, producing both output and cache."""
-    _check_ported(spec)
     h = rms_norm(x, p["norm_mix"]["scale"], cfg.norm_eps)
     if spec.kind == ATTN:
         out, _ = A.attn_apply(cfg, p["attn"], h, positions, causal=True,
@@ -372,11 +378,11 @@ def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None):
         out, new_cache = apply(cfg, p[name], h, cache=slot_cache)
         x = x + out
     if spec.ffn:
-        x = _ffn(cfg, spec, p, x)
+        x, _ = _ffn(cfg, spec, p, x, mesh)
     return x, new_cache
 
 
-def prefill(cfg: ModelConfig, params, batch, cache):
+def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
     """Run the prompt through the model, writing KV/state caches.
 
     Returns (logits_last (B,1,V), cache)."""
@@ -401,12 +407,13 @@ def prefill(cfg: ModelConfig, params, batch, cache):
         new = []
         for spec, p, c in zip(cfg.period, slot_params, slot_caches):
             x, nc = _prefill_slot(cfg, spec, p, x, positions, c,
-                                  enc_out=enc_out)
+                                  enc_out=enc_out, mesh=mesh)
             new.append(nc)
         per_period.append(tuple(new))
     new_tail = []
     for spec, p, c in zip(cfg.tail, params["tail"], cache["tail"]):
-        x, nc = _prefill_slot(cfg, spec, p, x, positions, c, enc_out=enc_out)
+        x, nc = _prefill_slot(cfg, spec, p, x, positions, c, enc_out=enc_out,
+                              mesh=mesh)
         new_tail.append(nc)
     x = rms_norm(x, params["norm_final"]["scale"], cfg.norm_eps)
     logits = E.lm_head(cfg, params["embed"], x[:, -1:])
@@ -415,7 +422,7 @@ def prefill(cfg: ModelConfig, params, batch, cache):
     return logits, cache
 
 
-def decode_step(cfg: ModelConfig, params, tokens, cache):
+def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None):
     """One decode step.  tokens (B,1) (or embeds (B,1,d)); returns
     (logits (B,1,V), new cache).  The cache passed in is not modified."""
     pos = cache["pos"]
@@ -441,14 +448,15 @@ def decode_step(cfg: ModelConfig, params, tokens, cache):
         cross_i = None if cross is None else period_slice(cross, i)
         new = []
         for spec, p, c in zip(cfg.period, slot_params, slot_caches):
-            x, nc = _apply_slot(cfg, spec, p, x, positions, cache=c,
-                                cache_pos=cache_pos, cross_cache=cross_i)
+            x, nc, _ = _apply_slot(cfg, spec, p, x, positions, cache=c,
+                                   cache_pos=cache_pos, cross_cache=cross_i,
+                                   mesh=mesh)
             new.append(dict(c, **nc))
         per_period.append(tuple(new))
     new_tail = []
     for spec, p, c in zip(cfg.tail, params["tail"], cache["tail"]):
-        x, nc = _apply_slot(cfg, spec, p, x, positions, cache=c,
-                            cache_pos=cache_pos)
+        x, nc, _ = _apply_slot(cfg, spec, p, x, positions, cache=c,
+                               cache_pos=cache_pos, mesh=mesh)
         new_tail.append(dict(c, **nc))
     x = rms_norm(x, params["norm_final"]["scale"], cfg.norm_eps)
     logits = E.lm_head(cfg, params["embed"], x)

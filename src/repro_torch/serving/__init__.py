@@ -1,11 +1,13 @@
-"""repro_torch.serving — the serving engine and the KV-cache movement plane
+"""repro_torch.serving — the serving engines and the KV-cache movement plane
 (PyTorch port).
 
 :class:`~repro_torch.serving.engine.ServingEngine` (batched prefill + greedy
 decode, its cache through the plane every step), the transfers of
 :mod:`~repro_torch.serving.transfer` (Prefill store, Load, cross-stage
-tunnel, multicast fan-outs) and the paged KV pool of
-:mod:`~repro_torch.serving.paged`.
+tunnel, multicast fan-outs), the paged KV pool of
+:mod:`~repro_torch.serving.paged`, the request streams of
+:mod:`~repro_torch.serving.requests` and the continuous-batching and
+static-gang engines of :mod:`~repro_torch.serving.continuous`.
 """
 from .engine import ServingEngine, make_serve_step  # noqa: F401
 from .transfer import (  # noqa: F401
@@ -16,3 +18,5 @@ from .paged import (  # noqa: F401
     Page, PagedKVPool, default_serving_topology, paginate, depaginate,
     pages_for_rows, DEFAULT_PAGE_ROWS,
 )
+from .requests import Request, poisson_stream, trace_stream, uniform_stream  # noqa: F401
+from .continuous import ContinuousBatchingEngine, StaticBatchEngine, ServeReport  # noqa: F401

@@ -33,12 +33,12 @@ from repro_torch.serving import transfer as T
 __all__ = ["ServingEngine", "make_serve_step"]
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, mesh=None):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
     against the full KV/state cache."""
 
     def serve_step(params, cache, tokens):
-        return lm.decode_step(cfg, params, tokens, cache)
+        return lm.decode_step(cfg, params, tokens, cache, mesh=mesh)
 
     return serve_step
 
@@ -60,13 +60,15 @@ class ServingEngine:
     """Minimal batched-request serving loop (greedy)."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int,
-                 cache_dtype=torch.bfloat16, topology=None, device=None):
+                 cache_dtype=torch.bfloat16, mesh=None, topology=None,
+                 device=None):
         from repro_torch.serving.paged import default_serving_topology
 
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
         self.cache_dtype = cache_dtype
+        self.mesh = mesh
         self.device = torch.device("cuda" if device is None else device)
         self.topology = (topology if topology is not None
                          else default_serving_topology())
@@ -151,13 +153,15 @@ class ServingEngine:
         batch = self._stage_prompt(sched, batch)
         cache = lm.init_cache(self.cfg, B, self.max_len, self.cache_dtype,
                               device=self.device)
-        logits, cache = lm.prefill(self.cfg, self.params, batch, cache)
+        logits, cache = lm.prefill(self.cfg, self.params, batch, cache,
+                                   mesh=self.mesh)
         cache = self._cache_through_plane(sched, cache, "kv:prefill")
         outs = []
         tok = _greedy(logits)
         for i in range(n_steps):
             outs.append(tok)
-            logits, cache = lm.decode_step(self.cfg, self.params, tok, cache)
+            logits, cache = lm.decode_step(self.cfg, self.params, tok, cache,
+                                           mesh=self.mesh)
             cache = self._cache_through_plane(sched, cache, f"kv:decode{i}")
             tok = _greedy(logits)
         self.last_cache = cache

@@ -303,10 +303,13 @@ class PagedKVPool:
         return moves
 
     # -- landing -------------------------------------------------------------
-    def commit(self) -> None:
+    def commit(self) -> List[Any]:
         """After the bound scheduler flushed, land pending movements: store
         results become the at-rest buffers, evicted pages release their
-        slots, restored pages take their reserved ones."""
+        slots, restored pages take their reserved ones.  Returns the landed
+        futures (the page records now hold their results, so the caller
+        may ``release`` them on the scheduler)."""
+        landed = [fut for _, fut, _, _ in self._pending]
         for p, fut, loc, slot in self._pending:
             p.data = fut.result()
             if p.location == "dev" and loc == "host":
@@ -318,6 +321,7 @@ class PagedKVPool:
             elif loc == "host":
                 p.slot = -1
         self._pending.clear()
+        return landed
 
     def summary(self) -> str:
         return (f"PagedKVPool({self.name!r}, {self.used_pages}/{self.capacity}"

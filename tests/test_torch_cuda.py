@@ -548,18 +548,20 @@ def _flash_half_vs_plain(q, k, v, causal, window):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("hd", [8, 24, 80, 100, 192, 256])
+@pytest.mark.parametrize("hd", [8, 24, 80, 100, 192, 256, 320, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_attention_any_head_dim_vs_plain(dtype, hd):
     """A head dim between the kernel's instance widths runs on the next
-    larger one (columns past hd zero, scale hd^-0.5 of the true hd); above
-    128 every dtype takes the FMA path.  GQA with a causal window."""
+    larger one (columns past hd zero, scale hd^-0.5 of the true hd); from
+    129 to 256 every dtype takes the FMA path, above 256 the chunked path.
+    GQA with a causal window."""
     B, S, H, KV = 1, 150, 4, 2
     q, k, v = (_logical((B * S * n, hd), torch.float32, seed=40 + i)
                .reshape(B, S, n, hd) / (4 if i < 2 else 1)
                for i, n in enumerate((H, KV, KV)))
-    path = "fma" if dtype == torch.float32 or hd > 128 else "mma"
+    path = ("chunked" if hd > 256 else
+            "fma" if dtype == torch.float32 or hd > 128 else "mma")
     before = FA.FLASH.paths.get(path, 0)
     q, k, v = (t.to(dtype) for t in (q, k, v))
     want = FA.flash_attention_gqa_plain(q, k, v, causal=True, window=64)
@@ -824,3 +826,80 @@ def test_empty_chain_relayouts_take_kernel1_on_the_card(src, dst):
     assert pagu.RELAYOUT.launches == before + (0 if identity else 1)
     assert pagu.agu_stats() == stats
     assert got.is_cuda and _equal_bits(got.cpu(), px.transfer(xin, desc))
+
+
+# -- the MoE layer and the continuous-batching server -------------------------
+def test_moe_layer_on_the_card_matches_the_cpu():
+    """The qwen3-moe smoke layer in f32 (TF32 off): the same expert ids and
+    kept slots on the card as on the CPU (the top-k and the dispatch sort
+    fix their orders), the output within 1e-5 of max|y|."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.layers import moe as PM
+    from repro_torch.layers._init import Init
+
+    cfg = dataclasses.replace(configs.smoke_config("qwen3_moe_30b_a3b"),
+                              dtype=torch.float32)
+    p = PM.init_moe(Init(torch.Generator().manual_seed(0), "cpu"), cfg)
+    x = torch.randn((2, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pc = {k: v.cuda() for k, v in p.items()}
+        got, got_aux = PM.moe_apply(cfg, pc, x.cuda())
+        g_card = PM._route(cfg, pc["router"],
+                           x.cuda().reshape(-1, cfg.d_model))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want, want_aux = PM.moe_apply(cfg, p, x)
+    g_cpu = PM._route(cfg, p["router"], x.reshape(-1, cfg.d_model))
+    assert torch.equal(g_card[1].cpu(), g_cpu[1])
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))
+
+
+def test_continuous_engine_on_the_card_matches_the_cpu():
+    """Three requests through a 7-page pool (forced preemption): the card's
+    tokens, steps and pool counters are the CPU's; page stores and loads
+    launched kernel 1, evictions and restores kernel 3."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.serving import (ContinuousBatchingEngine, PagedKVPool,
+                                     uniform_stream)
+
+    cfg = dataclasses.replace(configs.smoke_config("qwen3_1p7b"),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, 0, device="cpu")
+    reqs = uniform_stream(cfg, 3, 0.0, prompt_len=8, max_new=4)
+
+    def serve(device, p):
+        return ContinuousBatchingEngine(
+            cfg, p, max_len=24, max_batch=3, cache_dtype=torch.float32,
+            pool=PagedKVPool(7, 32), device=device).serve(reqs)
+
+    want = serve("cpu", params)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.reset_launches()
+    try:
+        got = serve("cuda", _to_card(params))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    assert got.preemptions == want.preemptions > 0
+    assert (got.steps, got.pool_stats) == (want.steps, want.pool_stats)
+    for rid, toks in want.tokens.items():
+        np.testing.assert_array_equal(got.tokens[rid], toks)
+    assert pagu.RELAYOUT.launches > 0
+    assert DP.BLOCK.launches > 0
+
+
+def _to_card(tree):
+    from repro_torch import _pytree
+    return _pytree.tree_map_with_path(lambda p, t: t.cuda(), tree)

@@ -124,8 +124,9 @@ def _emulate_flash(qf, kf, vf, a, out_numel):
     """``csrc/flash_attention.cu`` step by step over flat buffers: 64 x 64
     tiles, the key-block skip rule, keys past Sk at -inf, -1e30 masks, P
     rounded to the dtype, the output rounded once.  f32 follows the FMA path
-    (exp, every block masked); bf16 / f16 the mma path, as ``a.path``
-    names it: scores scaled by f32(hd^-0.5 * log2 e), exp2, and masks applied
+    (exp, every block masked), as does the chunked path (head dims above
+    256, whose chunks keep the FMA path's sums); bf16 / f16 the mma path,
+    as ``a.path`` names it: scores scaled by f32(hd^-0.5 * log2 e), exp2, and masks applied
     only on blocks that cross Sk, the causal diagonal or the window's lower
     edge (the emulation asserts that the other blocks mask nothing)."""
     BQ = BK = 64
@@ -274,10 +275,12 @@ def test_kernel_args_name_the_path_by_dtype(dtype, path):
 @pytest.mark.parametrize("dtype,hd,path", [
     (torch.bfloat16, 8, "mma"), (torch.float16, 80, "mma"),
     (torch.bfloat16, 128, "mma"), (torch.bfloat16, 192, "fma"),
-    (torch.float32, 256, "fma")])
+    (torch.float32, 256, "fma"), (torch.bfloat16, 320, "chunked"),
+    (torch.float16, 512, "chunked"), (torch.float32, 257, "chunked")])
 def test_kernel_args_name_the_path_by_head_dim(dtype, hd, path):
     """A head dim between the instance widths keeps its dtype's path and
-    its own scale; above 128 every dtype takes the FMA path."""
+    its own scale; from 129 to 256 every dtype takes the FMA path, above
+    256 the chunked path."""
     q = torch.zeros(1, 8, 2, hd, dtype=dtype)
     k = torch.zeros(1, 8, 1, hd, dtype=dtype)
     a = PF.flash_args(q, k, k, torch.empty_like(q), causal=True, window=None)
@@ -333,9 +336,51 @@ def test_flash_mixed_dtypes_match_reference(q_dtype, kv_dtype):
     np.testing.assert_allclose(got, want, **BF16_TOL)
 
 
-def test_flash_kernel_refuses_head_dims_above_256():
-    q = torch.zeros(1, 8, 1, 264)
-    with pytest.raises(NotImplementedError, match="1..256"):
+# -- head dims above 256: the chunked path ----------------------------------
+WIDE_BF16_TOL = dict(rtol=2e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("hd", [320, 512])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_head_dims_above_256_match_reference(hd, window, dtype):
+    """The reference takes any head dim; so does the port (on the card the
+    chunked path, here the plain version): causal and windowed, f32 and
+    bf16, the plain and the GQA forms."""
+    import ml_dtypes
+    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    tol = F32_TOL if dtype == "float32" else WIDE_BF16_TOL
+    arrays = [(rand((2, 96, hd), 100 + i) / 4).astype(dt) for i in range(3)]
+    got, want = _both(r_flash, PF.flash_attention, arrays, causal=True,
+                      window=window, q_chunk=32, kv_chunk=32)
+    np.testing.assert_allclose(got, want, **tol)
+    arrays = [(rand((1, 80, h, hd), 110 + i) / 4).astype(dt)
+              for i, h in enumerate((4, 2, 2))]
+    got, want = _both(r_gqa, PF.flash_attention_gqa, arrays, causal=True,
+                      window=window, q_chunk=16, kv_chunk=16)
+    np.testing.assert_allclose(got, want, **tol)
+
+
+@pytest.mark.parametrize("hd,dtype", [(320, "bfloat16"), (512, "float32")])
+def test_kernel_chunked_path_emulated_matches_reference(hd, dtype):
+    """The chunked path's arguments (the FMA path's rules; its chunks keep
+    the FMA path's sum order) against the reference."""
+    import ml_dtypes
+    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    q, k, v = ((rand((1, 100, hd), 120 + i) / 4).astype(dt) for i in range(3))
+    got, a = _emulated(*(to_torch(t) for t in (q, k, v)), True, 50,
+                       gqa=False)
+    assert PF.PATHS[a.path] == "chunked" and a.hd == hd
+    want = r_flash(*(jnp.asarray(t) for t in (q, k, v)), causal=True,
+                   window=50, q_chunk=20, kv_chunk=20)
+    np.testing.assert_allclose(got.numpy(), to_f32(want),
+                               **(F32_TOL if dtype == "float32"
+                                  else WIDE_BF16_TOL))
+
+
+def test_flash_kernel_refuses_an_empty_head_dim():
+    q = torch.zeros(1, 8, 1, 0)
+    with pytest.raises(ValueError, match="head dim 0"):
         PF._launch(q, q, q, torch.empty_like(q), causal=True, window=None)
 
 

@@ -54,7 +54,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.layers.mlp, repro_torch.layers.attention, "
             "repro_torch.layers.mamba, repro_torch.layers.xlstm, "
             "repro_torch.models, repro_torch.models.lm, "
-            "repro_torch.serving.engine\n"
+            "repro_torch.serving.engine, repro_torch.layers.moe, "
+            "repro_torch.serving.requests, repro_torch.serving.continuous, "
+            "repro_torch.launch, repro_torch.launch.serve\n"
             "from repro_torch import configs\n"
             "[configs.get_config(a) for a in configs.ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -8,8 +8,8 @@ tolerance scaled by max|logit| (``torch_model_cases.logit_tol``: f32 1e-5,
 bf16 2.5e-2).  The reference's own model tests (``tests/test_models.py``
 decode against forward, the sliding window, M-RoPE; ``tests/test_ssm_blocks.py``;
 ``tests/test_xdma_integration.py`` the layout-optimal cache) run on the
-port with their tolerances.  MoE slots are not ported (ROADMAP §1 item 8b)
-and raise.
+port with their tolerances, the MoE archs among them (f32: the routing
+of a bf16 run may pick another expert where two are within a rounding).
 """
 import pytest
 
@@ -65,8 +65,25 @@ def test_forward_matches_reference(arch, dtype):
     assert np.abs(TC.f32(got) - want).max() <= tol
 
 
+@pytest.mark.parametrize("arch", TC.MOE_ARCHS)
+def test_moe_forward_matches_reference(arch):
+    """The MoE archs in f32: logits within 1e-5 of max|logit|, the summed
+    load-balance loss within 1e-5 of itself."""
+    rcfg, pcfg = TC.configs(arch, dtype=TC.F32)
+    rp, pp = TC.params(rcfg)
+    rb, pb = TC.inputs(TC.batch(rcfg), rcfg, pcfg)
+    want, want_aux = _ref("forward", rcfg)(rp, rb)
+    got, aux = PL.forward(pcfg, pp, pb)
+    assert tuple(got.shape) == tuple(want.shape) == (2, 16, pcfg.vocab)
+    want = TC.f32(want)
+    assert np.abs(TC.f32(got) - want).max() <= TC.logit_tol(
+        pcfg.dtype, np.abs(want).max())
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))
+    assert float(aux) > 0
+
+
 # -- prefill + decode against the jitted reference ------------------------------
-@pytest.mark.parametrize("arch", TC.DENSE_ARCHS)
+@pytest.mark.parametrize("arch", TC.ARCHS)
 def test_prefill_and_decode_match_reference(arch):
     """f32: logits after prefill and three decode steps, and every cache
     leaf after them, within 1e-5 of max|logit| / of the leaf's max."""
@@ -103,11 +120,12 @@ def test_prefill_and_decode_match_reference(arch):
 
 
 # -- the reference's model tests, on the port ----------------------------------
-@pytest.mark.parametrize("arch", TC.DENSE_ARCHS)
+@pytest.mark.parametrize("arch", TC.ARCHS)
 def test_decode_matches_forward(arch):
     """tests/test_models.py:62 on the port: prefill + decode logits equal
-    the full forward's at the same positions, within 2e-3 of max|logit|."""
-    rcfg, cfg = TC.configs(arch, dtype=TC.F32)
+    the full forward's at the same positions, within 2e-3 of max|logit|
+    (capacity factor 8, as there: no token drops in either)."""
+    rcfg, cfg = TC.configs(arch, dtype=TC.F32, capacity_factor=8.0)
     params = PL.init_params(cfg, 0, device="cpu")
     B, S = 2, 12
     _, batch = TC.inputs(TC.batch(cfg, B=B, S=S + 3), rcfg, cfg)
@@ -132,15 +150,21 @@ def test_decode_matches_forward(arch):
 
 
 def test_sliding_window_masks_old_tokens():
-    """tests/test_models.py:89 on the port (a dense windowed layer: the
-    reference's case puts MoE behind it, which waits for item 8b)."""
-    _, base = TC.configs("mixtral_8x7b", dtype=TC.F32)
-    cfg = dataclasses.replace(base, period=(LayerSpec(ATTN, window=4),),
+    """tests/test_models.py:89 on the port: the reference's case (one
+    windowed MoE layer), its parameters and tokens."""
+    from repro.configs.base import ATTN as R_ATTN
+    from repro.configs.base import LayerSpec as RLayerSpec
+    rbase, base = TC.configs("mixtral_8x7b", dtype=TC.F32)
+    rcfg = dataclasses.replace(rbase, period=(RLayerSpec(R_ATTN, window=4,
+                                                         moe=True),),
+                               n_periods=1)
+    cfg = dataclasses.replace(base, period=(LayerSpec(ATTN, window=4,
+                                                      moe=True),),
                               n_periods=1)
-    params = PL.init_params(cfg, 0, device="cpu")
+    _, params = TC.params(rcfg)
     S = 10
-    t1 = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (1, S)))
+    r1 = jax.random.randint(jax.random.PRNGKey(1), (1, S), 0, cfg.vocab)
+    t1 = torch.from_numpy(np.array(r1))
     t2 = t1.clone()
     t2[:, 0] = (t1[:, 0] + 1) % cfg.vocab            # differ outside window
     l1, _ = PL.forward(cfg, params, {"tokens": t1})
@@ -299,10 +323,12 @@ def test_mamba_prefill_then_decode_matches_full():
 
 # -- tests/test_xdma_integration.py:18,43 on the port -------------------------
 @pytest.mark.parametrize("arch", ["phi4_mini_3p8b", "gemma3_27b",
-                                  "whisper_small"])
+                                  "mixtral_8x7b", "whisper_small"])
 def test_xdma_cache_decode_exact(arch):
-    """Decode with the layout-optimal cache (K as K^T) == full forward."""
-    _, cfg = TC.configs(arch, dtype=TC.F32, xdma_cache=True)
+    """Decode with the layout-optimal cache (K as K^T) == full forward
+    (capacity factor 8, as there: no MoE token drops)."""
+    _, cfg = TC.configs(arch, dtype=TC.F32, xdma_cache=True,
+                        capacity_factor=8.0)
     params = PL.init_params(cfg, 0, device="cpu")
     B, S = 2, 12
     batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
@@ -337,7 +363,7 @@ def test_xdma_cache_shapes_match_reference():
 
 
 # -- the trees: the port's initializer, and the reference's through numpy -----
-@pytest.mark.parametrize("arch", TC.DENSE_ARCHS)
+@pytest.mark.parametrize("arch", TC.ARCHS)
 def test_init_params_and_cache_trees_match_reference(arch):
     """The port's own initializer makes the reference's tree: the same
     paths, shapes and dtypes (f32 masters), each stacked slot drawn per
@@ -362,7 +388,7 @@ def test_init_params_and_cache_trees_match_reference(arch):
         for a in _pytree.leaves(pc)]
 
 
-@pytest.mark.parametrize("arch", TC.DENSE_ARCHS)
+@pytest.mark.parametrize("arch", TC.ARCHS)
 def test_params_from_numpy_round_trips(arch):
     """Reference params -> numpy -> the port's tree -> numpy: bitwise, the
     stacked period axis kept; a bf16 cache tree crosses as its bits."""
@@ -383,23 +409,6 @@ def test_params_from_numpy_round_trips(arch):
         if w.dtype == jnp.bfloat16:
             w = w.view(np.uint16)
         np.testing.assert_array_equal(w, g)
-
-
-@pytest.mark.parametrize("arch", TC.MOE_ARCHS)
-def test_moe_slots_raise_naming_item_8b(arch):
-    """MoE layers wait for ROADMAP §1 item 8b: the port's initializer and
-    its forward (on the reference's parameters, mixtral's) refuse an MoE
-    slot."""
-    rcfg, cfg = TC.configs(arch, dtype=TC.F32)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        PL.init_params(cfg, 0, device="cpu")
-    if arch != "mixtral_8x7b":
-        return
-    rp = RL.init_params(jax.random.PRNGKey(0), rcfg)
-    pp = PL.params_from_numpy(jax.tree.map(np.asarray, rp), device="cpu")
-    _, pb = TC.inputs(TC.batch(rcfg, S=8), rcfg, cfg)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        PL.forward(cfg, pp, pb)
 
 
 def test_init_draws_the_reference_std():

@@ -19,7 +19,8 @@ from repro.models import lm as RL
 from repro_torch import configs as PC
 from repro_torch.models import lm as PL
 
-# the archs whose layers are ported: every one without an MoE slot
+ARCHS = RC.ARCHS
+# the archs without an MoE slot, and those with one
 DENSE_ARCHS = tuple(a for a in RC.ARCHS if not any(
     s.moe for s in RC.smoke_config(a).period + RC.smoke_config(a).tail))
 MOE_ARCHS = tuple(a for a in RC.ARCHS if a not in DENSE_ARCHS)

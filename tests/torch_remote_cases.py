@@ -224,3 +224,89 @@ def failing_body(mesh):
     if mesh.rank == 1:
         raise ValueError("rank 1 fails on purpose")
     return {}
+
+
+# -- the MoE layer on a (2, 4) mesh over ('data', 'model') ---------------------
+MOE_MESH = ((2, 4), ("data", "model"))
+MOE_X_SHAPE = (2, 16, 64)                   # (B, S, d) of the qwen3-moe smoke
+
+
+def moe_params(E, d, f, seed):
+    """Seeded numpy MoE parameters with the reference's standard deviations
+    (``repro.layers.moe.init_moe``)."""
+    rng = np.random.default_rng(seed)
+    nrm = lambda shape, std: (rng.standard_normal(shape) * std).astype(  # noqa: E731
+        np.float32)
+    return {"router": nrm((d, E), d ** -0.5),
+            "w_gate": nrm((E, d, f), d ** -0.5),
+            "w_up": nrm((E, d, f), d ** -0.5),
+            "w_down": nrm((E, f, d), f ** -0.5)}
+
+
+def moe_inputs():
+    """The MoE world's inputs: the qwen3-moe smoke layer's parameters (8
+    experts), those of a 6-expert variant that takes the tensor-parallel
+    path on 4 model ranks, the tokens, and a (8, 4, 16) array for the ring
+    all-gather (``tests/test_trace.py``'s shapes)."""
+    rng = np.random.default_rng(20)
+    return {"p": moe_params(8, 64, 32, 21), "p_tp": moe_params(6, 64, 32, 22),
+            "x": rng.standard_normal(MOE_X_SHAPE).astype(np.float32),
+            "v": rng.standard_normal((8, 4, 16)).astype(np.float32)}
+
+
+def moe_configs(configs, dataclasses, Axes, f32):
+    """(local cfg, mesh cfg, TP cfg, TP mesh cfg): the qwen3-moe smoke
+    config in f32 at capacity factor 8, as the reference's tests set it."""
+    cfg = dataclasses.replace(configs.smoke_config("qwen3_moe_30b_a3b"),
+                              dtype=f32, capacity_factor=8.0)
+    axes = Axes(batch=("data",), model="model", model_size=4, batch_size=2)
+    cfg_tp = dataclasses.replace(cfg, n_experts=6, top_k=2, d_ff_expert=32)
+    return cfg, cfg.with_axes(axes), cfg_tp, cfg_tp.with_axes(axes)
+
+
+def moe_body(mesh):
+    """The MoE cases in one rank of the (2, 4) world: this rank's output
+    block of each (its data shard of the batch; replicated over model), the
+    ring all-gather, and the EP path's ledger and collectives."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import sharding as S
+    from repro_torch.layers import moe as M
+    from repro_torch.runtime import DistributedScheduler, Topology
+    from repro_torch.runtime.trace import capture
+
+    calls = _spy_collectives()
+    inp = moe_inputs()
+    p = {k: torch.from_numpy(v) for k, v in inp["p"].items()}
+    p_tp = {k: torch.from_numpy(v) for k, v in inp["p_tp"].items()}
+    cfg, cfg2, _, cfg_tp2 = moe_configs(configs, dataclasses, S.Axes,
+                                        torch.float32)
+    data, r = S.axis_index("data"), S.axis_index("model")
+    x = torch.from_numpy(inp["x"][data:data + 1].copy())
+    out = {}
+    with capture(name="moe") as tr:
+        out["ep"], out["ep_aux"] = M.moe_apply(cfg2, p, x, mesh=mesh)
+    out["ep_kinds"] = tr.by_endpoint()
+    out["ep_calls"] = list(calls)
+    out["int8"], _ = M.moe_apply(dataclasses.replace(cfg2,
+                                                     moe_wire_int8=True),
+                                 p, x, mesh=mesh)
+    out["nosplit"], _ = M.moe_apply(cfg2, p, x[:, :2], mesh=mesh)
+    sched = DistributedScheduler(Topology.parallel(2, prefix="a2a"),
+                                 name="moe")
+    out["sched"], _ = M.moe_apply(cfg2, p, x, mesh=mesh, scheduler=sched)
+    rep = sched.report()
+    out["sched_spans"] = [(s.label, s.resource, s.start, s.end)
+                          for s in rep.spans]
+    tight = dataclasses.replace(cfg2, capacity_factor=1.0)
+    out["tight"], _ = M.moe_apply(tight, p, x, mesh=mesh)
+    out["tight_sched"], _ = M.moe_apply(
+        tight, p, x, mesh=mesh,
+        scheduler=DistributedScheduler(Topology.parallel(2, prefix="a2a"),
+                                       name="moe2"))
+    out["tp"], _ = M.moe_apply(cfg_tp2, p_tp, x, mesh=mesh)
+    v = torch.from_numpy(inp["v"][:, r:r + 1].copy())
+    out["ring"] = M._ring_all_gather(v, "model", 4)
+    out["calls"] = list(calls)
+    return out

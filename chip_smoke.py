@@ -70,7 +70,21 @@ kernel against its plain PyTorch version on the same inputs:
 * MoE expert-parallel dispatch (phase 17): 4 ranks on the card, one
   qwen3-moe layer's experts split 32 a rank: the EP path against the local
   path, the int8 wire, the scheduled chunked dispatch, the ring
-  all-gather.
+  all-gather;
+* training (phase 18): the full qwen3-1.7b configuration (28 layers, bf16
+  parameters, f32 AdamW moments, block remat) takes 4 steps of B 4 x 4096
+  tokens in 2 microbatches (one data rank's share of train_4k), the loss
+  falling; (a) one full-width period in f32 with the embedding and head,
+  its loss and every gradient leaf against its CPU run; (b) one f32 step of
+  each smoke config against its CPU run; (c) a 2-layer cut trained,
+  checkpointed through the plane (MNM8N128 at rest, the Compress wire),
+  restored bitwise, resumed bitwise the uninterrupted run under
+  deterministic algorithms, then served;
+* data-parallel training (phase 19): 4 ranks on the card, the full
+  qwen2-0.5b in f32, one step with the plain reduce and one with the int8
+  codec (a reduce descriptor per gradient leaf), the ranks' states equal,
+  the step held to the single-process step, then the new weights
+  broadcast to three replicas through the plane, bitwise.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -82,7 +96,10 @@ kernel 3's six main-path transfers all on its rank-2 path (a small rank-3
 chain on its generic path).  Phase 12 checks the launches in every rank
 (kernels 2 and 3), phase 13 in its process (kernels 1, 2 and 3), phase 14
 kernel 1 on the serving plane, phase 15 kernels 1 and 3 on the page pool,
-phase 16 kernel 1 on the MoE model's plane.  Phase 4 also drives the chains kernels 2
+phase 16 kernel 1 on the MoE model's plane, phase 18 kernels 1 and 3 on
+the training checkpoint (phase 19's path has none: the reduce lowers to
+collectives, and the broadcast's MN -> MN hops are kernel 1's identity
+plan, a copy).  Phase 4 also drives the chains kernels 2
 and 3 once refused (integer streams, nine streamed ops, logical rank 5),
 and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (the last
 two on its chunked path, timed) and with bf16 q and f32 k / v.  Phase 3 also times the Prefill store at
@@ -98,6 +115,7 @@ spills of every kernel) to ``chiprun_out/build_log.txt``; a tensor-core
 instance of kernel 6 or a rows-path instance of kernel 2 that spills fails
 the run.  Without a CUDA device it exits non-zero and prints no result.
 """
+import gc
 import json
 import math
 import os
@@ -110,6 +128,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# cuBLAS reads its workspace setting when it starts; phase 18 turns on
+# deterministic algorithms, which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -613,16 +634,22 @@ LAYER_TOKENS = 512
 DECODE_LOGIT_TOL = 2e-3        # x max|logit|: tests/test_models.py:62
 
 
-def device_busy_ms(prof):
-    """Device time of the kernels a torch.profiler window recorded (one
-    stream, so their sum is the busy time); 0 when it saw none."""
-    total = 0.0
+def device_ms_by_name(prof):
+    """{name: device ms} of what a torch.profiler window recorded."""
+    out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
-        total += t
-    return total / 1e3
+        if t:
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3
+    return out
+
+
+def device_busy_ms(prof):
+    """Device time of the kernels a torch.profiler window recorded (one
+    stream, so their sum is the busy time); 0 when it saw none."""
+    return sum(device_ms_by_name(prof).values())
 
 
 def phase14(dev, gen, card, drive):
@@ -1027,6 +1054,29 @@ def phase15(dev, gen, card, drive, cfg, params):
                        "preemptions": rep.preemptions, "pool": st,
                        "moves_per_step": moves, "device_ms": busy}
         reports[name] = rep
+    # one page store alone (a 32 x 128 bf16 page, MN -> the page tiling):
+    # kernel 1's device time a launch beside the page's bound
+    from repro_torch.core import xdma
+    from repro_torch.core.descriptor import page_descriptor
+    store = page_descriptor(32, 128, "bfloat16", direction="store")
+    page = torch.randn(32, 128, generator=gen, device=dev).to(torch.bfloat16)
+    assert_bitwise(xdma.transfer(page, store),
+                   store.dst_layout.from_logical(page), "page store")
+    times["page_store"] = {
+        "kernel_ms": gpu_ms(lambda: agu.relayout_kernel(
+            page, store.src_layout, store.dst_layout)),
+        "transfer_ms": gpu_ms(lambda: xdma.transfer(page, store)),
+        "plain_ms": gpu_ms(lambda: agu.relayout_plain(
+            page, store.src_layout, store.dst_layout, False)),
+        "bound_ms": bound_ms(2 * nbytes(page)),
+        "layout": store.dst_layout.name}
+    log15(f"one page store (32 x 128 bf16, MN -> "
+          f"{store.dst_layout.name}): kernel 1 "
+          f"{times['page_store']['kernel_ms']:.4f} ms of device time a "
+          f"launch, through xdma.transfer "
+          f"{times['page_store']['transfer_ms']:.4f} ms, plain "
+          f"{times['page_store']['plain_ms']:.4f} ms, bound "
+          f"{times['page_store']['bound_ms']:.7f} ms on {card}")
     # each request against its own fixed-batch run (the planeless loop,
     # which ServingEngine equals bitwise), up to the first position where
     # the fixed run's top-2 margin is within the tie rule
@@ -1345,6 +1395,509 @@ def phase17_rank(mesh, card):
         f"{card}")
     return {"out": out, "counts": counts, "wire_sides": wire, "times": times,
             "backend": mesh.backend_note}
+
+
+# -- phase 18: training at full qwen3-1.7b width on the card --------------------
+TRAIN_ARCH = "qwen3_1p7b"
+# one data-parallel rank's share of train_4k (256 x 4096, 8 microbatches,
+# over 16 data ranks: configs/base.py)
+TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 4
+TRAIN_PARAMS = 1_720_574_976   # the reference's count_params (total)
+GRAD_TOKENS = 512              # (a): one period in f32, B 1 x 512
+RESUME_PERIODS = 2             # (c): 2 of the 28 layers
+RESUME_B, RESUME_S = 4, 1024
+
+
+def no_tf32():
+    """TF32 off for an f32 comparison with the CPU; returns the undo."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def undo():
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    return undo
+
+
+def to_device(tree, dev):
+    from repro_torch import _pytree
+    return _pytree.tree_map_with_path(lambda _, t: t.to(dev), tree)
+
+
+def batch_on(batch, dev):
+    """A batch of numpy arrays or tensors, on ``dev``."""
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def phase18(dev, gen, card, drive):
+    """Phase 18: training on the card.  The full qwen3-1.7b configuration
+    (28 layers, bf16 parameters, f32 AdamW moments, block remat) takes
+    TRAIN_STEPS steps of B 4 x 4096 tokens in 2 microbatches on one
+    repeated synthetic batch; then (a) one full-width period in f32 with
+    the embedding and head, its loss and every gradient leaf against its
+    CPU run, (b) one f32 step of each smoke config against its CPU run,
+    (c) train, checkpoint (kernel 1 and kernel 3 on the staging), restore,
+    resume bitwise the uninterrupted run, and serve, at 2 of the 28
+    layers.  Returns the times."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import _pytree, configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import agu, datapath
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.serving import ServingEngine
+    from repro_torch.train import step as T
+
+    t_phase = time.perf_counter()
+
+    def log18(msg):
+        log(f"[training {time.perf_counter() - t_phase:.1f} s] {msg}")
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    check(cfg.remat == "block" and cfg.dtype == torch.bfloat16,
+          f"training: {cfg.name} remat {cfg.remat}, dtype {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = T.init_state(cfg, SEED, device=dev)
+    nparam = sum(t.numel() for t in _pytree.leaves(state["params"]))
+    check(nparam == TRAIN_PARAMS,
+          f"training: {nparam} parameters, not {TRAIN_PARAMS}")
+    shape = ShapeConfig("train_4k/16", TRAIN_S, TRAIN_B, "train",
+                        TRAIN_MICRO)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                     seed=SEED)
+    batch = batch_on(ds.batch_at(0), dev)
+    step = T.make_train_step(cfg, shape, AdamWConfig(warmup_steps=1))
+    log18(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads, vocab {cfg.vocab}: "
+          f"{nparam} bf16 parameters and f32 moments made on the card; "
+          f"B {TRAIN_B} x {TRAIN_S} tokens in {TRAIN_MICRO} microbatches")
+    from torch.profiler import ProfilerActivity, profile
+    losses, gnorms, wall = [], [], []
+    by_name = {}                   # device ms by kernel, the last step
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        # the last step under the profiler (its trace takes seconds to read
+        # back), the others timed bare
+        prof = (profile(activities=[ProfilerActivity.CUDA])
+                if i == TRAIN_STEPS - 1 else None)
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            for k, v in device_ms_by_name(prof).items():
+                by_name[k] = by_name.get(k, 0.0) + v
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        log18(f"step {i + 1}: loss {losses[-1]:.4f}, grad norm "
+              f"{gnorms[-1]:.4f}, lr {float(m['lr']):.3e}, {wall[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"training: non-finite loss or grad norm {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"training: the loss did not fall over {TRAIN_STEPS} steps: "
+          f"{losses}")
+    check(int(state["step"]) == TRAIN_STEPS, "training: step counter")
+    step_ms = statistics.median(wall[1:-1])
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    idle = f"{1 - busy / wall[-1]:.1%}" if busy > 0 else "not measured"
+    mf = dryrun.model_flops(cfg, shape, nparam, nparam)
+    share = mf / (step_ms / 1e3) / BF16_FLOPS
+    times = {"step_ms": step_ms, "first_step_ms": wall[0], "steps_ms": wall,
+             "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+             "peak_bytes": peak, "device_busy_ms": busy,
+             "idle_share": idle, "model_flops": mf,
+             "model_flops_share": share, "losses": losses,
+             "grad_norms": gnorms, "top_kernels_ms": top}
+    log18(f"full {cfg.name}: {step_ms:.1f} ms a step (GPU wall, median of "
+          f"steps 2-{TRAIN_STEPS - 1}; the first {wall[0]:.1f} ms), "
+          f"{times['tokens_per_s']:.0f} tokens/s, peak "
+          f"{peak / 1e9:.2f} GB allocated, the card idle {idle} over step "
+          f"{TRAIN_STEPS} ({wall[-1]:.1f} ms under torch.profiler, "
+          f"{busy:.1f} ms of device time), model_flops {mf:.4e} a step = "
+          f"{share:.1%} of 989 TFLOP/s bf16; losses {losses} on {card}")
+    log18(f"device time by kernel in step {TRAIN_STEPS} (the ten largest, "
+          "ms): "
+          + "; ".join(f"{k[:80]} {v:.1f} ({v / busy:.1%})"
+                      for k, v in top) if busy > 0 else
+          "device time by kernel: not measured")
+    del state, batch, step, m
+    torch.cuda.empty_cache()
+
+    # (a) one full-width period in f32, with the embedding and the head
+    from repro_torch.models import lm
+    cfg1 = dataclasses.replace(cfg, n_periods=1, dtype=torch.float32)
+    p_cpu = lm.init_params(cfg1, SEED, device="cpu")
+    g = torch.Generator().manual_seed(SEED)
+    b_cpu = {"tokens": torch.randint(0, cfg.vocab, (1, GRAD_TOKENS),
+                                     generator=g),
+             "labels": torch.randint(0, cfg.vocab, (1, GRAD_TOKENS),
+                                     generator=g)}
+    undo = no_tf32()
+    try:
+        loss_d, _, grads_d = T._value_and_grad(cfg1, to_device(p_cpu, dev),
+                                               batch_on(b_cpu, dev))
+        grads_d = [None if x is None else x.cpu() for x in grads_d]
+    finally:
+        undo()
+    loss_c, _, grads_c = on_cpu_one_thread(T._value_and_grad, cfg1, p_cpu,
+                                           b_cpu)
+    rel = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    check(rel <= 1e-5, f"training (a): loss {float(loss_d)} on the card, "
+          f"{float(loss_c)} on the CPU")
+    worst = 0.0
+    for (path, _), gd, gc in zip(_pytree.flatten_with_paths(p_cpu), grads_d,
+                                 grads_c):
+        tol = 1e-4 * float(gc.abs().max()) + 1e-7
+        err = max_abs_err(gd, gc)
+        check(err <= tol, f"training (a): gradient {_pytree.path_key(path)} "
+              f"{err} off its CPU run (bound {tol})")
+        worst = max(worst, err / tol)
+    log18(f"(a) one {cfg.name} period in f32 with embedding and head, 1 x "
+          f"{GRAD_TOKENS} tokens (TF32 off): loss {float(loss_d)} vs CPU "
+          f"{float(loss_c)} ({rel:.2e} relative, bound 1e-5); "
+          f"{len(grads_c)} gradient leaves, the worst at {worst:.3f} of its "
+          f"bound 1e-4 x max|g| + 1e-7")
+    del p_cpu, grads_d, grads_c
+    torch.cuda.empty_cache()
+
+    # (b) one f32 step of each smoke config, card against CPU
+    lr1 = float(cosine_schedule(AdamWConfig(), 1))
+    smoke = {}
+    for arch in configs.ARCHS:
+        scfg = dataclasses.replace(configs.smoke_config(arch),
+                                   dtype=torch.float32)
+        s_cpu = T.init_state(scfg, SEED, device="cpu")
+        sg = torch.Generator().manual_seed(SEED)
+        sb = {}
+        if scfg.family == "vlm":
+            sb["embeds"] = torch.randn(4, 16, scfg.d_model, generator=sg)
+            p3 = torch.arange(16)[None].expand(4, 16)
+            sb["positions"] = torch.stack([p3, p3, p3])
+        else:
+            sb["tokens"] = torch.randint(0, scfg.vocab, (4, 16), generator=sg)
+        if scfg.family == "audio":
+            sb["audio_embeds"] = torch.randn(4, scfg.encoder_seq,
+                                             scfg.d_model, generator=sg)
+        sb["labels"] = torch.randint(0, scfg.vocab, (4, 16), generator=sg)
+        sstep = T.make_train_step(scfg, ShapeConfig("smoke", 16, 4, "train",
+                                                    2))
+        want, wm = on_cpu_one_thread(sstep, s_cpu, sb)
+        undo = no_tf32()
+        try:
+            got, gm = sstep(to_device(s_cpu, dev), batch_on(sb, dev))
+        finally:
+            undo()
+        lrel = abs(float(gm["loss"]) - float(wm["loss"])) / abs(
+            float(wm["loss"]))
+        check(lrel <= 1e-5, f"training (b) {arch}: loss {float(gm['loss'])} "
+              f"on the card, {float(wm['loss'])} on the CPU")
+        pw = 0.0
+        for a, c in zip(_pytree.leaves(got["params"]),
+                        _pytree.leaves(want["params"])):
+            bound = 2 * lr1 + 1e-5 * c.abs()
+            over = float(((a.cpu() - c).abs() / bound).max())
+            check(over <= 1.0, f"training (b) {arch}: a parameter "
+                  f"{over:.3f} x its bound 2 lr(1) + 1e-5 |p| off the CPU's")
+            pw = max(pw, over)
+        smoke[arch] = (lrel, pw)
+    log18(f"(b) one f32 step of the {len(smoke)} smoke configs, card vs CPU "
+          f"(loss relative error, worst parameter as a share of its bound): "
+          f"{smoke}")
+
+    # (c) train, checkpoint, crash, restore, resume bitwise, serve
+    cfg2 = dataclasses.replace(cfg, n_periods=RESUME_PERIODS)
+    state0 = T.init_state(cfg2, SEED, device=dev)
+    ds2 = SyntheticLM(vocab=cfg.vocab, seq_len=RESUME_S,
+                      global_batch=RESUME_B, seed=SEED + 1)
+    batches = [batch_on(ds2.batch_at(i), dev) for i in range(6)]
+    step2 = T.make_train_step(cfg2, ShapeConfig("resume", RESUME_S, RESUME_B,
+                                                "train", 2),
+                              AdamWConfig(warmup_steps=1))
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as ck:
+            mgr = CheckpointManager(ck, keep=2, stage_layout="MNM8N128",
+                                    wire_compress_blocks=8)
+
+            def train_save_restore():
+                s = state0
+                for i in range(4):
+                    s, _ = step2(s, batches[i])
+                    if (i + 1) % 2 == 0:
+                        mgr.save(i + 1, s, blocking=False)
+                mgr.wait()
+                return s, mgr.restore(4, s, device=dev)
+
+            (s4, restored), counts = drive(
+                "training checkpoint", [agu.RELAYOUT, datapath.BLOCK],
+                train_save_restore)
+            paths = (dict(agu.RELAYOUT.paths), dict(datapath.BLOCK.paths))
+            check(mgr.latest_step() == 4, "training (c): latest checkpoint")
+        for a, b in zip(_pytree.leaves(restored), _pytree.leaves(s4)):
+            assert_bitwise(a, b, "training (c): restored vs saved state")
+        uninterrupted, resumed = s4, restored
+        for i in range(4, 6):
+            uninterrupted, _ = step2(uninterrupted, batches[i])
+            resumed, m2 = step2(resumed, batches[i])
+        for a, b in zip(_pytree.leaves(resumed),
+                        _pytree.leaves(uninterrupted)):
+            assert_bitwise(a, b, "training (c): resumed vs uninterrupted")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(int(resumed["step"]) == 6 and math.isfinite(float(m2["loss"])),
+          "training (c): resumed step counter or loss")
+    eng = ServingEngine(cfg2, resumed["params"], max_len=64, device=dev)
+    toks = eng.generate({"tokens": batches[0]["tokens"][:2, :16]}, 4)
+    check(tuple(toks.shape) == (2, 4) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"training (c): served {toks}")
+    nparam2 = sum(t.numel() for t in _pytree.leaves(state0["params"]))
+    log18(f"(c) {cfg.name} at {RESUME_PERIODS} of {cfg.n_layers} layers "
+          f"({nparam2} parameters): 4 steps of B {RESUME_B} x {RESUME_S} "
+          f"saved every 2 through the plane (MNM8N128 at rest, Compress "
+          f"wire), restored bitwise, 2 more steps bitwise the uninterrupted "
+          f"run (deterministic algorithms), served {toks.tolist()}; "
+          f"checkpoint launches {counts} (kernel 1 by path {paths[0]}, "
+          f"kernel 3 {paths[1]})")
+    times["phase_s"] = time.perf_counter() - t_phase
+    return times
+
+
+# -- phase 19: data-parallel training, 4 ranks on the one card ------------------
+DP_ARCH = "qwen2_0p5b"
+DP_PARAMS = 494_032_768        # the reference's count_params (total)
+DP_B, DP_S = 4, 1024           # global batch: one sequence a rank
+
+
+def fingerprint(tree):
+    """Per-leaf (int64 sum of the bits, int64 sum of every third element's
+    bits): equal trees have equal fingerprints, as ranks compare them.
+    The sums read the leaves in place (no copy of a leaf)."""
+    from repro_torch import _pytree
+    out = []
+    for t in _pytree.leaves(tree):
+        b = bits(t).reshape(-1)
+        out.append((int(b.sum(dtype=torch.int64)),
+                    int(b[1::3].sum(dtype=torch.int64))))
+    return out
+
+
+def phase19_rank(mesh, card):
+    """One rank of phase 19: the full qwen2-0.5b configuration in f32, the
+    same state in every rank (one seed), the global batch of B 4 x 1024
+    tokens, one sequence a rank.  One DP step with the plain reduce, one
+    with the int8 codec, each leaf's all-reduce a reduce descriptor over
+    gloo; the ranks' new states must agree bitwise.  Rank 0 then holds the
+    plain step to the single-process step on the card and broadcasts the
+    new parameters over a ring(4) fabric, each replica a buffer of its own
+    and bitwise the source.  No datapath kernel is on this path: the
+    reduce lowers to the collectives (the int8 codec's Quantize /
+    Dequantize have no emit form) and every broadcast hop is MN -> MN,
+    kernel 1's identity plan, a copy, in both packages."""
+    import dataclasses
+
+    from repro_torch import _pytree, configs
+    from repro_torch import sharding as S
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import remote
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import _build, agu
+    from repro_torch.runtime import DistributedScheduler, Topology, telemetry
+    from repro_torch.runtime.trace import capture
+    from repro_torch.train import step as T
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    dev, n, r = mesh.device, mesh.world_size, S.axis_index("dp")
+    tag = f"[dp training rank {r}]"
+    cfg = dataclasses.replace(configs.get_config(DP_ARCH),
+                              dtype=torch.float32)
+    state = T.init_state(cfg, SEED, device=dev)
+    nparam = sum(t.numel() for t in _pytree.leaves(state["params"]))
+    check(nparam == DP_PARAMS, f"{tag} {nparam} parameters")
+    raw = SyntheticLM(vocab=cfg.vocab, seq_len=DP_S, global_batch=DP_B,
+                      seed=SEED).batch_at(0)
+    batch = batch_on(raw, dev)
+    shape = ShapeConfig("dp", DP_S, DP_B, "train", 1)
+    undo = no_tf32()
+    out, keep = {}, {}
+    try:
+        for name, compressed in (("plain", False), ("compressed", True)):
+            step = T.make_dp_train_step(cfg, shape, mesh=mesh, axis="dp",
+                                        compressed=compressed)
+            telemetry.reset("wire")
+            torch.cuda.synchronize()
+            dist.barrier()                  # the ranks start the step together
+            with capture(name=name) as tr, \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                new, m = step(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            busy = device_busy_ms(prof)
+            wire = remote.wire_stats()
+            red = [e for e in tr.xdma_events() if e.endpoint == "reduce"]
+            check(len(red) == len(_pytree.leaves(state["params"])) + 1,
+                  f"{tag} {name}: {len(red)} reduce events")
+            if compressed:
+                mats = [e for e in red if e.logical_shape
+                        and len(e.logical_shape) >= 2]
+                check(mats and all(e.wire_nbytes and e.wire_nbytes < e.nbytes
+                                   for e in mats),
+                      f"{tag} compressed: a matrix leaf's wire is not below "
+                      "its payload")
+            out[name] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "ms": ms, "busy_ms": busy,
+                # the ledger counts a reduce twice (reduce-scatter and
+                # all-gather), on its wire and in its payload
+                "wire_bytes": sum(e.wire_nbytes or e.nbytes for e in red),
+                "ledger_bytes": sum(e.nbytes for e in red),
+                "host_hop_bytes": wire.get("host_hop_bytes", 0),
+                "fingerprint": fingerprint(new)}
+            if r == 0 and not compressed:   # on the host: four ranks
+                keep[name] = to_device(new["params"], "cpu")  # share the card
+            del new
+        check(abs(out["compressed"]["loss"] - out["plain"]["loss"]) < 1e-5,
+              f"{tag} compressed loss {out['compressed']['loss']} vs plain "
+              f"{out['plain']['loss']}")
+        del state["opt"]
+        torch.cuda.empty_cache()
+        if r == 0:
+            # the single-process step over the same global batch
+            ref_state = T.init_state(cfg, SEED, device=dev)
+            ref, rm = T.make_train_step(cfg, shape)(ref_state, batch)
+            del ref_state
+            out["ref_loss"] = float(rm["loss"])
+            check(abs(out["plain"]["loss"] - out["ref_loss"]) < 1e-5,
+                  f"{tag} DP loss {out['plain']['loss']} vs single-process "
+                  f"{out['ref_loss']}")
+            out["ref_param_err"] = max(
+                max_abs_err(a, b.cpu()) for a, b in zip(
+                    _pytree.leaves(keep["plain"]),
+                    _pytree.leaves(ref["params"])))
+            check(out["ref_param_err"] < 1e-4,
+                  f"{tag} DP parameters {out['ref_param_err']} off the "
+                  "single-process step's (bound 1e-4)")
+            del ref
+            torch.cuda.empty_cache()
+            # the new parameters to three replicas through the plane
+            source = to_device(keep.pop("plain"), dev)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            sched = DistributedScheduler(Topology.ring(4), name="dp_bcast")
+            t0 = time.perf_counter()
+            reps = T.dp_param_broadcast(source, scheduler=sched)
+            torch.cuda.synchronize()
+            out["bcast_ms"] = (time.perf_counter() - t0) * 1e3
+            # every hop is MN -> MN: kernel 1's identity plan, a copy of the
+            # buffer (as the reference lowers it), so no kernel launches
+            out["bcast_counts"] = {k.name: k.launches for k in _build.KERNELS}
+            check(len(reps) == 3, f"{tag} {len(reps)} replicas")
+            for rep in reps:
+                for a, b in zip(_pytree.leaves(rep), _pytree.leaves(source)):
+                    assert_bitwise(a, b, f"{tag} broadcast replica")
+                    check(a.dim() < 2 or a.data_ptr() != b.data_ptr(),
+                          f"{tag} a broadcast replica aliases the source")
+            out["bcast_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in _pytree.leaves(source)
+                                     if t.dim() >= 2)
+            del reps, sched, source
+    finally:
+        undo()
+    log(f"{tag} plain {out['plain']['ms']:.1f} ms, compressed "
+        f"{out['compressed']['ms']:.1f} ms a step; losses "
+        f"{out['plain']['loss']} / {out['compressed']['loss']} on {card}")
+    out["backend"] = mesh.backend_note
+    return out
+
+
+def phase19(card):
+    """Phase 19: ``phase19_rank`` in a world of 4 processes on the card
+    (gloo; NCCL where there is a card a rank); the ranks' states must agree
+    bitwise after each step.  Returns the times."""
+    import tempfile
+    from repro_torch import sharding as S
+
+    # four ranks of about 15 GB each share the card with this process:
+    # release what the earlier phases left (reference cycles included)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[dp training] this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; "
+        f"{free / 1e9:.1f} of {total / 1e9:.1f} GB of the card free")
+    # the ranks' allocators grow segments in place rather than caching
+    # blocks they cannot reuse (set for the spawned ranks alone: this
+    # process's allocator started long ago)
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-dp-") as work:
+            dp = S.run_spmd(phase19_rank, (RANKS,), ("dp",), args=(card,),
+                            device="cuda", workdir=work)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    dp_s = time.perf_counter() - t0
+    for name in ("plain", "compressed"):
+        prints = [rk[name]["fingerprint"] for rk in dp]
+        check(all(p == prints[0] for p in prints),
+              f"dp training: the ranks' states after the {name} step differ")
+    dp_times = {}
+    for name in ("plain", "compressed"):
+        wall = max(rk[name]["ms"] for rk in dp)
+        # each rank's profiler sees its own kernels; the four processes
+        # time-share the card, so their kernel times overlap and do not add
+        # up to the card's busy time, which is not measured here
+        shares = [rk[name]["busy_ms"] / rk[name]["ms"] for rk in dp]
+        dp_times[name] = {
+            "step_ms": wall, "rank_busy_share": shares,
+            "idle_share": "not measured (4 processes share the card)",
+            "wire_bytes": dp[0][name]["wire_bytes"],
+            "ledger_bytes": dp[0][name]["ledger_bytes"],
+            "host_hop_bytes": dp[0][name]["host_hop_bytes"],
+            "loss": dp[0][name]["loss"]}
+        log(f"[dp training] {name}: {wall:.1f} ms a step (slowest rank), "
+            f"the ledger's reduce events {dp_times[name]['wire_bytes']} "
+            f"wire bytes for {dp_times[name]['ledger_bytes']} payload bytes "
+            f"a rank (both phases of each reduce), "
+            f"host hop {dp_times[name]['host_hop_bytes']} bytes a rank; "
+            f"each rank's own kernels busy "
+            f"{[f'{x:.1%}' for x in shares]} of its step (torch.profiler; "
+            f"the card's idle share not measured: the ranks' kernels "
+            f"overlap in time) on {card}")
+    r0 = dp[0]
+    log(f"[dp training] 4 ranks ({dp[0]['backend']}) on "
+        f"{DP_ARCH} f32, B {DP_B} x {DP_S}: loss {r0['plain']['loss']} "
+        f"(single-process {r0['ref_loss']}), parameters {r0['ref_param_err']} "
+        f"off the single-process step (bound 1e-4), compressed loss "
+        f"{r0['compressed']['loss']}; the ranks' states agree bitwise; the "
+        f"broadcast of {r0['bcast_bytes']} bytes to 3 replicas "
+        f"{r0['bcast_ms']:.1f} ms wall, bitwise, launches "
+        f"{r0['bcast_counts']}; phase {dp_s:.1f} s with 4 process starts on "
+        f"{card}")
+    dp_times.update(ref_loss=r0["ref_loss"],
+                    ref_param_err=r0["ref_param_err"],
+                    bcast_ms=r0["bcast_ms"], bcast_bytes=r0["bcast_bytes"],
+                    bcast_counts=r0["bcast_counts"], phase_s=dp_s)
+    return dp_times
 
 
 def main():
@@ -2404,6 +2957,15 @@ def main():
         f"int8 wire by rank {[rk['counts'] for rk in ep]}; phase {ep_s:.1f} s "
         f"with 4 process starts on {card}")
 
+    # -- phase 18: training at full qwen3-1.7b width -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = phase18(dev, gen, card, drive)
+    torch.cuda.empty_cache()
+
+    # -- phase 19: data-parallel training, 4 ranks on the one card ---------------
+    dp_times = phase19(card)
+
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
@@ -2432,7 +2994,8 @@ def main():
                                    "phase_s": coll_s},
                    "consumers_ms": cons, "serving": serving,
                    "continuous": continuous, "moe_serving": moe_serving,
-                   "moe_ep": {"ms": moe_ep, "ranks": ep, "phase_s": ep_s}},
+                   "moe_ep": {"ms": moe_ep, "ranks": ep, "phase_s": ep_s},
+                   "training": training, "dp_training": dp_times},
                   f, indent=1)
     log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                 for n in order]}))

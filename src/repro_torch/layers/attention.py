@@ -137,9 +137,15 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
     qt, kt, vt, (B, Sq, H, hd, KV, G, qc, kc, nq, nk) = _blocks(
         q, k, v, q_chunk, kv_chunk)
     dev = q.device
-    m = torch.full((nq, B, KV, G, qc), NEG_INF, dtype=_F32, device=dev)
-    l = torch.zeros((nq, B, KV, G, qc), dtype=_F32, device=dev)
-    acc = torch.zeros((nq, B, KV, G, qc, hd), dtype=_F32, device=dev)
+    # each q-chunk's running state in a list, stacked once at the end: an
+    # in-place write into a stacked buffer would overwrite what autograd
+    # saved for the backward
+    m = [torch.full((B, KV, G, qc), NEG_INF, dtype=_F32, device=dev)
+         for _ in range(nq)]
+    l = [torch.zeros((B, KV, G, qc), dtype=_F32, device=dev)
+         for _ in range(nq)]
+    acc = [torch.zeros((B, KV, G, qc, hd), dtype=_F32, device=dev)
+           for _ in range(nq)]
     for qi, kj in _chunk_pairs(nq, nk, qc, kc, q_offset, k.shape[1], causal,
                                window):
         qp = q_offset + qi * qc + torch.arange(qc, device=dev)
@@ -147,7 +153,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
         m[qi], l[qi], acc[qi] = _pair_update(m[qi], l[qi], acc[qi], qt[qi],
                                              kt[kj], vt[kj], qp, kp, causal,
                                              window)
-    return _finish(acc, l, B, Sq, H, hd, q.dtype)
+    return _finish(torch.stack(acc), torch.stack(l), B, Sq, H, hd, q.dtype)
 
 
 def _mask_valid(s, length, Smax):

@@ -57,7 +57,8 @@ def init_moe(init: Init, cfg):
 
 def _route(cfg, router_w, tokens):
     """tokens (T, d) -> (gates (T,k), expert ids (T,k), aux load-balance loss)."""
-    logits = tokens.to(torch.float32) @ router_w                 # (T, E)
+    # an f32 product, whatever the parameters' dtype (jnp promotes)
+    logits = tokens.to(torch.float32) @ router_w.to(torch.float32)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k: the k largest, ties to the lower index (a stable sort keeps
     # equal probabilities in index order)

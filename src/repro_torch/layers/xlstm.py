@@ -159,7 +159,8 @@ def _slstm_step(cfg, p, carry, xw):
     hf = h.reshape(B, H, hd)
 
     def rec(g):
-        return torch.einsum("bhd,hde->bhe", hf, p[f"r_{g}"]).reshape(B, H * hd)
+        return torch.einsum("bhd,hde->bhe", hf,
+                            p[f"r_{g}"].to(hf.dtype)).reshape(B, H * hd)
 
     z = torch.tanh(xw[:, 0] + rec("z"))
     it = xw[:, 1] + rec("i")

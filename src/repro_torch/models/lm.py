@@ -9,6 +9,13 @@ scans.  ``mesh=`` reaches the MoE slots (:func:`repro_torch.layers.moe.
 moe_apply`); called in every rank of an SPMD body, the batch is the rank's
 block.
 
+Where a gradient is taken (autograd on and a parameter that requires one),
+:func:`forward` unbinds the stacked leaves once, so the backward stacks
+each leaf's per-period gradients once, and under ``cfg.remat == "block"``
+checkpoints each period's slots and each encoder layer
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+scanned block); inference paths index the periods as before.
+
 Modes:
   forward(...)                       train / prefill logits (+ MoE aux)
   prefill(...)                       logits + filled decode cache
@@ -25,6 +32,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import _pytree
 from repro_torch.configs.base import (ATTN, MAMBA, MLSTM, SLSTM, LayerSpec,
@@ -77,10 +85,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     """The port's own seeded initializer: the reference's tree, shapes,
     dtypes (f32 masters) and standard deviations, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the card unless
-    given ``"cpu"``).  The values are not JAX's."""
+    given ``"cpu"``; ``"meta"`` gives the shapes and dtypes with no
+    storage).  The values are not JAX's."""
     cfg.validate()
     dev = _device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    # the meta device holds shapes only (no values, so no generator)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
     init = Init(gen, dev)
     params: Dict[str, Any] = {"embed": E.init_embed(init, cfg)}
     params["blocks"] = tuple(_init_slot(init.stacked(cfg.n_periods), cfg, spec)
@@ -132,6 +143,30 @@ def params_from_numpy(tree, device=None):
 def period_slice(tree, i: int):
     """Period ``i`` of a tree stacked over ``n_periods``."""
     return _pytree.tree_map_with_path(lambda path, a: a[i], tree)
+
+
+def _unstack(tree, n: int, training: bool):
+    """Every period's tree of a tree stacked over ``n`` periods.  Under
+    autograd the stacked leaves are unbound once, so the backward stacks
+    the per-period gradients once; indexing one period at a time would
+    build a zero buffer the size of the whole stacked leaf for each."""
+    if not training:
+        return [period_slice(tree, i) for i in range(n)]
+    flat = _pytree.leaves(tree)
+    parts = [torch.unbind(a) for a in flat]
+    return [_pytree.unflatten(tree, [p[i] for p in parts]) for i in range(n)]
+
+
+def _needs_grad(params) -> bool:
+    """A gradient is being taken: autograd on and a parameter requires
+    one."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in _pytree.leaves(params))
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def _stack(trees):
@@ -271,9 +306,15 @@ def _encode(cfg, params, audio_embeds):
     spec = LayerSpec(ATTN)
     x = audio_embeds.to(cfg.dtype)
     pos = torch.arange(x.shape[1], device=x.device)[None].expand(x.shape[:2])
-    for i in range(cfg.encoder_layers):
-        p = _constrain_slot_params(enc_cfg, period_slice(params["encoder"], i))
-        x, _, _ = _apply_slot(enc_cfg, spec, p, x, pos, causal=False)
+
+    def layer(x, p):
+        p = _constrain_slot_params(enc_cfg, p)
+        return _apply_slot(enc_cfg, spec, p, x, pos, causal=False)[0]
+
+    grad = _needs_grad(params)
+    remat = grad and cfg.remat == "block"   # the reference's jax.checkpoint
+    for p in _unstack(params["encoder"], cfg.encoder_layers, grad):
+        x = _checkpoint(layer, x, p) if remat else layer(x, p)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
@@ -303,13 +344,22 @@ def forward(cfg: ModelConfig, params, batch, *, mesh=None):
     slots' load-balance losses."""
     x, positions, enc_out = _inputs(cfg, params, batch)
     aux_total = _zero_aux(x)
-    for i in range(cfg.n_periods):
-        slot_params = _constrain_slot_params(
-            cfg, period_slice(params["blocks"], i))
+
+    def block(x, aux, slot_params):
+        slot_params = _constrain_slot_params(cfg, slot_params)
         for spec, p in zip(cfg.period, slot_params):
             x, _, a = _apply_slot(cfg, spec, p, x, positions,
                                   enc_out=enc_out, mesh=mesh)
-            aux_total = aux_total + a
+            aux = aux + a
+        return x, aux
+
+    grad = _needs_grad(params)
+    remat = grad and cfg.remat == "block"   # the reference's jax.checkpoint
+    for slot_params in _unstack(params["blocks"], cfg.n_periods, grad):
+        if remat:
+            x, aux_total = _checkpoint(block, x, aux_total, slot_params)
+        else:
+            x, aux_total = block(x, aux_total, slot_params)
     for spec, p in zip(cfg.tail, params["tail"]):
         x, _, a = _apply_slot(cfg, spec, p, x, positions, enc_out=enc_out,
                               mesh=mesh)

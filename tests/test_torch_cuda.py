@@ -903,3 +903,99 @@ def test_continuous_engine_on_the_card_matches_the_cpu():
 def _to_card(tree):
     from repro_torch import _pytree
     return _pytree.tree_map_with_path(lambda p, t: t.cuda(), tree)
+
+
+def _no_tf32(fn):
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_chunked_attention_backward_on_the_card_matches_the_cpu():
+    """Gradients through the chunked attention (causal, windowed, offset
+    queries) on the card within 1e-5 x max|g| of the CPU's, in f32."""
+    from repro_torch.layers import attention as A
+
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 64, 4, 32, generator=gen)
+    k = torch.randn(2, 80, 2, 32, generator=gen)
+    v = torch.randn(2, 80, 2, 32, generator=gen)
+    w = torch.randn(2, 64, 4, 32, generator=gen)
+    kw = dict(causal=True, window=40, q_offset=16, q_chunk=16, kv_chunk=32)
+
+    def grads(dev):
+        ts = [t.detach().to(dev, copy=True).requires_grad_()
+              for t in (q, k, v)]
+        (A.chunked_attention(*ts, **kw) * w.to(dev)).sum().backward()
+        return [t.grad.cpu() for t in ts]
+
+    want = grads("cpu")
+    got = _no_tf32(lambda: grads("cuda"))
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One f32 step of the qwen3 smoke model in 2 microbatches (TF32 off):
+    the loss within 1e-5 relative of the CPU's, every parameter within
+    2 lr(1) + 1e-5 |p|."""
+    import dataclasses
+
+    from repro_torch import _pytree, configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.train import step as T
+
+    cfg = dataclasses.replace(configs.smoke_config("qwen3_1p7b"),
+                              dtype=torch.float32)
+    state = T.init_state(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (4, 32), generator=gen)}
+    step = T.make_train_step(cfg, ShapeConfig("t", 32, 4, "train", 2))
+    want, wm = step(state, batch)
+    got, gm = _no_tf32(lambda: step(
+        _to_card(state), {k: v.cuda() for k, v in batch.items()}))
+    assert abs(float(gm["loss"]) - float(wm["loss"])) \
+        <= 1e-5 * abs(float(wm["loss"]))
+    lr1 = float(cosine_schedule(AdamWConfig(), 1))
+    for a, b in zip(_pytree.leaves(got["params"]),
+                    _pytree.leaves(want["params"])):
+        assert bool(((a.cpu() - b).abs() <= 2 * lr1 + 1e-5 * b.abs()).all())
+
+
+def test_training_checkpoint_on_the_card_resumes_bitwise(tmp_path):
+    """Two steps on the card, a checkpoint staged MNM8N128 at rest with the
+    Compress wire (kernel 3 on the save, kernel 1 on the un-staging of the
+    (256, 128) embedding and its moments), the restored state bitwise the
+    saved one."""
+    import dataclasses
+
+    from repro_torch import _pytree, configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.train import step as T
+
+    cfg = dataclasses.replace(configs.smoke_config("qwen3_1p7b"),
+                              dtype=torch.float32, d_model=128)
+    state = T.init_state(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 32), generator=gen,
+                              device="cuda") for k in ("tokens", "labels")}
+    step = T.make_train_step(cfg, ShapeConfig("t", 32, 4, "train", 1))
+    for _ in range(2):
+        state, _ = step(state, batch)
+    mgr = CheckpointManager(str(tmp_path), stage_layout="MNM8N128",
+                            wire_compress_blocks=8)
+    _build.reset_launches()
+    mgr.save(2, state)
+    back = mgr.restore(2, state)
+    torch.cuda.synchronize()
+    assert pagu.RELAYOUT.launches > 0 and DP.BLOCK.launches > 0
+    for a, b in zip(_pytree.leaves(back), _pytree.leaves(state)):
+        assert a.device.type == "cuda"
+        assert _equal_bits(a.reshape(-1), b.reshape(-1))

@@ -1,7 +1,12 @@
-"""The port's serving launcher, ``python -m repro_torch.launch.serve``, on
-the CPU (``--device cpu``; on a machine with a card it defaults to the
-card)."""
+"""The port's launchers on the CPU (``--device cpu``; on a machine with a
+card they default to the card): ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train`` (the loss falls; a second run
+resumes from the first's checkpoint) and ``python -m
+repro_torch.launch.dryrun`` (one cell's counted FLOPs and bytes; an MoE
+cell records null and the reason)."""
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -36,3 +41,82 @@ def test_serve_launcher_entry_point_returns_the_tokens():
                        "cpu", "--batch", "2", "--prompt-len", "6",
                        "--gen", "3"])
     assert tuple(toks.shape) == (2, 3) and toks.dtype == torch.int32
+
+
+def _run(module, *args):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run([sys.executable, "-m", module, *args], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+
+
+def test_train_launcher_loss_falls_and_resumes_on_the_cpu(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    args = ("--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--batch",
+            "4", "--seq", "32", "--lr", "3e-3", "--ckpt-dir", ckpt,
+            "--ckpt-every", "5")
+    out = _run("repro_torch.launch.train", *args, "--steps", "20")
+    assert out.returncode == 0, out.stderr
+    first, last = re.search(r"final loss: ([\d.]+) \(from ([\d.]+)\)",
+                            out.stdout).group(2, 1)
+    assert float(last) < float(first) - 0.3, out.stdout
+    assert "on cpu" in out.stderr
+    out = _run("repro_torch.launch.train", *args, "--steps", "22")
+    assert out.returncode == 0, out.stderr
+    assert "resumed from step 20" in out.stderr
+    assert sorted(os.listdir(ckpt))[-1] == "step_0000000022"
+
+
+def test_train_entry_point_returns_the_state():
+    import torch
+
+    from repro_torch.launch import train
+    state, history = train.main(["--arch", "xlstm-125m", "--smoke",
+                                 "--device", "cpu", "--steps", "2",
+                                 "--batch", "2", "--seq", "8"])
+    assert len(history) == 2 and int(state["step"]) == 2
+    assert state["opt"]["mu"]["embed"]["embed"].dtype == torch.float32
+
+
+def test_dryrun_counts_a_cell_and_records_why_an_moe_cell_cannot():
+    out = _run("repro_torch.launch.dryrun", "--arch", "qwen2-0.5b",
+               "--shape", "decode_32k")
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["flops"] > 0 and rec["bottleneck"] == "memory"
+    assert "H100" in rec["hardware"] and rec["n_devices"] == 1
+    # one decode step reads every weight and cache byte: bf16 weights plus
+    # the bf16 cache of 128 x 32768 tokens
+    assert rec["state_bytes"] > 2 * rec["params_total"]
+    from repro_torch.launch import dryrun
+    moe = dryrun.run_cell("mixtral-8x7b", "decode_32k")
+    assert moe["flops"] is None and "meta" in moe["reason"]
+    assert moe["model_flops"] > 0
+
+
+def test_dryrun_step_on_a_smoke_config_counts_its_matmuls():
+    """The dry run's step on meta tensors counts what the same step's
+    products take on real tensors (FlopCounterMode on the CPU)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import _pytree, configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = configs.smoke_config("qwen3_1p7b")
+    shape = ShapeConfig("t", 32, 4, "train", 2)
+    run, nbytes = dryrun.cell_step(cfg, shape)
+    meta = FlopCounterMode(display=False)
+    with meta:
+        run()
+    state = init_state(cfg, 0, device="cpu")
+    batch = {"tokens": torch.zeros((4, 32), dtype=torch.int32),
+             "labels": torch.zeros((4, 32), dtype=torch.int32)}
+    real = FlopCounterMode(display=False)
+    with real:
+        make_train_step(cfg, shape)(state, batch)
+    assert meta.get_total_flops() == real.get_total_flops() > 0
+    assert nbytes == sum(t.numel() * t.element_size()
+                         for t in _pytree.leaves(state))

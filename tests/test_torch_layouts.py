@@ -57,6 +57,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.serving.engine, repro_torch.layers.moe, "
             "repro_torch.serving.requests, repro_torch.serving.continuous, "
             "repro_torch.launch, repro_torch.launch.serve\n"
+            "import repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.train, repro_torch.train.step, "
+            "repro_torch.configs.specs, repro_torch.launch.mesh, "
+            "repro_torch.launch.train, repro_torch.launch.dryrun\n"
             "from repro_torch import configs\n"
             "[configs.get_config(a) for a in configs.ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -310,3 +310,66 @@ def moe_body(mesh):
     out["ring"] = M._ring_all_gather(v, "model", 4)
     out["calls"] = list(calls)
     return out
+
+
+# -- data-parallel training on a 4-rank ('dp',) world ------------------------
+DP_MESH = ((4,), ("dp",))
+DP_SHAPE = dict(seq=16, batch=8)          # tests/test_trace.py's DP cell
+
+
+def dp_config(configs, dataclasses, f32):
+    """The qwen2-0.5b smoke config in f32 (the reference's DP test)."""
+    return dataclasses.replace(configs.smoke_config("qwen2_0p5b"), dtype=f32)
+
+
+def dp_train_body(mesh, state_np, batch_np):
+    """One rank of the DP world: the explicit DP step (plain, then the int8
+    codec) from the same state on the global batch, with each step's
+    ledger, the collectives it issued, the compressed trace's replays, and
+    a 2-microbatch step through a scheduler."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.runtime import DistributedScheduler, Topology
+    from repro_torch.runtime.trace import capture
+    from repro_torch.train import step as T
+
+    calls = _spy_collectives()
+    cfg = dp_config(configs, dataclasses, torch.float32)
+    seq, batch = DP_SHAPE["seq"], DP_SHAPE["batch"]
+    shape = ShapeConfig("t", seq, batch, "train", microbatches=1)
+    state = lm.params_from_numpy(state_np, device="cpu")
+    data = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+
+    def events(tr):
+        return [(e.endpoint, e.nbytes, e.wire_nbytes,
+                 list(e.logical_shape or ()))
+                for e in tr.xdma_events()]
+
+    out = {}
+    for name, compressed in (("plain", False), ("compressed", True)):
+        step = T.make_dp_train_step(cfg, shape, mesh=mesh, axis="dp",
+                                    compressed=compressed)
+        del calls[:]
+        with capture(name=name) as tr:
+            new, m = step(dict(state), dict(data))
+        out[name] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "params": new["params"], "step": new["step"],
+                     "events": events(tr), "calls": list(calls)}
+        if compressed:
+            out[name]["makespans"] = (
+                tr.replay(Topology.ring(4)).makespan,
+                tr.replay(Topology.ring(4), sw_agu=True).makespan)
+    sched = DistributedScheduler(Topology.parallel(2), name="dp")
+    step = T.make_dp_train_step(
+        cfg, ShapeConfig("t", seq, batch, "train", microbatches=2),
+        mesh=mesh, axis="dp", compressed=False, scheduler=sched)
+    with capture(name="scheduled") as tr:
+        new, m = step(dict(state), dict(data))
+    out["scheduled"] = {"loss": m["loss"], "params": new["params"],
+                        "events": events(tr),
+                        "labels": sorted(s.label for s in
+                                         sched.report().spans)}
+    return out

@@ -72,13 +72,14 @@ kernel against its plain PyTorch version on the same inputs:
   path, the int8 wire, the scheduled chunked dispatch, the ring
   all-gather;
 * training (phase 18): the full qwen3-1.7b configuration (28 layers, bf16
-  parameters, f32 AdamW moments, block remat) takes 4 steps of B 4 x 4096
+  compute on f32 master parameters, f32 AdamW moments, block remat) takes 4 steps of B 4 x 4096
   tokens in 2 microbatches (one data rank's share of train_4k), the loss
   falling; (a) one full-width period in f32 with the embedding and head,
   its loss and every gradient leaf against its CPU run; (b) one f32 step of
   each smoke config against its CPU run; (c) a 2-layer cut trained,
-  checkpointed through the plane (MNM8N128 at rest, the Compress wire),
-  restored bitwise, resumed bitwise the uninterrupted run under
+  checkpointed through the plane (MNM8N128 at rest, the Compress wire;
+  kernel 3's save and kernel 1's restore of the staged leaves held to the
+  plain chain and the plain relayout, and timed), restored bitwise, resumed bitwise the uninterrupted run under
   deterministic algorithms, then served;
 * data-parallel training (phase 19): 4 ranks on the card, the full
   qwen2-0.5b in f32, one step with the plain reduce and one with the int8
@@ -1433,7 +1434,8 @@ def batch_on(batch, dev):
 
 def phase18(dev, gen, card, drive):
     """Phase 18: training on the card.  The full qwen3-1.7b configuration
-    (28 layers, bf16 parameters, f32 AdamW moments, block remat) takes
+    (28 layers, bf16 compute on f32 masters, f32 AdamW moments, block
+    remat) takes
     TRAIN_STEPS steps of B 4 x 4096 tokens in 2 microbatches on one
     repeated synthetic batch; then (a) one full-width period in f32 with
     the embedding and head, its loss and every gradient leaf against its
@@ -1468,6 +1470,8 @@ def phase18(dev, gen, card, drive):
     nparam = sum(t.numel() for t in _pytree.leaves(state["params"]))
     check(nparam == TRAIN_PARAMS,
           f"training: {nparam} parameters, not {TRAIN_PARAMS}")
+    check({t.dtype for t in _pytree.leaves(state["params"])}
+          == {torch.float32}, "training: the master parameters are not f32")
     shape = ShapeConfig("train_4k/16", TRAIN_S, TRAIN_B, "train",
                         TRAIN_MICRO)
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
@@ -1476,7 +1480,8 @@ def phase18(dev, gen, card, drive):
     step = T.make_train_step(cfg, shape, AdamWConfig(warmup_steps=1))
     log18(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} / {cfg.n_kv_heads} heads, vocab {cfg.vocab}: "
-          f"{nparam} bf16 parameters and f32 moments made on the card; "
+          f"{nparam} f32 master parameters (bf16 compute) and f32 moments "
+          f"made on the card; "
           f"B {TRAIN_B} x {TRAIN_S} tokens in {TRAIN_MICRO} microbatches")
     from torch.profiler import ProfilerActivity, profile
     losses, gnorms, wall = [], [], []
@@ -1658,6 +1663,8 @@ def phase18(dev, gen, card, drive):
         torch.use_deterministic_algorithms(False)
     check(int(resumed["step"]) == 6 and math.isfinite(float(m2["loss"])),
           "training (c): resumed step counter or loss")
+    ckpt_kernels = checkpoint_kernels(s4, mgr, card, log18)
+    del restored, uninterrupted, s4
     eng = ServingEngine(cfg2, resumed["params"], max_len=64, device=dev)
     toks = eng.generate({"tokens": batches[0]["tokens"][:2, :16]}, 4)
     check(tuple(toks.shape) == (2, 4) and int(toks.min()) >= 0
@@ -1670,8 +1677,90 @@ def phase18(dev, gen, card, drive):
           f"run (deterministic algorithms), served {toks.tolist()}; "
           f"checkpoint launches {counts} (kernel 1 by path {paths[0]}, "
           f"kernel 3 {paths[1]})")
+    times["checkpoint_kernels"] = ckpt_kernels
     times["phase_s"] = time.perf_counter() - t_phase
     return times
+
+
+def checkpoint_kernels(state, mgr, card, log18):
+    """Phase 18 (c)'s kernels against their plain versions, on the leaves
+    the checkpoint staged, outside the counted path: the embedding's save
+    (MN -> the at-rest MNM8N128 through the Compress wire, kernel 3's rank-2
+    path) against the plain chain and the plain relayout, its restore
+    (kernel 1, MNM8N128 -> MN) against the plain relayout, and a stacked
+    leaf's save (kernel 3's generic path) against the plain chain; each
+    timed a launch beside its bound.  Returns the times."""
+    from repro_torch import _pytree
+    from repro_torch.core import layouts as L
+    from repro_torch.core import plugin_compiler
+    from repro_torch.kernels import _build, agu, datapath
+
+    out = {}
+    emb = state["params"]["embed"]["embed"]
+    lay = mgr._at_rest_layout(emb)
+    check(lay is not None and lay.name == "MNM8N128",
+          f"training (c): the embedding's at-rest layout {lay}")
+    M, N = emb.shape
+    stacked = max((t for t in _pytree.leaves(state["params"])
+                   if t.dim() == 3 and t.shape[-2] % 8 == 0),
+                  key=lambda t: t.numel())
+    plain = lambda x, d: datapath.plain(x, d.pre + d.post,  # noqa: E731
+                                        d.src.layout, d.dst.layout)
+    cases = [("save", emb, lay, "rank2",
+              lambda: emb.view(M // 8, 8, N // 128, 128).permute(
+                  0, 2, 1, 3).contiguous()),
+             ("save stacked", stacked, None, "generic", stacked.clone)]
+    for what, x, at_rest, path, lib in cases:
+        desc = mgr.stage_descriptor(x, None, at_rest)
+        _build.reset_launches()
+        got = mgr._stage(x, None, at_rest)
+        torch.cuda.synchronize()
+        check(dict(datapath.BLOCK.paths).get(path, 0) > 0
+              and agu.RELAYOUT.launches == 0,
+              f"training (c) {what}: kernel 3 paths {datapath.BLOCK.paths}, "
+              f"kernel 1 {agu.RELAYOUT.launches}; expected the {path} path")
+        kpaths = dict(datapath.BLOCK.paths)
+        assert_bitwise(got, plain(x, desc), f"training (c) {what} vs the "
+                       "plain chain")
+        if at_rest is not None:
+            assert_bitwise(got, agu.relayout_plain(x, L.MN, at_rest, False),
+                           f"training (c) {what} vs the plain relayout")
+        assert_bitwise(lib(), got, f"training (c) {what} library yardstick")
+        run = plugin_compiler.compile_local(desc)
+        out[what] = {"kernel": "block_datapath", "paths": kpaths,
+                     "shape": f"{tuple(x.shape)} {x.dtype}",
+                     "ms": gpu_ms(lambda: run(x)),
+                     "plain_ms": gpu_ms(lambda: plain(x, desc)),
+                     "library_ms": gpu_ms(lib),
+                     "bound_ms": bound_ms(nbytes(x, got))}
+        del got
+    at = mgr._stage(emb, None, lay)
+    _build.reset_launches()
+    back = agu.relayout_kernel(at, lay, L.MN)
+    torch.cuda.synchronize()
+    check(agu.RELAYOUT.paths == {"direct": 1},
+          f"training (c) restore: kernel 1 paths {agu.RELAYOUT.paths}")
+    assert_bitwise(back, agu.relayout_plain(at, lay, L.MN, False),
+                   "training (c) restore vs the plain relayout")
+    assert_bitwise(back, emb, "training (c) restore vs the saved leaf")
+    lib = lambda: at.view(M // 8, N // 128, 8, 128).permute(  # noqa: E731
+        0, 2, 1, 3).reshape(M, N)
+    assert_bitwise(lib(), back, "training (c) restore library yardstick")
+    out["restore"] = {"kernel": "agu_relayout", "paths": {"direct": 1},
+                      "shape": f"{tuple(emb.shape)} {emb.dtype}",
+                      "ms": gpu_ms(lambda: agu.relayout_kernel(at, lay, L.MN)),
+                      "plain_ms": gpu_ms(lambda: agu.relayout_plain(
+                          at, lay, L.MN, False)),
+                      "library_ms": gpu_ms(lib),
+                      "bound_ms": bound_ms(nbytes(at, back))}
+    del at, back
+    for what, r in out.items():
+        log18(f"(c) the checkpoint's {r['kernel']} on the {what} "
+              f"({r['shape']}, paths {r['paths']}): bitwise the plain "
+              f"version; {r['ms']:.4f} ms a call, plain {r['plain_ms']:.4f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_ms'] / r['ms']:.1%} of the bound) on {card}")
+    return out
 
 
 # -- phase 19: data-parallel training, 4 ranks on the one card ------------------

@@ -211,6 +211,18 @@ class CheckpointManager:
             return self.stage_layout
         return XA.best_layout(tuple(a.shape), a.dtype, tiled_only=True)
 
+    def stage_descriptor(self, a: torch.Tensor, cast_to=None,
+                         layout: Optional[XL.Layout] = None):
+        """The descriptor that stages matrix leaf ``a`` (``a.ndim >= 2``)."""
+        blocks = self.wire_compress_blocks
+        if blocks and a.shape[-2] % blocks:
+            blocks = None                      # unaligned leaf: plain wire
+        if cast_to is not None and (XL.torch_dtype(cast_to) == a.dtype
+                                    or not a.dtype.is_floating_point):
+            cast_to = None
+        return _stage_desc(None if cast_to is None else _name(cast_to),
+                           blocks, layout)
+
     def _stage(self, a: torch.Tensor, cast_to=None,
                layout: Optional[XL.Layout] = None):
         """Move one leaf through the plane, on the leaf's device.  Only
@@ -218,14 +230,7 @@ class CheckpointManager:
         counters, biases) ride along as they are."""
         if a.ndim < 2:
             return a
-        blocks = self.wire_compress_blocks
-        if blocks and a.shape[-2] % blocks:
-            blocks = None                      # unaligned leaf: plain wire
-        if cast_to is not None and (XL.torch_dtype(cast_to) == a.dtype
-                                    or not a.dtype.is_floating_point):
-            cast_to = None
-        return xdma.transfer(a, _stage_desc(
-            None if cast_to is None else _name(cast_to), blocks, layout))
+        return xdma.transfer(a, self.stage_descriptor(a, cast_to, layout))
 
     # -- write --------------------------------------------------------------
     def save(self, step: int, tree: Any, blocking: bool = True) -> None:

@@ -19,7 +19,7 @@ twin here: torch has no HLO to walk and no GSPMD mesh to lower for, so the
 port counts the work of one step on one card and records no collective
 term.  Where an op cannot run on meta (the MoE layer's dispatch sizes its
 buffers from the routing, a data-dependent shape), the cell records
-``null`` with the reason and makes up no number.
+``null`` with the reason and makes up no number; any other failure raises.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
@@ -157,11 +157,15 @@ def run_cell(arch: str, shape_name: str, *, xdma_cache: bool = False,
     mf = model_flops(cfg, shape, n_total, n_active)
     rec["model_flops"] = mf
     counter = FlopCounterMode(display=False)
+    moe = any(spec.moe for spec in cfg.period + cfg.tail)
     try:
         with counter:
             run()
     except (NotImplementedError, RuntimeError) as e:
-        # an op with a data-dependent output shape has no meta kernel
+        # the MoE dispatch's data-dependent shapes have no meta kernel; any
+        # other failure is a fault of the step and propagates
+        if not moe:
+            raise
         rec.update(flops=None, roofline_s=None, bottleneck=None,
                    useful_flop_ratio=None, roofline_fraction=None,
                    reason=f"{type(e).__name__} on the meta device: "

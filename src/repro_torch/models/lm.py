@@ -9,12 +9,12 @@ scans.  ``mesh=`` reaches the MoE slots (:func:`repro_torch.layers.moe.
 moe_apply`); called in every rank of an SPMD body, the batch is the rank's
 block.
 
-Where a gradient is taken (autograd on and a parameter that requires one),
-:func:`forward` unbinds the stacked leaves once, so the backward stacks
-each leaf's per-period gradients once, and under ``cfg.remat == "block"``
+:func:`forward` unbinds the stacked leaves once, so a backward stacks each
+leaf's per-period gradients once.  Where a gradient is taken (autograd on
+and a parameter that requires one) under ``cfg.remat == "block"``, it
 checkpoints each period's slots and each encoder layer
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
-scanned block); inference paths index the periods as before.
+scanned block).
 
 Modes:
   forward(...)                       train / prefill logits (+ MoE aux)
@@ -145,13 +145,11 @@ def period_slice(tree, i: int):
     return _pytree.tree_map_with_path(lambda path, a: a[i], tree)
 
 
-def _unstack(tree, n: int, training: bool):
-    """Every period's tree of a tree stacked over ``n`` periods.  Under
-    autograd the stacked leaves are unbound once, so the backward stacks
-    the per-period gradients once; indexing one period at a time would
-    build a zero buffer the size of the whole stacked leaf for each."""
-    if not training:
-        return [period_slice(tree, i) for i in range(n)]
+def _unstack(tree, n: int):
+    """Every period's tree of a tree stacked over ``n`` periods.  The stacked
+    leaves are unbound once, so under autograd the backward stacks the
+    per-period gradients once; indexing one period at a time would build a
+    zero buffer the size of the whole stacked leaf for each."""
     flat = _pytree.leaves(tree)
     parts = [torch.unbind(a) for a in flat]
     return [_pytree.unflatten(tree, [p[i] for p in parts]) for i in range(n)]
@@ -311,9 +309,8 @@ def _encode(cfg, params, audio_embeds):
         p = _constrain_slot_params(enc_cfg, p)
         return _apply_slot(enc_cfg, spec, p, x, pos, causal=False)[0]
 
-    grad = _needs_grad(params)
-    remat = grad and cfg.remat == "block"   # the reference's jax.checkpoint
-    for p in _unstack(params["encoder"], cfg.encoder_layers, grad):
+    remat = cfg.remat == "block" and _needs_grad(params)  # jax.checkpoint
+    for p in _unstack(params["encoder"], cfg.encoder_layers):
         x = _checkpoint(layer, x, p) if remat else layer(x, p)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
@@ -353,9 +350,8 @@ def forward(cfg: ModelConfig, params, batch, *, mesh=None):
             aux = aux + a
         return x, aux
 
-    grad = _needs_grad(params)
-    remat = grad and cfg.remat == "block"   # the reference's jax.checkpoint
-    for slot_params in _unstack(params["blocks"], cfg.n_periods, grad):
+    remat = cfg.remat == "block" and _needs_grad(params)  # jax.checkpoint
+    for slot_params in _unstack(params["blocks"], cfg.n_periods):
         if remat:
             x, aux_total = _checkpoint(block, x, aux_total, slot_params)
         else:

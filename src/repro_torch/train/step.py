@@ -16,9 +16,11 @@ compressed_psum`), submitted through a :class:`~repro_torch.runtime.
 DistributedScheduler` when one is given, so a ``capture()`` trace records
 the complete DP gradient traffic of a step.
 
-The state is ``{"params", "opt", "step"}``.  :func:`init_state` holds the
-parameters in ``cfg.dtype`` (the reference keeps f32 masters; the AdamW
-moments are f32 in both) on the card unless given ``device="cpu"``.
+The state is ``{"params", "opt", "step"}``.  :func:`init_state` holds f32
+master parameters and f32 AdamW moments, as the reference does, on the
+card unless given ``device="cpu"``; the model casts each weight to
+``cfg.dtype`` where it uses it, so an update smaller than a ``cfg.dtype``
+step still lands in the master.
 """
 from __future__ import annotations
 
@@ -49,11 +51,8 @@ class TrainState(dict):
 def init_state(cfg: ModelConfig, seed: int = 0, *, device=None
                ) -> Dict[str, Any]:
     """A fresh train state on ``device`` (the card unless given ``"cpu"``):
-    the port's seeded parameters in ``cfg.dtype``, f32 AdamW moments, step
-    0."""
+    the port's seeded f32 master parameters, f32 AdamW moments, step 0."""
     params = lm.init_params(cfg, seed, device=device)
-    params = _pytree.tree_map_with_path(
-        lambda _, p: p.to(cfg.dtype) if p.is_floating_point() else p, params)
     dev = _pytree.leaves(params)[0].device
     return {"params": params, "opt": adamw_init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -94,6 +94,22 @@ def test_dryrun_counts_a_cell_and_records_why_an_moe_cell_cannot():
     assert moe["model_flops"] > 0
 
 
+def test_dryrun_raises_where_a_dense_cell_fails(monkeypatch):
+    """Only an MoE cell may record null: a dense arch's failing step is a
+    fault and propagates out of ``run_cell``."""
+    from repro_torch.launch import dryrun
+
+    def failing(cfg, shape):
+        def run():
+            raise RuntimeError("shape mismatch")
+        return run, 0
+    monkeypatch.setattr(dryrun, "cell_step", failing)
+    with pytest.raises(RuntimeError, match="shape mismatch"):
+        dryrun.run_cell("qwen2-0.5b", "decode_32k")
+    moe = dryrun.run_cell("mixtral-8x7b", "decode_32k")
+    assert moe["flops"] is None and "shape mismatch" in moe["reason"]
+
+
 def test_dryrun_step_on_a_smoke_config_counts_its_matmuls():
     """The dry run's step on meta tensors counts what the same step's
     products take on real tensors (FlopCounterMode on the CPU)."""

@@ -39,7 +39,9 @@ def _batch(cfg, B=4, S=16, seed=0):
 def test_smoke_train_step(arch):
     _, pcfg = TC.configs(arch)
     state = PS.init_state(pcfg, 0, device="cpu")
-    assert all(p.dtype == pcfg.dtype for p in _pytree.leaves(state["params"]))
+    # f32 master parameters, as the reference's init_state holds them
+    assert all(p.dtype == torch.float32
+               for p in _pytree.leaves(state["params"]))
     assert all(m.dtype == torch.float32
                for m in _pytree.leaves(state["opt"]["mu"]))
     step = PS.make_train_step(pcfg, PShape("smoke", 16, 4, "train",
@@ -49,6 +51,7 @@ def test_smoke_train_step(arch):
         pb["embeds"] = pb["embeds"].to(pcfg.dtype)
     new, metrics = step(state, pb)
     assert int(new["step"]) == 1 and int(state["step"]) == 0
+    assert all(p.dtype == torch.float32 for p in _pytree.leaves(new["params"]))
     assert np.isfinite(float(metrics["loss"]))
     assert np.isfinite(float(metrics["grad_norm"]))
     assert set(metrics) == {"nll", "aux", "zloss", "loss", "lr", "grad_norm"}

@@ -94,7 +94,10 @@ run with a non-zero exit.  Phases 2-4 also assert the launches by code
 path: kernel 1's ``direct`` and ``staged`` copies, kernel 2's two main-path
 launches on its ``rows`` path (a small NM chain on its generic path), and
 kernel 3's six main-path transfers all on its rank-2 path (a small rank-3
-chain on its generic path).  Phase 12 checks the launches in every rank
+chain with a stage after its ReduceStage on its generic path, and the
+checkpoint's down-cast wire, a cast between dtypes, there too; phase 12's
+KV tunnel transpose and phase 18's stacked leaves on the rank-2 path, their
+leading axes a batch).  Phase 12 checks the launches in every rank
 (kernels 2 and 3), phase 13 in its process (kernels 1, 2 and 3), phase 14
 kernel 1 on the serving plane, phase 15 kernels 1 and 3 on the page pool,
 phase 16 kernel 1 on the MoE model's plane, phase 18 kernels 1 and 3 on
@@ -113,8 +116,9 @@ error and times (CUDA events, median of several runs, GPU time only);
 the last line is ``{"ok": true, "device": {...}}``.  Per-pair times go to
 ``chiprun_out/chip_smoke_times.json``, the compiler's output (registers and
 spills of every kernel) to ``chiprun_out/build_log.txt``; a tensor-core
-instance of kernel 6 or a rows-path instance of kernel 2 that spills fails
-the run.  Without a CUDA device it exits non-zero and prints no result.
+instance of kernel 6, a rows-path instance of kernel 2 or a generic-path
+instance of kernel 3 that spills fails the run.  Without a CUDA device it
+exits non-zero and prints no result.
 """
 import gc
 import json
@@ -426,19 +430,40 @@ def phase12_rank(mesh, card):
         hops[k] = remote.wire_stats().get("host_hop_bytes", 0) // 3
     # the host hop alone: the gradient leaf to the host and back
     hop_ms = wall_ms_synced(lambda: g.cpu().to(dev))
-    # the side kernels' device time, rank 0 alone on the card
+    # the side kernels' device time, rank 0 alone on the card: the tunnel's
+    # (1, 8192, 1024) bf16 transpose on kernel 3's rank-2 path (its leading
+    # axis a batch) beside its bound and one PyTorch call
     side_ms = {}
     if r == 0:
         from repro_torch.core import plugin_compiler
+        from repro_torch.kernels import datapath
         src_side = plugin_compiler.compile_side(C.MN, (C.Transpose(),),
                                                 side="src")
         dst_side = plugin_compiler.compile_side(
             C.MN, peer_cast.post, side="dst")
         flat = kv.reshape(1, KV_SHAPE[1], -1)
-        side_ms = {"kernel-3 src side (transpose)": gpu_ms(
-                       lambda: src_side(flat)),
-                   "kernel-2 dst side (Cast -> Scale)": gpu_ms(
-                       lambda: dst_side(mat))}
+        _build.reset_launches()
+        got = src_side(flat)
+        torch.cuda.synchronize()
+        paths = dict(datapath.BLOCK.paths)
+        check(paths == {"rank2": 1}, f"{tag} the kernel-3 src side took "
+              f"{paths}, expected the rank-2 path")
+        lib = lambda: flat.transpose(-1, -2).contiguous()  # noqa: E731
+        assert_bitwise(got, datapath.plain(flat, (C.Transpose(),), C.MN,
+                                           C.MN), f"{tag} kernel-3 src side "
+                       "vs the plain version")
+        assert_bitwise(lib(), got, f"{tag} kernel-3 src side library "
+                       "yardstick")
+        side_ms = {"kernel-3 src side (transpose)": {
+                       "ms": gpu_ms(lambda: src_side(flat)),
+                       "plain_ms": gpu_ms(lambda: datapath.plain(
+                           flat, (C.Transpose(),), C.MN, C.MN)),
+                       "library_ms": gpu_ms(lib),
+                       "bound_ms": bound_ms(nbytes(flat, got)),
+                       "shape": f"{tuple(flat.shape)} {flat.dtype}",
+                       "paths": paths},
+                   "kernel-2 dst side (Cast -> Scale)": {
+                       "ms": gpu_ms(lambda: dst_side(mat))}}
     dist.barrier()
     for k in ops:
         log(f"{tag} {k}: {times[k]:.3f} ms wall (median of 3), host hop "
@@ -1063,12 +1088,18 @@ def phase15(dev, gen, card, drive, cfg, params):
     page = torch.randn(32, 128, generator=gen, device=dev).to(torch.bfloat16)
     assert_bitwise(xdma.transfer(page, store),
                    store.dst_layout.from_logical(page), "page store")
+    tm, tn = store.dst_layout.tile
+    lib = lambda: page.view(32 // tm, tm, 128 // tn, tn).permute(  # noqa: E731
+        0, 2, 1, 3).contiguous()
+    assert_bitwise(lib(), xdma.transfer(page, store),
+                   "page store library yardstick")
     times["page_store"] = {
         "kernel_ms": gpu_ms(lambda: agu.relayout_kernel(
             page, store.src_layout, store.dst_layout)),
         "transfer_ms": gpu_ms(lambda: xdma.transfer(page, store)),
         "plain_ms": gpu_ms(lambda: agu.relayout_plain(
             page, store.src_layout, store.dst_layout, False)),
+        "library_ms": gpu_ms(lib),
         "bound_ms": bound_ms(2 * nbytes(page)),
         "layout": store.dst_layout.name}
     log15(f"one page store (32 x 128 bf16, MN -> "
@@ -1076,8 +1107,9 @@ def phase15(dev, gen, card, drive, cfg, params):
           f"{times['page_store']['kernel_ms']:.4f} ms of device time a "
           f"launch, through xdma.transfer "
           f"{times['page_store']['transfer_ms']:.4f} ms, plain "
-          f"{times['page_store']['plain_ms']:.4f} ms, bound "
-          f"{times['page_store']['bound_ms']:.7f} ms on {card}")
+          f"{times['page_store']['plain_ms']:.4f} ms, library "
+          f"(permute.contiguous) {times['page_store']['library_ms']:.4f} ms, "
+          f"bound {times['page_store']['bound_ms']:.7f} ms on {card}")
     # each request against its own fixed-batch run (the planeless loop,
     # which ServingEngine equals bitwise), up to the first position where
     # the fixed run's top-2 margin is within the tie rule
@@ -1688,7 +1720,8 @@ def checkpoint_kernels(state, mgr, card, log18):
     (MN -> the at-rest MNM8N128 through the Compress wire, kernel 3's rank-2
     path) against the plain chain and the plain relayout, its restore
     (kernel 1, MNM8N128 -> MN) against the plain relayout, and a stacked
-    leaf's save (kernel 3's generic path) against the plain chain; each
+    leaf's save (kernel 3's rank-2 path, its leading axis a batch) against
+    the plain chain; each
     timed a launch beside its bound.  Returns the times."""
     from repro_torch import _pytree
     from repro_torch.core import layouts as L
@@ -1709,13 +1742,13 @@ def checkpoint_kernels(state, mgr, card, log18):
     cases = [("save", emb, lay, "rank2",
               lambda: emb.view(M // 8, 8, N // 128, 128).permute(
                   0, 2, 1, 3).contiguous()),
-             ("save stacked", stacked, None, "generic", stacked.clone)]
+             ("save stacked", stacked, None, "rank2", stacked.clone)]
     for what, x, at_rest, path, lib in cases:
         desc = mgr.stage_descriptor(x, None, at_rest)
         _build.reset_launches()
         got = mgr._stage(x, None, at_rest)
         torch.cuda.synchronize()
-        check(dict(datapath.BLOCK.paths).get(path, 0) > 0
+        check(set(datapath.BLOCK.paths) == {path}
               and agu.RELAYOUT.launches == 0,
               f"training (c) {what}: kernel 3 paths {datapath.BLOCK.paths}, "
               f"kernel 1 {agu.RELAYOUT.launches}; expected the {path} path")
@@ -2072,6 +2105,37 @@ def main():
           f"kernel2: the build log of streamed_datapath.cu names {rows_inst} "
           f"rows-path instances, not 9 (a library built without its log: "
           f"remove build/kernels)")
+    # kernel 3's generic path: 4 kernels x 2 carriers (f32 "f", int64 "x")
+    # x 4 source element sizes x 2 index widths (uint32 "j", uint64 "m");
+    # every one must be found and none may spill
+    k3_generic, k3_rank2_spill = {}, 0
+    for mangled, regs, stack, spill in ptxas_entries(
+            _build.BUILD_LOG.get("block_datapath.cu", "")):
+        name = re.search(r"\d(out_kernel|out_reduce_kernel|stat_kernel|"
+                         r"mask_kernel)I([fx])Li(\d)E([jm])E", mangled)
+        if name is None:
+            k3_rank2_spill += spill
+            continue
+        fn, carrier, size, index = name.groups()
+        inst = (f"{fn}<{'float' if carrier == 'f' else 'long long'}, "
+                f"{size}, uint{32 if index == 'j' else 64}_t>")
+        k3_generic[inst] = (regs, stack, spill)
+    for fn in ("out_kernel", "out_reduce_kernel", "stat_kernel",
+               "mask_kernel"):
+        got = {k: v for k, v in k3_generic.items() if k.startswith(fn + "<")}
+        log(f"[ptxas] kernel 3 generic {fn}: {len(got)} instances, at most "
+            f"{max((v[0] for v in got.values()), default=0)} registers, "
+            f"{max((v[1] for v in got.values()), default=0)} bytes of stack, "
+            f"{sum(v[2] for v in got.values())} bytes of spill traffic")
+    log(f"[ptxas] kernel 3 rank-2 instances: {k3_rank2_spill} bytes of spill "
+        f"traffic")
+    check(len(k3_generic) == 64,
+          f"kernel3: the build log of block_datapath.cu names "
+          f"{len(k3_generic)} generic instances, not 64 (a library built "
+          f"without its log: remove build/kernels)")
+    check(not any(v[2] for v in k3_generic.values()),
+          f"kernel3: generic instances spill: "
+          f"{ {k: v for k, v in k3_generic.items() if v[2]} }")
 
     rows = {}          # kernel name -> JSON row
     pair_times = []
@@ -2090,7 +2154,9 @@ def main():
         for k in kernels:
             check(counts[k.name] > 0,
                   f"{phase}: kernel {k.name} was not launched on the path")
-        log(f"[{phase}] launches {counts}")
+        log(f"[{phase}] launches {counts}; by path: kernel 1 "
+            f"{agu.RELAYOUT.paths}, kernel 2 {datapath.STREAMED.paths}, "
+            f"kernel 3 {datapath.BLOCK.paths}, kernel 6 {FA.FLASH.paths}")
         return out, counts
 
     # -- phase 2: kernel 1, the AGU relayout (Fig. 4 at 4096^2 f32) ---------
@@ -2318,6 +2384,41 @@ def main():
           f"expected its statistics and output passes on the generic path")
     assert_close(small.cpu(), fn(sm.cpu()), tolerance((), sm.dtype),
                  "kernel3 small rank-3 chain vs CPU")
+    # the checkpoint's down-cast wire on qwen3-1.7b's (2048, 6144) f32 MLP
+    # leaf: Cast(bf16), Compress(8), Decompress, MN -> MN; a cast between
+    # dtypes, so a mask pass and an output pass on the generic path, bitwise
+    # the plain chain and x.to(torch.bfloat16)
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    mlp = torch.randn(2048, 6144, generator=gen, device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-wire-") as root:
+        down = CheckpointManager(root, stage_dtype=torch.bfloat16,
+                                 wire_compress_blocks=8)
+        wire = down.stage_descriptor(mlp, torch.bfloat16)
+        _build.reset_launches()
+        y_down = down._stage(mlp, torch.bfloat16)
+    torch.cuda.synchronize()
+    check(datapath.BLOCK.paths == {"generic": 2},
+          f"kernel3: the down-cast wire's paths {datapath.BLOCK.paths}, "
+          f"expected its mask and output passes on the generic path")
+    assert_bitwise(y_down, plain(mlp, wire), "kernel3 down-cast wire vs the "
+                   "plain chain")
+    lib_down = lambda: mlp.to(torch.bfloat16)  # noqa: E731
+    assert_bitwise(lib_down(), y_down, "kernel3 down-cast wire library "
+                   "yardstick")
+    run_down = plugin_compiler.compile_local(wire)
+    pair_times.append({
+        "pair": f"checkpoint down-cast wire (generic): {wire.summary()} "
+                f"2048x6144", "dtype": "float32 -> bfloat16",
+        "paths": dict(datapath.BLOCK.paths),
+        "ms": gpu_ms(lambda: run_down(mlp)),
+        "plain_ms": gpu_ms(lambda: plain(mlp, wire)),
+        "library_ms": gpu_ms(lib_down),
+        "bound_ms": bound_ms(nbytes(mlp, y_down))})
+    log_case("kernel3", pair_times[-1])
+    log(f"[kernel3] the down-cast wire: library (x.to(bfloat16)) "
+        f"{pair_times[-1]['library_ms']:.4f} ms on {card}")
+    del mlp, y_down
     # the chains kernels 2 and 3 once refused (ROADMAP §3, fault 1): an
     # int8 gather, an int32 transpose, nine Scales into MNM8N128 (kernel 2
     # in two launches), a Scale at logical rank 5, integer arithmetic (int8
@@ -3010,9 +3111,15 @@ def main():
     for k, ms in coll.items():
         log(f"[collectives] {k}: {ms:.3f} ms wall (median over ranks), host "
             f"hop {ranks[0]['hops'][k]} bytes a call a rank, on {card}")
-    for k, ms in ranks[0]["side_ms"].items():
-        log(f"[collectives] {k} alone: {ms:.4f} ms of device time (rank 0 "
-            f"alone on the card) on {card}")
+    for k, t in ranks[0]["side_ms"].items():
+        more = "" if "bound_ms" not in t else (
+            f" ({t['shape']}, paths {t['paths']}), plain "
+            f"{t['plain_ms']:.4f} ms, library "
+            f"(transpose(-1, -2).contiguous()) {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%} of "
+            f"the bound)")
+        log(f"[collectives] {k} alone: {t['ms']:.4f} ms of device time (rank "
+            f"0 alone on the card){more} on {card}")
     log(f"[collectives] the gradient leaf (96 MiB) to the host and back "
         f"alone: {statistics.median(rk['hop_ms'] for rk in ranks):.3f} ms on "
         f"{card}; phase {coll_s:.1f} s with 4 process starts; launches by "

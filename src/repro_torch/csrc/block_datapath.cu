@@ -20,28 +20,45 @@
 // paths per launch from the compiled chain, before launch.
 //
 // The rank-2 path (see its section below) takes the chains whose index
-// stages compose into one map per axis: a tiled copy with the layout maps
+// stages compose into one map per axis, at logical rank 2 to 8: every stage
+// leaves the leading axes [0, rank - 2) in place (Transpose, Scale, BiasAdd,
+// RMSNorm, Compress, Decompress, a Cast to the same dtype; a gather of a
+// leading axis composes into that axis's index vector; a final ReduceStage
+// with or without keepdims).  The leading axes are a batch: each block
+// decodes its leading index once (grid y and z) and offsets the two sides and
+// the per-row buffers by it, then runs a tiled copy with the layout maps
 // hoisted out of the element loop and 16-byte accesses (xdma::tile2_run,
-// shared with kernel 1), and row passes that read along the rows.
+// shared with kernel 1), or row passes that read along the rows.  The KV
+// tunnel's (1, S, D) transpose and the checkpoint's stacked (L, M, N)
+// leaves run there.
 //
-// The generic path takes the rest (logical ranks 3-8, a cast between
-// dtypes, a gather after a stage that reads its coordinate, stages after a
-// ReduceStage, an integer stream that does more than move words).  Its
-// values travel as f32 on a float stream and as int64 on an integer one.  Its output pass gives each thread one element of the
-// destination buffer in physical order (coalesced writes, zeros into stride
-// padding): it maps the physical index back to a logical coordinate, walks
-// it back through the index stages to a source offset, loads, and applies
-// the value stages forward, rounding to the stream dtype after each.  A
-// ReduceStage becomes a loop over the reduced rows: a 32 x 32 block gives
-// each output column 32 threads that sum (or max) interleaved rows in f32,
-// then combines the 32 partials in a fixed order, so the result is
-// deterministic.
+// The generic path takes the rest: a cast between dtypes, a gather after a
+// stage that reads its coordinate, stages after a ReduceStage, an integer
+// stream that does more than move words, a destination that pads a leading
+// axis.  Its values travel as f32 on a float stream and as int64 on an
+// integer one (the carrier, a template parameter, as are the source's
+// element size and the index width: 32-bit where every size of the launch
+// fits).  A coordinate is one running triple (the leading axes' linear
+// index, the row, the column) in registers.  The host compiles two short
+// lists per launch, the index stages (transposes, gathers) and the value
+// stages; a thread takes up to four consecutive elements of the
+// destination's innermost run (decoded once), walks them back through the
+// index list to their source offsets (one load of the four where those run
+// consecutively), and runs the value list forward on them, each stage
+// dispatched once for the group; a stage that reads its coordinate walks
+// the output's back through the index stages after it.  Zeros go into
+// stride padding.  A ReduceStage becomes a loop over the reduced rows: a
+// 32 x 8 block gives each output 8 threads that sum (or max) interleaved
+// rows in the carrier, then combines the partials in a fixed order, so the
+// result is deterministic.
 //
 // On both paths a value that exists only after a reduction over the data
 // takes a pass of its own before the output pass: an RMSNorm's inverse RMS
 // per row, a Compress mask per row block (any nonzero).  The host splits a
 // chain with more than one ReduceStage into launches joined by a row-major
 // intermediate buffer.
+#include <type_traits>
+
 #include "xdma_common.cuh"
 
 namespace {
@@ -50,6 +67,7 @@ constexpr int XR = 8;        // max logical rank
 constexpr int XS = 8;        // max stages per launch
 constexpr int XP = 2 * XR;   // max physical dims
 constexpr int THREADS = 256;
+constexpr int PER_THREAD = 4;   // generic OUT: destination elements a thread
 
 enum StageCode : int64_t {
   ST_CAST = 1, ST_SCALE = 2, ST_BIAS = 3, ST_RMSNORM = 4, ST_TRANSPOSE = 5,
@@ -60,7 +78,7 @@ enum StageCode : int64_t {
 struct Stage {
   int64_t code;
   int64_t dtype;        // stream dtype after the stage
-  int64_t axis;         // GATHER: axis, in the stage's input coordinates
+  int64_t where;        // GATHER: 0 a leading axis, 1 the rows, 2 the columns
   int64_t keepdims;     // REDUCE
   int64_t block_rows;   // COMPRESS / DECOMPRESS
   double a;             // SCALE / BIAS constant, RMSNORM eps
@@ -68,27 +86,39 @@ struct Stage {
                         // carrier's type (f32 or int64), the RMSNORM weight f32
   int64_t aux;          // GATHER: int64 indices; RMSNORM: f32 inverse RMS per row;
                         // COMPRESS / DECOMPRESS: uint8 mask
-  int64_t in_rank;
-  int64_t in_shape[XR]; // logical shape entering the stage
+  int64_t rows, cols;   // the stage's input extents along its last two axes
+  int64_t out_rows;     // REDUCE without keepdims: its output's rows (the
+                        // input's innermost leading extent)
+  int64_t inner;        // GATHER of a leading axis: the product of the
+                        // leading extents after it,
+  int64_t ext_in;       //   its extent at the stage's input
+  int64_t ext_out;      //   and at its output
+  int64_t nb;           // DECOMPRESS: row blocks a leading index
 };
 
 struct BlockArgs {
   int64_t nstages;
   Stage st[XS];
   int64_t in_dtype;
-  int64_t src_rank;
+  int64_t nlead;          // the source's leading axes
+  int64_t lext[XR - 2];   //   their extents
   xdma::DimMap src[XR];   // stage-0 logical coordinate -> src physical offset
   int64_t upto;           // the pass evaluates stages [0, upto)
-  int64_t out_rank;       // logical rank after `upto` stages
-  int64_t out_shape[XR];
   int64_t out_dtype;
-  int64_t nphys;          // OUT pass: physical dims of the dst, post-perm
+  int64_t nphys;          // OUT: physical dims of the dst, post-perm
   int64_t pext[XP];       //   their extents
-  int64_t pdim[XP];       //   the logical dim each one indexes
-  int64_t pw[XP];         //   its weight in that logical coordinate
+  int64_t plim[XP];       //   the index from which one lies in stride padding
+  int64_t pslot[XP];      //   the coordinate it adds to: 0 lead, 1 row, 2 col
+  int64_t pw[XP];         //   its weight there
   int64_t total;          // OUT: dst elements; STAT: rows; MASK: mask entries
   int64_t reduce_at;      // index of the one ReduceStage in [0, upto), or -1
   int64_t carrier;        // 0: values travel as f32; 1: as int64 words
+  int64_t index32;        // 1: every size of the launch is below 2^31
+  int64_t per_thread;     // OUT: elements a thread (PER_THREAD, 2 or 1)
+  int64_t nwalk;          // the stages a walk back visits, ascending:
+  int64_t walk[XS];       //   transposes, gathers, coordinate readers
+  int64_t nvalue;         // the stages that change a value, ascending
+  int64_t value[XS];
 };
 
 // -- the carriers: f32 for float streams, int64 for integer streams ---------
@@ -160,140 +190,335 @@ template <> __device__ __forceinline__ long long fill_of<long long>(int64_t dt) 
   }
 }
 
-template <typename C>
-__device__ __forceinline__ C load_any(const void* p, int64_t i, int64_t dt) {
-  switch (dt) {
-    case xdma::BF16:
-      return of_float<C>(xdma::to_f32(static_cast<const __nv_bfloat16*>(p)[i]));
-    case xdma::F16:
-      return of_float<C>(xdma::to_f32(static_cast<const __half*>(p)[i]));
-    case xdma::F32: return of_float<C>(static_cast<const float*>(p)[i]);
-    case xdma::I8: return of_int<C>(static_cast<const signed char*>(p)[i]);
-    case xdma::U8: return of_int<C>(static_cast<const unsigned char*>(p)[i]);
-    case xdma::I16: return of_int<C>(static_cast<const short*>(p)[i]);
-    case xdma::I32: return of_int<C>(static_cast<const int*>(p)[i]);
-    default: return of_int<C>(static_cast<const long long*>(p)[i]);
+// A source element's bits (SZ bytes), and their value in the carrier by
+// the source dtype.
+template <int SZ>
+using Raw = typename std::conditional<
+    SZ == 1, uint8_t,
+    typename std::conditional<
+        SZ == 2, uint16_t,
+        typename std::conditional<SZ == 4, uint32_t, uint64_t>::type>::type>::
+    type;
+
+template <typename C, int SZ>
+__device__ __forceinline__ C from_raw(Raw<SZ> r, int64_t dt) {
+  if constexpr (SZ == 1) {
+    return dt == xdma::I8 ? of_int<C>((signed char)r) : of_int<C>(r);
+  } else if constexpr (SZ == 2) {
+    if (dt == xdma::BF16) return of_float<C>(__uint_as_float((uint32_t)r << 16));
+    if (dt == xdma::F16) return of_float<C>(__half2float(__ushort_as_half(r)));
+    return of_int<C>((short)r);
+  } else if constexpr (SZ == 4) {
+    return dt == xdma::F32 ? of_float<C>(__uint_as_float(r)) : of_int<C>((int)r);
+  } else {
+    return of_int<C>((long long)r);
   }
 }
 
-template <typename C>
-__device__ __forceinline__ void store_any(void* p, int64_t i, int64_t dt,
-                                          C v) {
+// A carrier value in the destination's element type.
+template <typename T, typename C>
+__device__ __forceinline__ T out_cast(C v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return as_float(v);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value ||
+                       std::is_same<T, __half>::value) {
+    return xdma::from_f32<T>(as_float(v));
+  } else {
+    return (T)as_int(v);
+  }
+}
+
+// E (<= PT) consecutive destination elements from p0: one pack when
+// E == PT (the host aligns it), else one element at a time.
+template <typename T, int PT, typename C, typename I>
+__device__ __forceinline__ void put(void* dst, I p0, int E,
+                                    const C (&v)[PT]) {
+  T* p = static_cast<T*>(dst) + p0;
+  if (E == PT) {
+    xdma::Pack<T, PT> pk;
+#pragma unroll
+    for (int e = 0; e < PT; ++e) pk.v[e] = out_cast<T>(v[e]);
+    xdma::store_pack<T, PT>(p, pk);
+  } else {
+#pragma unroll
+    for (int e = 0; e < PT; ++e)
+      if (e < E) p[e] = out_cast<T>(v[e]);
+  }
+}
+
+template <int PT, typename C, typename I>
+__device__ __forceinline__ void store_group(void* dst, I p0, int E,
+                                            int64_t dt, const C (&v)[PT]) {
   switch (dt) {
-    case xdma::BF16:
-      static_cast<__nv_bfloat16*>(p)[i] =
-          xdma::from_f32<__nv_bfloat16>(as_float(v));
-      break;
-    case xdma::F16:
-      static_cast<__half*>(p)[i] = xdma::from_f32<__half>(as_float(v));
-      break;
-    case xdma::F32: static_cast<float*>(p)[i] = as_float(v); break;
-    case xdma::I8: static_cast<signed char*>(p)[i] = (signed char)as_int(v); break;
-    case xdma::U8:
-      static_cast<unsigned char*>(p)[i] = (unsigned char)as_int(v);
-      break;
-    case xdma::I16: static_cast<short*>(p)[i] = (short)as_int(v); break;
-    case xdma::I32: static_cast<int*>(p)[i] = (int)as_int(v); break;
-    default: static_cast<long long*>(p)[i] = as_int(v); break;
+    case xdma::F32: put<float, PT>(dst, p0, E, v); break;
+    case xdma::BF16: put<__nv_bfloat16, PT>(dst, p0, E, v); break;
+    case xdma::F16: put<__half, PT>(dst, p0, E, v); break;
+    case xdma::I8: put<signed char, PT>(dst, p0, E, v); break;
+    case xdma::U8: put<unsigned char, PT>(dst, p0, E, v); break;
+    case xdma::I16: put<short, PT>(dst, p0, E, v); break;
+    case xdma::I32: put<int, PT>(dst, p0, E, v); break;
+    default: put<long long, PT>(dst, p0, E, v); break;
   }
 }
 
 // A SCALE / BIAS constant in the carrier's type, at last-axis index j.
-__device__ __forceinline__ float konst(const Stage& st, int64_t j, float*) {
+template <typename I>
+__device__ __forceinline__ float konst(const Stage& st, I j, float*) {
   return st.vec ? reinterpret_cast<const float*>(st.vec)[j] : (float)st.a;
 }
-__device__ __forceinline__ long long konst(const Stage& st, int64_t j,
-                                           long long*) {
+template <typename I>
+__device__ __forceinline__ long long konst(const Stage& st, I j, long long*) {
   return st.vec ? reinterpret_cast<const long long*>(st.vec)[j]
                 : (long long)st.a;
 }
 
-__device__ __forceinline__ bool is_reduce(int64_t code) {
-  return code == ST_REDUCE_SUM || code == ST_REDUCE_MAX;
+// n / d in the index type, inline: a shift for a power of two, 32-bit
+// division where both fit, else a few steps from an f32 reciprocal, each
+// taking a quotient that is never too large.  (A 64-bit `/` compiles to a
+// called routine, whose calling convention spills.)
+__device__ __forceinline__ uint32_t quo(uint32_t n, uint32_t d) {
+  return (d & (d - 1)) == 0 ? n >> (__ffs(d) - 1) : n / d;
+}
+__device__ __forceinline__ uint64_t quo(uint64_t n, uint64_t d) {
+  if (((n | d) >> 32) == 0) return quo((uint32_t)n, (uint32_t)d);
+  const float inv = __frcp_rz((float)d) * (1.f - 1.f / (1 << 20));
+  uint64_t q = 0;
+  while (n >= d) {
+    uint64_t t = (uint64_t)__fmul_rz(__ull2float_rz(n), inv);
+    t = t ? t : 1;
+    q += t;
+    n -= t * d;
+  }
+  return q;
 }
 
-// Row-major linear index of coordinate c over the first `n` dims of `shape`.
-__device__ __forceinline__ int64_t linear(const int64_t* c,
-                                          const int64_t* shape, int n) {
-  int64_t idx = 0;
-  for (int d = 0; d < n; ++d) idx = idx * shape[d] + c[d];
-  return idx;
+// A logical coordinate at some point of the chain: the row-major index over
+// the leading axes, the row and the column.
+template <typename I>
+struct Co {
+  I lead, row, col;
+};
+
+template <typename I>
+__device__ __forceinline__ void add_to(Co<I>& c, int64_t slot, I w) {
+  if (slot == 0)
+    c.lead += w;
+  else if (slot == 1)
+    c.row += w;
+  else
+    c.col += w;
 }
 
-// Walk a coordinate back from the output of stage `hi - 1` to the input of
-// stage `lo`.  co[s] receives the input coordinate of stage s.  Returns the
-// index of a gather stage whose index was out of range (its output is the
-// fill), or -1.
-__device__ __forceinline__ int walk_back(const BlockArgs& a, int lo, int hi,
-                                         int64_t (*co)[XR]) {
-  for (int s = hi - 1; s >= lo; --s) {
+// The layout map of one logical dim, in the index type.
+template <typename I>
+__device__ __forceinline__ I dim_off(const xdma::DimMap& m, I i) {
+  if (m.tile == 1) return i * (I)m.sgrid;
+  const I t = (I)m.tile;
+  if ((t & (t - 1)) == 0) {
+    const int sh = __ffsll((unsigned long long)m.tile) - 1;
+    return (i >> sh) * (I)m.sgrid + (i & (t - 1)) * (I)m.stile;
+  }
+  const I q = quo(i, t);
+  return q * (I)m.sgrid + (i - q * t) * (I)m.stile;
+}
+
+// The source offset of stage 0's input coordinate c.
+template <typename I>
+__device__ __forceinline__ I src_offset(const BlockArgs& a, Co<I> c) {
+  const int n = (int)a.nlead;
+  I off = dim_off<I>(a.src[n], c.row) + dim_off<I>(a.src[n + 1], c.col);
+  I rem = c.lead;
+  for (int d = n - 1; d >= 0; --d) {
+    const I e = (I)a.lext[d];
+    const I q = quo(rem, e);
+    off += dim_off<I>(a.src[d], rem - q * e);
+    rem = q;
+  }
+  return off;
+}
+
+// A group of N elements (N > 1 only in the output pass): each one's
+// coordinate, whether it is a logical element (not stride padding), the
+// stage of the gather whose fill it is (-1: none), and its value.  Every
+// loop over the group is unrolled, so the group lives in registers; the
+// loops over the stages are not, so each stage's code is dispatched once
+// a group and the kernels stay small.
+
+// Walk the live elements' coordinates c back through the index stages of
+// [lo, hi) (the host's walk list: transposes and gathers), last first.  An
+// element whose gather index is out of range gets that stage in fill and
+// is left there: the stages before it do not matter to its value.
+template <int N, typename I>
+__device__ __forceinline__ void walk_back(const BlockArgs& a, int lo, int hi,
+                                          Co<I> (&c)[N], const bool (&live)[N],
+                                          int (&fill)[N]) {
+#pragma unroll 1
+  for (int w = (int)a.nwalk - 1; w >= 0; --w) {
+    const int s = (int)a.walk[w];
+    if (s >= hi) continue;
+    if (s < lo) break;
     const Stage& st = a.st[s];
-    const int r = (int)st.in_rank;
-    for (int d = 0; d < r; ++d) co[s][d] = co[s + 1][d];
     if (st.code == ST_TRANSPOSE) {
-      co[s][r - 2] = co[s + 1][r - 1];
-      co[s][r - 1] = co[s + 1][r - 2];
-    } else if (st.code == ST_GATHER) {
-      const int64_t j = reinterpret_cast<const int64_t*>(st.aux)
-          [co[s + 1][st.axis]];
-      if (j < 0) return s;
-      co[s][st.axis] = j;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const I t = c[e].row;
+        c[e].row = c[e].col;
+        c[e].col = t;
+      }
+      continue;
     }
-  }
-  return -1;
-}
-
-// Apply value stage s to v, whose logical coordinate (stage s input) is c.
-template <typename C>
-__device__ __forceinline__ C apply(const Stage& st, C v, const int64_t* c) {
-  const int r = (int)st.in_rank;
-  switch (st.code) {
-    case ST_CAST:
-      return round_c(v, st.dtype);
-    case ST_SCALE:
-      return round_c(mul_c(v, konst(st, c[r - 1], (C*)nullptr)), st.dtype);
-    case ST_BIAS:
-      return round_c(add_c(v, konst(st, c[r - 1], (C*)nullptr)), st.dtype);
-    case ST_RMSNORM: {   // in f32, then back to the stream dtype
-      const float* vec = reinterpret_cast<const float*>(st.vec);
-      const float inv =
-          reinterpret_cast<const float*>(st.aux)[linear(c, st.in_shape, r - 1)];
-      float y = as_float(v) * inv;
-      if (vec) y = y * vec[c[r - 1]];
-      return round_c(of_float<C>(y), st.dtype);
+    const int64_t* idx = reinterpret_cast<const int64_t*>(st.aux);
+    if (st.where == 0) {   // a leading axis, within the linear index
+      const I in = (I)st.inner, eo = (I)st.ext_out, ei = (I)st.ext_in;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (!live[e] || fill[e] >= 0) continue;
+        const I mid = quo(c[e].lead, in), low = c[e].lead - mid * in;
+        const I high = quo(mid, eo), q = mid - high * eo;
+        const int64_t j = idx[q];
+        if (j < 0)
+          fill[e] = s;
+        else
+          c[e].lead = (high * ei + (I)j) * in + low;
+      }
+    } else {
+      const bool rows = st.where == 1;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (!live[e] || fill[e] >= 0) continue;
+        const int64_t j = idx[rows ? c[e].row : c[e].col];
+        if (j < 0)
+          fill[e] = s;
+        else if (rows)
+          c[e].row = (I)j;
+        else
+          c[e].col = (I)j;
+      }
     }
-    case ST_DECOMPRESS: {
-      const int64_t nb = st.in_shape[r - 2] / st.block_rows;
-      const int64_t m = linear(c, st.in_shape, r - 2) * nb +
-                        c[r - 2] / st.block_rows;
-      const bool keep = reinterpret_cast<const uint8_t*>(st.aux)[m] != 0;
-      return round_c(mul_c(v, (C)(keep ? 1 : 0)), st.dtype);
-    }
-    default:  // TRANSPOSE, GATHER, COMPRESS: values pass unchanged
-      return v;
   }
 }
 
-// Value after stages [0, k) at the coordinate already in co[k]; there is no
-// ReduceStage in [0, k).
-template <typename C>
-__device__ __forceinline__ C eval_plain(const BlockArgs& a, const void* src,
-                                        int k, int64_t (*co)[XR]) {
-  const int fill = walk_back(a, 0, k, co);
-  C v;
-  int start;
-  if (fill >= 0) {
-    v = fill_of<C>(a.st[fill].dtype);   // jnp.take's fill
-    start = fill + 1;
+__device__ __forceinline__ bool reads_coordinate(const Stage& st) {
+  return st.code == ST_RMSNORM || st.code == ST_DECOMPRESS ||
+         ((st.code == ST_SCALE || st.code == ST_BIAS) && st.vec);
+}
+
+// The value stages of [lo, hi) (the host's value list) forward on the
+// values v of the live elements whose coordinates at point hi are c, each
+// stage on the elements whose fill stage lies before it.  A stage that
+// reads its coordinate gets it by walking c back through the index stages
+// after it (those gathers succeed for these elements).
+template <typename C, int N, typename I>
+__device__ __forceinline__ void apply_forward(const BlockArgs& a, int lo,
+                                              int hi, const Co<I> (&c)[N],
+                                              const bool (&live)[N],
+                                              const int (&fill)[N],
+                                              C (&v)[N]) {
+#pragma unroll 1
+  for (int w = 0; w < (int)a.nvalue; ++w) {
+    const int s = (int)a.value[w];
+    if (s < lo) continue;
+    if (s >= hi) break;
+    const Stage& st = a.st[s];
+    bool on[N];
+    int none[N];
+    Co<I> cs[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      on[e] = live[e] && fill[e] < s;
+      none[e] = -1;
+      cs[e] = c[e];
+    }
+    if (reads_coordinate(st)) walk_back<N, I>(a, s + 1, hi, cs, on, none);
+    switch (st.code) {
+      case ST_CAST:
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          if (on[e]) v[e] = round_c(v[e], st.dtype);
+        break;
+      case ST_SCALE:
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          if (on[e])
+            v[e] = round_c(mul_c(v[e], konst(st, cs[e].col, (C*)nullptr)),
+                           st.dtype);
+        break;
+      case ST_BIAS:
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          if (on[e])
+            v[e] = round_c(add_c(v[e], konst(st, cs[e].col, (C*)nullptr)),
+                           st.dtype);
+        break;
+      case ST_RMSNORM: {   // in f32, then back to the stream dtype
+        const float* inv = reinterpret_cast<const float*>(st.aux);
+        const float* vec = reinterpret_cast<const float*>(st.vec);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          if (!on[e]) continue;
+          float y = as_float(v[e]) * inv[cs[e].lead * (I)st.rows + cs[e].row];
+          if (vec) y = y * vec[cs[e].col];
+          v[e] = round_c(of_float<C>(y), st.dtype);
+        }
+        break;
+      }
+      case ST_DECOMPRESS: {
+        const uint8_t* mask = reinterpret_cast<const uint8_t*>(st.aux);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          if (!on[e]) continue;
+          const bool keep = mask[cs[e].lead * (I)st.nb +
+                                 quo(cs[e].row, (I)st.block_rows)] != 0;
+          v[e] = round_c(mul_c(v[e], (C)(keep ? 1 : 0)), st.dtype);
+        }
+        break;
+      }
+      default:
+        break;
+    }
+  }
+}
+
+// The values v of a group after stages [0, k) at their point-k coordinates
+// c; no ReduceStage in [0, k).
+template <typename C, int SZ, int N, typename I>
+__device__ __forceinline__ void eval_plain(const BlockArgs& a,
+                                           const void* src, int k,
+                                           const Co<I> (&c)[N],
+                                           const bool (&live)[N], C (&v)[N]) {
+  Co<I> cw[N];
+  int fill[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    cw[e] = c[e];
+    fill[e] = -1;
+  }
+  walk_back<N, I>(a, 0, k, cw, live, fill);
+  I off[N];
+  bool run = true;   // every element loads, from consecutive offsets
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    off[e] = live[e] && fill[e] < 0 ? src_offset<I>(a, cw[e]) : 0;
+    run = run && live[e] && fill[e] < 0 && off[e] == off[0] + (I)e;
+  }
+  const Raw<SZ>* raw = static_cast<const Raw<SZ>*>(src);
+  if (N > 1 && run && (uintptr_t)(raw + off[0]) % (N * SZ) == 0) {
+    // one access for the group (a pack of N elements)
+    const xdma::Pack<Raw<SZ>, N> p = xdma::load_pack<Raw<SZ>, N>(raw + off[0]);
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = from_raw<C, SZ>(p.v[e], a.in_dtype);
   } else {
-    int64_t off = 0;
-    for (int d = 0; d < a.src_rank; ++d)
-      off += xdma::dim_offset(a.src[d], co[0][d]);
-    v = load_any<C>(src, off, a.in_dtype);
-    start = 0;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {   // every load of the group in flight
+      if (!live[e])
+        v[e] = C(0);
+      else if (fill[e] >= 0)
+        v[e] = fill_of<C>(a.st[fill[e]].dtype);   // jnp.take's fill
+      else
+        v[e] = from_raw<C, SZ>(raw[off[e]], a.in_dtype);
+    }
   }
-  for (int s = start; s < k; ++s) v = apply<C>(a.st[s], v, co[s]);
-  return v;
+  apply_forward<C, N, I>(a, 0, k, c, live, fill, v);
 }
 
 template <typename C> __device__ __forceinline__ C reduce_init(int64_t code);
@@ -315,148 +540,179 @@ __device__ __forceinline__ long long reduce_op(int64_t code, long long acc,
   return v > acc ? v : acc;
 }
 
-// Input coordinate of ReduceStage st for row r, from its output coordinate.
-__device__ __forceinline__ void reduce_input(const Stage& st,
-                                             const int64_t* out, int64_t r,
-                                             int64_t* in) {
-  const int n = (int)st.in_rank;
-  if (st.keepdims) {
-    for (int d = 0; d < n; ++d) in[d] = out[d];
-  } else {
-    for (int d = 0; d < n - 2; ++d) in[d] = out[d];
-    in[n - 1] = out[n - 2];
-  }
-  in[n - 2] = r;
+// The input coordinate of ReduceStage st for row r, from its output's.
+template <typename I>
+__device__ __forceinline__ Co<I> reduce_input(const Stage& st, Co<I> out,
+                                              I r) {
+  return {st.keepdims ? out.lead : out.lead * (I)st.out_rows + out.row, r,
+          out.col};
 }
 
-// Value after stages [0, k) at the coordinate in co[k], a ReduceStage
-// included (one thread loops over all of its rows).
-template <typename C>
-__device__ C eval(const BlockArgs& a, const void* src, int k,
-                  int64_t (*co)[XR]) {
+// One element's value after stages [0, k), before the ReduceStage at R
+// (point-R coordinate c).
+template <typename C, int SZ, typename I>
+__device__ __forceinline__ C eval_one(const BlockArgs& a, const void* src,
+                                      int k, Co<I> c) {
+  const Co<I> cs[1] = {c};
+  const bool live[1] = {true};
+  C v[1];
+  eval_plain<C, SZ, 1, I>(a, src, k, cs, live, v);
+  return v[0];
+}
+
+// One element's value after stages [0, k) at point-k coordinate c, a
+// ReduceStage included (the thread loops over all of its rows).
+template <typename C, int SZ, typename I>
+__device__ __forceinline__ C eval(const BlockArgs& a, const void* src, int k,
+                                  Co<I> c) {
   const int R = (int)a.reduce_at;
-  if (R < 0 || R >= k) return eval_plain<C>(a, src, k, co);
-  const int fill = walk_back(a, R + 1, k, co);
-  C v;
-  int start;
-  if (fill >= 0) {
-    v = fill_of<C>(a.st[fill].dtype);
-    start = fill + 1;
+  if (R < 0 || R >= k) return eval_one<C, SZ, I>(a, src, k, c);
+  const Co<I> out[1] = {c};
+  Co<I> cw[1] = {c};
+  const bool live[1] = {true};
+  int fill[1] = {-1};
+  walk_back<1, I>(a, R + 1, k, cw, live, fill);
+  C v[1];
+  if (fill[0] >= 0) {
+    v[0] = fill_of<C>(a.st[fill[0]].dtype);
   } else {
     const Stage& st = a.st[R];
-    int64_t inner[XS + 1][XR];
     C acc = reduce_init<C>(st.code);
-    for (int64_t r = 0; r < st.in_shape[st.in_rank - 2]; ++r) {
-      reduce_input(st, co[R + 1], r, inner[R]);
-      acc = reduce_op(st.code, acc, eval_plain<C>(a, src, R, inner));
-    }
-    v = round_c(acc, st.dtype);
-    start = R + 1;
+    for (I r = 0; r < (I)st.rows; ++r)
+      acc = reduce_op(st.code, acc,
+                      eval_one<C, SZ, I>(a, src, R, reduce_input<I>(st, cw[0], r)));
+    v[0] = round_c(acc, st.dtype);
   }
-  for (int s = start; s < k; ++s) v = apply<C>(a.st[s], v, co[s]);
-  return v;
+  apply_forward<C, 1, I>(a, R + 1, k, out, live, fill, v);
+  return v[0];
 }
 
-// Physical index p of the dst -> its padded logical coordinate; returns
-// false when the coordinate falls in stride padding.
-__device__ __forceinline__ bool phys_to_logical(const BlockArgs& a, int64_t p,
-                                                int64_t* c) {
-  for (int d = 0; d < a.out_rank; ++d) c[d] = 0;
-  for (int k = (int)a.nphys - 1; k >= 0; --k) {
-    int64_t q, r;
-    xdma::divmod(p, a.pext[k], q, r);
-    c[a.pdim[k]] += r * a.pw[k];
-    p = q;
+// Destination element p without its innermost physical dim: the coordinate
+// the outer dims add, whether one of them lies in stride padding, and the
+// index along the innermost dim.
+template <typename I>
+struct Dst {
+  Co<I> c;
+  bool pad;
+  I inner;
+};
+
+template <typename I>
+__device__ __forceinline__ Dst<I> decode(const BlockArgs& a, I p) {
+  Dst<I> o{{0, 0, 0}, false, 0};
+  const int last = (int)a.nphys - 1;
+  I q = quo(p, (I)a.pext[last]);
+  o.inner = p - q * (I)a.pext[last];
+  for (int k = last - 1; k >= 0; --k) {
+    const I e = (I)a.pext[k];
+    const I q2 = quo(q, e), i = q - q2 * e;
+    o.pad |= i >= (I)a.plim[k];
+    add_to<I>(o.c, a.pslot[k], i * (I)a.pw[k]);
+    q = q2;
   }
-  for (int d = 0; d < a.out_rank; ++d)
-    if (c[d] >= a.out_shape[d]) return false;
-  return true;
+  return o;
 }
 
-// Output pass without a ReduceStage: one thread per dst element.
-template <typename C>
-__global__ void __launch_bounds__(THREADS)
+// Output pass without a ReduceStage: a thread owns per_thread (<=
+// PER_THREAD) consecutive elements of the dst's innermost run, in physical
+// order (coalesced writes, zeros into stride padding), decoded once,
+// evaluated as one group and stored as one pack.  The pass is bound by
+// each group's latency (its load, then its value stages, then its store),
+// so occupancy pays: the f32 carrier's 32-bit instance asks for 4 blocks an
+// SM (64 registers, which it fits without spilling; measured 17 % faster on
+// the checkpoint's down-cast wire than at 70 registers).  Every kernel of
+// the generic path names its minimum blocks an SM: without one, ptxas
+// capped several at 32 or 64 registers and spilled.
+template <typename C, int SZ, typename I>
+__global__ void __launch_bounds__(
+    THREADS, sizeof(I) == 4 && std::is_same<C, float>::value ? 4 : 1)
 out_kernel(const void* __restrict__ src, void* __restrict__ dst,
-           BlockArgs a) {
-  int64_t co[XS + 1][XR];
-  const int k = (int)a.upto;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       p < a.total; p += step) {
-    C v = 0;
-    if (phys_to_logical(a, p, co[k])) v = eval_plain<C>(a, src, k, co);
-    store_any<C>(dst, p, a.out_dtype, v);
+           const __grid_constant__ BlockArgs a) {
+  const int k = (int)a.upto, E = (int)a.per_thread;
+  const int last = (int)a.nphys - 1;
+  const I groups = (I)quo((uint64_t)a.total, (uint64_t)E);
+  const I step = (I)gridDim.x * THREADS;
+  for (I g = (I)blockIdx.x * THREADS + threadIdx.x; g < groups; g += step) {
+    const I p0 = g * (I)E;
+    const Dst<I> o = decode<I>(a, p0);
+    Co<I> c[PER_THREAD];
+    bool live[PER_THREAD];
+#pragma unroll
+    for (int e = 0; e < PER_THREAD; ++e) {
+      const I i = o.inner + (I)e;
+      live[e] = e < E && !o.pad && i < (I)a.plim[last];
+      c[e] = o.c;
+      add_to<I>(c[e], a.pslot[last], i * (I)a.pw[last]);
+    }
+    C v[PER_THREAD];
+    eval_plain<C, SZ, PER_THREAD, I>(a, src, k, c, live, v);
+    store_group<PER_THREAD, C, I>(dst, p0, E, a.out_dtype, v);
   }
 }
 
-constexpr int RX = 32, RY = 32;   // reduce block: 32 outputs x 32 row lanes
+constexpr int RX = 32, RY = 8;   // reduce block: 32 outputs x 8 row lanes
 
-// Output pass with a ReduceStage at a.reduce_at: 32 threads per output.
-template <typename C>
-__global__ void __launch_bounds__(RX * RY)
+// Output pass with a ReduceStage at a.reduce_at: RY threads per output.
+template <typename C, int SZ, typename I>
+__global__ void __launch_bounds__(RX * RY, 1)
 out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
-                  BlockArgs a) {
+                  const __grid_constant__ BlockArgs a) {
   __shared__ C part[RY][RX + 1];
-  int64_t co[XS + 1][XR];
   const int k = (int)a.upto, R = (int)a.reduce_at;
+  const int last = (int)a.nphys - 1;
   const Stage& st = a.st[R];
-  const int64_t rows = st.in_shape[st.in_rank - 2];
+  const I rows = (I)st.rows;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int64_t base = (int64_t)blockIdx.x * RX; base < a.total;
-       base += (int64_t)gridDim.x * RX) {
-    const int64_t p = base + tx;
-    const bool live = p < a.total && phys_to_logical(a, p, co[k]);
-    const int fill = live ? walk_back(a, R + 1, k, co) : -1;
+  for (I base = (I)blockIdx.x * RX; base < (I)a.total;
+       base += (I)gridDim.x * RX) {
+    const I p = base + (I)tx;
+    Dst<I> o{{0, 0, 0}, true, 0};
+    if (p < (I)a.total) o = decode<I>(a, p);
+    Co<I> out[1] = {o.c};
+    add_to<I>(out[0], a.pslot[last], o.inner * (I)a.pw[last]);
+    const bool live[1] = {!o.pad && o.inner < (I)a.plim[last]};
+    Co<I> cw[1] = {out[0]};
+    int fill[1] = {-1};
+    walk_back<1, I>(a, R + 1, k, cw, live, fill);
     C acc = reduce_init<C>(st.code);
-    if (live && fill < 0) {
-      int64_t inner[XS + 1][XR];
-      for (int64_t r = ty; r < rows; r += RY) {
-        reduce_input(st, co[R + 1], r, inner[R]);
-        acc = reduce_op(st.code, acc, eval_plain<C>(a, src, R, inner));
-      }
-    }
+    if (live[0] && fill[0] < 0)
+      for (I r = (I)ty; r < rows; r += RY)
+        acc = reduce_op(st.code, acc, eval_one<C, SZ, I>(
+                                          a, src, R, reduce_input<I>(st, cw[0], r)));
     part[ty][tx] = acc;
     __syncthreads();
-    if (ty == 0 && p < a.total) {
-      C v = 0;
-      if (live) {
-        int start = fill + 1;
-        if (fill < 0) {
+    if (ty == 0 && p < (I)a.total) {
+      C v[1] = {};
+      if (live[0]) {
+        if (fill[0] < 0) {
           C tot = part[0][tx];
           for (int y = 1; y < RY; ++y) tot = reduce_op(st.code, tot, part[y][tx]);
-          v = round_c(tot, st.dtype);
-          start = R + 1;
+          v[0] = round_c(tot, st.dtype);
         } else {
-          v = fill_of<C>(a.st[fill].dtype);
+          v[0] = fill_of<C>(a.st[fill[0]].dtype);
         }
-        for (int s = start; s < k; ++s) v = apply<C>(a.st[s], v, co[s]);
+        apply_forward<C, 1, I>(a, R + 1, k, out, live, fill, v);
       }
-      store_any<C>(dst, p, a.out_dtype, v);
+      store_group<1, C, I>(dst, p, 1, a.out_dtype, v);
     }
     __syncthreads();
   }
 }
 
 // RMSNorm statistics of stage a.upto: one block per row of its input space.
-template <typename C>
-__global__ void __launch_bounds__(THREADS)
-stat_kernel(const void* __restrict__ src, BlockArgs a) {
+template <typename C, int SZ, typename I>
+__global__ void __launch_bounds__(THREADS, 1)
+stat_kernel(const void* __restrict__ src, const __grid_constant__ BlockArgs a) {
   __shared__ float scratch[33];
-  int64_t co[XS + 1][XR];
   const int k = (int)a.upto;
   const Stage& st = a.st[k];
-  const int r = (int)st.in_rank;
-  const int64_t n = st.in_shape[r - 1];
-  for (int64_t row = blockIdx.x; row < a.total; row += gridDim.x) {
+  const I rows = (I)st.rows, n = (I)st.cols;
+  for (I row = blockIdx.x; row < (I)a.total; row += gridDim.x) {
+    const I lead = quo(row, rows);
     float ss = 0.f;
-    for (int64_t j = threadIdx.x; j < n; j += blockDim.x) {
-      int64_t rem = row;
-      for (int d = r - 2; d >= 0; --d) {
-        co[k][d] = rem % st.in_shape[d];
-        rem /= st.in_shape[d];
-      }
-      co[k][r - 1] = j;
-      const float v = as_float(eval<C>(a, src, k, co));
+    for (I j = threadIdx.x; j < n; j += THREADS) {
+      const float v = as_float(
+          eval<C, SZ, I>(a, src, k, Co<I>{lead, row - lead * rows, j}));
       ss += v * v;
     }
     ss = xdma::block_sum(ss, scratch);
@@ -467,28 +723,20 @@ stat_kernel(const void* __restrict__ src, BlockArgs a) {
 }
 
 // Compress mask of stage a.upto: one block per (lead, row block) entry.
-template <typename C>
-__global__ void __launch_bounds__(THREADS)
-mask_kernel(const void* __restrict__ src, BlockArgs a) {
-  int64_t co[XS + 1][XR];
+template <typename C, int SZ, typename I>
+__global__ void __launch_bounds__(THREADS, 1)
+mask_kernel(const void* __restrict__ src, const __grid_constant__ BlockArgs a) {
   const int k = (int)a.upto;
   const Stage& st = a.st[k];
-  const int r = (int)st.in_rank;
-  const int64_t n = st.in_shape[r - 1];
-  const int64_t nb = st.in_shape[r - 2] / st.block_rows;
-  const int64_t span = st.block_rows * n;
-  for (int64_t e = blockIdx.x; e < a.total; e += gridDim.x) {
-    const int64_t lead = e / nb, blk = e % nb;
+  const I n = (I)st.cols, br = (I)st.block_rows;
+  const I nb = quo((I)st.rows, br), span = br * n;
+  for (I e = blockIdx.x; e < (I)a.total; e += gridDim.x) {
+    const I lead = quo(e, nb), row0 = (e - lead * nb) * br;
     int any = 0;
-    for (int64_t t = threadIdx.x; t < span && !any; t += blockDim.x) {
-      int64_t rem = lead;
-      for (int d = r - 3; d >= 0; --d) {
-        co[k][d] = rem % st.in_shape[d];
-        rem /= st.in_shape[d];
-      }
-      co[k][r - 2] = blk * st.block_rows + t / n;
-      co[k][r - 1] = t % n;
-      any = eval<C>(a, src, k, co) != (C)0;
+    for (I t = threadIdx.x; t < span && !any; t += THREADS) {
+      const I r = quo(t, n);
+      any = eval<C, SZ, I>(a, src, k, Co<I>{lead, row0 + r, t - r * n}) !=
+            (C)0;
     }
     any = __syncthreads_or(any);
     if (threadIdx.x == 0) reinterpret_cast<uint8_t*>(st.aux)[e] = any ? 1 : 0;
@@ -497,16 +745,22 @@ mask_kernel(const void* __restrict__ src, BlockArgs a) {
 
 // ---- the rank-2 path -------------------------------------------------------
 //
-// For chains the host can compose (logical rank 2, one stream dtype, index
-// stages that compose into a swap and one index vector per axis, a
-// ReduceStage only last): no element walks the stage list.  The host folds
-// the index stages of the stages before a pass's point into the pass's
-// Tile2 (xdma_common.cuh): the source terms of a pass-space row and column,
-// each with its composed gather indices, whose entries < 0 are the fill
-// code -(g + 1) of the gather g that failed.  Value stages then run in
-// chain order, once on each item of values (a 16-byte pack, or one word),
-// each reading its own coordinate: the pass's (r, c) or, under an odd
-// number of later transposes, (c, r).
+// For chains the host can compose (logical rank 2 to 8, every stage leaving
+// the leading axes in place, one stream dtype, index stages that compose
+// into a swap and one index vector per axis, a ReduceStage only last): no
+// element walks the stage list.  The host folds the index stages of the
+// stages before a pass's point into the pass's Tile2 (xdma_common.cuh): the
+// source terms of a pass-space row and column, each with its composed
+// gather indices, whose entries < 0 are the fill code -(g + 1) of the
+// gather g that failed.  Value stages then run in chain order, once on each
+// item of values (a 16-byte pack, or one word), each reading its own
+// coordinate: the pass's (r, c) or, under an odd number of later
+// transposes, (c, r).  The leading axes are a batch over grid y and z: a
+// block decodes its one leading index (Lead2: each axis's source term, with a
+// leading-axis gather's composed indices, and its destination map) and
+// offsets both sides, the per-row buffers of the stages (aux_step bytes a
+// leading index), the pass's own output and the REDUCE scratch by it; a
+// leading index whose gather failed fills its whole slice.
 //   OUT    the tiled copy: words unchanged (Copy) when no stage changes a
 //          value, else through f32 (Values)
 //   STAT   an RMSNorm's inverse RMS: one block per row, 16-byte reads along
@@ -524,6 +778,13 @@ struct Stage2 {
   double a;             // SCALE / BIAS constant
   int64_t vec;          // f32 vector over the stage's last axis, or 0
   int64_t aux;          // RMSNORM: f32 inverse RMS per row; DECOMPRESS: mask
+  int64_t aux_step;     // bytes of aux a leading index
+};
+
+struct Lead2 {          // one leading axis of the pass space
+  int64_t extent;
+  xdma::Term src;       // its source map and composed gather indices
+  xdma::DimMap dst;     // its destination map (OUT, REDUCE)
 };
 
 struct Rank2Args {
@@ -538,9 +799,37 @@ struct Rank2Args {
   int64_t block_rows;   // MASK
   int64_t out;          // STAT: f32 per row; MASK: uint8 per row block
   int64_t splits;       // REDUCE: row splits
-  int64_t partial;      // REDUCE: f32 [splits][t.cols] (splits > 1)
-  int64_t counter;      // REDUCE: int32 per column strip, zeroed
+  int64_t partial;      // REDUCE: f32 [batch][splits][t.cols] (splits > 1)
+  int64_t counter;      // REDUCE: int32 [batch][column strips], zeroed
+  int64_t nlead;        // leading axes, outermost first
+  int64_t batch;        // the product of their extents
+  Lead2 lead[XR - 2];
 };
+
+// A block's leading index: row-major over the leading extents, each side's
+// offset (the source's 0 where a gather failed: the slice is all fill) and
+// the failed gather's fill code, or 0.
+struct At {
+  int64_t flat, src, dst;
+  int code;
+};
+
+__device__ __forceinline__ At lead_at(const Rank2Args& a, int64_t b) {
+  At at{b, 0, 0, 0};
+  for (int d = (int)a.nlead - 1; d >= 0; --d) {
+    const int64_t q = (int64_t)quo((uint64_t)b, (uint64_t)a.lead[d].extent);
+    const int64_t i = b - q * a.lead[d].extent;
+    b = q;
+    const int64_t o = xdma::term_off(a.lead[d].src, i);
+    if (o < 0)
+      at.code = o < at.code ? (int)o : at.code;   // the later gather's code
+    else
+      at.src += o;
+    at.dst += xdma::dim_offset(a.lead[d].dst, i);
+  }
+  if (at.code < 0) at.src = 0;
+  return at;
+}
 
 // Rounds an item's values to the stream dtype, to nearest even.
 template <int V>
@@ -637,11 +926,38 @@ struct Values {
   __device__ __forceinline__ T zero() const { return xdma::from_f32<T>(0.f); }
 };
 
-// Copies the pass's stages to shared memory; the caller syncs the block
-// before a thread reads them.
+// A policy under a leading index whose gather may have failed: the item's
+// fill code merged with the block's (the later gather's, the more negative,
+// stands).
+template <class P>
+struct Led : P {
+  int lead;
+  template <int V>
+  __device__ __forceinline__ void values(
+      const xdma::Pack<typename P::In, V>& x, int code, int64_t r, int64_t c,
+      bool along_c, typename P::S (&v)[V]) const {
+    P::template values<V>(x, code < lead ? code : lead, r, c, along_c, v);
+  }
+};
+
+template <class P>
+__device__ __forceinline__ Led<P> led(const P& p, int code) {
+  Led<P> l;
+  static_cast<P&>(l) = p;
+  l.lead = code;
+  return l;
+}
+
+// Copies the pass's stages to shared memory, each per-row buffer offset to
+// the leading index `flat`; the caller syncs the block before a thread
+// reads them.
 __device__ __forceinline__ void stages_to_shared(const Rank2Args& a,
-                                                 Stage2* sh) {
-  if (threadIdx.x < a.nstages) sh[threadIdx.x] = a.st[threadIdx.x];
+                                                 Stage2* sh, int64_t flat) {
+  if (threadIdx.x < a.nstages) {
+    Stage2 s = a.st[threadIdx.x];
+    s.aux += flat * s.aux_step;
+    sh[threadIdx.x] = s;
+  }
 }
 
 template <typename W>
@@ -656,34 +972,55 @@ __device__ __forceinline__ Values<T> policy_of(const Rank2Args& a,
   return {sh, (int)a.nstages};
 }
 
-template <class P, int VS, int VD, bool DIRECT>
+// The block's leading index: grid y and z over the batch (y fastest), or
+// none past its end.
+__device__ __forceinline__ bool lead_block(const Rank2Args& a, int64_t& b) {
+  b = (int64_t)blockIdx.z * gridDim.y + blockIdx.y;
+  return b < a.batch;
+}
+
+// The tiled copy.  BATCHED: a block's leading index offsets both sides and
+// the stages' buffers (logical rank 3-8); the rank-2 instance has no
+// leading state at all: carrying it through the tile loop cost the f32
+// Values instance 32 bytes of spill and 5 % of its time.
+template <class P, int VS, int VD, bool DIRECT, bool BATCHED>
 __global__ void __launch_bounds__(xdma::TILE_THREADS)
 out2_kernel(const typename P::In* __restrict__ src,
             typename P::Out* __restrict__ dst,
             const __grid_constant__ Rank2Args a) {
   __shared__ Stage2 sh[XS];
-  stages_to_shared(a, sh);     // tile2_run syncs before any value is read
-  xdma::tile2_run<P, VS, VD, DIRECT>(
-      a.t, src, dst, policy_of(a, sh, static_cast<P*>(nullptr)));
+  if constexpr (BATCHED) {
+    int64_t b;
+    if (!lead_block(a, b)) return;
+    const At at = lead_at(a, b);
+    stages_to_shared(a, sh, at.flat);   // tile2_run syncs before any read
+    xdma::tile2_run<Led<P>, VS, VD, DIRECT>(
+        a.t, src + at.src, dst + at.dst,
+        led(policy_of(a, sh, static_cast<P*>(nullptr)), at.code));
+  } else {
+    stages_to_shared(a, sh, 0);
+    xdma::tile2_run<P, VS, VD, DIRECT>(
+        a.t, src, dst, policy_of(a, sh, static_cast<P*>(nullptr)));
+  }
 }
 
-template <class P>
+template <class P, bool BATCHED>
 struct Out2 {
   template <int VS, int VD, bool DIRECT>
   struct K {
     using Fn = void (*)(const typename P::In*, typename P::Out*,
                         const Rank2Args);
-    static Fn fn() { return out2_kernel<P, VS, VD, DIRECT>; }
+    static Fn fn() { return out2_kernel<P, VS, VD, DIRECT, BATCHED>; }
   };
 };
 
 // V values of pass-space row i from column j on (V > 1: one 16-byte pack;
 // the host allows it only where the column term is a unit-stride run).
-template <typename T, int V>
-__device__ __forceinline__ void row_values(const Values<T>& pol,
-                                           const T* src, int64_t i,
-                                           int64_t so_r, int64_t so_c,
-                                           int64_t j, float (&v)[V]) {
+template <class P, typename T, int V>
+__device__ __forceinline__ void row_values(const P& pol, const T* src,
+                                           int64_t i, int64_t so_r,
+                                           int64_t so_c, int64_t j,
+                                           float (&v)[V]) {
   const int64_t off = xdma::join(so_r, so_c);
   xdma::Pack<T, V> p;
   if (off >= 0) p = xdma::load_pack<T, V>(src + off);
@@ -695,23 +1032,28 @@ __global__ void __launch_bounds__(THREADS)
 stat2_kernel(const T* __restrict__ src, const __grid_constant__ Rank2Args a) {
   __shared__ float scratch[33];
   __shared__ Stage2 sh[XS];
-  stages_to_shared(a, sh);
-  __syncthreads();
-  const Values<T> pol{sh, (int)a.nstages};
   const int64_t n = a.t.cols;
+  int64_t b;
+  if (!lead_block(a, b)) return;
+  const At at = lead_at(a, b);
+  stages_to_shared(a, sh, at.flat);
+  const auto pol = led(Values<T>{sh, (int)a.nstages}, at.code);
+  __syncthreads();
+  const T* x = src + at.src;
+  float* out = reinterpret_cast<float*>(a.out) + at.flat * a.t.rows;
   for (int64_t i = blockIdx.x; i < a.t.rows; i += gridDim.x) {
     const int64_t so_r = xdma::term_off(a.t.src_r, i);
     float ss = 0.f;
     for (int64_t j = (int64_t)threadIdx.x * V; j < n;
          j += (int64_t)THREADS * V) {
       float v[V];
-      row_values<T, V>(pol, src, i, so_r, xdma::term_off(a.t.src_c, j), j, v);
+      row_values<Led<Values<T>>, T, V>(pol, x, i, so_r,
+                                       xdma::term_off(a.t.src_c, j), j, v);
 #pragma unroll
       for (int e = 0; e < V; ++e) ss += v[e] * v[e];
     }
     ss = xdma::block_sum(ss, scratch);
-    if (threadIdx.x == 0)
-      reinterpret_cast<float*>(a.out)[i] = rsqrtf(ss / (float)n + (float)a.eps);
+    if (threadIdx.x == 0) out[i] = rsqrtf(ss / (float)n + (float)a.eps);
   }
 }
 
@@ -719,12 +1061,17 @@ template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 mask2_kernel(const T* __restrict__ src, const __grid_constant__ Rank2Args a) {
   __shared__ Stage2 sh[XS];
-  stages_to_shared(a, sh);
-  __syncthreads();
-  const Values<T> pol{sh, (int)a.nstages};
   const int64_t packs = a.t.cols / V;
   const int64_t span = a.block_rows * packs;
-  const int64_t nb = a.t.rows / a.block_rows;
+  const int64_t nb = (int64_t)quo((uint64_t)a.t.rows, (uint64_t)a.block_rows);
+  int64_t bz;
+  if (!lead_block(a, bz)) return;
+  const At at = lead_at(a, bz);
+  stages_to_shared(a, sh, at.flat);
+  const auto pol = led(Values<T>{sh, (int)a.nstages}, at.code);
+  __syncthreads();
+  const T* x = src + at.src;
+  uint8_t* out = reinterpret_cast<uint8_t*>(a.out) + at.flat * nb;
   for (int64_t b = blockIdx.x; b < nb; b += gridDim.x) {
     int any = 0;
     for (int64_t k = threadIdx.x; k < span && !any; k += THREADS) {
@@ -732,37 +1079,41 @@ mask2_kernel(const T* __restrict__ src, const __grid_constant__ Rank2Args a) {
       xdma::divmod(k, packs, row, pack);
       const int64_t i = b * a.block_rows + row, j = pack * V;
       float v[V];
-      row_values<T, V>(pol, src, i, xdma::term_off(a.t.src_r, i),
-                       xdma::term_off(a.t.src_c, j), j, v);
+      row_values<Led<Values<T>>, T, V>(pol, x, i,
+                                       xdma::term_off(a.t.src_r, i),
+                                       xdma::term_off(a.t.src_c, j), j, v);
 #pragma unroll
       for (int e = 0; e < V; ++e) any |= v[e] != 0.f;
     }
     any = __syncthreads_or(any);
-    if (threadIdx.x == 0) reinterpret_cast<uint8_t*>(a.out)[b] = any ? 1 : 0;
+    if (threadIdx.x == 0) out[b] = any ? 1 : 0;
   }
 }
 
 constexpr int SW = 64;       // REDUCE: columns per block
 constexpr int UNROLL = 4;    // REDUCE: rows in flight a thread
 
+// One REDUCE block's strip and row split of the slice at `at`.
 template <typename T, int V>
-__global__ void __launch_bounds__(THREADS)
-reduce2_kernel(const T* __restrict__ src, T* __restrict__ dst,
-               const __grid_constant__ Rank2Args a) {
+__device__ __forceinline__ void reduce2_slice(const T* __restrict__ src,
+                                              T* __restrict__ dst,
+                                              const Rank2Args& a, const At& at,
+                                              const Led<Values<T>>& pol) {
   constexpr int JL = SW / V, IL = THREADS / JL;   // lanes along j, along i
   __shared__ float part[IL][SW + 1];
   __shared__ int last;
-  __shared__ Stage2 sh[XS];
-  stages_to_shared(a, sh);
-  __syncthreads();
-  const Values<T> pol{sh, (int)a.nstages};
   const int64_t m = a.t.rows, n = a.t.cols;
-  const int64_t strip = blockIdx.x / a.splits, split = blockIdx.x % a.splits;
+  const uint32_t splits = (uint32_t)a.splits;   // <= the blocks, < 2^31
+  const int64_t strips = gridDim.x / splits;
+  const int64_t strip = blockIdx.x / splits, split = blockIdx.x % splits;
   const int64_t j0 = strip * SW;
   const int tj = threadIdx.x % JL, ti = threadIdx.x / JL;
   const int64_t j = j0 + (int64_t)tj * V;
-  const int64_t per = (m + a.splits - 1) / a.splits;
+  const int64_t per = (int64_t)quo((uint64_t)(m + a.splits - 1),
+                                   (uint64_t)a.splits);
   const int64_t i1 = (split + 1) * per < m ? (split + 1) * per : m;
+  src += at.src;
+  dst += at.dst;
   float acc[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) acc[e] = reduce_init<float>(a.op);
@@ -792,7 +1143,8 @@ reduce2_kernel(const T* __restrict__ src, T* __restrict__ dst,
     }
     for (; i < i1; i += IL) {
       float v[V];
-      row_values<T, V>(pol, src, i, xdma::term_off(a.t.src_r, i), so_c, j, v);
+      row_values<Led<Values<T>>, T, V>(
+          pol, src, i, xdma::term_off(a.t.src_r, i), so_c, j, v);
 #pragma unroll
       for (int e = 0; e < V; ++e) acc[e] = reduce_op(a.op, acc[e], v[e]);
     }
@@ -808,13 +1160,15 @@ reduce2_kernel(const T* __restrict__ src, T* __restrict__ dst,
     for (int y = 1; y < IL; ++y) tot = reduce_op(a.op, tot, part[y][col]);
   }
   if (a.splits > 1) {
-    float* partial = reinterpret_cast<float*>(a.partial);
+    float* partial =
+        reinterpret_cast<float*>(a.partial) + at.flat * a.splits * n;
     if (col < SW && c < n) partial[split * n + c] = tot;
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0)
-      last = atomicAdd(reinterpret_cast<int*>(a.counter) + strip, 1) ==
-             (int)a.splits - 1;
+      last = atomicAdd(reinterpret_cast<int*>(a.counter) + at.flat * strips +
+                           strip,
+                       1) == (int)a.splits - 1;
     __syncthreads();
     if (!last) return;
     __threadfence();
@@ -841,6 +1195,20 @@ reduce2_kernel(const T* __restrict__ src, T* __restrict__ dst,
   }
 }
 
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+reduce2_kernel(const T* __restrict__ src, T* __restrict__ dst,
+               const __grid_constant__ Rank2Args a) {
+  __shared__ Stage2 sh[XS];
+  int64_t b;
+  if (!lead_block(a, b)) return;
+  const At at = lead_at(a, b);
+  stages_to_shared(a, sh, at.flat);
+  const auto pol = led(Values<T>{sh, (int)a.nstages}, at.code);
+  __syncthreads();
+  reduce2_slice<T, V>(src, dst, a, at, pol);
+}
+
 unsigned grid_for(int64_t work, int64_t per_block) {
   int64_t b = (work + per_block - 1) / per_block;
   if (b < 1) b = 1;
@@ -848,19 +1216,44 @@ unsigned grid_for(int64_t work, int64_t per_block) {
   return (unsigned)b;
 }
 
+// The grid of a batched pass: `x` blocks a leading index, the leading
+// indices over y and z (lead_block).
+dim3 grid_of(unsigned x, const Rank2Args& a) {
+  const int64_t y = a.batch < 65535 ? a.batch : 65535;
+  return dim3(x, (unsigned)y, (unsigned)((a.batch + y - 1) / y));
+}
+
+// Whether every leading axis offsets a side by whole 16-byte packs where
+// that side moves packs (the host checks it: maps.fit_to).
+bool lead_aligned(const Rank2Args& a, int64_t size) {
+  for (int d = 0; d < a.nlead; ++d) {
+    const Lead2& l = a.lead[d];
+    if (l.extent < 2) continue;
+    const xdma::DimMap& s = l.src.map;
+    if (a.t.vs > 1 && ((s.sgrid * size) % 16 ||
+                       (s.tile > 1 && (s.stile * size) % 16)))
+      return false;
+    if (a.t.vd > 1 && ((l.dst.sgrid * size) % 16 ||
+                       (l.dst.tile > 1 && (l.dst.stile * size) % 16)))
+      return false;
+  }
+  return true;
+}
+
 template <typename T, int V>
 int launch_rows(const Rank2Args& a, const void* src, void* dst, int64_t mode,
                 cudaStream_t s) {
   const T* x = static_cast<const T*>(src);
   if (mode == 4) {
-    stat2_kernel<T, V><<<grid_for(a.t.rows, 1), THREADS, 0, s>>>(x, a);
-  } else if (mode == 5) {
-    mask2_kernel<T, V><<<grid_for(a.t.rows / a.block_rows, 1), THREADS, 0, s>>>(
+    stat2_kernel<T, V><<<grid_of(grid_for(a.t.rows, 1), a), THREADS, 0, s>>>(
         x, a);
+  } else if (mode == 5) {
+    mask2_kernel<T, V><<<grid_of(grid_for(a.t.rows / a.block_rows, 1), a),
+                         THREADS, 0, s>>>(x, a);
   } else {
     const int64_t blocks = (a.t.pcols + SW - 1) / SW * a.splits;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    reduce2_kernel<T, V><<<(unsigned)blocks, THREADS, 0, s>>>(
+    reduce2_kernel<T, V><<<grid_of((unsigned)blocks, a), THREADS, 0, s>>>(
         x, static_cast<T*>(dst), a);
   }
   return (int)cudaGetLastError();
@@ -872,10 +1265,12 @@ int launch_out2(const Rank2Args& a, const void* src, void* dst,
   constexpr int V = 16 / sizeof(typename P::In);
   const int64_t blocks = xdma::tile2_blocks(a.t);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (!xdma::tile2_aligned(a.t, src, dst))
+  if (!xdma::tile2_aligned(a.t, src, dst) ||
+      !lead_aligned(a, sizeof(typename P::In)))
     return (int)cudaErrorMisalignedAddress;
-  auto fn = xdma::tile2_pick<V, Out2<P>::template K>(a.t);
-  fn<<<(unsigned)blocks, xdma::TILE_THREADS, 0, s>>>(
+  auto fn = a.nlead ? xdma::tile2_pick<V, Out2<P, true>::template K>(a.t)
+                    : xdma::tile2_pick<V, Out2<P, false>::template K>(a.t);
+  fn<<<grid_of((unsigned)blocks, a), xdma::TILE_THREADS, 0, s>>>(
       static_cast<const typename P::In*>(src),
       static_cast<typename P::Out*>(dst), a);
   return (int)cudaGetLastError();
@@ -891,7 +1286,8 @@ int launch_rank2(const Rank2Args& a, bool copy, const void* src, void* dst,
                 : launch_out2<Values<T>>(a, src, dst, s);
   // the row passes read along the columns: packs when the loads run there
   const bool packed = a.t.load_axis == 1 && a.t.vs > 1;
-  if (packed && (uintptr_t)src % 16) return (int)cudaErrorMisalignedAddress;
+  if (packed && ((uintptr_t)src % 16 || !lead_aligned(a, sizeof(T))))
+    return (int)cudaErrorMisalignedAddress;
   return packed ? launch_rows<T, V>(a, src, dst, mode, s)
                 : launch_rows<T, 1>(a, src, dst, mode, s);
 }
@@ -905,22 +1301,49 @@ int launch_rank2_words(const Rank2Args& a, bool copy, const void* src,
   return launch_out2<xdma::Copy<W>>(a, src, dst, s);
 }
 
-template <typename C>
+template <typename C, int SZ, typename I>
 int launch_generic(const BlockArgs& a, const void* src, void* dst,
                    int64_t mode, cudaStream_t s) {
   if (mode == 0 && a.reduce_at < 0) {
-    out_kernel<C><<<grid_for(a.total, THREADS), THREADS, 0, s>>>(src, dst, a);
+    const int64_t groups = a.total / a.per_thread;
+    out_kernel<C, SZ, I><<<grid_for(groups, THREADS), THREADS, 0, s>>>(
+        src, dst, a);
   } else if (mode == 0) {
-    out_reduce_kernel<C><<<grid_for(a.total, RX), dim3(RX, RY), 0, s>>>(
+    out_reduce_kernel<C, SZ, I><<<grid_for(a.total, RX), dim3(RX, RY), 0, s>>>(
         src, dst, a);
   } else if (mode == 1) {
-    stat_kernel<C><<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
+    stat_kernel<C, SZ, I><<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
   } else if (mode == 2) {
-    mask_kernel<C><<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
+    mask_kernel<C, SZ, I><<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The instance for the source's element size and the index width.
+template <typename C>
+int launch_generic_for(const BlockArgs& a, const void* src, void* dst,
+                       int64_t mode, cudaStream_t s) {
+  const int64_t dt = a.in_dtype;
+  const int size = dt == xdma::F32 || dt == xdma::I32 ? 4
+                   : dt == xdma::I8 || dt == xdma::U8 ? 1
+                   : dt == xdma::I64                  ? 8
+                                                      : 2;
+  if (a.index32) {
+    switch (size) {
+      case 1: return launch_generic<C, 1, uint32_t>(a, src, dst, mode, s);
+      case 2: return launch_generic<C, 2, uint32_t>(a, src, dst, mode, s);
+      case 4: return launch_generic<C, 4, uint32_t>(a, src, dst, mode, s);
+      default: return launch_generic<C, 8, uint32_t>(a, src, dst, mode, s);
+    }
+  }
+  switch (size) {
+    case 1: return launch_generic<C, 1, uint64_t>(a, src, dst, mode, s);
+    case 2: return launch_generic<C, 2, uint64_t>(a, src, dst, mode, s);
+    case 4: return launch_generic<C, 4, uint64_t>(a, src, dst, mode, s);
+    default: return launch_generic<C, 8, uint64_t>(a, src, dst, mode, s);
+  }
 }
 
 }  // namespace
@@ -933,8 +1356,8 @@ extern "C" int xdma_block_datapath(const void* args, const void* src,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode >= 3 && mode <= 7) {
     const Rank2Args& r = *static_cast<const Rank2Args*>(args);
-    if (r.nstages > XS) return (int)cudaErrorInvalidValue;
-    if (r.t.rows == 0 || r.t.cols == 0) return 0;
+    if (r.nstages > XS || r.nlead > XR - 2) return (int)cudaErrorInvalidValue;
+    if (r.t.rows == 0 || r.t.cols == 0 || r.batch == 0) return 0;
     const bool copy = mode == 7;
     const int64_t m = copy ? 3 : mode;
     switch (r.dtype) {
@@ -957,9 +1380,20 @@ extern "C" int xdma_block_datapath(const void* args, const void* src,
     }
   }
   const BlockArgs& a = *static_cast<const BlockArgs*>(args);
-  if (a.nstages > XS || a.out_rank > XR || a.src_rank > XR || a.nphys > XP)
+  const int64_t most = PER_THREAD;
+  if (a.nstages > XS || a.nlead > XR - 2 ||
+      (mode == 0 && (a.nphys > XP || a.nphys < 1 || a.per_thread < 1 ||
+                     a.per_thread > most)))
     return (int)cudaErrorInvalidValue;
   if (a.total == 0) return 0;
-  return a.carrier ? launch_generic<long long>(a, src, dst, mode, s)
-                   : launch_generic<float>(a, src, dst, mode, s);
+  if (mode == 0 && a.per_thread == most) {   // one pack a thread
+    const int64_t dt = a.out_dtype;
+    const int64_t size = dt == xdma::F32 || dt == xdma::I32 ? 4
+                         : dt == xdma::I8 || dt == xdma::U8 ? 1
+                         : dt == xdma::I64                  ? 8
+                                                            : 2;
+    if ((uintptr_t)dst % (most * size)) return (int)cudaErrorMisalignedAddress;
+  }
+  return a.carrier ? launch_generic_for<long long>(a, src, dst, mode, s)
+                   : launch_generic_for<float>(a, src, dst, mode, s);
 }

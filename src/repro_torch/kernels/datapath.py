@@ -249,33 +249,41 @@ _FILL_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC0,
               torch.int64: -2 ** 63}
 _REDUCE_STRIP = 64          # csrc SW: columns per reduce block
 _REDUCE_BLOCKS = 512        # reduce blocks to aim for: about 4 an SM of an H100
+_PER_THREAD = 4             # csrc PER_THREAD: generic OUT elements a thread
+_INDEX32 = 2 ** 31          # the generic path's 32-bit instance: sizes below
 
 
 class _Stage(ctypes.Structure):
     _fields_ = [("code", ctypes.c_int64), ("dtype", ctypes.c_int64),
-                ("axis", ctypes.c_int64), ("keepdims", ctypes.c_int64),
+                ("where", ctypes.c_int64), ("keepdims", ctypes.c_int64),
                 ("block_rows", ctypes.c_int64), ("a", ctypes.c_double),
                 ("vec", ctypes.c_int64), ("aux", ctypes.c_int64),
-                ("in_rank", ctypes.c_int64), ("in_shape", ctypes.c_int64 * _XR)]
+                ("rows", ctypes.c_int64), ("cols", ctypes.c_int64),
+                ("out_rows", ctypes.c_int64), ("inner", ctypes.c_int64),
+                ("ext_in", ctypes.c_int64), ("ext_out", ctypes.c_int64),
+                ("nb", ctypes.c_int64)]
 
 
 class _BlockArgs(ctypes.Structure):
     _fields_ = [("nstages", ctypes.c_int64), ("st", _Stage * _XS),
-                ("in_dtype", ctypes.c_int64), ("src_rank", ctypes.c_int64),
+                ("in_dtype", ctypes.c_int64), ("nlead", ctypes.c_int64),
+                ("lext", ctypes.c_int64 * (_XR - 2)),
                 ("src", maps.DimMap * _XR), ("upto", ctypes.c_int64),
-                ("out_rank", ctypes.c_int64),
-                ("out_shape", ctypes.c_int64 * _XR),
                 ("out_dtype", ctypes.c_int64), ("nphys", ctypes.c_int64),
-                ("pext", ctypes.c_int64 * _XP), ("pdim", ctypes.c_int64 * _XP),
-                ("pw", ctypes.c_int64 * _XP), ("total", ctypes.c_int64),
-                ("reduce_at", ctypes.c_int64), ("carrier", ctypes.c_int64)]
+                ("pext", ctypes.c_int64 * _XP), ("plim", ctypes.c_int64 * _XP),
+                ("pslot", ctypes.c_int64 * _XP), ("pw", ctypes.c_int64 * _XP),
+                ("total", ctypes.c_int64), ("reduce_at", ctypes.c_int64),
+                ("carrier", ctypes.c_int64), ("index32", ctypes.c_int64),
+                ("per_thread", ctypes.c_int64), ("nwalk", ctypes.c_int64),
+                ("walk", ctypes.c_int64 * _XS), ("nvalue", ctypes.c_int64),
+                ("value", ctypes.c_int64 * _XS)]
 
 
 class _Stage2(ctypes.Structure):
     _fields_ = [("code", ctypes.c_int64), ("dtype", ctypes.c_int64),
                 ("swap", ctypes.c_int64), ("block_rows", ctypes.c_int64),
                 ("a", ctypes.c_double), ("vec", ctypes.c_int64),
-                ("aux", ctypes.c_int64)]
+                ("aux", ctypes.c_int64), ("aux_step", ctypes.c_int64)]
 
 
 class _Rank2Args(ctypes.Structure):
@@ -284,7 +292,9 @@ class _Rank2Args(ctypes.Structure):
                 ("fill_bits", ctypes.c_int64), ("op", ctypes.c_int64),
                 ("eps", ctypes.c_double), ("block_rows", ctypes.c_int64),
                 ("out", ctypes.c_int64), ("splits", ctypes.c_int64),
-                ("partial", ctypes.c_int64), ("counter", ctypes.c_int64)]
+                ("partial", ctypes.c_int64), ("counter", ctypes.c_int64),
+                ("nlead", ctypes.c_int64), ("batch", ctypes.c_int64),
+                ("lead", maps.Lead * (_XR - 2))]
 
 
 BLOCK = _build.register(_build.Kernel(
@@ -314,6 +324,10 @@ class _St:
         return self.code in (_ST_REDUCE_SUM, _ST_REDUCE_MAX)
 
     @property
+    def changes_value(self) -> bool:
+        return self.code in (_ST_CAST,) + _VALUE_CODES
+
+    @property
     def reads_coordinate(self) -> bool:
         return self.code in (_ST_RMSNORM, _ST_DECOMPRESS) or (
             self.code in (_ST_SCALE, _ST_BIAS) and self.vec is not None)
@@ -332,42 +346,59 @@ def _compose_index(f: Optional[torch.Tensor], index: torch.Tensor,
 @dataclasses.dataclass
 class _Composed:
     """Stages [0, k) of a segment folded into a pass at their end point:
-    ``axes[a]`` is the source logical axis that pass axis ``a`` indexes,
-    ``index[a]`` its composed gather indices (None: identity), ``swaps[s]``
-    whether stage s reads the pass coordinate (r, c) as (c, r)."""
+    ``axes[a]`` is the source logical axis that tile axis ``a`` (the pass's
+    rows, then its columns) indexes, ``index[a]`` its composed gather
+    indices (None: identity), ``swaps[s]`` whether stage s reads the pass
+    coordinate (r, c) as (c, r), and ``lead[d]`` the composed gather indices
+    of leading axis ``d``, which every stage leaves in place."""
 
     axes: Tuple[int, int]
     index: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
     swaps: Tuple[int, ...]
+    lead: Tuple[Optional[torch.Tensor], ...]
 
 
-def compose(seg: Sequence["_St"], k: int) -> _Composed:
+def compose(seg: Sequence["_St"], k: int, rank: Optional[int] = None
+            ) -> _Composed:
     """Walk stages [0, k) back from the pass at their end: a Transpose swaps
-    the axes, a gather composes into its axis's index vector with the fill
-    code -(s + 1) of stage s."""
-    axes, index = [0, 1], [None, None]
+    the tile axes, a gather composes into its axis's index vector (a tile
+    axis's or a leading axis's) with the fill code -(s + 1) of stage s.
+    ``rank`` is the pass's logical rank (default: the segment's)."""
+    if rank is None:
+        rank = len(seg[0].in_shape) if seg else 2
+    axes, index = [rank - 2, rank - 1], [None, None]
+    lead: List[Optional[torch.Tensor]] = [None] * (rank - 2)
     swaps = [0] * k
     for s in range(k - 1, -1, -1):
         st = seg[s]
-        swaps[s] = int(axes[0] == 1)
+        swaps[s] = int(axes[0] == rank - 1)
         if st.code == _ST_TRANSPOSE:
             axes.reverse()
+        elif st.code == _ST_GATHER and st.axis < rank - 2:
+            lead[st.axis] = _compose_index(lead[st.axis], st.index, -(s + 1))
         elif st.code == _ST_GATHER:
             a = axes.index(st.axis)
             index[a] = _compose_index(index[a], st.index, -(s + 1))
-    return _Composed(tuple(axes), tuple(index), tuple(swaps))
+    return _Composed(tuple(axes), tuple(index), tuple(swaps), tuple(lead))
 
 
-def rank2_path(seg: Sequence["_St"], src_rank: int,
-               src_dtype: torch.dtype) -> bool:
-    """Whether kernel 3's rank-2 path takes a launch segment: logical rank 2
-    throughout, one stream dtype, a ReduceStage only last, and no gather
-    after a stage that reads its coordinate (the stage's coordinate is then
-    the pass's, swapped or not); on an integer stream, only stages that
-    move words (its copy)."""
-    if src_rank != 2 or any(len(st.in_shape) != 2 or len(st.out_shape) != 2
-                            or st.dtype != src_dtype for st in seg):
+def rank2_path(seg: Sequence["_St"], src_rank: int, src_dtype: torch.dtype,
+               dst_layout: Optional[L.Layout] = None) -> bool:
+    """Whether kernel 3's rank-2 path takes a launch segment: logical rank
+    2 to 8, every stage leaving the leading axes ``[0, rank - 2)`` in place
+    (a gather of a leading axis composes into that axis's index vector; a
+    final ReduceStage may drop its rows), one stream dtype, a ReduceStage
+    only last, and no gather after a stage that reads its coordinate (the
+    stage's coordinate is then the pass's, swapped or not); on an integer
+    stream, only stages that move words (its copy).  With ``dst_layout``,
+    a destination that pads a leading axis goes to the generic path."""
+    if not 2 <= src_rank <= _XR:
         return False
+    for i, st in enumerate(seg):
+        drops_rows = i == len(seg) - 1 and st.is_reduce and not st.keepdims
+        if (len(st.in_shape) != src_rank or st.dtype != src_dtype
+                or len(st.out_shape) != src_rank - drops_rows):
+            return False
     if not src_dtype.is_floating_point and any(
             st.code not in (_ST_CAST, _ST_TRANSPOSE, _ST_GATHER) for st in seg):
         return False
@@ -378,6 +409,10 @@ def rank2_path(seg: Sequence["_St"], src_rank: int,
         if st.code == _ST_GATHER and coordinate:
             return False
         coordinate = coordinate or st.reads_coordinate
+    if dst_layout is not None:
+        out_rank = len(seg[-1].out_shape) if seg else src_rank
+        if any(dst_layout.dim_pad(out_rank, d) for d in range(src_rank - 2)):
+            return False
     return True
 
 
@@ -492,29 +527,69 @@ class BlockDatapath:
         for k, st in enumerate(stages[lo:hi]):
             c = a.st[k]
             c.code, c.dtype = st.code, maps.dtype_code(st.dtype, True)
-            c.axis, c.keepdims, c.block_rows, c.a = (st.axis, st.keepdims,
-                                                     st.block_rows, st.a)
+            c.keepdims, c.block_rows, c.a = st.keepdims, st.block_rows, st.a
             c.vec = 0 if st.vec is None else st.vec.data_ptr()
             buf = st.index if st.index is not None else aux.get(
                 st.mask_of if st.mask_of >= 0 else lo + k)
             c.aux = 0 if buf is None else buf.data_ptr()
-            c.in_rank = len(st.in_shape)
-            for d, e in enumerate(st.in_shape):
-                c.in_shape[d] = e
+            rank = len(st.in_shape)
+            c.rows, c.cols = st.in_shape[-2:]
+            c.out_rows = st.out_shape[-2] if len(st.out_shape) > 1 else 1
+            if st.code == _ST_GATHER and st.axis >= rank - 2:
+                c.where = 1 + st.axis - (rank - 2)     # 1 rows, 2 columns
+            elif st.code == _ST_GATHER:
+                c.where = 0                            # a leading axis
+                c.inner = math.prod(st.in_shape[st.axis + 1:rank - 2])
+                c.ext_in = st.in_shape[st.axis]
+                c.ext_out = st.out_shape[st.axis]
+            if st.code == _ST_DECOMPRESS:
+                c.nb = st.in_shape[-2] // st.block_rows
             if st.is_reduce:
                 a.reduce_at = k
+        # the stages a walk back visits (the index stages), and those that
+        # change a value
+        seg = stages[lo:hi]
+        walk = [k for k, st in enumerate(seg)
+                if st.code in (_ST_TRANSPOSE, _ST_GATHER)]
+        value = [k for k, st in enumerate(seg) if st.changes_value]
+        a.nwalk, a.nvalue = len(walk), len(value)
+        for i, k in enumerate(walk):
+            a.walk[i] = k
+        for i, k in enumerate(value):
+            a.value[i] = k
         a.in_dtype = maps.dtype_code(src_dtype, True)
         a.carrier = int(not (stages[hi - 1].dtype if hi > lo
                              else src_dtype).is_floating_point)
-        a.src_rank = len(src_logical)
+        a.nlead = len(src_logical) - 2
+        for d, e in enumerate(src_logical[:-2]):
+            a.lext[d] = e
         for d, mp in enumerate(maps.dim_maps(src_layout, src_logical)):
             a.src[d] = maps.DimMap(*mp)
         return a
 
+    @staticmethod
+    def _dst_dims(a: _BlockArgs, dst_layout: L.Layout,
+                  shape: Tuple[int, ...]) -> None:
+        """The OUT pass's destination, one physical dim at a time (post
+        perm): its extent, the index from which it lies in stride padding,
+        the coordinate it adds to (0 the leading axes, linear, 1 the rows,
+        2 the columns) and its weight there."""
+        r = len(shape)
+        phys = maps.physical_dims(dst_layout, shape)
+        a.nphys = len(phys)
+        for k, (e, d, w) in enumerate(phys):
+            t = dst_layout.dim_tile(r, d)
+            a.pext[k] = e
+            a.plim[k] = shape[d] if t == 1 else (
+                shape[d] // t if w == t else e)        # a grid dim, a tile dim
+            a.pslot[k] = max(0, d - (r - 3))
+            a.pw[k] = w * (math.prod(shape[d + 1:r - 2]) if d < r - 2 else 1)
+
     def _launch_segment(self, stages, lo, hi, x, src_layout, dst_layout,
                         out_dtype, aux) -> torch.Tensor:
+        seg = stages[lo:hi]
         passes = []                         # (segment stage, mode, rows)
-        for k, st in enumerate(stages[lo:hi]):
+        for k, st in enumerate(seg):
             if st.code == _ST_RMSNORM:
                 rows = math.prod(st.in_shape[:-1])
                 aux[lo + k] = torch.empty(rows, dtype=torch.float32,
@@ -526,23 +601,28 @@ class BlockDatapath:
                                           device=x.device)
                 passes.append((k, _MODE_MASK, math.prod(blocks)))
         src_logical = src_layout.logical_shape(tuple(x.shape))
+        shape = seg[-1].out_shape if seg else src_logical
+        out = torch.empty(dst_layout.physical_shape(shape), dtype=out_dtype,
+                          device=x.device)
         a = self._args(stages, lo, hi, src_layout, src_logical, x.dtype, aux)
+        sizes = [x.numel(), out.numel()] + [
+            math.prod(t) for st in seg for t in (st.in_shape, st.out_shape)]
+        a.index32 = int(max(sizes) < _INDEX32)
         for k, mode, rows in passes:
             a.upto, a.total = k, rows
             BLOCK(ctypes.addressof(a), x.data_ptr(), None, mode,
                   path="generic")
-        shape = stages[hi - 1].out_shape if hi > lo else src_logical
-        out = torch.empty(dst_layout.physical_shape(shape), dtype=out_dtype,
-                          device=x.device)
-        phys = maps.physical_dims(dst_layout, shape)
-        a.upto, a.out_rank = hi - lo, len(shape)
+        a.upto = hi - lo
         a.out_dtype = maps.dtype_code(out_dtype, True)
-        for d, e in enumerate(shape):
-            a.out_shape[d] = e
-        a.nphys = len(phys)
-        for k, (e, d, w) in enumerate(phys):
-            a.pext[k], a.pdim[k], a.pw[k] = e, d, w
+        self._dst_dims(a, dst_layout, shape)
         a.total = out.numel()
+        # elements a thread, stored as one pack: they must not cross the
+        # innermost physical run, and a whole pack needs an aligned address
+        run = a.pext[a.nphys - 1]
+        a.per_thread = 1 if a.reduce_at >= 0 else next(
+            e for e in (_PER_THREAD, 2, 1) if run % e == 0 and (
+                e < _PER_THREAD
+                or out.data_ptr() % (e * out.element_size()) == 0))
         BLOCK(ctypes.addressof(a), x.data_ptr(), out.data_ptr(), _MODE_OUT,
               path="generic")
         return out
@@ -550,24 +630,39 @@ class BlockDatapath:
     # -- the rank-2 path ------------------------------------------------------
     def _rank2_args(self, stages, lo, hi, k, x, src_layout, aux, extent,
                     dst_layout=None, out_shape=None) -> _Rank2Args:
-        """Rank-2 arguments of a pass over ``extent`` at point ``k`` of
-        segment [lo, hi): the composed source map of stages [0, k) and,
-        with a ``dst_layout``, the destination's maps."""
+        """Rank-2 arguments of a pass over ``extent`` (its leading axes a
+        batch of its last two) at point ``k`` of segment [lo, hi): the
+        composed source map of stages [0, k) and, with a ``dst_layout``,
+        the destination's maps of ``out_shape``, whose rows a final
+        ReduceStage may have dropped."""
         seg = stages[lo:hi]
+        rank = len(extent)
         key = (x.device.type, x.device.index, lo, hi, k)
         comp = self._composed.get(key)
         if comp is None:
-            comp = self._composed[key] = compose(seg, k)
+            comp = self._composed[key] = compose(seg, k, rank)
         src_maps = maps.dim_maps(src_layout,
                                  src_layout.logical_shape(tuple(x.shape)))
+        none = (1, 0, 0)
         if dst_layout is None:
-            pads, dst_maps = (0, 0), ((1, 0, 0), (1, 0, 0))
+            pads, dst_maps, lead_dst = (0, 0), (none, none), [none] * rank
         else:
-            pads = (dst_layout.dim_pad(2, 0), dst_layout.dim_pad(2, 1))
-            dst_maps = maps.dim_maps(dst_layout, out_shape)
+            r = len(out_shape)
+            dm = maps.dim_maps(dst_layout, out_shape)
+            pads = (dst_layout.dim_pad(r, r - 2) if r == rank else 0,
+                    dst_layout.dim_pad(r, r - 1))
+            dst_maps = dm[-2:] if r == rank else (none, dm[-1])
+            lead_dst = dm
         a = _Rank2Args()
-        a.t = maps.tile2(extent, pads, [src_maps[ax] for ax in comp.axes],
+        a.t = maps.tile2(extent[-2:], pads, [src_maps[ax] for ax in comp.axes],
                          comp.index, dst_maps, 16 // x.element_size())
+        a.nlead, a.batch = rank - 2, math.prod(extent[:-2])
+        for d in range(rank - 2):
+            ld = a.lead[d]
+            ld.extent = extent[d]
+            ld.src.map = maps.DimMap(*src_maps[d])
+            ld.src.idx = 0 if comp.lead[d] is None else comp.lead[d].data_ptr()
+            ld.dst = maps.DimMap(*lead_dst[d])
         a.nstages = k
         for s, st in enumerate(seg[:k]):
             c = a.st[s]
@@ -577,6 +672,11 @@ class BlockDatapath:
             c.vec = 0 if st.vec is None else st.vec.data_ptr()
             buf = aux.get(st.mask_of if st.mask_of >= 0 else lo + s)
             c.aux = 0 if buf is None else buf.data_ptr()
+            # bytes of its per-row buffer a leading index: f32 inverse RMS
+            # per row, a uint8 mask entry per row block
+            c.aux_step = (4 * st.in_shape[-2] if st.code == _ST_RMSNORM else
+                          st.in_shape[-2] // st.block_rows
+                          if st.code == _ST_DECOMPRESS else 0)
         a.dtype = maps.dtype_code(x.dtype, True)
         a.fill_bits = _FILL_BITS[x.dtype]
         return a
@@ -591,16 +691,17 @@ class BlockDatapath:
             a = self._rank2_args(stages, lo, hi, k, x, src_layout, aux,
                                  st.in_shape)
             if st.code == _ST_RMSNORM:
-                buf = torch.empty(st.in_shape[0], dtype=torch.float32,
-                                  device=dev)
+                buf = torch.empty(math.prod(st.in_shape[:-1]),
+                                  dtype=torch.float32, device=dev)
                 a.eps, mode = st.a, _MODE_STAT2
             else:
-                buf = torch.empty(st.in_shape[0] // st.block_rows,
-                                  dtype=torch.bool, device=dev)
+                buf = torch.empty(st.in_shape[:-2] + (
+                    st.in_shape[-2] // st.block_rows,), dtype=torch.bool,
+                    device=dev)
                 a.block_rows, mode = st.block_rows, _MODE_MASK2
             aux[lo + k] = buf
             a.out = buf.data_ptr()
-            maps.fit_to(a.t, x, None)
+            maps.fit_to(a.t, x, None, a.lead[:a.nlead])
             BLOCK(ctypes.addressof(a), x.data_ptr(), None, mode, path="rank2")
         shape = seg[-1].out_shape if seg else tuple(
             src_layout.logical_shape(tuple(x.shape)))
@@ -611,16 +712,20 @@ class BlockDatapath:
             st = seg[-1]
             a = self._rank2_args(stages, lo, hi, len(seg) - 1, x, src_layout,
                                  aux, st.in_shape, dst_layout, shape)
-            a.t.prows = shape[0] + dst_layout.dim_pad(2, 0)
-            a.t.pcols = shape[1] + dst_layout.dim_pad(2, 1)
-            m, n = st.in_shape
+            r = len(shape)
+            a.t.prows = (1 + dst_layout.dim_pad(r, r - 2)) if st.keepdims \
+                else 1
+            a.t.pcols = shape[-1] + dst_layout.dim_pad(r, r - 1)
+            m, n = st.in_shape[-2:]
             strips = -(-a.t.pcols // _REDUCE_STRIP)
             a.op = st.code
-            a.splits = max(1, min(-(-m // 128), -(-_REDUCE_BLOCKS // strips)))
+            a.splits = max(1, min(-(-m // 128), -(-_REDUCE_BLOCKS // (
+                strips * a.batch))))
             if a.splits > 1:
-                keep = [torch.empty(a.splits * n, dtype=torch.float32,
-                                    device=dev),
-                        torch.zeros(strips, dtype=torch.int32, device=dev)]
+                keep = [torch.empty(a.batch * a.splits * n,
+                                    dtype=torch.float32, device=dev),
+                        torch.zeros(a.batch * strips, dtype=torch.int32,
+                                    device=dev)]
                 a.partial, a.counter = (t.data_ptr() for t in keep)
             mode = _MODE_REDUCE2
         else:
@@ -628,7 +733,7 @@ class BlockDatapath:
                                  shape, dst_layout, shape)
             copy = not any(st.code in _VALUE_CODES for st in seg)
             mode = _MODE_COPY2 if copy else _MODE_OUT2
-        maps.fit_to(a.t, x, out)
+        maps.fit_to(a.t, x, out, a.lead[:a.nlead])
         BLOCK(ctypes.addressof(a), x.data_ptr(), out.data_ptr(), mode,
               path="rank2")
         return out
@@ -653,7 +758,8 @@ class BlockDatapath:
         for i, (lo, hi) in enumerate(segs):
             final = i == len(segs) - 1
             dst_layout = self.dst_layout if final else L.MN
-            if rank2_path(stages[lo:hi], len(self.logical), v.dtype):
+            rank = len(stages[lo].in_shape) if hi > lo else len(self.logical)
+            if rank2_path(stages[lo:hi], rank, v.dtype, dst_layout):
                 v = self._launch_rank2(stages, lo, hi, v, src_layout,
                                        dst_layout, aux)
             else:

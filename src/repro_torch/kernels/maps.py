@@ -19,7 +19,7 @@ from repro_torch.core import layouts as L
 
 __all__ = ["DimMap", "dim_maps", "physical_dims",
            "dtype_code", "DTYPE_CODES", "INT_CODES", "tiled_rows", "Term",
-           "Tile2",
+           "Tile2", "Lead",
            "tile2", "run_axis", "fit_to"]
 
 # dtype codes shared with csrc/xdma_common.cuh: the float streams every
@@ -62,6 +62,14 @@ class Tile2(ctypes.Structure):
                 ("dst_r", DimMap), ("dst_c", DimMap),
                 ("load_axis", ctypes.c_int64), ("store_axis", ctypes.c_int64),
                 ("vs", ctypes.c_int64), ("vd", ctypes.c_int64)]
+
+
+class Lead(ctypes.Structure):
+    """One leading axis of kernel 3's batched rank-2 pass
+    (``csrc/block_datapath.cu``): its extent, its source term (the layout
+    map and a leading-axis gather's composed indices) and its destination
+    map."""
+    _fields_ = [("extent", ctypes.c_int64), ("src", Term), ("dst", DimMap)]
 
 
 def run_axis(terms: Sequence[Tuple[int, int, int]], extents: Sequence[int],
@@ -111,12 +119,23 @@ def tile2(extent: Sequence[int], pads: Sequence[int],
     return t
 
 
-def fit_to(t: Tile2, src: torch.Tensor, dst: Optional[torch.Tensor]) -> Tile2:
+def fit_to(t: Tile2, src: torch.Tensor, dst: Optional[torch.Tensor],
+           lead: Sequence[Lead] = ()) -> Tile2:
     """Word accesses on a side whose buffer is not 16-byte aligned (a pack
-    needs an aligned base; the kernels refuse a pack on one that is not)."""
-    if src.data_ptr() % 16:
+    needs an aligned base; the kernels refuse a pack on one that is not),
+    at its base or at the offset of some index of a ``lead`` axis (kernel
+    3's batched pass adds those offsets to the base)."""
+    pack = 16 // src.element_size()
+
+    def steps(m):
+        return [m.sgrid] + ([m.stile] if m.tile > 1 else [])
+
+    live = [ld for ld in lead if ld.extent > 1]
+    if src.data_ptr() % 16 or any(st % pack for ld in live
+                                  for st in steps(ld.src.map)):
         t.vs = 1
-    if dst is not None and dst.data_ptr() % 16:
+    if dst is not None and (dst.data_ptr() % 16 or any(
+            st % pack for ld in live for st in steps(ld.dst))):
         t.vd = 1
     return t
 

@@ -254,6 +254,122 @@ def test_block_rank2_path_ragged_vs_plain(name, dtype, shape, misaligned):
             torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# (chain, bitwise) at logical ranks 3-5: the leading axes a batch of the
+# rank-2 path (block_rows: the largest of 8, 4, 2, 1 dividing the rows)
+def _rows_block(s):
+    return next(b for b in (8, 4, 2, 1) if s[-2] % b == 0)
+
+
+BATCHED_CHAINS = {
+    "transpose": (lambda s: (PC.Transpose(),), True),
+    "lead_gather_fill": (lambda s: (PC.GatherScatter(indices=np.r_[
+        np.arange(s[0])[::-1], s[0] + 2], axis=0), PC.Transpose()), True),
+    "compress_roundtrip": (lambda s: (PC.Compress(block_rows=_rows_block(s)),
+                                      PC.Decompress()), True),
+    "transpose_scale_vec": (lambda s: (PC.Transpose(), PC.Scale(
+        torch.linspace(0.5, 2, s[-2]))), True),
+    "reduce_max_drops_rows": (lambda s: (PC.ReduceStage(
+        "max", keepdims=False),), True),
+    "reduce_sum": (lambda s: (PC.ReduceStage("sum"),), False),
+    "transpose_rmsnorm": (lambda s: (PC.Transpose(), PC.RMSNormPlugin()),
+                          False),
+}
+BATCHED_SHAPES = [(1, 37, 100), (3, 65, 131), (2, 3, 24, 66),
+                  (2, 1, 2, 16, 40)]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("shape", BATCHED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(BATCHED_CHAINS))
+def test_block_batched_rank2_path_vs_plain(name, dtype, shape, misaligned):
+    """Logical ranks 3-5 on the rank-2 path, their leading axes a batch:
+    ragged extents, a source off 16-byte alignment, a gather of a leading
+    axis with an index out of range, a ReduceStage dropping its rows."""
+    chain, bitwise = BATCHED_CHAINS[name]
+    x = _logical(shape, dtype, seed=7, zero_blocks=(
+        name == "compress_roundtrip" and shape[-2] % 8 == 0))
+    for src, dst in (("MN", "MN"), ("NM", "MNP64")):
+        sl, dl = PC.by_name(src), PC.by_name(dst)
+        fn = _block_fn(sl, dl, chain(shape))
+        xin = sl.from_logical(x)
+        want = fn(xin)
+        xc = _misaligned(xin.cuda()) if misaligned else xin.cuda()
+        before = dict(DP.BLOCK.paths)
+        got = fn(xc)
+        torch.cuda.synchronize()
+        assert DP.BLOCK.paths.get("rank2", 0) > before.get("rank2", 0)
+        assert DP.BLOCK.paths.get("generic", 0) == before.get("generic", 0)
+        got = got.cpu()
+        if bitwise:
+            assert _equal_bits(got, want), (src, dst)
+        else:
+            assert got.dtype == want.dtype and got.shape == want.shape
+            tol = (dict(rtol=2e-2, atol=1e-2) if got.element_size() < 4
+                   else dict(rtol=1e-4, atol=1e-4))
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+LEADPAD = PC.Layout(None, "leadpad", pad=(2, 0, 0))
+
+# chains that stay on the generic path, by carrier: (src, dst, chain,
+# logical shape, dtype), each bitwise its plain version
+GENERIC_CHAINS = {
+    "f32": [
+        ("MN", "MN", lambda s: (PC.Cast(torch.bfloat16),
+                                PC.Compress(block_rows=8), PC.Decompress()),
+         (2048, 384), torch.float32),
+        ("MN", "MNP64", lambda s: (PC.Transpose(), PC.Cast(torch.bfloat16)),
+         (3, 40, 72), torch.float32),
+        ("NM", "MN", lambda s: (PC.Scale(torch.linspace(0.5, 2, s[-1])),
+                                PC.GatherScatter(indices=np.r_[
+                                    np.arange(s[0] - 1), s[0] + 1])),
+         (96, 160), torch.float32),
+        ("MN", "MN", lambda s: (PC.ReduceStage("max"), PC.Scale(2.0)),
+         (2, 100, 72), torch.bfloat16),
+        ("MN", LEADPAD, lambda s: (PC.Scale(2.0),), (3, 16, 130),
+         torch.float32),
+    ],
+    "int64": [
+        ("MN", "MN", lambda s: (PC.Transpose(), PC.Scale(3), PC.BiasAdd(-7)),
+         (3, 40, 72), torch.int32),
+        ("MN", "MNP64", lambda s: (PC.ReduceStage("sum", keepdims=False),),
+         (2, 3, 50, 64), torch.int8),
+        ("MN", "MN", lambda s: (PC.GatherScatter(indices=np.r_[
+            np.arange(s[0] - 1), s[0]], axis=0), PC.Scale(-3)),
+         (4, 24, 40), torch.int64),
+    ],
+}
+
+
+@pytest.mark.parametrize("carrier", sorted(GENERIC_CHAINS))
+def test_block_generic_path_vs_plain(carrier):
+    """Kernel 3's generic path on each carrier (f32, int64): a cast between
+    dtypes, a gather after a stage that reads its coordinate, a stage after
+    a ReduceStage, integer arithmetic, a destination padding a leading axis;
+    every launch counted on the generic path, each output bitwise its plain
+    version."""
+    for src, dst, chain, shape, dtype in GENERIC_CHAINS[carrier]:
+        sl, dl = _layout(src), _layout(dst)
+        if dtype.is_floating_point:
+            x = _logical(shape, dtype, seed=8, zero_blocks=len(shape) == 2)
+        else:
+            gen = torch.Generator().manual_seed(8)
+            x = torch.randint(-100, 100, shape, generator=gen).to(dtype)
+        fn = _block_fn(sl, dl, chain(shape))
+        xin = sl.from_logical(x)
+        want = fn(xin)
+        before = dict(DP.BLOCK.paths)
+        got = fn(xin.cuda())
+        torch.cuda.synchronize()
+        assert DP.BLOCK.paths.get("generic", 0) > before.get("generic", 0)
+        assert DP.BLOCK.paths.get("rank2", 0) == before.get("rank2", 0)
+        if isinstance(want, PC.CTensor):
+            assert torch.equal(got.mask.cpu(), want.mask)
+            got, want = got.values, want.values
+        assert _equal_bits(got.cpu(), want), (src, dst, shape, dtype)
+
+
 def test_relayout_kernel_keeps_nan_payloads_and_negative_zero():
     bits = torch.tensor([0x7FC00001, 0x7F800001, 0x80000000, 0xFFC12345],
                         dtype=torch.int64).to(torch.int32)

@@ -197,27 +197,39 @@ def _check_packs(off, axis, width, whole, live):
         "a pack is not consecutive in memory"
 
 
-def emulate_tile2(t, src_flat, out_size, value=None, fill=None):
+def emulate_tile2(t, src_flat, out_size, value=None, fill=None, *, out=None,
+                  src_base=0, dst_base=0, lead_code=0, written=None):
     """``xdma::tile2_run`` (csrc/xdma_common.cuh) over flat numpy buffers:
     every position of the destination's padded space is written once, the
     logical ones from ``value(src_flat[offsets], r, c)`` (default: the words
     unchanged) or ``fill(codes, r, c)`` where a gather's index failed, the
     stride padding with zeros.  The access widths the host chose (``vs``,
-    ``vd``) are checked against the offsets they would move as packs."""
+    ``vd``) are checked against the offsets they would move as packs.
+
+    Kernel 3's batched pass runs it once a leading index: both sides
+    offset by ``src_base`` / ``dst_base``, a failed leading-axis gather's
+    ``lead_code`` merged into each element's (the more negative stands),
+    into the whole destination ``out``, counting writes in ``written``."""
     r, c = np.broadcast_arrays(np.arange(t.prows)[:, None],
                                np.arange(t.pcols)[None, :])
     inside = (r < t.rows) & (c < t.cols)
     sr = _term(t.src_r, np.minimum(r, t.rows - 1))
     sc = _term(t.src_c, np.minimum(c, t.cols - 1))
-    so = np.where((sr < 0) | (sc < 0), np.minimum(sr, sc), sr + sc)
+    so = np.where((sr < 0) | (sc < 0), np.minimum(sr, sc), sr + sc + src_base)
+    if lead_code < 0:
+        so = np.minimum(np.where(so < 0, so, 0), lead_code)
     ok = inside & (so >= 0)
     _check_packs(so, t.load_axis, t.vs, inside, ok)
     dm = lambda m, i: (i // m.tile) * m.sgrid + (i % m.tile) * m.stile
-    do = dm(t.dst_r, r) + dm(t.dst_c, c)
+    do = dst_base + dm(t.dst_r, r) + dm(t.dst_c, c)
     everywhere = np.ones_like(inside)
     _check_packs(do, t.store_axis, t.vd, everywhere, everywhere)
     assert np.unique(do).size == do.size, "a destination word written twice"
-    out = np.zeros(out_size, dtype=src_flat.dtype)
+    if written is not None:
+        np.add.at(written, do.ravel(), 1)
+    if out is None:
+        out = np.zeros(out_size, dtype=src_flat.dtype)
+    out[do[~inside]] = 0
     vals = src_flat[so[ok]]
     out[do[ok]] = vals if value is None else value(vals, r[ok], c[ok])
     bad = inside & (so < 0)

@@ -144,6 +144,7 @@ import torch.nn.functional as F  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
+K3_RANK2_SPILL_BYTES = 2170    # kernel 3's rank-2 instances, ptxas (sm_90a)
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2106,13 +2107,15 @@ def main():
           f"rows-path instances, not 9 (a library built without its log: "
           f"remove build/kernels)")
     # kernel 3's generic path: 4 kernels x 2 carriers (f32 "f", int64 "x")
-    # x 4 source element sizes x 2 index widths (uint32 "j", uint64 "m");
-    # every one must be found and none may spill
+    # x 4 source element sizes x 2 index widths (uint32 "j", uint64 "m"),
+    # and the tiled output pass's 2 x 4 32-bit instances; every one must be
+    # found and none may spill
     k3_generic, k3_rank2_spill = {}, 0
     for mangled, regs, stack, spill in ptxas_entries(
             _build.BUILD_LOG.get("block_datapath.cu", "")):
-        name = re.search(r"\d(out_kernel|out_reduce_kernel|stat_kernel|"
-                         r"mask_kernel)I([fx])Li(\d)E([jm])E", mangled)
+        name = re.search(r"\d(out_kernel|out_tiled_kernel|out_reduce_kernel|"
+                         r"stat_kernel|mask_kernel)I([fx])Li(\d)E([jm])E",
+                         mangled)
         if name is None:
             k3_rank2_spill += spill
             continue
@@ -2120,8 +2123,8 @@ def main():
         inst = (f"{fn}<{'float' if carrier == 'f' else 'long long'}, "
                 f"{size}, uint{32 if index == 'j' else 64}_t>")
         k3_generic[inst] = (regs, stack, spill)
-    for fn in ("out_kernel", "out_reduce_kernel", "stat_kernel",
-               "mask_kernel"):
+    for fn in ("out_kernel", "out_tiled_kernel", "out_reduce_kernel",
+               "stat_kernel", "mask_kernel"):
         got = {k: v for k, v in k3_generic.items() if k.startswith(fn + "<")}
         log(f"[ptxas] kernel 3 generic {fn}: {len(got)} instances, at most "
             f"{max((v[0] for v in got.values()), default=0)} registers, "
@@ -2129,13 +2132,18 @@ def main():
             f"{sum(v[2] for v in got.values())} bytes of spill traffic")
     log(f"[ptxas] kernel 3 rank-2 instances: {k3_rank2_spill} bytes of spill "
         f"traffic")
-    check(len(k3_generic) == 64,
+    check(len(k3_generic) == 72,
           f"kernel3: the build log of block_datapath.cu names "
-          f"{len(k3_generic)} generic instances, not 64 (a library built "
+          f"{len(k3_generic)} generic instances, not 72 (a library built "
           f"without its log: remove build/kernels)")
     check(not any(v[2] for v in k3_generic.values()),
           f"kernel3: generic instances spill: "
           f"{ {k: v for k, v in k3_generic.items() if v[2]} }")
+    # the rank-2 instances' spill, held to what the batched twins measured
+    # when they came in (2170 bytes over the file, NVIDIA H100 80GB HBM3)
+    check(k3_rank2_spill <= K3_RANK2_SPILL_BYTES,
+          f"kernel3: rank-2 instances spill {k3_rank2_spill} bytes, above "
+          f"the {K3_RANK2_SPILL_BYTES} they were measured at")
 
     rows = {}          # kernel name -> JSON row
     pair_times = []
@@ -2419,6 +2427,37 @@ def main():
     log(f"[kernel3] the down-cast wire: library (x.to(bfloat16)) "
         f"{pair_times[-1]['library_ms']:.4f} ms on {card}")
     del mlp, y_down
+    # a cast and a transpose on the generic path, 4096 x 4096 f32 -> bf16:
+    # the source runs across the output's rows, so the output pass stages
+    # through a shared tile; bitwise the plain chain and the library call
+    sq = torch.randn(4096, 4096, generator=gen, device=dev)
+    ct = describe("MN", "MN", P.Cast(torch.bfloat16), P.Transpose())
+    run_ct = plugin_compiler.compile_local(ct)
+    _build.reset_launches()
+    y_ct = run_ct(sq)
+    torch.cuda.synchronize()
+    check(datapath.BLOCK.paths == {"generic": 1},
+          f"kernel3: the cast + transpose's paths {datapath.BLOCK.paths}, "
+          f"expected one output pass on the generic path")
+    assert_bitwise(y_ct, plain(sq, ct), "kernel3 cast + transpose vs the "
+                   "plain chain")
+    lib_ct = lambda: sq.transpose(-1, -2).to(  # noqa: E731
+        torch.bfloat16).contiguous()
+    assert_bitwise(lib_ct(), y_ct, "kernel3 cast + transpose library "
+                   "yardstick")
+    pair_times.append({
+        "pair": f"cast + transpose (generic, tiled): {ct.summary()} "
+                f"4096x4096", "dtype": "float32 -> bfloat16",
+        "paths": dict(datapath.BLOCK.paths),
+        "ms": gpu_ms(lambda: run_ct(sq)),
+        "plain_ms": gpu_ms(lambda: plain(sq, ct)),
+        "library_ms": gpu_ms(lib_ct),
+        "bound_ms": bound_ms(nbytes(sq, y_ct))})
+    log_case("kernel3", pair_times[-1])
+    log(f"[kernel3] the cast + transpose: library (transpose(-1, -2)"
+        f".to(bfloat16).contiguous()) {pair_times[-1]['library_ms']:.4f} ms "
+        f"on {card}")
+    del sq, y_ct
     # the chains kernels 2 and 3 once refused (ROADMAP §3, fault 1): an
     # int8 gather, an int32 transpose, nine Scales into MNM8N128 (kernel 2
     # in two launches), a Scale at logical rank 5, integer arithmetic (int8

@@ -3,7 +3,7 @@
 Run from the root of a checkout, naming the checkout whose port to time
 (by default this one)::
 
-    python3 scripts/time_block.py [ROOT]
+    python3 scripts/time_block.py [ROOT] [--index64]
 
 It builds that checkout's kernel 3 and times, in GPU time (CUDA events,
 median of 15 calls after 3 warm-up calls), each beside its bound (the
@@ -23,13 +23,21 @@ the same function:
   MN -> the at-rest MNM8N128 through the same wire (the rank-2 path at
   rank 2), beside ``permute(...).contiguous()``;
 * the Load of ``chip_smoke.py``'s phase 4 (MNM16N128 -> MN + Transpose,
-  8192 x 3072 bf16), the rank-2 path's main-path launch.
+  8192 x 3072 bf16), the rank-2 path's main-path launch;
+* a cast and a transpose, 4096 x 4096 f32 -> bf16, MN -> MN (the generic
+  path; its output pass stages through a shared tile where the checkout
+  has one), beside ``x.transpose(-1, -2).to(torch.bfloat16).contiguous()``;
+* ``chip_smoke.py``'s small rank-3 chain, (2, 64, 256) f32 through
+  Transpose, Scale, ReduceStage(max), RMSNorm (the generic path's
+  statistics and reduce passes), beside no library call.
 
 Each output is checked bitwise against the plain version and the PyTorch
-call, and the launches of each case are counted by path.  Timing two
-checkouts in one call, in turns (A, B, B, A), compares them on one card.
-The last line is one JSON object with the card's name and power limit and
-every time.
+call (the rank-3 chain, whose RMSNorm sums in another order, within
+1e-5), and the launches of each case are counted by path.  ``--index64``
+runs the generic path's 64-bit index instances where the 32-bit ones
+would run.  Timing two checkouts in one call, in turns (A, B, B, A),
+compares them on one card.  The last line is one JSON object with the
+card's name and power limit and every time.
 """
 import json
 import os
@@ -39,7 +47,9 @@ import subprocess
 import sys
 import tempfile
 
-ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
+INDEX64 = "--index64" in sys.argv[1:]
+ROOT = os.path.abspath(ARGS[0] if ARGS else
                        os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -82,6 +92,8 @@ def main():
     from repro_torch.kernels import _build, datapath
 
     _build.build_all(["block_datapath.cu"])
+    if INDEX64:
+        datapath._INDEX32 = 0      # no launch fits the 32-bit instances
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -132,6 +144,19 @@ def main():
                   lambda x: plain(x, load),
                   lambda x: x.permute(1, 3, 0, 2).reshape(3072, 8192), xt,
                   2 * xt.numel() * 2))
+    sq = torch.randn(4096, 4096, generator=gen, device=dev)
+    ct = describe("MN", "MN", P.Cast(torch.bfloat16), P.Transpose())
+    cases.append(("cast + transpose 4096x4096 f32 -> bf16 (generic)",
+                  plugin_compiler.compile_local(ct),
+                  lambda x: plain(x, ct),
+                  lambda x: x.transpose(-1, -2).to(torch.bfloat16).contiguous(),
+                  sq, sq.numel() * (4 + 2)))
+    sm = torch.randn(2, 64, 256, generator=gen, device=dev)
+    r3 = describe("MN", "MN", P.Transpose(), P.Scale(2.0),
+                  P.ReduceStage("max"), P.RMSNormPlugin())
+    cases.append(("small rank-3 chain (2, 64, 256) f32 (generic)",
+                  plugin_compiler.compile_local(r3), lambda x: plain(x, r3),
+                  None, sm, sm.numel() * 4 + 2 * 64 * 4))
 
     times = {}
     for name, run, ref, lib, x, moved in cases:
@@ -139,18 +164,24 @@ def main():
         got = run(x)
         torch.cuda.synchronize()
         paths = dict(datapath.BLOCK.paths)
-        if not (same_bits(got, ref(x)) and same_bits(got, lib(x))):
+        if lib is None:
+            torch.testing.assert_close(got, ref(x), rtol=1e-5, atol=1e-5)
+        elif not (same_bits(got, ref(x)) and same_bits(got, lib(x))):
             raise AssertionError(f"{name}: not bitwise its plain version and "
                                  f"its library call")
-        ms, lib_ms = gpu_ms(lambda: run(x)), gpu_ms(lambda: lib(x))
+        ms = gpu_ms(lambda: run(x))
+        lib_ms = None if lib is None else gpu_ms(lambda: lib(x))
         bound = moved / HBM_BYTES_PER_S * 1e3
         times[name] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound,
                        "paths": paths}
-        print(f"[{os.path.basename(ROOT) or ROOT}] {name}: {ms:.4f} ms "
-              f"(paths {paths}), library {lib_ms:.4f} ms, bound {bound:.4f} "
+        lib_text = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[{os.path.basename(ROOT) or ROOT}"
+              f"{' --index64' if INDEX64 else ''}] {name}: {ms:.4f} ms "
+              f"(paths {paths}), library {lib_text}, bound {bound:.4f} "
               f"ms ({bound / ms:.1%}) on {card}", flush=True)
     log = _build.BUILD_LOG.get("block_datapath.cu", "")
-    print(json.dumps({"root": ROOT, "card": card, "times": times,
+    print(json.dumps({"root": ROOT, "index64": INDEX64, "card": card,
+                      "times": times,
                       "spill_bytes": sum(int(b) for b in re.findall(
                           r"(\d+) bytes spill", log))}),
           flush=True)

@@ -251,6 +251,7 @@ _REDUCE_STRIP = 64          # csrc SW: columns per reduce block
 _REDUCE_BLOCKS = 512        # reduce blocks to aim for: about 4 an SM of an H100
 _PER_THREAD = 4             # csrc PER_THREAD: generic OUT elements a thread
 _INDEX32 = 2 ** 31          # the generic path's 32-bit instance: sizes below
+_TILE = 32                  # csrc TT: the tiled OUT pass's tile edge
 
 
 class _Stage(ctypes.Structure):
@@ -276,7 +277,7 @@ class _BlockArgs(ctypes.Structure):
                 ("carrier", ctypes.c_int64), ("index32", ctypes.c_int64),
                 ("per_thread", ctypes.c_int64), ("nwalk", ctypes.c_int64),
                 ("walk", ctypes.c_int64 * _XS), ("nvalue", ctypes.c_int64),
-                ("value", ctypes.c_int64 * _XS)]
+                ("value", ctypes.c_int64 * _XS), ("tiled", ctypes.c_int64)]
 
 
 class _Stage2(ctypes.Structure):
@@ -585,6 +586,28 @@ class BlockDatapath:
             a.pslot[k] = max(0, d - (r - 3))
             a.pw[k] = w * (math.prod(shape[d + 1:r - 2]) if d < r - 2 else 1)
 
+    @staticmethod
+    def _tiled(a: _BlockArgs) -> bool:
+        """Whether the generic OUT pass stages through a shared tile: where
+        the source runs across the destination's rows.  A 32-bit launch
+        (the kernel has no 64-bit tiled instance); no ReduceStage; the
+        index stages an odd number of transposes and nothing else; the
+        destination's last two physical dims its rows and columns, a tile
+        wide each, the outer of them unit-weight; the source axis those
+        rows read (the other tile axis, after the swap) of unit stride."""
+        last = a.nphys - 1
+        walk = [a.st[a.walk[w]].code for w in range(a.nwalk)]
+        if (not a.index32 or a.reduce_at >= 0 or last < 1
+                or len(walk) % 2 == 0
+                or any(code != _ST_TRANSPOSE for code in walk)):
+            return False
+        rows = a.pslot[last - 1]
+        if ({rows, a.pslot[last]} != {1, 2} or a.pw[last - 1] != 1
+                or min(a.pext[last - 1], a.pext[last]) < _TILE):
+            return False
+        m = a.src[a.nlead + 2 - rows]
+        return (m.sgrid if m.tile == 1 else m.stile) == 1
+
     def _launch_segment(self, stages, lo, hi, x, src_layout, dst_layout,
                         out_dtype, aux) -> torch.Tensor:
         seg = stages[lo:hi]
@@ -618,8 +641,9 @@ class BlockDatapath:
         a.total = out.numel()
         # elements a thread, stored as one pack: they must not cross the
         # innermost physical run, and a whole pack needs an aligned address
+        a.tiled = int(self._tiled(a))
         run = a.pext[a.nphys - 1]
-        a.per_thread = 1 if a.reduce_at >= 0 else next(
+        a.per_thread = 1 if a.reduce_at >= 0 or a.tiled else next(
             e for e in (_PER_THREAD, 2, 1) if run % e == 0 and (
                 e < _PER_THREAD
                 or out.data_ptr() % (e * out.element_size()) == 0))

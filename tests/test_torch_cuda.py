@@ -370,6 +370,56 @@ def test_block_generic_path_vs_plain(carrier):
         assert _equal_bits(got.cpu(), want), (src, dst, shape, dtype)
 
 
+# chains whose generic OUT pass stages through a shared tile (the source
+# runs across the destination's rows): (src, dst, chain, bitwise)
+TILED_CHAINS = {
+    "cast_transpose": ("MN", "MN", lambda s: (PC.Cast(torch.bfloat16),
+                                              PC.Transpose()), True),
+    "transpose_cast_padded": ("MN", "MNP64", lambda s: (
+        PC.Transpose(), PC.Cast(torch.float16)), True),
+    "tiled_source_vector_scale": ("MNM8N128", "MN", lambda s: (
+        PC.Cast(torch.bfloat16), PC.Transpose(),
+        PC.Scale(torch.linspace(0.5, 2, s[-2]))), True),
+    "transpose_cast_rmsnorm": ("MN", "MN", lambda s: (
+        PC.Transpose(), PC.Cast(torch.bfloat16), PC.RMSNormPlugin()), False),
+}
+TILED_SHAPES = [(64, 128), (40, 72), (3, 33, 96), (2, 2, 130, 64),
+                (2, 16, 256)]
+TILED_CASES = [(name, shape) for name in sorted(TILED_CHAINS)
+               for shape in TILED_SHAPES
+               if TILED_CHAINS[name][0] != "MNM8N128"     # whole 8 x 128 tiles
+               or (shape[-2] % 8 == 0 and shape[-1] % 128 == 0)]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("name,shape", TILED_CASES)
+def test_block_generic_tiled_pass_vs_plain(name, shape, misaligned):
+    """The generic path's output pass through its shared tile at logical
+    ranks 2-4: ragged tiles, padded columns, a tiled source, a vector Scale
+    after the transpose, a source off 16-byte alignment (the (2, 16, 256)
+    cases' 16 destination columns, unpadded, take the untiled pass); on the
+    generic path, bitwise its plain version (the RMSNorm chain within
+    bf16's tolerance)."""
+    src, dst, chain, bitwise = TILED_CHAINS[name]
+    sl, dl = _layout(src), _layout(dst)
+    fn = _block_fn(sl, dl, chain(shape))
+    xin = sl.from_logical(_logical(shape, torch.float32, seed=9))
+    want = fn(xin)
+    xc = _misaligned(xin.cuda()) if misaligned else xin.cuda()
+    before = dict(DP.BLOCK.paths)
+    got = fn(xc)
+    torch.cuda.synchronize()
+    assert DP.BLOCK.paths.get("generic", 0) > before.get("generic", 0)
+    assert DP.BLOCK.paths.get("rank2", 0) == before.get("rank2", 0)
+    got = got.cpu()
+    if bitwise:
+        assert _equal_bits(got, want), (src, dst, shape)
+    else:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=1e-2)
+
+
 def test_relayout_kernel_keeps_nan_payloads_and_negative_zero():
     bits = torch.tensor([0x7FC00001, 0x7F800001, 0x80000000, 0xFFC12345],
                         dtype=torch.int64).to(torch.int32)

@@ -790,12 +790,55 @@ def _emulate_rank2(args_addr, src, dst, mode):
         _store_all(dst, vals, a.dtype)
 
 
+def _decode_dims(a, q, top):
+    """``decode_dims``: the coordinate physical dims [0, top] add at index
+    q, and whether one of them lies in stride padding."""
+    base, pad = [0, 0, 0], False
+    for kk in range(top, -1, -1):
+        q, i = divmod(q, a.pext[kk])
+        pad |= i >= a.plim[kk]
+        base[a.pslot[kk]] += i * a.pw[kk]
+    return base, pad
+
+
+def _emulate_tiled(a, emu, dst):
+    """``out_tiled_kernel``: tile t of the dst's last two physical dims, each
+    element evaluated at its coordinate and written once."""
+    last, T = a.nphys - 1, DP._TILE
+    assert a.index32 and a.reduce_at < 0 and a.per_thread == 1 and last >= 1
+    ec, er = a.pext[last], a.pext[last - 1]
+    tc = (ec + T - 1) // T
+    per = (er + T - 1) // T * tc
+    assert a.total % (er * ec) == 0
+    vals = np.zeros(a.total, np.float32)
+    written = np.zeros(a.total, np.int64)
+    for t in range(a.total // (er * ec) * per):
+        q, rest = divmod(t, per)
+        ti, tj = divmod(rest, tc)
+        base, pad = _decode_dims(a, q, last - 2)
+        for r in range(ti * T, min(ti * T + T, er)):
+            for j in range(tj * T, min(tj * T + T, ec)):
+                p = q * er * ec + r * ec + j
+                assert not a.index32 or p < DP._INDEX32
+                written[p] += 1
+                if pad or r >= a.plim[last - 1] or j >= a.plim[last]:
+                    continue
+                c = list(base)
+                c[a.pslot[last - 1]] += r * a.pw[last - 1]
+                c[a.pslot[last]] += j * a.pw[last]
+                vals[p] = emu.eval(a.upto, c)
+    assert (written == 1).all(), "a destination element not written once"
+    _store_all(dst, vals, a.out_dtype)
+
+
 def _emulate_block(args_addr, src, dst, mode):
     if mode >= DP._MODE_OUT2:
         return _emulate_rank2(args_addr, src, dst, mode)
     a = DP._BlockArgs.from_address(args_addr)
     emu = _BlockEmu(a, src)
     k = a.upto
+    if mode == DP._MODE_OUT and a.tiled:
+        return _emulate_tiled(a, emu, dst)
     if mode == DP._MODE_OUT:
         E, last = a.per_thread, a.nphys - 1
         assert a.total % E == 0 and (a.reduce_at < 0 or E == 1)
@@ -808,11 +851,7 @@ def _emulate_block(args_addr, src, dst, mode):
             p0 = g * E
             assert not a.index32 or p0 + E <= DP._INDEX32
             q, inner = divmod(p0, a.pext[last])
-            base, pad = [0, 0, 0], False
-            for kk in range(last - 1, -1, -1):
-                q, i = divmod(q, a.pext[kk])
-                pad |= i >= a.plim[kk]
-                base[a.pslot[kk]] += i * a.pw[kk]
+            base, pad = _decode_dims(a, q, last - 1)
             for e in range(E):
                 i = inner + e
                 if pad or i >= a.plim[last]:
@@ -1315,6 +1354,91 @@ def test_block_path_choice_under_emulation(name, monkeypatch):
     else:       # f32 value chains: tests/oracle.py's f32 chain tolerance
         np.testing.assert_allclose(to_f32(got), to_f32(want), rtol=1e-5,
                                    atol=1e-5)
+
+
+# the generic OUT pass staged through a shared tile where the source runs
+# across the destination's rows: (src, dst, chain, logical shape, dtype,
+# tiled, bitwise)
+TILED_CASES = {
+    "cast_transpose_rank3": ("MN", "MN", lambda: (
+        PP.Cast(torch.bfloat16), PP.Transpose()), (2, 40, 72), torch.float32,
+        True, True),
+    "transpose_cast_rmsnorm_padded": ("MN", "MNP64", lambda: (
+        PP.Transpose(), PP.Cast(torch.bfloat16),
+        PP.RMSNormPlugin(weight=torch.linspace(-1, 2, 48))), (48, 96),
+        torch.float32, True, False),
+    "cast_transpose_vector_scale": ("MNM8N128", "MN", lambda: (
+        PP.Cast(torch.float16), PP.Transpose(),
+        PP.Scale(torch.linspace(0.5, 2, 64)), PP.Transpose(),
+        PP.Transpose()), (64, 256), torch.float32, True, True),
+    # the source's run reaches the dst's columns: no tile
+    "two_transposes": ("MN", "MN", lambda: (
+        PP.Cast(torch.bfloat16), PP.Transpose(), PP.Transpose()), (40, 72),
+        torch.float32, False, True),
+    "column_major_source": ("NM", "MN", lambda: (
+        PP.Cast(torch.bfloat16), PP.Transpose()), (40, 72), torch.float32,
+        False, True),
+    # the dst's rows narrower than a tile, or a gather among the index stages
+    "narrow_rows": ("MN", "MN", lambda: (
+        PP.Cast(torch.bfloat16), PP.Transpose()), (40, 16), torch.float32,
+        False, True),
+    "gather_and_transpose": ("MN", "MN", lambda: (
+        PP.Cast(torch.bfloat16), PP.GatherScatter(indices=_perm(40, 3)),
+        PP.Transpose()), (40, 72), torch.float32, False, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILED_CASES))
+def test_block_generic_tiled_pass_under_emulation(name, monkeypatch):
+    """Which generic OUT passes stage through the shared tile
+    (``BlockDatapath._tiled``), and that the tiled walk over the
+    destination writes each element once and reproduces the plain
+    version."""
+    src, dst, chain, shape, dtype, tiled, bitwise = TILED_CASES[name]
+    ps, pd = _layouts(src)[1], _layouts(dst)[1]
+    x = ps.from_logical(torch.from_numpy(_x(shape, seed=13)).to(dtype))
+    plugins = chain()
+    seen = []
+
+    def record(args, src_ptr, dst_ptr, mode):
+        if mode == DP._MODE_OUT:
+            seen.append(DP._BlockArgs.from_address(args).tiled)
+        _emulate_block(args, src_ptr, dst_ptr, mode)
+
+    emu = _Emulated(record)
+    monkeypatch.setattr(DP, "BLOCK", emu)
+    prog = DP.BlockDatapath(plugins, ps, pd, tuple(x.shape), x.dtype)
+    got = prog.launch(x)
+    want = DP.plain(x, plugins, ps, pd)
+    assert set(emu.paths) == {"generic"} and seen == [int(tiled)]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if bitwise:
+        np.testing.assert_array_equal(bits(got), bits(want))
+    else:       # bf16 after an f32 row sum: tests/oracle.py's bf16 tolerance
+        np.testing.assert_allclose(to_f32(got), to_f32(want), rtol=2e-2,
+                                   atol=1e-2)
+
+
+def test_block_generic_tiled_pass_is_32_bit_only(monkeypatch):
+    """A launch on the 64-bit index instances takes the untiled output pass
+    (the kernel has no 64-bit tiled instance), with the same result."""
+    monkeypatch.setattr(DP, "_INDEX32", 0)
+    src, dst, chain, shape, dtype, _, _ = TILED_CASES["cast_transpose_rank3"]
+    ps, pd = _layouts(src)[1], _layouts(dst)[1]
+    x = ps.from_logical(torch.from_numpy(_x(shape, seed=13)).to(dtype))
+    seen = []
+
+    def record(args, src_ptr, dst_ptr, mode):
+        a = DP._BlockArgs.from_address(args)
+        seen.append((a.index32, a.tiled))
+        _emulate_block(args, src_ptr, dst_ptr, mode)
+
+    monkeypatch.setattr(DP, "BLOCK", _Emulated(record))
+    prog = DP.BlockDatapath(chain(), ps, pd, tuple(x.shape), x.dtype)
+    got = prog.launch(x)
+    assert seen == [(0, 0)]
+    np.testing.assert_array_equal(bits(got), bits(DP.plain(x, chain(), ps,
+                                                           pd)))
 
 
 # the batched rank-2 path against the reference's compiled backend:

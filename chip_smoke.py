@@ -85,7 +85,17 @@ kernel against its plain PyTorch version on the same inputs:
   qwen2-0.5b in f32, one step with the plain reduce and one with the int8
   codec (a reduce descriptor per gradient leaf), the ranks' states equal,
   the step held to the single-process step, then the new weights
-  broadcast to three replicas through the plane, bitwise.
+  broadcast to three replicas through the plane, bitwise;
+* the sharded trainer (phase 20): (a) 4 ranks on the card as a (2, 2)
+  ("data", "model") mesh, qwen3-1.7b at full width cut to 2 layers in f32,
+  tensor-parallel (head-parallel attention, column / row-parallel MLP,
+  vocab-parallel embedding, head and loss) and FSDP (the embedding and
+  every matrix of a layer sharded over the data axis), 2 steps of B 4 x 512
+  in 2 microbatches held to the single-process step, with ms a step
+  (slowest rank), each rank's peak memory beside the whole state, and the
+  collective bytes a step by op and axis; (b) ``launch/train.py --ranks 4
+  --smoke`` for 3 steps with a checkpoint at step 2, resumed from it
+  bitwise, its whole-leaf checkpoint restored on the card bitwise.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -103,7 +113,9 @@ kernel 1 on the serving plane, phase 15 kernels 1 and 3 on the page pool,
 phase 16 kernel 1 on the MoE model's plane, phase 18 kernels 1 and 3 on
 the training checkpoint (phase 19's path has none: the reduce lowers to
 collectives, and the broadcast's MN -> MN hops are kernel 1's identity
-plan, a copy).  Phase 4 also drives the chains kernels 2
+plan, a copy; nor has phase 20's: plain torch and ``torch.distributed``,
+and the launcher's checkpoint staged MN -> MN, whose restore phase 20
+counts).  Phase 4 also drives the chains kernels 2
 and 3 once refused (integer streams, nine streamed ops, logical rank 5),
 and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (the last
 two on its chunked path, timed) and with bf16 q and f32 k / v.  Phase 3 also times the Prefill store at
@@ -2023,6 +2035,210 @@ def phase19(card):
     return dp_times
 
 
+TP_ARCH = "qwen3_1p7b"
+TP_PERIODS = 2                 # 2 of the 28 layers
+TP_MESH = (2, 2)               # ("data", "model"): head-parallel at model 2
+TP_B, TP_S, TP_MICRO, TP_STEPS = 4, 512, 2, 2
+LAUNCH_KW = dict(steps=3, batch=4, seq=64, smoke=True, ckpt_every=2,
+                 microbatches=1, lr=3e-4, resume=True, seed=SEED)
+
+
+def phase20_config():
+    """qwen3-1.7b at full width, 2 of its 28 layers, in f32."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(TP_ARCH),
+                               n_periods=TP_PERIODS, dtype=torch.float32)
+
+
+def tree_bytes(tree):
+    from repro_torch import _pytree
+    return sum(t.numel() * t.element_size() for t in _pytree.leaves(tree))
+
+
+def phase20_rank(mesh, card):
+    """One rank of phase 20 (a): the sharded step (``make_train_step`` with
+    ``mesh=``) on a (2, 2) ("data", "model") mesh, qwen3-1.7b at full
+    width cut to 2 layers, f32 with TF32 off: the whole state made once on
+    the card from the seed, this rank's blocks kept; 2 steps of B 4 x 512
+    in 2 microbatches.  Each rank times its steps and reads its peak
+    memory and its collective ledger; the parameters are gathered whole,
+    and rank 0 then runs the single-process step on the same seed and
+    batches and holds the sharded run to it."""
+    import dataclasses
+
+    from repro_torch import _pytree
+    from repro_torch import sharding as S
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import mesh as M
+    from repro_torch.runtime import telemetry
+    from repro_torch.train import step as T
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    dev, r = mesh.device, mesh.rank
+    tag = f"[sharded training rank {r}]"
+    shape = ShapeConfig("tp", TP_S, TP_B, "train", TP_MICRO)
+    plain_cfg = phase20_config()
+    cfg = dataclasses.replace(plain_cfg.with_axes(M.axes_for(mesh, shape)),
+                              fsdp=True)
+    specs, shapes = M.state_specs(cfg, mesh)
+    fsdp = sorted(_pytree.path_key(path) for (path, _), sp in zip(
+        _pytree.flatten_with_paths(shapes["params"]),
+        M.spec_leaves(specs["params"], shapes["params"])) if "data" in sp)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=TP_S, global_batch=TP_B,
+                     seed=SEED)
+    batches = [batch_on(ds.batch_at(i), dev) for i in range(TP_STEPS)]
+    undo = no_tf32()
+    out = {"fsdp": fsdp, "backend": mesh.backend_note}
+    try:
+        state = T.init_state(cfg, SEED, device=dev, mesh=mesh)
+        out["local_state_bytes"] = tree_bytes(state)
+        out["state_bytes"] = tree_bytes(shapes)
+        step = T.make_train_step(cfg, shape, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        telemetry.reset("collectives")
+        out["ms"], out["losses"] = [], []
+        for b in batches:
+            dist.barrier()                 # the ranks start each step together
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            out["losses"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["ledger"] = S.collective_stats()
+        params = M.gather_tree(state["params"], specs["params"], mesh)
+        del state
+        if r != 0:
+            return out
+        # rank 0: the single-process step on the same seed and batches (the
+        # other ranks have left the card)
+        ref_state = T.init_state(plain_cfg, SEED, device=dev)
+        ref_step = T.make_train_step(plain_cfg, shape)
+        out["ref_losses"] = []
+        for b in batches:
+            ref_state, rm = ref_step(ref_state, b)
+            out["ref_losses"].append(float(rm["loss"]))
+        out["param_err"] = max(
+            max_abs_err(a, b) for a, b in zip(
+                _pytree.leaves(params), _pytree.leaves(ref_state["params"])))
+        for a, b in zip(out["losses"], out["ref_losses"]):
+            # an f32 loss near 200 is 1.5e-5 an ulp, and the two programs
+            # sum in different orders: 1e-5 relative, phase 18 (a)'s bound
+            check(abs(a - b) <= 1e-5 * max(1.0, abs(b)),
+                  f"{tag} sharded loss {a} vs single-process {b}")
+        check(out["param_err"] < 1e-4,
+              f"{tag} gathered parameters {out['param_err']} off the "
+              "single-process step's (bound 1e-4)")
+    finally:
+        undo()
+    log(f"{tag} losses {out['losses']} (single-process "
+        f"{out['ref_losses']}), parameters {out['param_err']} off on {card}")
+    return out
+
+
+def phase20(card):
+    """Phase 20: the sharded trainer.  (a) ``phase20_rank`` in a world of 4
+    gloo ranks on the card; (b) ``launch/train.py --ranks 4 --smoke`` (the
+    reference's (1, 4) mesh) for 3 steps with a checkpoint at step 2, then
+    resumed from it: the resumed loss bitwise the uninterrupted run's, the
+    whole-leaf checkpoint restored on this process's card bitwise the
+    launcher's final state."""
+    import shutil
+    import tempfile
+
+    from repro_torch import _pytree, configs
+    from repro_torch import sharding as S
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as LT
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-tp-") as work:
+            tp = S.run_spmd(phase20_rank, TP_MESH, ("data", "model"),
+                            args=(card,), device="cuda", workdir=work)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    tp_s = time.perf_counter() - t0
+    for rk in tp[1:]:
+        check(rk["losses"] == tp[0]["losses"],
+              "sharded training: the ranks' losses differ")
+    r0 = tp[0]
+    want = {"embed/embed", "blocks/0/ffn/w_gate", "blocks/0/ffn/w_up",
+            "blocks/0/ffn/w_down", "blocks/0/attn/wq", "blocks/0/attn/wk",
+            "blocks/0/attn/wv", "blocks/0/attn/wo"}
+    check(want <= set(r0["fsdp"]),
+          f"sharded training: FSDP shards {r0['fsdp']}, not {sorted(want)}")
+    step_ms = [max(rk["ms"][i] for rk in tp) for i in range(TP_STEPS)]
+    per_step = {k: v // TP_STEPS for k, v in r0["ledger"].items()}
+    by_op = {k[len("bytes:"):]: v for k, v in per_step.items()
+             if k.startswith("bytes:")}
+    log(f"[sharded training] {TP_ARCH} full width, {TP_PERIODS} of 28 "
+        f"layers, f32, mesh {TP_MESH} ({r0['backend']}), B {TP_B} x {TP_S} "
+        f"in {TP_MICRO} microbatches: {step_ms} ms a step (slowest rank; "
+        f"the first includes warm-up); losses {r0['losses']} vs "
+        f"single-process {r0['ref_losses']}; parameters {r0['param_err']} "
+        f"off (bound 1e-4); whole state {r0['state_bytes'] / 1e9:.3f} GB, "
+        f"each rank's blocks {[rk['local_state_bytes'] / 1e9 for rk in tp]} "
+        f"GB, peak allocated {[rk['peak_bytes'] / 1e9 for rk in tp]} GB; "
+        f"rank 0's collective bytes a step by op and axis {by_op}, host hop "
+        f"{per_step.get('host_hop_bytes', 0)} bytes a step; phase (a) "
+        f"{tp_s:.1f} s with 4 process starts on {card}")
+
+    # (b) the launcher: uninterrupted, then resumed from step 2
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-launch-")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        kw = dict(LAUNCH_KW, ckpt_dir=ckpt)
+        whole, hist = LT.train("qwen3-1.7b", device="cuda", ranks=RANKS,
+                               **kw)
+        check(sorted(os.listdir(ckpt)) == ["step_0000000002",
+                                           "step_0000000003"],
+              f"launcher: checkpoints {sorted(os.listdir(ckpt))}")
+        shutil.rmtree(os.path.join(ckpt, "step_0000000003"))
+        _, resumed = LT.train("qwen3-1.7b", device="cuda", ranks=RANKS, **kw)
+        check(len(hist) == 3 and resumed == hist[2:],
+              f"launcher: resumed losses {resumed} vs uninterrupted {hist}")
+        _build.reset_launches()
+        got = CheckpointManager(ckpt).restore(3, M.state_shapes(
+            configs.smoke_config("qwen3-1.7b")), device="cuda")
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        for a, b in zip(_pytree.leaves(got), _pytree.leaves(whole)):
+            assert_bitwise(a.cpu(), b, "launcher: the restored checkpoint")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launch_s = time.perf_counter() - t0
+    log(f"[sharded training] launch/train.py --ranks {RANKS} --smoke (mesh "
+        f"{LT.mesh_shape(RANKS)}): losses {hist}, resumed from step 2 "
+        f"{resumed} (bitwise); its step-3 checkpoint restored on the card "
+        f"bitwise, launches {launches}; {launch_s:.1f} s with 8 process "
+        f"starts on {card}")
+    return {"step_ms": step_ms, "rank_ms": [rk["ms"] for rk in tp],
+            "losses": r0["losses"], "ref_losses": r0["ref_losses"],
+            "param_err": r0["param_err"], "state_bytes": r0["state_bytes"],
+            "local_state_bytes": [rk["local_state_bytes"] for rk in tp],
+            "peak_bytes": [rk["peak_bytes"] for rk in tp],
+            "bytes_per_step": by_op,
+            "host_hop_bytes_per_step": per_step.get("host_hop_bytes", 0),
+            "ledger": r0["ledger"], "fsdp": r0["fsdp"], "phase_s": tp_s,
+            "launch": {"losses": hist, "resumed": resumed,
+                       "restore_launches": launches, "s": launch_s}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3201,6 +3417,9 @@ def main():
     # -- phase 19: data-parallel training, 4 ranks on the one card ---------------
     dp_times = phase19(card)
 
+    # -- phase 20: the sharded trainer, 4 ranks on the one card ------------------
+    tp_times = phase20(card)
+
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
@@ -3230,7 +3449,8 @@ def main():
                    "consumers_ms": cons, "serving": serving,
                    "continuous": continuous, "moe_serving": moe_serving,
                    "moe_ep": {"ms": moe_ep, "ranks": ep, "phase_s": ep_s},
-                   "training": training, "dp_training": dp_times},
+                   "training": training, "dp_training": dp_times,
+                   "sharded_training": tp_times},
                   f, indent=1)
     log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                 for n in order]}))

@@ -80,27 +80,6 @@ def _count(op: str, ax: S.MeshAxis, nbytes: int) -> None:
     _BANK.inc(f"bytes:{op}", int(nbytes))
 
 
-class _Wire:
-    """Where a payload crosses: the tensor handed to the collective (a host
-    copy for gloo on CUDA, counted) and the way back to the device."""
-
-    def __init__(self, ax: S.MeshAxis, device: torch.device):
-        self.hop = ax.backend == "gloo" and device.type == "cuda"
-        self.device = device
-
-    def out(self, t: torch.Tensor) -> torch.Tensor:
-        if self.hop:
-            _BANK.inc("host_hop_bytes", t.numel() * t.element_size())
-            return t.to("cpu")
-        return t
-
-    def back(self, t: torch.Tensor) -> torch.Tensor:
-        if self.hop:
-            _BANK.inc("host_hop_bytes", t.numel() * t.element_size())
-            return t.to(self.device)
-        return t
-
-
 def _exchange(flat: torch.Tensor, send, recv, ax: S.MeshAxis) -> torch.Tensor:
     """``all_to_all_single`` of a byte vector: its first ``send[j]`` bytes
     after those for lower ranks to rank ``j`` of the axis, ``recv[j]`` from
@@ -110,7 +89,7 @@ def _exchange(flat: torch.Tensor, send, recv, ax: S.MeshAxis) -> torch.Tensor:
     if ax.group is None:                 # size-1 axis: the bytes stay
         return flat[:recv[0]].clone()
     import torch.distributed as dist
-    wire = _Wire(ax, flat.device)
+    wire = S.HostHop(ax, flat.device, _BANK)
     src = wire.out(flat)
     out = torch.empty(sum(recv), dtype=torch.uint8, device=src.device)
     dist.all_to_all_single(out, src, list(recv), list(send), group=ax.group)
@@ -122,7 +101,7 @@ def _all_reduce(t: torch.Tensor, ax: S.MeshAxis) -> torch.Tensor:
     if ax.group is None:
         return t.clone()
     import torch.distributed as dist
-    wire = _Wire(ax, t.device)
+    wire = S.HostHop(ax, t.device, _BANK)
     y = wire.out(t)
     y = y.clone() if y is t else y          # all_reduce writes in place
     dist.all_reduce(y, dist.ReduceOp.SUM, group=ax.group)
@@ -137,7 +116,7 @@ def _all_gather(t: torch.Tensor, ax: S.MeshAxis) -> torch.Tensor:
     if ax.group is None:
         return t.clone()
     import torch.distributed as dist
-    wire = _Wire(ax, t.device)
+    wire = S.HostHop(ax, t.device, _BANK)
     src = wire.out(b)
     parts = [torch.empty_like(src) for _ in range(ax.size)]
     dist.all_gather(parts, src, group=ax.group)

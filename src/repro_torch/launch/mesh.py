@@ -14,9 +14,19 @@ A mesh here is a shape and its axis names: :class:`MeshSpec`, or the
 mesh.  :func:`make_production_mesh` gives the assignment's (16, 16) data x
 model mesh, (2, 16, 16) pod x data x model for two pods, and refuses a
 world smaller than it.
+
+:func:`shard_tree` and :func:`gather_tree` are the counterpart of
+``jax.device_put(state, NamedSharding)`` and of reading a sharded array
+back whole: each rank keeps its block of every leaf by the leaf's fitted
+spec (a dim over a tuple of axes takes them row-major, as
+:func:`repro_torch.sharding.init_mesh` lays out ranks), and the blocks are
+all-gathered back into whole leaves.  :func:`state_specs` fits a model's
+train-state specs to a mesh, as the reference's launcher does before its
+``device_put``.
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
 from typing import NamedTuple, Tuple
@@ -24,12 +34,14 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import _pytree
+from repro_torch import sharding as S
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.sharding import Axes
 
 __all__ = ["MeshSpec", "make_production_mesh", "axes_for",
            "infer_param_specs", "infer_state_specs", "cache_specs",
-           "fit_specs", "batch_input_specs"]
+           "fit_specs", "batch_input_specs", "state_shapes", "state_specs",
+           "spec_leaves", "local_shape", "shard_tree", "gather_tree"]
 
 
 class MeshSpec(NamedTuple):
@@ -117,9 +129,10 @@ def _map_shapes(fn, tree):
         lambda path, t: fn(_keys(path), tuple(t.shape)), _as_meta(tree))
 
 
-def _spec_leaves(spec_tree, shape_tree):
+def spec_leaves(spec_tree, shape_tree):
     """The specs of ``spec_tree`` in ``shape_tree``'s leaf order (a spec is
-    a tuple, so the shape tree says where the leaves are)."""
+    a tuple, so the shape tree says where the leaves are): a tree of
+    tensors or of ``(shape, dtype)`` tuples."""
     out = []
     for path, _ in _pytree.flatten_with_paths(_as_meta(shape_tree)):
         spec = spec_tree
@@ -211,7 +224,7 @@ def infer_state_specs(state_shapes, axes: Axes, *, zero: bool = True,
     """Specs for {"params","opt","step"}; FSDP shards params over DP axes,
     ZeRO shards Adam moments of any still-replicated leading dim over DP."""
     pspecs = infer_param_specs(state_shapes["params"], axes, fsdp=fsdp)
-    flat_specs = _spec_leaves(pspecs, state_shapes["params"])
+    flat_specs = spec_leaves(pspecs, state_shapes["params"])
 
     def zero_specs(moments):
         specs = iter(flat_specs)
@@ -278,7 +291,7 @@ def fit_specs(mesh, spec_tree, shape_tree):
         names = ax if isinstance(ax, tuple) else (ax,)
         return math.prod(sizes[n] for n in names)
 
-    specs = iter(_spec_leaves(spec_tree, shape_tree))
+    specs = iter(spec_leaves(spec_tree, shape_tree))
 
     def fit(_, shape):
         spec = next(specs)
@@ -300,3 +313,105 @@ def batch_input_specs(batch_shapes, axes: Axes):
         return _canonical((None, b) if keys[-1] == "positions" else (b,))
 
     return _map_shapes(rule, batch_shapes)
+
+
+# ---------------------------------------------------------------------------
+# a train state on a mesh: fitted specs, each rank's blocks, whole leaves
+# ---------------------------------------------------------------------------
+def state_shapes(cfg: ModelConfig):
+    """The whole train state's tree as meta tensors (shapes and dtypes
+    only): what :func:`state_specs` fits and a checkpoint restores into."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw_init
+    params = lm.init_params(cfg, device="meta")
+    return {"params": params, "opt": adamw_init(params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+@functools.lru_cache(maxsize=16)
+def _state_specs(cfg: ModelConfig, shape: Tuple[int, ...],
+                 axis_names: Tuple[str, ...]):
+    shapes = state_shapes(cfg)
+    specs = infer_state_specs(shapes, cfg.axes, fsdp=cfg.fsdp)
+    return fit_specs(MeshSpec(shape, axis_names), specs, shapes), shapes
+
+
+def state_specs(cfg: ModelConfig, mesh):
+    """``cfg``'s train-state specs (``{"params", "opt", "step"}``: FSDP
+    over the batch axes when ``cfg.fsdp``, the Adam moments ZeRO-sharded)
+    fitted to ``mesh``, as the reference's launcher shards its state.
+    Returns ``(specs, shapes)``, the shapes a tree of meta tensors."""
+    return _state_specs(cfg, tuple(mesh.shape), tuple(mesh.axis_names))
+
+
+def _entry_names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _block_of(entry, sizes, index) -> Tuple[int, int]:
+    """``(count, i)``: how many blocks a dim splits into over ``entry``
+    and this rank's, the axes taken row-major."""
+    count, i = 1, 0
+    for n in _entry_names(entry):
+        count *= sizes[n]
+        i = i * sizes[n] + index[n]
+    return count, i
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """A leaf's block shape under its fitted spec."""
+    sizes = _sizes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(tuple(spec)[:len(out)]):
+        count = math.prod(sizes[n] for n in _entry_names(entry))
+        if out[d] % count:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {entry!r} ({count} blocks)")
+        out[d] //= count
+    return tuple(out)
+
+
+def _indices(mesh) -> dict:
+    """This rank's index along each mesh axis: the mesh's own (a
+    :class:`repro_torch.sharding.Mesh`), else the registered axes'."""
+    axes = getattr(mesh, "axes", None) or {}
+    return {n: (axes[n].index if n in axes else S.axis_index(n))
+            for n in mesh.axis_names}
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's block of every leaf of ``tree`` by its fitted spec (a
+    spec tree matching ``tree``), each block a tensor of its own."""
+    sizes, index = _sizes(mesh), _indices(mesh)
+    flat = _pytree.leaves(tree)
+    out = []
+    for t, spec in zip(flat, spec_leaves(specs, tree)):
+        seen = [n for e in spec for n in _entry_names(e)]
+        if len(seen) != len(set(seen)):
+            raise ValueError(f"spec {spec!r} names an axis twice")
+        for d, entry in enumerate(spec):
+            count, i = _block_of(entry, sizes, index)
+            if count > 1:
+                if t.shape[d] % count:
+                    raise ValueError(f"dim {d} of {tuple(t.shape)} does "
+                                     f"not split over {entry!r}")
+                rows = t.shape[d] // count
+                t = t.narrow(d, i * rows, rows)
+        out.append(t.clone())
+    return _pytree.unflatten(tree, out)
+
+
+def gather_tree(tree, specs, mesh):
+    """Every leaf of ``tree`` (this rank's blocks) whole again on every
+    rank: an all-gather over each axis of its fitted spec, the innermost
+    axis of a tuple first.  Runs in every rank of the mesh, no gradient."""
+    flat = _pytree.leaves(tree)
+    out = []
+    for t, spec in zip(flat, spec_leaves(specs, tree)):
+        for d, entry in enumerate(spec):
+            for n in reversed(_entry_names(entry)):
+                t = S.all_gather(t, n, d)
+        out.append(t)
+    return _pytree.unflatten(tree, out)

@@ -4,15 +4,23 @@ The twin of ``repro.layers.attention``, in plain torch (the reference's
 layers run ``chunked_attention``, not the flash kernel): scores never
 materialize beyond (q_chunk x kv_chunk) tiles, with an f32 running max and
 denominator; bf16 dots take f32 inputs and accumulate in f32 (the
-reference's ``preferred_element_type``).  The reference's head-parallel and
-sequence-parallel choices follow its mesh axes, which the port reads the
-same way (no axis set: the block-sparse schedule).
+reference's ``preferred_element_type``).
+
+Under a registered model axis (``cfg.axes.model``, the sharded trainer)
+the sublayer runs tensor-parallel in the reference's three regimes, picked
+as its ``attn_apply`` picks them: head-parallel when the query and KV heads
+both divide the axis; the KV heads repeated to the query heads when only
+the query heads do; otherwise sequence-parallel, each rank a block of query
+rows over the whole K / V on the dense schedule.  With no axis registered
+the schedule is the block-sparse one, as the reference's without a mesh.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+
+from repro_torch import sharding as SH
 
 from .norms import rms_norm
 from .rope import rope_for
@@ -233,6 +241,14 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
     positions (ragged continuous batching); returns (out, new_cache).  The
     cache passed in is not modified.
     """
+    tp = SH.active_axis(cfg.axes.model)
+    if tp is not None:
+        if cache is not None or cross or kv_x is not None:
+            raise NotImplementedError(
+                "sharded decode and cross-attention are not ported "
+                "(ROADMAP.md §1 items 10a and 10c)")
+        return _attn_tp(cfg, p, x, positions, causal=causal, window=window,
+                        ax=tp), None
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -309,3 +325,95 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
 
     y = proj(out.reshape(B, S, H * hd), p["wo"])
     return y, cache
+
+
+def _attn_tp(cfg, p, x, positions, *, causal, window, ax):
+    """The training sublayer tensor-parallel over ``ax``, in every rank of
+    it: ``x`` (B, S, d) and the output replicated over the axis, the
+    weights sharded by their specs (a weight whole along a dim its rule
+    shards was fitted out of the spec; :func:`repro_torch.sharding.block_of`
+    and ``whole_of`` tell by its shape).
+
+    * head-parallel (the query and KV heads divide the axis): each rank its
+      query heads and their KV heads, the output projection row-parallel,
+      its partial sums reduced over the axis;
+    * repeat (only the query heads divide): each rank computes the KV heads
+      its query heads read, from ``wk`` / ``wv`` gathered whole (a spec can
+      split them through half a head), each repeated to its query heads;
+    * sequence-parallel (neither): each rank its block of query rows
+      (``q_offset = index * S / size``) over the whole K / V on the dense
+      schedule, every weight gathered whole, its output rows gathered along
+      S.
+
+    The input enters through ``copy_to_axis`` and so do ``q_norm`` /
+    ``k_norm``, whose gradients each rank holds a part of."""
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    m, ms, r = ax.name, ax.size, ax.index
+    x = SH.copy_to_axis(x, m)
+    q_norm = SH.copy_to_axis(p["q_norm"], m) if cfg.qk_norm else None
+    k_norm = SH.copy_to_axis(p["k_norm"], m) if cfg.qk_norm else None
+
+    def proj(y, w, b=None):
+        o = y @ w.to(dt)
+        return o if b is None else o + b.to(dt)
+
+    def weight(name, whole, dim, fn):
+        return fn(p.get(name), m, whole, dim)
+
+    if H % ms == 0:
+        Hl = H // ms
+        q = proj(x, weight("wq", H * hd, 1, SH.block_of),
+                 weight("bq", H * hd, 0, SH.block_of)).reshape(B, S, Hl, hd)
+        if KV % ms == 0:                      # head-parallel
+            def kv(w, b):
+                return proj(x, weight(w, KV * hd, 1, SH.block_of),
+                            weight(b, KV * hd, 0, SH.block_of)).reshape(
+                                B, S, KV // ms, hd)
+            k, v = kv("wk", "bk"), kv("wv", "bv")
+            idx = None
+        else:                                 # K / V repeated to H heads
+            G = H // KV
+            lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
+
+            def kv(w, b):
+                wf = weight(w, KV * hd, 1, SH.whole_of)[:, lo * hd:hi * hd]
+                bf = weight(b, KV * hd, 0, SH.whole_of)
+                bf = None if bf is None else bf[lo * hd:hi * hd]
+                return proj(x, wf, bf).reshape(B, S, hi - lo, hd)
+            k, v = kv("wk", "bk"), kv("wv", "bv")
+            idx = torch.div(r * Hl + torch.arange(Hl, device=x.device), G,
+                            rounding_mode="floor") - lo
+        if cfg.qk_norm:
+            q, k = rms_norm(q, q_norm), rms_norm(k, k_norm)
+        q, k = rope_for(cfg, q, positions), rope_for(cfg, k, positions)
+        if idx is not None:
+            k, v = k[:, :, idx], v[:, :, idx]
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                q_chunk=min(1024, S),
+                                kv_chunk=min(1024, S))
+        y = out.reshape(B, S, Hl * hd) @ weight("wo", H * hd, 0,
+                                                 SH.block_of).to(dt)
+        return SH.reduce_from_axis(y, m)
+
+    if S % ms:                               # sequence-parallel
+        raise ValueError(f"sequence-parallel attention: S {S} does not "
+                         f"split over {ms} ranks of {m!r}")
+    Sl = S // ms
+    q = proj(x[:, r * Sl:(r + 1) * Sl], weight("wq", H * hd, 1, SH.whole_of),
+             weight("bq", H * hd, 0, SH.whole_of)).reshape(B, Sl, H, hd)
+    k = proj(x, weight("wk", KV * hd, 1, SH.whole_of),
+             weight("bk", KV * hd, 0, SH.whole_of)).reshape(B, S, KV, hd)
+    v = proj(x, weight("wv", KV * hd, 1, SH.whole_of),
+             weight("bv", KV * hd, 0, SH.whole_of)).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q, k = rms_norm(q, q_norm), rms_norm(k, k_norm)
+    q = rope_for(cfg, q, positions[..., r * Sl:(r + 1) * Sl])
+    k = rope_for(cfg, k, positions)
+    out = chunked_attention_dense(q, k, v, causal=causal, window=window,
+                                  q_offset=r * Sl, q_chunk=min(1024, S),
+                                  kv_chunk=min(1024, S))
+    y = out.reshape(B, Sl, H * hd) @ weight("wo", H * hd, 0,
+                                            SH.whole_of).to(dt)
+    return SH.unsplit_along(y, m, 1)

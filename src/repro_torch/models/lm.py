@@ -10,11 +10,24 @@ moe_apply`); called in every rank of an SPMD body, the batch is the rank's
 block.
 
 :func:`forward` unbinds the stacked leaves once, so a backward stacks each
-leaf's per-period gradients once.  Where a gradient is taken (autograd on
-and a parameter that requires one) under ``cfg.remat == "block"``, it
-checkpoints each period's slots and each encoder layer
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
-scanned block).
+leaf's per-period gradients once.
+
+**The sharded trainer.**  Where ``cfg.axes`` names mesh axes that are
+registered (every rank of a :func:`repro_torch.sharding.run_spmd` body),
+:func:`forward` takes this rank's blocks of the parameters, by their fitted
+train-state specs (:func:`repro_torch.launch.mesh.state_specs`), and this
+rank's block of the batch: the layers run tensor-parallel over the model
+axis, and each weight is made whole over the batch axis where it is used
+(FSDP: cast to ``cfg.dtype`` first, then all-gathered, inside the layer
+loop, so ``remat="block"`` redoes the gather in the backward), as the
+reference's GSPMD program computes it.  The logits come back
+vocab-sharded.  Only attention and dense FFN slots are covered
+(:func:`check_shardable`); sharded prefill and decode raise.
+
+Where a gradient is taken (autograd on and a parameter that requires one)
+under ``cfg.remat == "block"``, it checkpoints each period's slots and each
+encoder layer (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scanned block).
 
 Modes:
   forward(...)                       train / prefill logits (+ MoE aux)
@@ -35,6 +48,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import _pytree
+from repro_torch import sharding as SH
 from repro_torch.configs.base import (ATTN, MAMBA, MLSTM, SLSTM, LayerSpec,
                                       ModelConfig)
 from repro_torch.layers import attention as A
@@ -48,7 +62,8 @@ from repro_torch.layers.norms import init_rms, rms_norm
 from repro_torch.layers.rope import rope_for
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache",
-           "params_from_numpy", "period_slice"]
+           "params_from_numpy", "period_slice", "check_shardable", "Shards",
+           "shards_of"]
 
 def _device(device):
     return torch.device("cuda" if device is None else device)
@@ -149,10 +164,14 @@ def _unstack(tree, n: int):
     """Every period's tree of a tree stacked over ``n`` periods.  The stacked
     leaves are unbound once, so under autograd the backward stacks the
     per-period gradients once; indexing one period at a time would build a
-    zero buffer the size of the whole stacked leaf for each."""
+    zero buffer the size of the whole stacked leaf for each.  A rank's block
+    of a leaf sharded over its periods holds fewer: period ``i`` then takes
+    its slot ``i % len`` (the slot of the layer it holds, or a stand-in that
+    :meth:`Shards.at_use` replaces by the holder's layer)."""
     flat = _pytree.leaves(tree)
     parts = [torch.unbind(a) for a in flat]
-    return [_pytree.unflatten(tree, [p[i] for p in parts]) for i in range(n)]
+    return [_pytree.unflatten(tree, [p[i % len(p)] for p in parts])
+            for i in range(n)]
 
 
 def _needs_grad(params) -> bool:
@@ -176,10 +195,16 @@ def _stack(trees):
 # ---------------------------------------------------------------------------
 # one sublayer slot
 # ---------------------------------------------------------------------------
-def _constrain_slot_params(cfg, tree):
+def _constrain_slot_params(cfg, tree, shards=None, specs=None, period=None):
     """The identity with no mesh axis set; with one, the reference pins each
     weight's sharding (the identity here) and casts matrices to the compute
-    dtype inside the layer loop."""
+    dtype inside the layer loop.  Under the sharded trainer (``shards``)
+    each leaf is made ready for use from its stored block by its spec
+    (``specs``, in ``tree``'s leaf order): :meth:`Shards.at_use`."""
+    if shards is not None:
+        return _pytree.unflatten(tree, [
+            shards.at_use(w, sp, period=period)
+            for w, sp in zip(_pytree.leaves(tree), specs)])
     if cfg.axes.model is None and not cfg.axes.batch:
         return tree
 
@@ -187,6 +212,114 @@ def _constrain_slot_params(cfg, tree):
         return (w.to(cfg.dtype) if w.dim() >= 2 and w.is_floating_point()
                 else w)
     return _pytree.tree_map_with_path(cast, tree)
+
+
+# ---------------------------------------------------------------------------
+# the sharded trainer: where each weight lives, and FSDP at use
+# ---------------------------------------------------------------------------
+_NOT_COVERED = ("is not ported to the sharded trainer (ROADMAP.md §1 item "
+                "10c)")
+
+
+def check_shardable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config with a slot the sharded
+    trainer does not cover: MoE, Mamba, xLSTM, encoder or cross-attention.
+    Such a config never trains replicated in its place."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(f"{cfg.name}: the encoder and "
+                                  f"cross-attention {_NOT_COVERED}")
+    for spec in cfg.period + cfg.tail:
+        if spec.kind != ATTN:
+            raise NotImplementedError(f"{cfg.name}: a {spec.kind} slot "
+                                      f"{_NOT_COVERED}")
+        if spec.moe:
+            raise NotImplementedError(f"{cfg.name}: an MoE slot "
+                                      f"{_NOT_COVERED}")
+
+
+class Shards:
+    """This rank's view of a sharded config's parameters: each leaf's
+    fitted spec (the train state's, :func:`repro_torch.launch.mesh.
+    state_specs`) and the mesh axes the config names, all registered."""
+
+    def __init__(self, cfg: ModelConfig):
+        from repro_torch.launch.mesh import MeshSpec, spec_leaves, state_specs
+        check_shardable(cfg)
+        if len(cfg.axes.batch) > 1:
+            raise NotImplementedError(
+                f"a batch axis over several mesh axes {cfg.axes.batch} is "
+                "not ported to the sharded trainer")
+        self.cfg = cfg
+        self.data = cfg.axes.batch[0] if cfg.axes.batch else None
+        self.model = cfg.axes.model
+        names = tuple(n for n in (self.data, self.model) if n is not None)
+        self.dp = SH.axis_size(self.data) if self.data else 1
+        mesh = MeshSpec(tuple(SH.axis_size(n) for n in names), names)
+        specs, shapes = state_specs(cfg, mesh)
+        flat = zip(_pytree.flatten_with_paths(shapes["params"]),
+                   spec_leaves(specs["params"], shapes["params"]))
+        self.specs: Dict[str, list] = {}
+        for (path, _), sp in flat:
+            top = _pytree.path_key(path[:1] if path[0][1] != "tail"
+                                   else path[:2])
+            self.specs.setdefault(top, []).append(sp)
+
+    def at_use(self, w, spec, *, period=None):
+        """A stored block ready for use: cast to ``cfg.dtype`` (a float
+        matrix), then whole over the batch axis — all-gathered along the dim
+        its spec shards there (the gradient reduce-scattered), or, for a
+        leaf of the stacked ``period`` held by one data rank, broadcast from
+        it (the gradient summed back to it); a leaf replicated over the
+        batch axis enters through ``copy_to_axis``.  The model axis's
+        shards stay for the layers.  ``period`` marks ``w`` as period
+        ``period``'s slot of a leaf stacked over periods."""
+        spec = tuple(spec)
+        lead = None
+        if period is not None:
+            lead, spec = (spec[0] if spec else None), spec[1:]
+        if w.dim() >= 2 and w.is_floating_point():
+            w = w.to(self.cfg.dtype)
+        d = self.data
+        if d is None:
+            return w
+        if lead == d:
+            return SH.broadcast_from(w, d,
+                                    period // (self.cfg.n_periods // self.dp))
+        if lead is not None:
+            raise ValueError(f"a stacked leaf's period dim over {lead!r}")
+        dims = [i for i, e in enumerate(spec) if e == d]
+        if not dims:
+            return SH.copy_to_axis(w, d)
+        for i in dims:
+            w = SH.gather_along(w, d, i)
+        return w
+
+    def embed_at_use(self, p, tokens: bool):
+        """The embedding leaves the forward reads, at use: the table for a
+        token lookup or a tied head, the untied head."""
+        out = {}
+        for k, w in p.items():
+            if k == "embed" and not (tokens or self.cfg.tie_embeddings):
+                continue
+            out[k] = self.at_use(w, self.specs["embed"][sorted(p).index(k)])
+        return out
+
+
+def shards_of(cfg: ModelConfig) -> Optional[Shards]:
+    """The sharded trainer's :class:`Shards` where ``cfg.axes`` names
+    registered mesh axes; None where it names none, or none of them is
+    registered (the reference's sharding constraints are the identity
+    outside a mesh).  Some registered and some not raises."""
+    names = tuple(cfg.axes.batch) + ((cfg.axes.model,)
+                                     if cfg.axes.model else ())
+    live = [SH.active_axis(n) is not None for n in names]
+    if not any(live):
+        return None
+    if not all(live):
+        raise LookupError(f"cfg.axes names {names}, of which only "
+                          f"{[n for n, ok in zip(names, live) if ok]} are "
+                          "registered mesh axes")
+    return Shards(cfg)
 
 
 def _ffn(cfg, spec, p, x, mesh):
@@ -315,14 +448,17 @@ def _encode(cfg, params, audio_embeds):
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
-def _inputs(cfg, params, batch):
+def _inputs(cfg, params, batch, embed=None):
+    """``(x, positions, enc_out)``; ``embed`` the embedding leaves at use
+    (the sharded trainer's), else ``params["embed"]``."""
+    embed = params["embed"] if embed is None else embed
     if "embeds" in batch:
         x = batch["embeds"].to(cfg.dtype)
         B, S = x.shape[:2]
     else:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = E.embed(cfg, params["embed"], tokens)
+        x = E.embed(cfg, embed, tokens)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -338,12 +474,19 @@ def _inputs(cfg, params, batch):
 def forward(cfg: ModelConfig, params, batch, *, mesh=None):
     """batch: {tokens (B,S)} or {embeds}, optional {positions}, optional
     {audio_embeds} for enc-dec.  Returns (logits, aux): aux sums the MoE
-    slots' load-balance losses."""
-    x, positions, enc_out = _inputs(cfg, params, batch)
+    slots' load-balance losses.  Under the sharded trainer ``params`` and
+    ``batch`` are this rank's blocks and the logits this rank's block of
+    the vocabulary (see the module's docstring)."""
+    sh = shards_of(cfg)
+    embed = (None if sh is None
+             else sh.embed_at_use(params["embed"], "embeds" not in batch))
+    x, positions, enc_out = _inputs(cfg, params, batch, embed)
     aux_total = _zero_aux(x)
 
-    def block(x, aux, slot_params):
-        slot_params = _constrain_slot_params(cfg, slot_params)
+    def block(x, aux, slot_params, i):
+        slot_params = _constrain_slot_params(
+            cfg, slot_params, sh, None if sh is None else sh.specs["blocks"],
+            period=i)
         for spec, p in zip(cfg.period, slot_params):
             x, _, a = _apply_slot(cfg, spec, p, x, positions,
                                   enc_out=enc_out, mesh=mesh)
@@ -351,17 +494,24 @@ def forward(cfg: ModelConfig, params, batch, *, mesh=None):
         return x, aux
 
     remat = cfg.remat == "block" and _needs_grad(params)  # jax.checkpoint
-    for slot_params in _unstack(params["blocks"], cfg.n_periods):
+    for i, slot_params in enumerate(_unstack(params["blocks"],
+                                             cfg.n_periods)):
         if remat:
-            x, aux_total = _checkpoint(block, x, aux_total, slot_params)
+            x, aux_total = _checkpoint(block, x, aux_total, slot_params, i)
         else:
-            x, aux_total = block(x, aux_total, slot_params)
-    for spec, p in zip(cfg.tail, params["tail"]):
+            x, aux_total = block(x, aux_total, slot_params, i)
+    for t, (spec, p) in enumerate(zip(cfg.tail, params["tail"])):
+        if sh is not None:
+            p = _constrain_slot_params(cfg, p, sh, sh.specs[f"tail/{t}"])
         x, _, a = _apply_slot(cfg, spec, p, x, positions, enc_out=enc_out,
                               mesh=mesh)
         aux_total = aux_total + a
-    x = rms_norm(x, params["norm_final"]["scale"], cfg.norm_eps)
-    return E.lm_head(cfg, params["embed"], x), aux_total
+    scale = params["norm_final"]["scale"]
+    if sh is not None:
+        scale = sh.at_use(scale, sh.specs["norm_final"][0])
+    x = rms_norm(x, scale, cfg.norm_eps)
+    return E.lm_head(cfg, params["embed"] if embed is None else embed,
+                     x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -428,10 +578,17 @@ def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None,
     return x, new_cache
 
 
+def _refuse_sharded(cfg):
+    if shards_of(cfg) is not None:
+        raise NotImplementedError("sharded prefill and decode are not "
+                                  "ported (ROADMAP.md §1 item 10a)")
+
+
 def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
     """Run the prompt through the model, writing KV/state caches.
 
     Returns (logits_last (B,1,V), cache)."""
+    _refuse_sharded(cfg)
     x, positions, enc_out = _inputs(cfg, params, batch)
     B = x.shape[0]
     cache = dict(cache)
@@ -471,6 +628,7 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
 def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None):
     """One decode step.  tokens (B,1) (or embeds (B,1,d)); returns
     (logits (B,1,V), new cache).  The cache passed in is not modified."""
+    _refuse_sharded(cfg)
     pos = cache["pos"]
     if tokens.dim() == 3:
         x = tokens.to(cfg.dtype)

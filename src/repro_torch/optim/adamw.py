@@ -17,6 +17,7 @@ import math
 import torch
 
 from repro_torch import _pytree
+from repro_torch import sharding as S
 
 __all__ = ["AdamWConfig", "cosine_schedule", "clip_by_global_norm",
            "adamw_init", "adamw_update"]
@@ -62,6 +63,43 @@ def _clip_scale(norm, max_norm: float):
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
+def _names(spec):
+    return frozenset(n for e in spec if e is not None
+                     for n in (e if isinstance(e, tuple) else (e,)))
+
+
+def _sharded_norm(leaves, specs, device):
+    """The global norm of gradients sharded by ``specs``: each set of axes'
+    local sums of squares all-reduced over exactly those axes."""
+    parts = {}
+    for g, sp in zip(leaves, specs):
+        if g is not None:
+            key = _names(sp)
+            parts[key] = (parts.get(key, torch.zeros((), dtype=_F32,
+                                                      device=device))
+                          + torch.sum(torch.square(g.to(_F32))))
+    total = torch.zeros((), dtype=_F32, device=device)
+    for key in sorted(parts, key=sorted):
+        part = parts[key]
+        if key:
+            part = S.all_reduce(part, S.axis_over(key).name)
+        total = total + part
+    return torch.sqrt(total)
+
+
+def _zero_rows(pspec, mspec, ndim: int, data) -> bool:
+    """Whether a leaf's moments are ZeRO-sharded over ``data`` on dim 0
+    where its parameter is not (its only difference allowed)."""
+    p = tuple(pspec) + (None,) * (ndim - len(pspec))
+    m = tuple(mspec) + (None,) * (ndim - len(mspec))
+    if p == m:
+        return False
+    if m[0] == data and p[0] is None and m[1:] == p[1:]:
+        return True
+    raise ValueError(f"moment spec {mspec!r} against parameter spec "
+                     f"{pspec!r}: only dim 0 over {data!r} may differ")
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """``(grads scaled to a global norm of at most max_norm, norm)``."""
     leaves = _pytree.leaves(grads)
@@ -84,18 +122,31 @@ def adamw_init(params):
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
+def adamw_update(cfg: AdamWConfig, params, grads, opt_state, *,
+                 shards=None):
     """One AdamW step: ``(new_params, new_opt_state, {"lr", "grad_norm"})``.
 
     ``grads`` has the structure of ``params``; a ``None`` leaf counts as
     zeros.  The gradients are clipped to ``cfg.clip_norm`` first (each leaf
-    scaled as it is used, so no clipped copy of the whole tree is held)."""
+    scaled as it is used, so no clipped copy of the whole tree is held).
+
+    ``shards`` (the sharded trainer, every rank of the mesh calling it):
+    ``(param_specs, moment_specs, data_axis)``, the fitted specs of the
+    parameters and of their moments in leaf order; every leaf is then this
+    rank's block (see the module's docstring)."""
     flat_p = _pytree.leaves(params)
     flat_g = _flatten_up_to(params, grads)
     flat_mu = _pytree.leaves(opt_state["mu"])
     flat_nu = _pytree.leaves(opt_state["nu"])
     dev = flat_p[0].device
-    gnorm = _global_norm(flat_g, dev)
+    zero = [False] * len(flat_p)
+    if shards is None:
+        gnorm = _global_norm(flat_g, dev)
+    else:
+        pspecs, mspecs, data = shards
+        gnorm = _sharded_norm(flat_g, pspecs, dev)
+        zero = [_zero_rows(ps, ms, p.dim(), data)
+                for p, ps, ms in zip(flat_p, pspecs, mspecs)]
     scale = _clip_scale(gnorm, cfg.clip_norm)
     count = opt_state["count"] + 1
     lr = cosine_schedule(cfg, count)
@@ -104,7 +155,12 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=_F32, device=dev), cf)
 
     new_p, new_mu, new_nu = [], [], []
-    for p, g, mu, nu in zip(flat_p, flat_g, flat_mu, flat_nu):
+    for p, g, mu, nu, z in zip(flat_p, flat_g, flat_mu, flat_nu, zero):
+        if z:                     # this rank's rows of a replicated leaf
+            ax = S.mesh_axis(data)
+            rows = p.shape[0] // ax.size
+            p = p.narrow(0, ax.index * rows, rows)
+            g = None if g is None else g.narrow(0, ax.index * rows, rows)
         # the reference's expressions op by op; the in-place steps write
         # only buffers made here, so a leaf's temporaries stay few
         g = (torch.zeros(p.shape, dtype=_F32, device=p.device) if g is None
@@ -116,8 +172,9 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
             torch.div(nu, b2c).sqrt_().add_(cfg.eps))
         if p.dim() >= 2:
             step.add_(torch.mul(p.to(_F32), cfg.weight_decay))
-        new_p.append(torch.sub(p.to(_F32), step.mul_(lr)).to(p.dtype))
+        new = torch.sub(p.to(_F32), step.mul_(lr)).to(p.dtype)
         del step
+        new_p.append(S.all_gather(new, data, 0) if z else new)
         new_mu.append(mu)
         new_nu.append(nu)
     return (_pytree.unflatten(params, new_p),

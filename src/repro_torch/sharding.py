@@ -27,6 +27,31 @@ logged, and kept on the :class:`Mesh` (``backend``, ``backend_note``).
 The role conventions (:class:`Axes`, :func:`kv_cache_spec`) are plain data:
 a spec is a tuple of axis names (torch has no ``PartitionSpec``), and
 :func:`constrain` is the identity (torch has no sharding constraint).
+
+**The differentiable collectives** are what GSPMD inserts into the
+reference's sharded program, written out: pairs of a forward and a backward
+collective over one mesh axis, each a ``torch.autograd.Function``, which
+the sharded trainer's layers call where the reference's shardings change:
+
+* :func:`copy_to_axis` — the identity, an all-reduce of the gradient (a
+  replicated tensor entering work partitioned over the axis);
+* :func:`reduce_from_axis` — an all-reduce, the gradient passed through
+  (partial sums leaving partitioned work);
+* :func:`gather_along` — an all-gather along a dim, the gradient
+  reduce-scattered (a sharded weight gathered for partitioned work: FSDP);
+* :func:`split_along` — this rank's block along a dim, the gradient
+  all-gathered; :func:`unsplit_along` its inverse (an all-gather, the
+  gradient's block);
+* :func:`broadcast_from` — one rank's tensor to every rank of the axis, the
+  gradient summed back to that rank (a layer held by one data rank).
+
+:func:`all_reduce` and :func:`all_gather` are the same collectives without a
+gradient.  They go through ``torch.distributed`` on the axis's group, never
+through ``xdma.transfer``: the reference's GSPMD collectives are XLA's and
+never become XDMA tasks.  Each call counts into this rank's ``collectives``
+telemetry bank (:func:`collective_stats`): calls and bytes by op and axis,
+and the bytes a gloo group on CUDA tensors copies to the host and back
+(``host_hop_bytes``).  A size-1 axis moves and counts nothing.
 """
 from __future__ import annotations
 
@@ -41,10 +66,16 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import torch
 
+from repro_torch.runtime import telemetry as _tm
+
 __all__ = ["Axes", "CPU_AXES", "constrain", "kv_cache_spec", "spec",
            "MeshAxis", "Mesh", "mesh_axis", "axis_index", "axis_size",
-           "axis_scope", "local_axis", "registered_axes", "pick_backend",
-           "init_mesh", "run_spmd"]
+           "axis_scope", "local_axis", "registered_axes", "axis_over",
+           "pick_backend", "init_mesh", "run_spmd", "copy_to_axis",
+           "reduce_from_axis", "gather_along", "split_along",
+           "unsplit_along", "broadcast_from", "all_reduce", "all_gather",
+           "collective_stats", "active_axis", "block_of", "whole_of",
+           "HostHop"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -145,6 +176,30 @@ def mesh_axis(name) -> MeshAxis:
             f"{sorted(map(repr, _AXES))}); run the body inside a Mesh "
             "(init_mesh / run_spmd) or register it with local_axis")
     return ax
+
+
+def axis_over(names) -> MeshAxis:
+    """The registered axis spanning exactly the set ``names`` (one name, or
+    several registered together as a tuple); raises ``LookupError`` when
+    none is."""
+    want = set(names if isinstance(names, (list, tuple, set, frozenset))
+               else (names,))
+    for key, ax in _AXES.items():
+        if set(key if isinstance(key, tuple) else (key,)) == want:
+            return ax
+    raise LookupError(f"no registered mesh axis spans {sorted(want)} "
+                      f"(registered: {sorted(map(repr, _AXES))})")
+
+
+def active_axis(name) -> Optional[MeshAxis]:
+    """The registered axis ``name``; None for no name or one not
+    registered (the reference's ``constrain`` outside a mesh)."""
+    if name is None:
+        return None
+    key = tuple(name) if isinstance(name, (list, tuple)) else name
+    if isinstance(key, tuple) and len(key) == 1:
+        key = key[0]
+    return _AXES.get(key)
 
 
 def axis_index(name) -> int:
@@ -331,3 +386,276 @@ def run_spmd(body: Callable, shape: Sequence[int] = (8,),
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                        weights_only=False)
             for r in range(math.prod(shape))]
+
+
+# -- collectives with and without a gradient ---------------------------------------
+_LEDGER = _tm.bank("collectives")
+
+
+def collective_stats() -> Dict[str, int]:
+    """This rank's ledger of the collectives below: ``calls:<op>:<axis>``,
+    ``bytes:<op>:<axis>`` (the payload this rank handed the collective: its
+    block for an all-gather, the whole tensor for a reduce-scatter, an
+    all-reduce, a broadcast or a reduce) and ``host_hop_bytes``."""
+    return _LEDGER.as_dict()
+
+
+def _label(name) -> str:
+    return "+".join(map(str, name)) if isinstance(name, tuple) else str(name)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class HostHop:
+    """Where a payload crosses a collective: gloo works on host memory, so
+    on a gloo group a CUDA tensor goes through a host copy and back, the
+    bytes of both counted as ``host_hop_bytes`` in ``bank``; elsewhere the
+    tensor itself."""
+
+    def __init__(self, ax: MeshAxis, device: torch.device, bank):
+        self.hop = ax.backend == "gloo" and device.type == "cuda"
+        self.device = device
+        self.bank = bank
+
+    def out(self, t: torch.Tensor) -> torch.Tensor:
+        if self.hop:
+            self.bank.inc("host_hop_bytes", _nbytes(t))
+            return t.to("cpu")
+        return t
+
+    def back(self, t: torch.Tensor) -> torch.Tensor:
+        if self.hop:
+            self.bank.inc("host_hop_bytes", _nbytes(t))
+            return t.to(self.device)
+        return t
+
+
+def _begin(op: str, ax: MeshAxis, t: torch.Tensor):
+    """Count a call of ``op`` handed ``t``; the module and ``t``'s way
+    across."""
+    _LEDGER.inc(f"calls:{op}:{_label(ax.name)}")
+    _LEDGER.inc(f"bytes:{op}:{_label(ax.name)}", _nbytes(t))
+    import torch.distributed as dist
+    return dist, HostHop(ax, t.device, _LEDGER)
+
+
+def _reduce_op(dist, op: str):
+    return {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
+
+def _all_reduce(t: torch.Tensor, ax: MeshAxis, op: str = "sum"):
+    dist, hop = _begin(f"all_reduce_{op}" if op != "sum" else "all_reduce",
+                       ax, t)
+    y = hop.out(t.contiguous())
+    y = y.clone() if y is t else y            # all_reduce writes in place
+    dist.all_reduce(y, _reduce_op(dist, op), group=ax.group)
+    return hop.back(y)
+
+
+def _all_gather(t: torch.Tensor, ax: MeshAxis, dim: int):
+    """The ranks' blocks concatenated along ``dim`` in axis order."""
+    dist, hop = _begin("all_gather", ax, t)
+    src = hop.out(t.contiguous())
+    parts = [torch.empty_like(src) for _ in range(ax.size)]
+    dist.all_gather(parts, src, group=ax.group)
+    return hop.back(torch.cat(parts, dim))
+
+
+def _reduce_scatter(t: torch.Tensor, ax: MeshAxis, dim: int):
+    """The sum over the axis of ``t``, this rank's block along ``dim``."""
+    if t.shape[dim] % ax.size:
+        raise ValueError(f"reduce-scatter over {ax.name!r}: dim {dim} of "
+                         f"{tuple(t.shape)} does not split into {ax.size}")
+    dist, hop = _begin("reduce_scatter", ax, t)
+    src = hop.out(t.movedim(dim, 0).contiguous())
+    out = torch.empty((src.shape[0] // ax.size,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    # torch 2.13 renames reduce_scatter_tensor (deprecated there)
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    scatter(out, src, group=ax.group)
+    return hop.back(out).movedim(0, dim)
+
+
+def _broadcast(t: torch.Tensor, ax: MeshAxis, index: int):
+    dist, hop = _begin("broadcast", ax, t)
+    y = hop.out(t.contiguous())
+    y = y.clone() if y is t else y
+    dist.broadcast(y, src=dist.get_global_rank(ax.group, index),
+                   group=ax.group)
+    return hop.back(y)
+
+
+def _reduce_to(t: torch.Tensor, ax: MeshAxis, index: int):
+    """The sum over the axis at rank ``index``; zeros elsewhere."""
+    dist, hop = _begin("reduce", ax, t)
+    y = hop.out(t.contiguous())
+    y = y.clone() if y is t else y
+    dist.reduce(y, dst=dist.get_global_rank(ax.group, index),
+                group=ax.group)
+    if ax.index != index:
+        return torch.zeros_like(t)
+    return hop.back(y)
+
+
+def _block(t: torch.Tensor, ax: MeshAxis, dim: int) -> torch.Tensor:
+    n = t.shape[dim]
+    if n % ax.size:
+        raise ValueError(f"split over {ax.name!r}: dim {dim} of "
+                         f"{tuple(t.shape)} does not split into {ax.size}")
+    rows = n // ax.size
+    return t.narrow(dim, ax.index * rows, rows)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.ax), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.ax, ctx.dim), None, None
+
+
+class _SplitAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _block(x, ax, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.ax, ctx.dim), None, None
+
+
+class _UnsplitAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.ax, ctx.dim).contiguous(), None, None
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, index):
+        ctx.ax, ctx.index = ax, index
+        return _broadcast(x, ax, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_to(g, ctx.ax, ctx.index), None, None
+
+
+def _live(name) -> Optional[MeshAxis]:
+    """The axis, or None where it moves nothing (size 1)."""
+    ax = mesh_axis(name)
+    return None if ax.size == 1 else ax
+
+
+def copy_to_axis(x: torch.Tensor, name) -> torch.Tensor:
+    """The identity forward; the gradient all-reduced over ``name``: a
+    tensor replicated over the axis entering work partitioned over it, whose
+    gradient each rank holds only a part of."""
+    ax = _live(name)
+    return x if ax is None else _CopyTo.apply(x, ax)
+
+
+def reduce_from_axis(x: torch.Tensor, name) -> torch.Tensor:
+    """The sum over ``name`` forward (an all-reduce); the gradient passed
+    through: partial sums leaving work partitioned over the axis."""
+    ax = _live(name)
+    return x if ax is None else _ReduceFrom.apply(x, ax)
+
+
+def gather_along(x: torch.Tensor, name, dim: int) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` (an all-gather); the
+    gradient reduce-scattered back to this rank's block: a weight sharded
+    over the axis gathered for work partitioned over it (FSDP)."""
+    ax = _live(name)
+    return x if ax is None else _GatherAlong.apply(x, ax, dim % x.dim())
+
+
+def split_along(x: torch.Tensor, name, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim``; the gradient all-gathered: a tensor
+    replicated over the axis, each rank working on its own block."""
+    ax = _live(name)
+    return x if ax is None else _SplitAlong.apply(x, ax, dim % x.dim())
+
+
+def unsplit_along(x: torch.Tensor, name, dim: int) -> torch.Tensor:
+    """The inverse of :func:`split_along`: the ranks' blocks concatenated
+    along ``dim``, the gradient's block taken back: partitioned work whose
+    result is replicated over the axis from here on."""
+    ax = _live(name)
+    return x if ax is None else _UnsplitAlong.apply(x, ax, dim % x.dim())
+
+
+def broadcast_from(x: torch.Tensor, name, index: int) -> torch.Tensor:
+    """Rank ``index``'s ``x`` on every rank of ``name`` (every rank passes
+    a tensor of its shape and dtype); the gradient summed back to rank
+    ``index``, zeros on the others."""
+    ax = _live(name)
+    return x if ax is None else _BroadcastFrom.apply(x, ax, int(index))
+
+
+def all_reduce(t: torch.Tensor, name, op: str = "sum") -> torch.Tensor:
+    """``op`` (``"sum"`` or ``"max"``) over ``name``, without a gradient."""
+    ax = _live(name)
+    return t.detach().clone() if ax is None else _all_reduce(t.detach(), ax,
+                                                              op)
+
+
+def all_gather(t: torch.Tensor, name, dim: int = 0) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim``, without a gradient."""
+    ax = _live(name)
+    return (t.detach().clone() if ax is None
+            else _all_gather(t.detach(), ax, dim % t.dim()))
+
+
+# -- a weight's part for the work on this rank, by its shape ----------------------
+def block_of(w: Optional[torch.Tensor], name, whole: int, dim: int):
+    """This rank's block along ``dim`` of a weight that is ``whole`` long
+    there unsharded: the weight itself where it is sharded over ``name``
+    already, else its block through :func:`split_along`."""
+    if w is None or w.shape[dim] != whole:
+        return w
+    return split_along(w, name, dim)
+
+
+def whole_of(w: Optional[torch.Tensor], name, whole: int, dim: int):
+    """A weight whole along ``dim`` for work partitioned over ``name``:
+    gathered (the gradient reduce-scattered) where it is sharded there, else
+    through :func:`copy_to_axis` (the gradient summed over the axis)."""
+    if w is None:
+        return None
+    if w.shape[dim] == whole:
+        return copy_to_axis(w, name)
+    return gather_along(w, name, dim)

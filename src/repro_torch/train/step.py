@@ -21,6 +21,18 @@ master parameters and f32 AdamW moments, as the reference does, on the
 card unless given ``device="cpu"``; the model casts each weight to
 ``cfg.dtype`` where it uses it, so an update smaller than a ``cfg.dtype``
 step still lands in the master.
+
+**The sharded trainer** is :func:`make_train_step` with ``mesh=`` and
+``cfg.axes`` set (``launch.mesh.axes_for``; ``cfg.fsdp``), in every rank
+of a :func:`repro_torch.sharding.run_spmd` body: the counterpart of the
+reference's GSPMD step.  Each rank holds its blocks of the state by the
+fitted train-state specs (:func:`init_state` with ``mesh=``), takes its
+data block of every microbatch, runs the model tensor-parallel and FSDP
+(:mod:`repro_torch.models.lm`), and accumulates f32 gradients on the
+parameters' shardings (reduce-scattered over the data axis each
+microbatch); AdamW then updates the shards.  Its collectives are
+``torch.distributed``'s, counted in :func:`repro_torch.sharding.
+collective_stats`, not XDMA tasks.
 """
 from __future__ import annotations
 
@@ -48,27 +60,79 @@ class TrainState(dict):
     """{"params", "opt", "step"} — a plain pytree dict."""
 
 
-def init_state(cfg: ModelConfig, seed: int = 0, *, device=None
+def init_state(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None
                ) -> Dict[str, Any]:
     """A fresh train state on ``device`` (the card unless given ``"cpu"``):
-    the port's seeded f32 master parameters, f32 AdamW moments, step 0."""
+    the port's seeded f32 master parameters, f32 AdamW moments, step 0.
+
+    With ``mesh`` (the sharded trainer, every rank of the mesh calling it):
+    the whole parameters are made once from the seed on ``device`` and this
+    rank keeps its blocks by ``cfg``'s fitted state specs; its moments are
+    zeros of its moment blocks' shapes."""
     params = lm.init_params(cfg, seed, device=device)
     dev = _pytree.leaves(params)[0].device
-    return {"params": params, "opt": adamw_init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if mesh is None:
+        return {"params": params, "opt": adamw_init(params), "step": step}
+    from repro_torch.launch import mesh as M
+    specs, shapes = M.state_specs(cfg, mesh)
+    params = M.shard_tree(params, specs["params"], mesh)
+
+    def zeros(name):
+        return _pytree.unflatten(shapes["opt"][name], [
+            torch.zeros(M.local_shape(t.shape, sp, mesh), dtype=_F32,
+                        device=dev)
+            for t, sp in zip(_pytree.leaves(shapes["opt"][name]),
+                             M.spec_leaves(specs["opt"][name],
+                                           shapes["opt"][name]))])
+    return {"params": params,
+            "opt": {"mu": zeros("mu"), "nu": zeros("nu"),
+                    "count": torch.zeros((), dtype=torch.int32, device=dev)},
+            "step": step}
+
+
+def _logz_and_label_logit(logits, labels, ax):
+    """Each token's ``logsumexp`` over the vocabulary and its label's
+    logit; with ``ax`` the logits are this rank's vocabulary block over it
+    (vocab-parallel: the running max and the sum of exponentials reduced
+    over the axis, each label's logit from the rank that holds it)."""
+    if ax is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return logz, ll
+    n = logits.shape[-1]
+    top = S.all_reduce(logits.detach().amax(-1), ax.name, op="max")
+    total = S.reduce_from_axis(torch.exp(logits - top[..., None]).sum(-1),
+                               ax.name)
+    logz = top + torch.log(total)
+    ids = labels.long() - ax.index * n
+    mine = (ids >= 0) & (ids < n)
+    ll = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    ll = S.reduce_from_axis(torch.where(mine, ll, torch.zeros_like(ll)),
+                            ax.name)
+    return logz, ll
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None,
             aux_weight: float = 0.01, z_weight: float = 1e-4):
     """``(nll + aux_weight * aux + z_weight * zloss, metrics)`` over f32
-    logits."""
+    logits.  Under the sharded trainer the batch is this rank's data block
+    and the logits its vocabulary block: the loss and the metrics are this
+    rank's share of the global batch's means (their sum over the data axis
+    is the mean), the logits never gathered."""
+    sh = lm.shards_of(cfg)
     logits, aux = lm.forward(cfg, params, batch, mesh=mesh)
     labels = batch["labels"]
     logits = logits.to(_F32)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = (logz - ll).mean()
-    zloss = (logz ** 2).mean()
+    logz, ll = _logz_and_label_logit(
+        logits, labels, None if sh is None else S.active_axis(sh.model))
+    if sh is None:
+        nll = (logz - ll).mean()
+        zloss = (logz ** 2).mean()
+    else:
+        count = labels.numel() * sh.dp
+        nll = (logz - ll).sum() / count
+        zloss = (logz ** 2).sum() / count
     total = nll + aux_weight * aux + z_weight * zloss
     return total, {"nll": nll, "aux": aux, "zloss": zloss}
 
@@ -191,9 +255,10 @@ def make_dp_train_step(cfg: ModelConfig, shape: ShapeConfig,
     ``train_step(state, batch)`` runs in every rank of an SPMD body whose
     mesh (``mesh``: the :class:`repro_torch.sharding.Mesh`, or anything
     with ``shape`` and ``axis_names``) registers ``axis``; every rank passes
-    the same state and the global batch, and takes its block of rows (dim 0
-    of each leaf), as ``shard_map`` with ``P(axis)`` hands each device its
-    block.  Every byte this step moves between ranks is an XDMA task."""
+    the same state and the global batch, and takes its block of rows
+    (:func:`_data_block`), as ``shard_map`` with ``P(axis)`` hands each
+    device its block.  Every byte this step moves between ranks is an XDMA
+    task."""
     opt_cfg = opt_cfg or AdamWConfig()
     n = _axis_size(mesh, axis)
     n_micro = max(1, shape.microbatches)
@@ -218,18 +283,7 @@ def make_dp_train_step(cfg: ModelConfig, shape: ShapeConfig,
     def train_step(state, batch):
         params = state["params"]
         dev = _pytree.leaves(params)[0].device
-        r = S.axis_index(axis)
-        block = {}
-        for k, v in batch.items():
-            if v.dim() == 0:
-                block[k] = v
-                continue
-            if v.shape[0] % n:
-                raise ValueError(f"batch leaf {k!r}: {v.shape[0]} rows do "
-                                 f"not split over {n} ranks of {axis!r}")
-            rows = v.shape[0] // n
-            block[k] = v[r * rows:(r + 1) * rows].to(dev)
-        loss, grads = local_grads(params, block)
+        loss, grads = local_grads(params, _to(_data_block(batch, axis), dev))
         grads = dp_grad_sync(_pytree.unflatten(params, grads), axis, n,
                              compressed=compressed, scheduler=scheduler)
         # the loss mean rides the plane too (uncompressed scalar reduce)
@@ -269,9 +323,16 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     microbatches in order, their f32 gradients accumulated as ``acc +
     g / n_micro``, then AdamW.  The metrics are the microbatches' mean
     ``nll``, ``aux`` and ``zloss``, the mean ``loss``, and ``lr`` and
-    ``grad_norm`` of the update.  The state passed in is not modified."""
+    ``grad_norm`` of the update.  The state passed in is not modified.
+
+    With ``mesh`` and ``cfg.axes`` naming its axes this is the sharded
+    trainer (see the module's docstring): every rank of ``mesh`` calls the
+    step with its blocks of the state and the same global batch; the
+    metrics are the global batch's, equal on every rank."""
     opt_cfg = opt_cfg or AdamWConfig()
     n_micro = max(1, shape.microbatches)
+    if mesh is not None and (cfg.axes.model is not None or cfg.axes.batch):
+        return _sharded_train_step(cfg, n_micro, opt_cfg, mesh)
 
     def train_step(state, batch):
         params = state["params"]
@@ -297,5 +358,65 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         state = {"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}
         return state, dict(metrics, loss=loss, **opt_metrics)
+
+    return train_step
+
+
+def _data_block(batch, data):
+    """This rank's rows of every batch leaf over the ``data`` axis: dim 1
+    of M-RoPE's (3, B, S) ``positions``, dim 0 of the others
+    (``launch.mesh.batch_input_specs``)."""
+    if data is None:
+        return batch
+    ax = S.mesh_axis(data)
+    out = {}
+    for k, v in batch.items():
+        if v.dim() == 0:
+            out[k] = v
+            continue
+        dim = 1 if k == "positions" and v.dim() == 3 else 0
+        if v.shape[dim] % ax.size:
+            raise ValueError(f"batch leaf {k!r}: {v.shape[dim]} rows do not "
+                             f"split over {ax.size} ranks of {data!r}")
+        rows = v.shape[dim] // ax.size
+        out[k] = v.narrow(dim, ax.index * rows, rows)
+    return out
+
+
+def _sharded_train_step(cfg, n_micro, opt_cfg, mesh):
+    from repro_torch.launch import mesh as M
+
+    def train_step(state, batch):
+        sh = lm.shards_of(cfg)
+        if sh is None:
+            raise LookupError(f"the sharded step for cfg.axes {cfg.axes} "
+                              "runs inside its mesh (run_spmd)")
+        specs, shapes = M.state_specs(cfg, mesh)
+        params = state["params"]
+        leaves = _pytree.leaves(params)
+        dev = leaves[0].device
+        acc = _zeros_f32(leaves)
+        sums = torch.zeros(4, dtype=_F32, device=dev)
+        for mb in _split_micro(_to(batch, dev), n_micro):
+            l, metrics, grads = _value_and_grad(
+                cfg, params, _data_block(mb, sh.data), mesh=mesh)
+            _accumulate(acc, grads, n_micro)
+            del grads
+            sums = sums + torch.stack([l, metrics["nll"], metrics["aux"],
+                                       metrics["zloss"]]) / n_micro
+        if sh.data is not None:            # each rank's share of the means
+            sums = S.all_reduce(sums, sh.data)
+        loss, nll, aux, zloss = sums.unbind()
+        shards = (M.spec_leaves(specs["params"], shapes["params"]),
+                  M.spec_leaves(specs["opt"]["mu"], shapes["opt"]["mu"]),
+                  sh.data)
+        new_params, new_opt, opt_metrics = adamw_update(
+            opt_cfg, params, _pytree.unflatten(params, acc), state["opt"],
+            shards=shards)
+        del acc
+        state = {"params": new_params, "opt": new_opt,
+                 "step": state["step"] + 1}
+        return state, dict(nll=nll, aux=aux, zloss=zloss, loss=loss,
+                           **opt_metrics)
 
     return train_step

@@ -63,6 +63,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.launch.train, repro_torch.launch.dryrun\n"
             "from repro_torch import configs\n"
             "[configs.get_config(a) for a in configs.ARCHS]\n"
+            "from repro_torch.launch import mesh as M, train as LT\n"
+            "M.state_specs(configs.smoke_config('qwen3_1p7b'), "
+            "M.MeshSpec(LT.mesh_shape(4), ('data', 'model')))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(repr(bad))\n")

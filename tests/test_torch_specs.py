@@ -130,12 +130,12 @@ def test_state_and_cache_specs_match_reference(arch):
     rstate = jax.eval_shape(lambda k: rinit(k, rcfg), key)
     state = init_state(cfg, device="meta")
     got = MM.infer_state_specs(state, AX)
-    assert MM._spec_leaves(got, state) == _ref_leaves(
+    assert MM.spec_leaves(got, state) == _ref_leaves(
         RMM.infer_state_specs(rstate, RAX))
     rcache = jax.eval_shape(lambda: RL.init_cache(rcfg, 4, 64))
     cache = lm.init_cache(cfg, 4, 64, device="meta")
     got = MM.cache_specs(cfg, cache, AX)
-    assert MM._spec_leaves(got, cache) == _ref_leaves(
+    assert MM.spec_leaves(got, cache) == _ref_leaves(
         RMM.cache_specs(rcfg, rcache, RAX))
 
 

@@ -373,3 +373,199 @@ def dp_train_body(mesh, state_np, batch_np):
                         "labels": sorted(s.label for s in
                                          sched.report().spans)}
     return out
+
+
+# -- the sharded trainer on a (2, 2) ('data', 'model') world -----------------
+TP_MESH = ((2, 2), ("data", "model"))
+TP_SHAPE = dict(seq=16, batch=8, microbatches=2)
+TP_LAYER_B = 4                             # the layer cases' batch
+
+
+def tp_layer_configs(configs, dataclasses, f32):
+    """The layer cases' smoke configs in f32, by regime on a model axis of
+    2: qwen3 (H4, KV2: head-parallel, tied), the same with one KV head (the
+    KV heads repeated), qwen2 (H7, KV1: sequence-parallel) and phi4-mini
+    (an untied head)."""
+    q3 = configs.smoke_config("qwen3_1p7b")
+    return {"head": dataclasses.replace(q3, dtype=f32),
+            "repeat": dataclasses.replace(q3, dtype=f32, n_kv_heads=1),
+            "seq": dataclasses.replace(configs.smoke_config("qwen2_0p5b"),
+                                       dtype=f32),
+            "untied": dataclasses.replace(
+                configs.smoke_config("phi4_mini_3p8b"), dtype=f32)}
+
+
+def tp_step_config(configs, dataclasses, dtype):
+    """The phi4-mini smoke config widened until FSDP's 1 << 20 rule shards
+    the embedding (4096 x 256), the untied head and the FFN's matrices (2 x
+    256 x 4096).  Its head keeps the logits near unit scale, so the loss
+    (about 8.8) leaves an absolute 1e-5 ten f32 ulps; the tied qwen3 smoke
+    config widened so starts near 170, where an ulp is 1.5e-5."""
+    return dataclasses.replace(configs.smoke_config("phi4_mini_3p8b"),
+                               dtype=dtype, d_model=256, d_ff=4096,
+                               vocab=4096)
+
+
+def tp_body(mesh, inp):
+    """One rank of the (2, 2) world: each sharded layer's output, input
+    gradient and weight gradients (whole: gathered over the model axis,
+    summed over the data axis), embedding plus vocab-parallel loss, the
+    whole model's gradient of one microbatch, and two steps of the sharded
+    step in f32 and in bf16 with the state they leave (whole)."""
+    import dataclasses
+
+    from repro_torch import _pytree, configs
+    from repro_torch import sharding as S
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.layers import attention as A
+    from repro_torch.layers import embedding as E
+    from repro_torch.layers import mlp as F
+    from repro_torch.models import lm
+    from repro_torch.train import step as T
+
+    torch.set_num_threads(1)
+    shape = ShapeConfig("t", TP_SHAPE["seq"], TP_SHAPE["batch"], "train",
+                        TP_SHAPE["microbatches"])
+    axes = M.axes_for(mesh, shape)
+    dp = S.axis_size("data")
+
+    def tree(a):
+        return lm.params_from_numpy(a, device="cpu")
+
+    def rows(a):                            # this data rank's rows
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        n = t.shape[0] // dp
+        return t[S.axis_index("data") * n:(S.axis_index("data") + 1) * n]
+
+    def whole_rows(t):
+        return S.all_gather(t, "data", 0)
+
+    def layer(cfg, p, fn, x_np, dy_np):
+        """``fn(cfg, local params, x)`` on this rank's rows with the model
+        axis sharding ``p`` by its rules: the whole output, input gradient
+        and weight gradients."""
+        specs = M.fit_specs(mesh, M.infer_param_specs(p, cfg.axes), p)
+        local = M.shard_tree(p, specs, mesh)
+        leaves = [t.requires_grad_() for t in _pytree.leaves(local)]
+        local = _pytree.unflatten(local, leaves)
+        x = rows(x_np).requires_grad_()
+        y = fn(cfg, local, x)
+        got = torch.autograd.grad(y, [x] + leaves, rows(dy_np))
+        grads = M.gather_tree(_pytree.unflatten(local, list(got[1:])),
+                              specs, mesh)
+        return {"y": whole_rows(y.detach()), "dx": whole_rows(got[0]),
+                "grads": [S.all_reduce(g, "data")
+                          for g in _pytree.leaves(grads)]}
+
+    cfgs = {k: c.with_axes(axes) for k, c in tp_layer_configs(
+        configs, dataclasses, torch.float32).items()}
+    out = {}
+    pos = inp["positions"]
+    for name in ("head", "repeat", "seq"):
+        cfg = cfgs[name]
+        out[name] = layer(
+            cfg, tree(inp["attn"][name]),
+            lambda c, p, x: A.attn_apply(c, p, x, rows(pos))[0],
+            inp["x"][name], inp["dy"][name])
+    for name, fn in (("swiglu", F.swiglu), ("gelu", F.gelu_mlp)):
+        out[name] = layer(cfgs["head"], tree(inp["mlp"][name]), fn,
+                          inp["x"]["head"], inp["dy"]["head"])
+
+    def embed_loss(cfg, p, tokens, labels):
+        x = E.embed(cfg, p, tokens)
+        logits = E.lm_head(cfg, p, x).to(torch.float32)
+        logz, ll = T._logz_and_label_logit(logits, labels,
+                                           S.active_axis("model"))
+        n = labels.numel() * dp
+        return ((logz - ll).sum() / n
+                + 1e-4 * ((logz ** 2).sum() / n))
+
+    for name in ("head", "untied"):
+        cfg = cfgs[name]
+        p = tree(inp["embed"][name])
+        specs = M.fit_specs(mesh, M.infer_param_specs(p, cfg.axes), p)
+        local = M.shard_tree(p, specs, mesh)
+        leaves = [t.requires_grad_() for t in _pytree.leaves(local)]
+        local = _pytree.unflatten(local, leaves)
+        loss = embed_loss(cfg, local, rows(inp["tokens"]),
+                          rows(inp["labels"]))
+        got = torch.autograd.grad(loss, leaves)
+        grads = M.gather_tree(_pytree.unflatten(local, list(got)), specs,
+                              mesh)
+        out["embed_" + name] = {
+            "loss": S.all_reduce(loss.detach(), "data"),
+            "grads": [S.all_reduce(g, "data")
+                      for g in _pytree.leaves(grads)]}
+
+    def sharded_cfg(dtype):
+        return dataclasses.replace(
+            tp_step_config(configs, dataclasses, dtype).with_axes(axes),
+            fsdp=True)
+
+    # the whole model's gradient of one microbatch (the global batch)
+    cfg = sharded_cfg(torch.float32)
+    specs, _ = M.state_specs(cfg, mesh)
+    state = M.shard_tree(tree(inp["state"]), specs, mesh)
+    out["fsdp"] = sorted(
+        "/".join(map(str, (k for _, k in path)))
+        for (path, _), sp in zip(
+            _pytree.flatten_with_paths(state["params"]),
+            M.spec_leaves(specs["params"], state["params"]))
+        if "data" in sp)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in inp["batches"]]
+    loss, _, grads = T._value_and_grad(
+        cfg, state["params"], T._data_block(batches[0], "data"), mesh=mesh)
+    out["grad_loss"] = S.all_reduce(loss, "data")
+    out["grads"] = _pytree.leaves(M.gather_tree(
+        _pytree.unflatten(state["params"], grads), specs["params"], mesh))
+
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = sharded_cfg(dtype)
+        step = T.make_train_step(cfg, shape, mesh=mesh)
+        st, losses = state, []
+        for b in batches:
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+        whole = M.gather_tree(st, specs, mesh)
+        out[name] = {"losses": losses,
+                     "params": _pytree.leaves(whole["params"]),
+                     "mu": _pytree.leaves(whole["opt"]["mu"]),
+                     "nu": _pytree.leaves(whole["opt"]["nu"]),
+                     "step": whole["step"]}
+    out["ledger"] = S.collective_stats()
+    return out
+
+
+# -- the sharded launcher: launch/train.py --ranks 4 --smoke -----------------
+LAUNCH_ARCH = "qwen3-1.7b"
+LAUNCH_KW = dict(steps=3, batch=4, seq=16, smoke=True, ckpt_every=2,
+                 microbatches=1, lr=3e-4, resume=True, seed=0)
+
+
+def launcher_body(mesh, ckpt_dir):
+    """One rank of ``launch/train.py --ranks 4 --smoke``'s world
+    (``train_rank``): 3 steps with a checkpoint at step 2 (and the final
+    one at 3), then the step-3 checkpoint removed and the run resumed from
+    step 2.  Returns both runs' losses and final states (rank 0's)."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as LT
+
+    torch.set_num_threads(1)
+    kw = dict(LAUNCH_KW, ckpt_dir=ckpt_dir)
+    full = LT.train_rank(mesh, LAUNCH_ARCH, kw)
+    dist.barrier()
+    if mesh.rank == 0:
+        shutil.copytree(os.path.join(ckpt_dir, "step_0000000003"),
+                        ckpt_dir + ".final")
+        shutil.rmtree(os.path.join(ckpt_dir, "step_0000000003"))
+    dist.barrier()
+    resumed = LT.train_rank(mesh, LAUNCH_ARCH, kw)
+    return {"full": full["history"], "resumed": resumed["history"],
+            "state": full["state"], "resumed_state": resumed["state"],
+            "mesh": mesh.shape, "ledger": full["ledger"]}

@@ -381,9 +381,11 @@ def _indices(mesh) -> dict:
             for n in mesh.axis_names}
 
 
-def shard_tree(tree, specs, mesh):
+def shard_tree(tree, specs, mesh, device=None):
     """This rank's block of every leaf of ``tree`` by its fitted spec (a
-    spec tree matching ``tree``), each block a tensor of its own."""
+    spec tree matching ``tree``), each block a tensor of its own, on
+    ``device`` (the leaf's own when None): a tree on the host puts only
+    this rank's blocks on the card."""
     sizes, index = _sizes(mesh), _indices(mesh)
     flat = _pytree.leaves(tree)
     out = []
@@ -399,19 +401,22 @@ def shard_tree(tree, specs, mesh):
                                      f"not split over {entry!r}")
                 rows = t.shape[d] // count
                 t = t.narrow(d, i * rows, rows)
-        out.append(t.clone())
+        out.append(t.clone() if device is None
+                   else t.to(device, copy=True))
     return _pytree.unflatten(tree, out)
 
 
-def gather_tree(tree, specs, mesh):
+def gather_tree(tree, specs, mesh, device=None):
     """Every leaf of ``tree`` (this rank's blocks) whole again on every
     rank: an all-gather over each axis of its fitted spec, the innermost
-    axis of a tuple first.  Runs in every rank of the mesh, no gradient."""
+    axis of a tuple first.  Runs in every rank of the mesh, no gradient.
+    With ``device`` (``"cpu"``) each whole leaf moves there as soon as it
+    is gathered, so the card holds one whole leaf at a time."""
     flat = _pytree.leaves(tree)
     out = []
     for t, spec in zip(flat, spec_leaves(specs, tree)):
         for d, entry in enumerate(spec):
             for n in reversed(_entry_names(entry)):
                 t = S.all_gather(t, n, d)
-        out.append(t)
+        out.append(t if device is None else t.to(device))
     return _pytree.unflatten(tree, out)

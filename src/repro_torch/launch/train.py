@@ -144,6 +144,16 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
     return state, history
 
 
+def restore_sharded(mgr: CheckpointManager, step: int, cfg, mesh):
+    """This rank's blocks of the whole-leaf checkpoint at ``step``: the
+    leaves read onto the host, only this rank's blocks (by ``cfg``'s fitted
+    state specs) put on its device, so the card never holds the whole
+    state."""
+    specs, shapes = M.state_specs(cfg, mesh)
+    return M.shard_tree(mgr.restore(step, shapes, device="cpu"), specs,
+                        mesh, device=mesh.device)
+
+
 def train_rank(mesh, arch: str, kw: dict):
     """One rank of the sharded trainer (a :func:`repro_torch.sharding.
     run_spmd` body over a ("data", "model") mesh): :func:`train`'s loop on
@@ -163,14 +173,12 @@ def train_rank(mesh, arch: str, kw: dict):
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=kw["seq"],
                      global_batch=kw["batch"], seed=seed, family=cfg.family,
                      d_model=cfg.d_model, encoder_seq=cfg.encoder_seq)
-    specs, shapes = M.state_specs(cfg, mesh)
+    specs, _ = M.state_specs(cfg, mesh)
     start_step = 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if mgr and kw["resume"] and mgr.latest_step() is not None:
         start_step = mgr.latest_step()
-        whole = mgr.restore(start_step, shapes, device=dev)
-        state = M.shard_tree(whole, specs, mesh)
-        del whole
+        state = restore_sharded(mgr, start_step, cfg, mesh)
         log.info("rank %d resumed from step %d", mesh.rank, start_step)
     else:
         state = init_state(cfg, seed, device=dev, mesh=mesh)
@@ -190,11 +198,12 @@ def train_rank(mesh, arch: str, kw: dict):
                      "mesh %s", i, loss, float(metrics["lr"]),
                      float(metrics["grad_norm"]), dt, dev, mesh.shape)
         if mgr and (i + 1) % kw["ckpt_every"] == 0:
-            whole = M.gather_tree(state, specs, mesh)   # every rank gathers
-            if lead:                                    # rank 0 writes
+            # every rank gathers, leaf by leaf onto the host; rank 0 writes
+            whole = M.gather_tree(state, specs, mesh, device="cpu")
+            if lead:
                 mgr.save(i + 1, whole, blocking=False)
             del whole
-    whole = M.gather_tree(state, specs, mesh)
+    whole = M.gather_tree(state, specs, mesh, device="cpu")
     if mgr and lead:
         mgr.save(steps, whole, blocking=True)
     return {"history": history, "ledger": S.collective_stats(),

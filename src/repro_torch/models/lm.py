@@ -96,18 +96,21 @@ def _init_slot(init: Init, cfg: ModelConfig, spec: LayerSpec):
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                store=None):
     """The port's own seeded initializer: the reference's tree, shapes,
     dtypes (f32 masters) and standard deviations, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the card unless
     given ``"cpu"``; ``"meta"`` gives the shapes and dtypes with no
-    storage).  The values are not JAX's."""
+    storage).  The values are not JAX's.  With ``store`` (``"cpu"``) each
+    weight is drawn on ``device`` and the tree is kept on ``store``: the
+    same values, ``device`` holding one weight at a time."""
     cfg.validate()
     dev = _device(device)
     # the meta device holds shapes only (no values, so no generator)
     gen = (None if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(int(seed)))
-    init = Init(gen, dev)
+    init = Init(gen, dev, store=store)
     params: Dict[str, Any] = {"embed": E.init_embed(init, cfg)}
     params["blocks"] = tuple(_init_slot(init.stacked(cfg.n_periods), cfg, spec)
                              for spec in cfg.period)

@@ -66,17 +66,22 @@ def init_state(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None
     the port's seeded f32 master parameters, f32 AdamW moments, step 0.
 
     With ``mesh`` (the sharded trainer, every rank of the mesh calling it):
-    the whole parameters are made once from the seed on ``device`` and this
-    rank keeps its blocks by ``cfg``'s fitted state specs; its moments are
+    the whole parameters are drawn once from the seed on ``device`` (the
+    single-process state's values), one weight at a time, and kept on the
+    host; this rank puts its blocks by ``cfg``'s fitted state specs on
+    ``device``, so the card never holds the whole state; its moments are
     zeros of its moment blocks' shapes."""
-    params = lm.init_params(cfg, seed, device=device)
-    dev = _pytree.leaves(params)[0].device
-    step = torch.zeros((), dtype=torch.int32, device=dev)
     if mesh is None:
-        return {"params": params, "opt": adamw_init(params), "step": step}
+        params = lm.init_params(cfg, seed, device=device)
+        dev = _pytree.leaves(params)[0].device
+        return {"params": params, "opt": adamw_init(params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
     from repro_torch.launch import mesh as M
+    dev = torch.device("cuda" if device is None else device)
     specs, shapes = M.state_specs(cfg, mesh)
-    params = M.shard_tree(params, specs["params"], mesh)
+    params = M.shard_tree(lm.init_params(cfg, seed, device=dev, store="cpu"),
+                          specs["params"], mesh, device=dev)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
 
     def zeros(name):
         return _pytree.unflatten(shapes["opt"][name], [
@@ -331,10 +336,14 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     metrics are the global batch's, equal on every rank."""
     opt_cfg = opt_cfg or AdamWConfig()
     n_micro = max(1, shape.microbatches)
-    if mesh is not None and (cfg.axes.model is not None or cfg.axes.batch):
-        return _sharded_train_step(cfg, n_micro, opt_cfg, mesh)
+    sharded = mesh is not None and (cfg.axes.model is not None
+                                    or bool(cfg.axes.batch))
 
     def train_step(state, batch):
+        sh = lm.shards_of(cfg) if sharded else None
+        if sharded and sh is None:
+            raise LookupError(f"the sharded step for cfg.axes {cfg.axes} "
+                              "runs inside its mesh (run_spmd)")
         params = state["params"]
         leaves = _pytree.leaves(params)
         dev = leaves[0].device
@@ -342,7 +351,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         loss = torch.zeros((), dtype=_F32, device=dev)
         per_micro = []
         for mb in _split_micro(_to(batch, dev), n_micro):
-            l, metrics, grads = _value_and_grad(cfg, params, mb, mesh=mesh)
+            l, metrics, grads = _value_and_grad(
+                cfg, params, _data_block(mb, sh and sh.data), mesh=mesh)
             _accumulate(acc, grads, n_micro)
             del grads
             loss = loss + l / n_micro
@@ -352,8 +362,22 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         else:
             metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                        for k in per_micro[0]}
+        shards = None
+        if sh is not None:
+            if sh.data is not None:        # each rank's share of the means
+                keys = sorted(metrics)
+                sums = S.all_reduce(torch.stack(
+                    [loss] + [metrics[k] for k in keys]), sh.data)
+                loss = sums[0]
+                metrics = dict(zip(keys, sums[1:].unbind()))
+            from repro_torch.launch import mesh as M
+            specs, shapes = M.state_specs(cfg, mesh)
+            shards = (M.spec_leaves(specs["params"], shapes["params"]),
+                      M.spec_leaves(specs["opt"]["mu"], shapes["opt"]["mu"]),
+                      sh.data)
         new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, params, _pytree.unflatten(params, acc), state["opt"])
+            opt_cfg, params, _pytree.unflatten(params, acc), state["opt"],
+            shards=shards)
         del acc
         state = {"params": new_params, "opt": new_opt,
                  "step": state["step"] + 1}
@@ -381,42 +405,3 @@ def _data_block(batch, data):
         rows = v.shape[dim] // ax.size
         out[k] = v.narrow(dim, ax.index * rows, rows)
     return out
-
-
-def _sharded_train_step(cfg, n_micro, opt_cfg, mesh):
-    from repro_torch.launch import mesh as M
-
-    def train_step(state, batch):
-        sh = lm.shards_of(cfg)
-        if sh is None:
-            raise LookupError(f"the sharded step for cfg.axes {cfg.axes} "
-                              "runs inside its mesh (run_spmd)")
-        specs, shapes = M.state_specs(cfg, mesh)
-        params = state["params"]
-        leaves = _pytree.leaves(params)
-        dev = leaves[0].device
-        acc = _zeros_f32(leaves)
-        sums = torch.zeros(4, dtype=_F32, device=dev)
-        for mb in _split_micro(_to(batch, dev), n_micro):
-            l, metrics, grads = _value_and_grad(
-                cfg, params, _data_block(mb, sh.data), mesh=mesh)
-            _accumulate(acc, grads, n_micro)
-            del grads
-            sums = sums + torch.stack([l, metrics["nll"], metrics["aux"],
-                                       metrics["zloss"]]) / n_micro
-        if sh.data is not None:            # each rank's share of the means
-            sums = S.all_reduce(sums, sh.data)
-        loss, nll, aux, zloss = sums.unbind()
-        shards = (M.spec_leaves(specs["params"], shapes["params"]),
-                  M.spec_leaves(specs["opt"]["mu"], shapes["opt"]["mu"]),
-                  sh.data)
-        new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, params, _pytree.unflatten(params, acc), state["opt"],
-            shards=shards)
-        del acc
-        state = {"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1}
-        return state, dict(nll=nll, aux=aux, zloss=zloss, loss=loss,
-                           **opt_metrics)
-
-    return train_step

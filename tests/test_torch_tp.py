@@ -39,6 +39,7 @@ from repro.data.pipeline import SyntheticLM  # noqa: E402
 from repro.layers import attention as RA  # noqa: E402
 from repro.layers import embedding as RE  # noqa: E402
 from repro.layers import mlp as RM  # noqa: E402
+from repro.optim import adamw as ROpt  # noqa: E402
 from repro.train import step as RS  # noqa: E402
 from repro_torch import sharding as S  # noqa: E402
 from torch_parity import reset_global_state  # noqa: E402,F401
@@ -120,12 +121,14 @@ def case():
         lambda p: RS.loss_fn(cfg, p, b0)[0])(state["params"])
     ref["grad_loss"], ref["grads"] = float(loss), jax.tree.leaves(g)
     step = jax.jit(RS.make_train_step(
-        cfg, RShape("t", SEQ, BATCH, "train", MICRO)))
-    losses = []
+        cfg, RShape("t", SEQ, BATCH, "train", MICRO),
+        RC.tp_opt_config(ROpt.AdamWConfig, "f32")))
+    losses, norms = [], []
     for b in inp["batches"]:
         state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
         losses.append(float(m["loss"]))
-    ref["f32"] = {"losses": losses,
+        norms.append(float(m["grad_norm"]))
+    ref["f32"] = {"losses": losses, "grad_norms": norms,
                   "params": jax.tree.leaves(state["params"]),
                   "mu": jax.tree.leaves(state["opt"]["mu"]),
                   "nu": jax.tree.leaves(state["opt"]["nu"])}
@@ -256,21 +259,30 @@ def test_fsdp_shards_the_embedding_and_the_ffn(world):
 
 
 def test_sharded_f32_step_matches_the_reference_step(case, world):
-    """2 steps of 2 microbatches: the loss within 1e-5, the gathered
-    parameters and Adam moments within 1e-4 of the reference's jitted
-    single-process step (``tests/test_trace.py:343-353``'s bounds), every
-    rank's gathered state the same."""
-    _, ref = case
+    """2 steps of 2 microbatches with no warmup, so the reference moves
+    every leaf by more than three times the parameters' bound: the loss
+    within 1e-5, the gathered parameters and Adam moments within 1e-4 of
+    the reference's jitted single-process step (``tests/test_trace.py:
+    343-353``'s bounds), the gradient norm within 1e-5 relative (Adam's
+    update does not see a gradient's scale; the norm does), every rank's
+    gathered state the same."""
+    inp, ref = case
     want = ref["f32"]
+    start = jax.tree.leaves(inp["state"]["params"])
     for rank in world:
         got = rank["f32"]
         for a, b in zip(got["losses"], want["losses"]):
             assert abs(a - b) < 1e-5, (got["losses"], want["losses"])
+        for a, b in zip(got["grad_norms"], want["grad_norms"]):
+            assert abs(a - b) <= 1e-5 * b, (got["grad_norms"],
+                                             want["grad_norms"])
         assert int(got["step"]) == 2
         for key in ("params", "mu", "nu"):
             assert len(got[key]) == len(want[key])
             for g, w in zip(got[key], want[key]):
                 _close(g, w, 1e-4, key)
+    for w, p0 in zip(want["params"], start):
+        assert _scale(np.asarray(w) - p0) > 3e-4
     for other in world[1:]:
         for key in ("params", "mu", "nu"):
             for a, b in zip(world[0]["f32"][key], other["f32"][key]):

@@ -406,6 +406,15 @@ def tp_step_config(configs, dataclasses, dtype):
                                vocab=4096)
 
 
+def tp_opt_config(AdamWConfig, run):
+    """The f32 step's AdamW: no warmup, so each step moves every weight by
+    about the learning rate (3e-4), three times the 1e-4 bound on the
+    parameters; a warmup of 100 steps would move them 3e-6, and no fault in
+    the gradients could show.  The bf16 run keeps the default, as the
+    reference's sharded run it is held to does."""
+    return AdamWConfig(warmup_steps=0) if run == "f32" else AdamWConfig()
+
+
 def tp_body(mesh, inp):
     """One rank of the (2, 2) world: each sharded layer's output, input
     gradient and weight gradients (whole: gathered over the model axis,
@@ -422,6 +431,7 @@ def tp_body(mesh, inp):
     from repro_torch.layers import embedding as E
     from repro_torch.layers import mlp as F
     from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import step as T
 
     torch.set_num_threads(1)
@@ -523,13 +533,15 @@ def tp_body(mesh, inp):
 
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         cfg = sharded_cfg(dtype)
-        step = T.make_train_step(cfg, shape, mesh=mesh)
-        st, losses = state, []
+        step = T.make_train_step(cfg, shape, tp_opt_config(AdamWConfig, name),
+                                 mesh=mesh)
+        st, losses, norms = state, [], []
         for b in batches:
             st, m = step(st, b)
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
         whole = M.gather_tree(st, specs, mesh)
-        out[name] = {"losses": losses,
+        out[name] = {"losses": losses, "grad_norms": norms,
                      "params": _pytree.leaves(whole["params"]),
                      "mu": _pytree.leaves(whole["opt"]["mu"]),
                      "nu": _pytree.leaves(whole["opt"]["nu"]),

@@ -93,7 +93,16 @@ kernel against its plain PyTorch version on the same inputs:
   every matrix of a layer sharded over the data axis), 2 steps of B 4 x 512
   in 2 microbatches held to the single-process step, with ms a step
   (slowest rank), each rank's peak memory beside the whole state, and the
-  collective bytes a step by op and axis; (b) ``launch/train.py --ranks 4
+  collective bytes a step by op and axis; (c)-(f) in another (2, 2) world
+  of 4 ranks, f32, 2 steps each of B 4 x 512 (whisper 448): (c)
+  qwen3-moe-30b-a3b at full width cut to 1 of 48 layers, its MoE layer
+  (the expert-parallel path, 64 experts a rank, the sequence split) first
+  held to the single-process emulation of its slice-wise routing, then
+  trained, every block moving; (d) jamba-1.5-large cut to one dense Mamba
+  slot, (e) xlstm-125m and (f) whisper-small whole (1500 encoder frames),
+  each held to the single-process step ((e) by its first step: see
+  ``FIRST_STEP_HELD``), with ms a step, peak memory a rank and collective
+  bytes; (b) ``launch/train.py --ranks 4
   --smoke`` for 3 steps with a checkpoint at step 2, resumed from it
   bitwise, its whole-leaf checkpoint restored on the card bitwise.
 
@@ -132,6 +141,8 @@ instance of kernel 6, a rows-path instance of kernel 2 or a generic-path
 instance of kernel 3 that spills fails the run.  Without a CUDA device it
 exits non-zero and prints no result.
 """
+import concurrent.futures
+import contextlib
 import gc
 import json
 import math
@@ -161,8 +172,13 @@ ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's log, after the seconds since the process
+    started (the phases' share of the time limit)."""
+    print(f"[{time.perf_counter() - _T0:.1f} s]", *args, flush=True)
 
 
 def check(cond, msg):
@@ -2043,6 +2059,22 @@ LAUNCH_KW = dict(steps=3, batch=4, seq=64, smoke=True, ckpt_every=2,
                  microbatches=1, lr=3e-4, resume=True, seed=SEED)
 
 
+@contextlib.contextmanager
+def expandable_segments():
+    """The ranks a world spawns allocate in expandable segments (four
+    processes share the card's memory; fragments of one are lost to the
+    others)."""
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+
+
 def phase20_config():
     """qwen3-1.7b at full width, 2 of its 28 layers, in f32."""
     import dataclasses
@@ -2064,9 +2096,10 @@ def phase20_rank(mesh, card, ckpt_dir):
     one weight at a time and kept on the host, this rank's blocks put on
     the card; 2 steps of B 4 x 512 in 2 microbatches.  Each rank reads its
     peak memory in the init, the steps and a resume (the state gathered
-    onto the host, rank 0 writing the whole-leaf checkpoint, each rank in
-    turn restoring its blocks through ``launch.train.restore_sharded``,
-    bitwise its live blocks), its step times and its collective ledger;
+    onto the host, rank 0 writing the whole-leaf checkpoint, every rank at
+    once restoring its blocks through ``launch.train.restore_sharded``, as
+    the launcher does, bitwise its live blocks), its step times and its
+    collective ledger;
     rank 0 then runs the single-process step on the same seed and batches
     and holds the sharded run to it."""
     import dataclasses
@@ -2141,18 +2174,15 @@ def phase20_rank(mesh, card, ckpt_dir):
         del state
         gc.collect()
         torch.cuda.empty_cache()
-        for turn in range(mesh.world_size):   # one rank's host copy at a time
-            dist.barrier()
-            if turn != r:
-                continue
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            resumed = LT.restore_sharded(mgr, TP_STEPS, cfg, mesh)
-            torch.cuda.synchronize()
-            out["resume_peak_bytes"] = torch.cuda.max_memory_allocated() - base
-            for a, b in zip(_pytree.leaves(resumed), _pytree.leaves(live)):
-                assert_bitwise(a.cpu(), b, f"{tag} the resumed state")
-            del resumed
+        dist.barrier()                  # the checkpoint is written
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        resumed = LT.restore_sharded(mgr, TP_STEPS, cfg, mesh)
+        torch.cuda.synchronize()
+        out["resume_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        for a, b in zip(_pytree.leaves(resumed), _pytree.leaves(live)):
+            assert_bitwise(a.cpu(), b, f"{tag} the resumed state")
+        del resumed
         dist.barrier()
         out["resume_s"] = time.perf_counter() - t0
         check(out["resume_peak_bytes"] <= out["local_state_bytes"]
@@ -2204,9 +2234,397 @@ def phase20_rank(mesh, card, ckpt_dir):
     return out
 
 
-def phase20(card):
+# (c)-(f): the other slots under the sharded trainer, one (2, 2) world
+SLOT_B, SLOT_S, WHISPER_S, SLOT_STEPS = 4, 512, 448, 2
+# AdamW with no warmup, and an eps at which the first update is not
+# lr * sign(g) for a gradient within its rounding of zero: at the default
+# 1e-8 jamba's Mamba put elements up to 1.3e-4 apart between the sharded and
+# the single-process step (the bound is 1e-4).  At 1e-5 an element's update
+# moves at most lr / eps = 30 times its gradient's error, and an element
+# whose gradient is above 1e-5 moves by about lr (at 1e-4 a Mamba leaf moved
+# only 1.8e-4 in the two steps, under the 3e-4 that makes the bound bite)
+SLOT_OPT = dict(warmup_steps=0, eps=1e-5)
+# xlstm-125m's tied head puts its logits near 300: one f32 ulp on every
+# weight moves its gradient by up to 8e-4 of a leaf's scale at 64 tokens
+# and 5.5e-2 at 512, and the sharded gradient is 2.5e-4 and 2.2e-4 off the
+# single-process one (scripts/sharded_grad_gap.py, CPU).
+# Adam's update then parts the elements whose gradient lies within that of
+# zero by up to 2 lr: the second step's gradient norm came 1.1 % apart on
+# the card, its loss 9.8e-4.  (e) is held by its first step instead: the
+# sharded gradient no further from the single-process one, leaf by leaf as
+# a share of its scale, than twice what one ulp on every weight moves the
+# single-process gradient (measured in the same run), the first gradient
+# norm within 1e-4 and the first loss within 1e-3
+FIRST_STEP_HELD = ("xlstm",)
+MOE_DAUX = 0.5                 # the MoE layer check's aux cotangent
+MOE_BOUND = 1e-4               # its bound, of each tensor's largest value
+
+
+def phase20_slot_configs():
+    """(c)-(f)'s configs at full width, in f32: qwen3-moe-30b-a3b cut to 1
+    of its 48 layers; jamba-1.5-large cut to one dense Mamba slot (2.08 B
+    parameters, a 25.0 GB state: its MoE slots left out, one holds 9.7 B
+    parameters and (c) covers MoE at full width; its attention slot left
+    out too, which (a) covers at full width: with it, 2.84 B parameters and
+    a 34.0 GB state, the single-process step it is held to holds the old
+    and the new state and the gradients at once, about 91 GB, and the four
+    ranks' steps ran the card out of memory); xlstm-125m and whisper-small
+    whole."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs.base import MAMBA, LayerSpec
+    f32 = torch.float32
+    return {
+        "moe": dataclasses.replace(configs.get_config("qwen3_moe_30b_a3b"),
+                                   n_periods=1, dtype=f32),
+        "mamba": dataclasses.replace(
+            configs.get_config("jamba_1p5_large_398b"),
+            period=(LayerSpec(MAMBA),), n_periods=1, dtype=f32),
+        "xlstm": dataclasses.replace(configs.get_config("xlstm_125m"),
+                                     dtype=f32),
+        "whisper": dataclasses.replace(configs.get_config("whisper_small"),
+                                       dtype=f32)}
+
+
+def moe_layer_check(mesh, cfg, plain_cfg, tag):
+    """(c)'s MoE layer alone, one layer's weights drawn from the seed: the
+    sharded layer (this rank's data rows, its model-axis blocks of the
+    weights: the expert-parallel path with the sequence split) against
+    the single-process emulation of the reference's sharded semantics, on
+    rank 0: the port's local layer applied to each (data block, sequence
+    slice) with its own capacity, the aux the mean over the slices.  Output,
+    aux, input gradient and every weight gradient (the aux's cotangent
+    ``MOE_DAUX``) within ``MOE_BOUND`` of each tensor's largest value."""
+    from repro_torch import _pytree
+    from repro_torch import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.layers import moe as MOE
+    from repro_torch.layers._init import Init
+    import torch.distributed as dist
+
+    dev, r = mesh.device, mesh.rank
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    p = {"ffn": MOE.init_moe(Init(gen, dev), plain_cfg)}
+    x = torch.randn((SLOT_B, SLOT_S, cfg.d_model), generator=gen,
+                    device=dev)
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    dp, n = S.axis_size("data"), S.axis_size("model")
+    specs = M.fit_specs(mesh, M.infer_param_specs(p, cfg.axes), p)
+    local = M.shard_tree(p, specs, mesh)
+    leaves = [t.requires_grad_() for t in _pytree.leaves(local)]
+    local = _pytree.unflatten(local, leaves)
+    rows = SLOT_B // dp
+    i = S.axis_index("data")
+    xr = x[i * rows:(i + 1) * rows].clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = MOE.moe_apply(cfg, local["ffn"], xr, mesh=mesh)
+    got = torch.autograd.grad([y, aux], [xr] + leaves,
+                              [dy[i * rows:(i + 1) * rows],
+                               torch.tensor(MOE_DAUX / dp, device=dev)])
+    torch.cuda.synchronize()
+    layer_ms = (time.perf_counter() - t0) * 1e3
+    y, aux = S.all_gather(y.detach(), "data", 0), aux.detach()
+    dx = S.all_gather(got[0], "data", 0)
+    grads = [S.all_reduce(g, "data") for g in _pytree.leaves(M.gather_tree(
+        _pytree.unflatten(local, list(got[1:])), specs, mesh))]
+    out = {"layer_ms": layer_ms}
+    if r == 0:
+        # every (data block, sequence slice) on its own, as the mesh routes
+        pw = {k: v.detach().clone().requires_grad_()
+              for k, v in p["ffn"].items()}
+        xw = x.clone().requires_grad_()
+        Sl = SLOT_S // n
+        ys, auxs = [], []
+        for b in range(dp):
+            row = []
+            for s in range(n):
+                ye, ae = MOE.moe_apply(
+                    plain_cfg, pw, xw[b * rows:(b + 1) * rows, s * Sl:(s + 1) * Sl])
+                row.append(ye)
+                auxs.append(ae)
+            ys.append(torch.cat(row, 1))
+        ye, ae = torch.cat(ys, 0), torch.stack(auxs).mean()
+        want = torch.autograd.grad(
+            [ye, ae], [xw] + [pw[k] for k in sorted(pw)],
+            [dy, torch.tensor(MOE_DAUX, device=dev)])
+        ye, ae = ye.detach(), ae.detach()
+        errs = {"y": max_abs_err(y, ye) / float(ye.abs().max()),
+                "aux": abs(float(aux) - float(ae)) / abs(float(ae)),
+                "dx": max_abs_err(dx, want[0]) / float(want[0].abs().max())}
+        for k, g, w in zip(sorted(pw), grads, want[1:]):
+            errs[k] = max_abs_err(g, w) / float(w.abs().max())
+        out["errs"] = errs
+        for k, e in errs.items():
+            check(e <= MOE_BOUND, f"{tag} the MoE layer's {k} is {e} of its "
+                  f"scale off the slice-wise emulation (bound {MOE_BOUND})")
+    del p, local, leaves, got, grads
+    dist.barrier()
+    return out
+
+
+def slot_case(mesh, card, name, plain_cfg):
+    """One of (c)-(f) in this rank: the sharded step (``make_train_step``
+    with ``mesh=``), 2 steps of B 4 (448 decoder tokens for whisper, 512
+    otherwise) in one microbatch, AdamW ``SLOT_OPT``, TF32 off; its times,
+    peak memory and collective ledger.  (c) checks its MoE layer first and
+    that every block of every leaf moved; (d)-(f) hold rank 0's gathered
+    parameters, losses and gradient norms to the single-process step (on
+    the card once the other ranks have freed theirs) with (a)'s bounds."""
+    import dataclasses
+
+    from repro_torch import _pytree
+    from repro_torch import sharding as S
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import remote
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import telemetry
+    from repro_torch.train import step as T
+    import torch.distributed as dist
+
+    dev, r = mesh.device, mesh.rank
+    tag = f"[sharded {name} rank {r}]"
+    seq = WHISPER_S if name == "whisper" else SLOT_S
+    shape = ShapeConfig(name, seq, SLOT_B, "train", 1)
+    opt_cfg = AdamWConfig(**SLOT_OPT)
+    cfg = dataclasses.replace(plain_cfg.with_axes(M.axes_for(mesh, shape)),
+                              fsdp=True)
+    specs, shapes = M.state_specs(cfg, mesh)
+    out = {"fsdp": sorted(_pytree.path_key(path) for (path, _), sp in zip(
+        _pytree.flatten_with_paths(shapes["params"]),
+        M.spec_leaves(specs["params"], shapes["params"])) if "data" in sp),
+        "state_bytes": tree_bytes(shapes)}
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=SLOT_B,
+                     seed=SEED, family=cfg.family, d_model=cfg.d_model,
+                     encoder_seq=cfg.encoder_seq)
+    batches = [batch_on(ds.batch_at(i), dev) for i in range(SLOT_STEPS)]
+    if name == "moe":
+        out.update(moe_layer_check(mesh, cfg, plain_cfg, tag))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = T.init_state(cfg, SEED, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["local_state_bytes"] = tree_bytes(state)
+    start = [t.cpu() for t in _pytree.leaves(state["params"])]
+    grads0 = None
+    if name in FIRST_STEP_HELD:          # the first step's gradient, whole
+        _, _, g = T._value_and_grad(cfg, state["params"],
+                                    T._data_block(batches[0], "data"),
+                                    mesh=mesh)
+        grads0 = _pytree.leaves(M.gather_tree(
+            _pytree.unflatten(state["params"], g), specs["params"], mesh,
+            device="cpu"))
+        del g
+    step = T.make_train_step(cfg, shape, opt_cfg, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset("collectives")
+    telemetry.reset("wire")
+    out["ms"], out["losses"], out["grad_norms"] = [], [], []
+    for b in batches:
+        dist.barrier()                   # the ranks start each step together
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["ledger"] = S.collective_stats()
+    out["wire"] = remote.wire_stats()    # the MoE plane's transfers
+    check(all(math.isfinite(v) for v in out["losses"]),
+          f"{tag} losses {out['losses']}")
+    # every block of every leaf moved (a rank's block of a leaf is its own)
+    moved = [max_abs_err(t.cpu(), s) for t, s in zip(
+        _pytree.leaves(state["params"]), start)]
+    out["min_block_move"] = min(moved)
+    check(out["min_block_move"] > 0, f"{tag} a block did not move")
+    log(f"{tag} {out['ms']} ms a step, losses {out['losses']}, peak "
+        f"{out['peak_bytes'] / 1e9:.3f} GB, on {card}")
+    whole = (None if name == "moe" or grads0 is not None else M.gather_tree(
+        state["params"], specs["params"], mesh, device="cpu"))
+    del state, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name == "moe" or r != 0:
+        dist.barrier()
+        return out
+    # rank 0: the single-process step on the same seed and batches, alone
+    # on the card (the other ranks wait at the barrier, their state freed)
+    try:
+        ref_state = T.init_state(plain_cfg, SEED, device=dev)
+        start = [t.cpu() for t in _pytree.leaves(ref_state["params"])]
+        if grads0 is not None:
+            params = ref_state["params"]
+            _, _, g = T._value_and_grad(plain_cfg, params, batches[0])
+            up = _pytree.unflatten(params, [
+                torch.nextafter(p, torch.full_like(p, math.inf))
+                for p in _pytree.leaves(params)])
+            _, _, gu = T._value_and_grad(plain_cfg, up, batches[0])
+
+            def gap(a, b):               # of b's scale, floor 1e-6
+                return max_abs_err(a, b) / (float(b.abs().max()) + 1e-3)
+            out["grad_err"] = max(gap(a.to(dev), b)
+                                  for a, b in zip(grads0, g))
+            out["ulp_err"] = max(gap(u, b) for u, b in zip(gu, g))
+            del g, gu, up
+        ref_step = T.make_train_step(plain_cfg, shape, opt_cfg)
+        out["ref_losses"], out["ref_grad_norms"] = [], []
+        # a case held by its first step runs one single-process step
+        for b in batches[:1] if grads0 is not None else batches:
+            ref_state, rm = ref_step(ref_state, b)
+            out["ref_losses"].append(float(rm["loss"]))
+            out["ref_grad_norms"].append(float(rm["grad_norm"]))
+        out["grad_norm_err"] = max(
+            abs(a - b) / b for a, b in zip(out["grad_norms"],
+                                           out["ref_grad_norms"]))
+        if grads0 is None:
+            names = [_pytree.path_key(path) for path, _ in
+                     _pytree.flatten_with_paths(ref_state["params"])]
+            pairs = list(zip(_pytree.leaves(whole),
+                             _pytree.leaves(ref_state["params"]), start))
+            out["param_err"] = max(max_abs_err(a.to(dev), b)
+                                   for a, b, _ in pairs)
+            moves = {k: max_abs_err(b.cpu(), p0)
+                     for k, (_, b, p0) in zip(names, pairs)}
+            # sLSTM's input-gate bias has no gradient: a constant shift of
+            # a channel's log input gate scales its c and n alike, and
+            # h = o c / n
+            out["still"] = sorted(k for k in moves
+                                  if k.endswith("slstm/b_i"))
+            out["min_move"] = min(v for k, v in moves.items()
+                                  if k not in out["still"])
+            del pairs
+        del ref_state, whole
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    for a, b in zip(out["losses"], out["ref_losses"]):
+        check(abs(a - b) <= 1e-3,
+              f"{tag} sharded loss {a} vs single-process {b}")
+    if grads0 is not None:
+        check(out["grad_norm_err"] <= 1e-4, f"{tag} first gradient norm "
+              f"{out['grad_norm_err']} relative off the single-process "
+              "step's")
+        check(out["grad_err"] <= 2 * out["ulp_err"],
+              f"{tag} a first-step gradient leaf {out['grad_err']} of its "
+              f"scale off the single-process one, one ulp on every weight "
+              f"{out['ulp_err']}")
+        return out
+    check(out["grad_norm_err"] <= 1e-5,
+          f"{tag} gradient norms {out['grad_norms']} vs single-process "
+          f"{out['ref_grad_norms']}")
+    check(out["min_move"] > 3e-4,
+          f"{tag} a leaf moved only {out['min_move']} in the steps")
+    check(out["param_err"] < 1e-4,
+          f"{tag} gathered parameters {out['param_err']} off the "
+          "single-process step's (bound 1e-4)")
+    return out
+
+
+def phase20_slots_rank(mesh, card):
+    """One rank of phase 20 (c)-(f), in turn, TF32 off for the sharded
+    steps too (the single-process step they are held to runs without it).
+    """
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    undo = no_tf32()
+    try:
+        return {name: slot_case(mesh, card, name, cfg)
+                for name, cfg in phase20_slot_configs().items()}
+    finally:
+        undo()
+
+
+def phase20_slots(card):
+    """Phase 20 (c)-(f): ``phase20_slots_rank`` in a world of 4 gloo ranks
+    on the card, each case logged with its step times, its checks, its
+    peak memory a rank and its collective bytes a step; returns the cases'
+    numbers and the world's seconds."""
+    import tempfile
+
+    from repro_torch import sharding as S
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with expandable_segments(), \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-slots-") as work:
+        slots = S.run_spmd(phase20_slots_rank, TP_MESH, ("data", "model"),
+                           args=(card,), device="cuda", workdir=work)
+    slots_s = time.perf_counter() - t0
+    slot_times = {}
+    for name in phase20_slot_configs():
+        cases = [rk[name] for rk in slots]
+        c0 = cases[0]
+        for rk in cases[1:]:
+            check(rk["losses"] == c0["losses"],
+                  f"sharded {name}: the ranks' losses differ")
+        ms = [max(rk["ms"][i] for rk in cases) for i in range(SLOT_STEPS)]
+        per_step = {k: v // SLOT_STEPS for k, v in c0["ledger"].items()}
+        by_op = {k[len("bytes:"):]: v for k, v in per_step.items()
+                 if k.startswith("bytes:")}
+        wire = {k: v // SLOT_STEPS for k, v in c0["wire"].items()
+                if k.startswith(("bytes:", "host_hop"))}
+        held = (f"MoE layer vs the slice-wise emulation {c0['errs']} of "
+                f"scale (bound {MOE_BOUND}), the layer's forward and "
+                f"backward {[rk['layer_ms'] for rk in cases]} ms by rank"
+                if name == "moe" else
+                f"single-process losses {c0['ref_losses']} (bound 1e-3), "
+                f"gradient norms {c0['grad_norms']} vs "
+                f"{c0['ref_grad_norms']} ({c0['grad_norm_err']} relative, "
+                f"bound 1e-5), parameters {c0['param_err']} off (bound "
+                f"1e-4; each leaf moved at least {c0['min_move']}, but "
+                f"{c0['still']}, which has no gradient)"
+                if "grad_err" not in c0 else
+                f"the single-process first step's loss {c0['ref_losses']} "
+                f"(bound 1e-3) and gradient norm {c0['ref_grad_norms']} "
+                f"against {c0['grad_norms']} ({c0['grad_norm_err']} "
+                f"relative, bound 1e-4), its gradient leaves "
+                f"{c0['grad_err']} of their scale off (bound twice one "
+                f"ulp's {c0['ulp_err']}; the second step not bound: "
+                f"FIRST_STEP_HELD)")
+        log(f"[sharded training] ({name}) {c0['state_bytes'] / 1e9:.3f} GB "
+            f"f32 state, mesh {TP_MESH}: {ms} ms a step (slowest rank); "
+            f"losses {c0['losses']}; {held}; FSDP shards "
+            f"{len(c0['fsdp'])} leaves; peak allocated a rank in the init "
+            f"{[rk['init_peak_bytes'] / 1e9 for rk in cases]} GB, in the "
+            f"steps {[rk['peak_bytes'] / 1e9 for rk in cases]} GB (blocks "
+            f"{[rk['local_state_bytes'] / 1e9 for rk in cases]} GB); rank "
+            f"0's collective bytes a step by op and axis {by_op}, host hop "
+            f"{per_step.get('host_hop_bytes', 0)} bytes a step, the plane's "
+            f"wire a step {wire}; init {c0['init_s']:.1f} s on {card}")
+        slot_times[name] = {
+            "step_ms": ms, "rank_ms": [rk["ms"] for rk in cases],
+            "losses": c0["losses"], "grad_norms": c0["grad_norms"],
+            "state_bytes": c0["state_bytes"],
+            "local_state_bytes": [rk["local_state_bytes"] for rk in cases],
+            "init_peak_bytes": [rk["init_peak_bytes"] for rk in cases],
+            "peak_bytes": [rk["peak_bytes"] for rk in cases],
+            "bytes_per_step": by_op,
+            "host_hop_bytes_per_step": per_step.get("host_hop_bytes", 0),
+            "wire_per_step": wire,
+            "fsdp": c0["fsdp"], "init_s": c0["init_s"],
+            **{k: c0[k] for k in ("errs", "layer_ms", "ref_losses",
+                                  "ref_grad_norms", "grad_norm_err",
+                                  "param_err", "min_move", "still",
+                                  "grad_err", "ulp_err")
+                                  if k in c0}}
+    log(f"[sharded training] (c)-(f) {slots_s:.1f} s with 4 process starts "
+        f"on {card}")
+    return slot_times, slots_s
+
+
+def phase20(card, slots):
     """Phase 20: the sharded trainer.  (a) ``phase20_rank`` in a world of 4
-    gloo ranks on the card; (b) ``launch/train.py --ranks 4 --smoke`` (the
+    gloo ranks on the card; (c)-(f) ``slots``, ``phase20_slots``'s result
+    (its world runs while the kernels build); (b) ``launch/train.py
+    --ranks 4 --smoke`` (the
     reference's (1, 4) mesh) for 3 steps with a checkpoint at step 2, then
     resumed from it: the resumed loss bitwise the uninterrupted run's, the
     whole-leaf checkpoint restored on this process's card bitwise the
@@ -2223,19 +2641,12 @@ def phase20(card):
 
     gc.collect()
     torch.cuda.empty_cache()
-    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-tp-") as work:
-            tp = S.run_spmd(phase20_rank, TP_MESH, ("data", "model"),
-                            args=(card, os.path.join(work, "ckpt")),
-                            device="cuda", workdir=work)
-    finally:
-        if saved is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    with expandable_segments(), \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-tp-") as work:
+        tp = S.run_spmd(phase20_rank, TP_MESH, ("data", "model"),
+                        args=(card, os.path.join(work, "ckpt")),
+                        device="cuda", workdir=work)
     tp_s = time.perf_counter() - t0
     for rk in tp[1:]:
         check(rk["losses"] == tp[0]["losses"],
@@ -2269,6 +2680,8 @@ def phase20(card):
         f"rank 0's collective bytes a step by op and axis {by_op}, host hop "
         f"{per_step.get('host_hop_bytes', 0)} bytes a step; phase (a) "
         f"{tp_s:.1f} s with 4 process starts on {card}")
+
+    slot_times, slots_s = slots
 
     # (b) the launcher: uninterrupted, then resumed from step 2
     t0 = time.perf_counter()
@@ -2315,7 +2728,8 @@ def phase20(card):
             "host_hop_bytes_per_step": per_step.get("host_hop_bytes", 0),
             "ledger": r0["ledger"], "fsdp": r0["fsdp"], "phase_s": tp_s,
             "launch": {"losses": hist, "resumed": resumed,
-                       "restore_launches": launches, "s": launch_s}}
+                       "restore_launches": launches, "s": launch_s},
+            "slots": slot_times, "slots_s": slots_s}
 
 
 def main():
@@ -2340,9 +2754,13 @@ def main():
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
-    log(card)
+    print(card, flush=True)
 
     t0 = time.perf_counter()
+    # phase 20 (c)-(f) launches no kernel: its world trains on the card
+    # while nvcc builds, and is joined before any kernel is driven or timed
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    slots = pool.submit(phase20_slots, card)
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s: {[p.name for p in libs]}")
@@ -2439,6 +2857,10 @@ def main():
     check(k3_rank2_spill <= K3_RANK2_SPILL_BYTES,
           f"kernel3: rank-2 instances spill {k3_rank2_spill} bytes, above "
           f"the {K3_RANK2_SPILL_BYTES} they were measured at")
+    slot_times = slots.result()
+    pool.shutdown()
+    log(f"[build] phase 20 (c)-(f) joined {time.perf_counter() - t0:.1f} s "
+        f"after the build started")
 
     rows = {}          # kernel name -> JSON row
     pair_times = []
@@ -3497,7 +3919,7 @@ def main():
     dp_times = phase19(card)
 
     # -- phase 20: the sharded trainer, 4 ranks on the one card ------------------
-    tp_times = phase20(card)
+    tp_times = phase20(card, slot_times)
 
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
@@ -3531,8 +3953,8 @@ def main():
                    "training": training, "dp_training": dp_times,
                    "sharded_training": tp_times},
                   f, indent=1)
-    log(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
-                                for n in order]}))
+    print(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
+                                  for n in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -38,7 +38,6 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import mesh as M
-from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import init_state, make_train_step
 
@@ -91,12 +90,10 @@ def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
 
     ``ranks > 1`` trains sharded over a world of that many processes
     (:func:`train_rank` in each; gloo on the CPU or where ranks share a
-    card); ``state`` is then the whole state, gathered, on the CPU.  A
-    config the sharded trainer does not cover raises
-    ``NotImplementedError`` before any process starts."""
+    card), any config; ``state`` is then the whole state, gathered, on the
+    CPU."""
     cfg = configs.smoke_config(arch) if smoke else configs.get_config(arch)
     if ranks > 1:
-        lm.check_shardable(cfg)
         kw = dict(steps=steps, batch=batch, seq=seq, smoke=smoke,
                   ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                   microbatches=microbatches, lr=lr, resume=resume, seed=seed)

@@ -7,7 +7,8 @@ denominator; bf16 dots take f32 inputs and accumulate in f32 (the
 reference's ``preferred_element_type``).
 
 Under a registered model axis (``cfg.axes.model``, the sharded trainer)
-the sublayer runs tensor-parallel in the reference's three regimes, picked
+the training sublayer, self- or cross-attention, runs tensor-parallel in
+the reference's three regimes, picked
 as its ``attn_apply`` picks them: head-parallel when the query and KV heads
 both divide the axis; the KV heads repeated to the query heads when only
 the query heads do; otherwise sequence-parallel, each rank a block of query
@@ -243,12 +244,14 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
     """
     tp = SH.active_axis(cfg.axes.model)
     if tp is not None:
-        if cache is not None or cross or kv_x is not None:
-            raise NotImplementedError(
-                "sharded decode and cross-attention are not ported "
-                "(ROADMAP.md §1 items 10a and 10c)")
-        return _attn_tp(cfg, p, x, positions, causal=causal, window=window,
-                        ax=tp), None
+        if cache is not None:
+            raise NotImplementedError("sharded decode is not ported "
+                                      "(ROADMAP.md §1 item 10a)")
+        is_cross = cross or kv_x is not None
+        return _attn_tp(cfg, p, x, positions,
+                        causal=causal and not is_cross, window=window, ax=tp,
+                        kv_x=kv_x if is_cross else None,
+                        rope=apply_rope and not is_cross), None
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -327,12 +330,15 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
     return y, cache
 
 
-def _attn_tp(cfg, p, x, positions, *, causal, window, ax):
+def _attn_tp(cfg, p, x, positions, *, causal, window, ax, kv_x=None,
+             rope=True):
     """The training sublayer tensor-parallel over ``ax``, in every rank of
     it: ``x`` (B, S, d) and the output replicated over the axis, the
     weights sharded by their specs (a weight whole along a dim its rule
     shards was fitted out of the spec; :func:`repro_torch.sharding.block_of`
-    and ``whole_of`` tell by its shape).
+    and ``whole_of`` tell by its shape).  Cross-attention passes ``kv_x``
+    (B, Sk, d), replicated over the axis, whose K / V the queries of ``x``
+    read (``rope`` off, not causal), in the same regime.
 
     * head-parallel (the query and KV heads divide the axis): each rank its
       query heads and their KV heads, the output projection row-parallel,
@@ -345,13 +351,18 @@ def _attn_tp(cfg, p, x, positions, *, causal, window, ax):
       schedule, every weight gathered whole, its output rows gathered along
       S.
 
-    The input enters through ``copy_to_axis`` and so do ``q_norm`` /
-    ``k_norm``, whose gradients each rank holds a part of."""
+    The input (and ``kv_x``) enters through ``copy_to_axis`` and so do
+    ``q_norm`` / ``k_norm``, whose gradients each rank holds a part of."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
     m, ms, r = ax.name, ax.size, ax.index
     x = SH.copy_to_axis(x, m)
+    src = x if kv_x is None else SH.copy_to_axis(kv_x, m)
+    Sk = src.shape[1]
+
+    def rope_to(t, pos):
+        return rope_for(cfg, t, pos) if rope else t
     q_norm = SH.copy_to_axis(p["q_norm"], m) if cfg.qk_norm else None
     k_norm = SH.copy_to_axis(p["k_norm"], m) if cfg.qk_norm else None
 
@@ -368,9 +379,9 @@ def _attn_tp(cfg, p, x, positions, *, causal, window, ax):
                  weight("bq", H * hd, 0, SH.block_of)).reshape(B, S, Hl, hd)
         if KV % ms == 0:                      # head-parallel
             def kv(w, b):
-                return proj(x, weight(w, KV * hd, 1, SH.block_of),
+                return proj(src, weight(w, KV * hd, 1, SH.block_of),
                             weight(b, KV * hd, 0, SH.block_of)).reshape(
-                                B, S, KV // ms, hd)
+                                B, Sk, KV // ms, hd)
             k, v = kv("wk", "bk"), kv("wv", "bv")
             idx = None
         else:                                 # K / V repeated to H heads
@@ -381,18 +392,18 @@ def _attn_tp(cfg, p, x, positions, *, causal, window, ax):
                 wf = weight(w, KV * hd, 1, SH.whole_of)[:, lo * hd:hi * hd]
                 bf = weight(b, KV * hd, 0, SH.whole_of)
                 bf = None if bf is None else bf[lo * hd:hi * hd]
-                return proj(x, wf, bf).reshape(B, S, hi - lo, hd)
+                return proj(src, wf, bf).reshape(B, Sk, hi - lo, hd)
             k, v = kv("wk", "bk"), kv("wv", "bv")
             idx = torch.div(r * Hl + torch.arange(Hl, device=x.device), G,
                             rounding_mode="floor") - lo
         if cfg.qk_norm:
             q, k = rms_norm(q, q_norm), rms_norm(k, k_norm)
-        q, k = rope_for(cfg, q, positions), rope_for(cfg, k, positions)
+        q, k = rope_to(q, positions), rope_to(k, positions)
         if idx is not None:
             k, v = k[:, :, idx], v[:, :, idx]
         out = chunked_attention(q, k, v, causal=causal, window=window,
                                 q_chunk=min(1024, S),
-                                kv_chunk=min(1024, S))
+                                kv_chunk=min(1024, Sk))
         y = out.reshape(B, S, Hl * hd) @ weight("wo", H * hd, 0,
                                                  SH.block_of).to(dt)
         return SH.reduce_from_axis(y, m)
@@ -403,17 +414,17 @@ def _attn_tp(cfg, p, x, positions, *, causal, window, ax):
     Sl = S // ms
     q = proj(x[:, r * Sl:(r + 1) * Sl], weight("wq", H * hd, 1, SH.whole_of),
              weight("bq", H * hd, 0, SH.whole_of)).reshape(B, Sl, H, hd)
-    k = proj(x, weight("wk", KV * hd, 1, SH.whole_of),
-             weight("bk", KV * hd, 0, SH.whole_of)).reshape(B, S, KV, hd)
-    v = proj(x, weight("wv", KV * hd, 1, SH.whole_of),
-             weight("bv", KV * hd, 0, SH.whole_of)).reshape(B, S, KV, hd)
+    k = proj(src, weight("wk", KV * hd, 1, SH.whole_of),
+             weight("bk", KV * hd, 0, SH.whole_of)).reshape(B, Sk, KV, hd)
+    v = proj(src, weight("wv", KV * hd, 1, SH.whole_of),
+             weight("bv", KV * hd, 0, SH.whole_of)).reshape(B, Sk, KV, hd)
     if cfg.qk_norm:
         q, k = rms_norm(q, q_norm), rms_norm(k, k_norm)
-    q = rope_for(cfg, q, positions[..., r * Sl:(r + 1) * Sl])
-    k = rope_for(cfg, k, positions)
+    q = rope_to(q, positions[..., r * Sl:(r + 1) * Sl])
+    k = rope_to(k, positions)
     out = chunked_attention_dense(q, k, v, causal=causal, window=window,
                                   q_offset=r * Sl, q_chunk=min(1024, S),
-                                  kv_chunk=min(1024, S))
+                                  kv_chunk=min(1024, Sk))
     y = out.reshape(B, Sl, H * hd) @ weight("wo", H * hd, 0,
                                             SH.whole_of).to(dt)
     return SH.unsplit_along(y, m, 1)

@@ -1,9 +1,12 @@
 """Token embedding and LM head.
 
 Under a registered model axis (``cfg.axes.model``, the sharded trainer)
-both are vocab-parallel: each rank holds a block of the vocabulary, looks
-up only the tokens in it (zeros for the others, reduced over the axis),
-and the head returns this rank's block of the logits (B, S, V / size)."""
+both are vocab-parallel where the vocabulary splits over it
+(:func:`vocab_axis`): each rank holds a block of the vocabulary, looks up
+only the tokens in it (zeros for the others, reduced over the axis), and
+the head returns this rank's block of the logits (B, S, V / size).  A
+vocabulary that does not split (whisper's 51865 over 2) is replicated, as
+the fitted specs leave it, and every rank computes the whole logits."""
 from __future__ import annotations
 
 import torch
@@ -20,8 +23,14 @@ def init_embed(init: Init, cfg):
     return p
 
 
-def embed(cfg, p, tokens):
+def vocab_axis(cfg):
+    """The registered model axis the vocabulary splits over, or None."""
     ax = S.active_axis(cfg.axes.model)
+    return ax if ax is not None and cfg.vocab % ax.size == 0 else None
+
+
+def embed(cfg, p, tokens):
+    ax = vocab_axis(cfg)
     if ax is not None:
         w = S.block_of(p["embed"], ax.name, cfg.vocab, 0)
         n = w.shape[0]
@@ -43,7 +52,7 @@ def embed(cfg, p, tokens):
 
 def lm_head(cfg, p, x):
     w = (p["embed"].T if cfg.tie_embeddings else p["head"]).to(cfg.dtype)
-    ax = S.active_axis(cfg.axes.model)
+    ax = vocab_axis(cfg)
     if ax is not None:                      # column-parallel over the vocab
         return S.copy_to_axis(x, ax.name) @ S.block_of(w, ax.name,
                                                        cfg.vocab, 1)

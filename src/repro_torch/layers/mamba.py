@@ -5,14 +5,29 @@ inter-chunk state a small sequential carry (a Python loop over chunks where
 the reference scans).  Shapes: heads ``Hm`` with head dim ``P`` (d_inner =
 Hm * P), state size ``N``.  Per-step decay is scalar-per-head:
 a_t = exp(-exp(A_log) * dt_t).
+
+Under a registered model axis (``cfg.axes.model``, the sharded trainer)
+the training block runs tensor-parallel as the reference's GSPMD program
+partitions it by its path rules: each rank a block of ``d_inner`` (``w_z``,
+``w_x``, ``conv_w`` by column, ``norm`` by element, ``w_out`` by row, its
+partial sums reduced over the axis), ``w_B``, ``w_C``, ``w_dt`` and the
+per-head ``dt_bias``, ``A_log``, ``D`` replicated.  A channel's scan reads
+only its own head's ``dt``, ``A_log`` and ``D``, so a block that splits a
+head takes that head's: the block runs as heads of ``gcd(P, d_inner / n)``
+channels, each with its real head's values.  The gated RMSNorm sums its
+squares over the axis.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
+
 from ._cumsum import cumsum
-from .norms import rms_norm
+from .norms import rms_norm, rms_norm_tp
 from ._init import Init
 
 CONV_K = 4
@@ -108,6 +123,9 @@ def ssd_sequential(x, dt, Bm, Cm, log_a, h0=None):
 
 def mamba_apply(cfg, p, x, *, cache=None):
     """x (B,T,d).  cache = {"conv": (B,K-1,di), "h": (B,Hm,P,N)} for decode."""
+    tp = SH.active_axis(cfg.axes.model)
+    if tp is not None and cache is None and cfg.ssm_d_inner % tp.size == 0:
+        return _mamba_tp(cfg, p, x, tp), None
     B, T, d = x.shape
     dt_ = x.dtype
     di, N, Hm = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -141,6 +159,42 @@ def mamba_apply(cfg, p, x, *, cache=None):
     out = y @ p["w_out"].to(dt_)
     new_cache = {"conv": new_conv, "h": h} if cache is not None else None
     return out, new_cache
+
+
+def _mamba_tp(cfg, p, x, ax):
+    """The training block tensor-parallel over ``ax`` (see the module's
+    docstring): ``x`` and the output replicated over the axis."""
+    B, T, d = x.shape
+    dt_ = x.dtype
+    di, Hm = cfg.ssm_d_inner, cfg.ssm_heads
+    Pd = di // Hm
+    m, n, r = ax.name, ax.size, ax.index
+    cb = di // n                      # this rank's channels of d_inner
+    g = math.gcd(Pd, cb)              # channels a head of the block
+    head = torch.div(r * cb + g * torch.arange(cb // g, device=x.device), Pd,
+                     rounding_mode="floor")      # each one's real head
+    x = SH.copy_to_axis(x, m)
+
+    def col(name, dim):               # this rank's block of d_inner
+        return SH.block_of(p[name], m, di, dim)
+
+    def rep(name):                    # replicated, read in part by each rank
+        return SH.copy_to_axis(p[name], m)
+
+    z = x @ col("w_z", 1).to(dt_)
+    xin, _ = _causal_conv(x @ col("w_x", 1).to(dt_), col("conv_w", 1))
+    xin = F.silu(xin)
+    Bm = (x @ rep("w_B").to(dt_)).to(_F32)
+    Cm = (x @ rep("w_C").to(dt_)).to(_F32)
+    dtv = F.softplus((x @ rep("w_dt").to(dt_)).to(_F32)
+                     + rep("dt_bias"))[..., head]
+    log_a = -torch.exp(rep("A_log")[head])[None, None] * dtv
+    xh = xin.to(_F32).reshape(B, T, cb // g, g)
+    y, _ = ssd_scan(xh, dtv, Bm, Cm, log_a, chunk=min(128, T))
+    y = y + rep("D")[head][None, None, :, None] * xh
+    y = y.reshape(B, T, cb).to(dt_)
+    y = rms_norm_tp(y * F.silu(z), col("norm", 0), di, m)
+    return SH.reduce_from_axis(y @ col("w_out", 0).to(dt_), m)
 
 
 def init_mamba_cache(cfg, B, dtype=torch.float32, device=None):

@@ -6,14 +6,31 @@ Distributed path (``cfg.axes.model`` set + a mesh): the reference runs the
 MoE sublayer under ``shard_map``; here the caller is already one rank of an
 SPMD body (:func:`repro_torch.sharding.run_spmd`), ``x`` is this rank's
 block (its batch shard, replicated over the model axis) and ``p`` the whole
-parameter tree, of which the rank reads its own shard (experts
-``[r E / n, (r + 1) E / n)`` on the expert-parallel paths, a ``d_ff_expert``
-slice on the tensor-parallel one).  Tokens are sequence-split across the
+parameter tree or this rank's model-axis block of it (the sharded
+trainer's), told apart by shape: experts ``[r E / n, (r + 1) E / n)`` on
+the expert-parallel paths, a ``d_ff_expert`` slice on the tensor-parallel
+one.  Tokens are sequence-split across the
 model axis; each rank routes its slice locally (sort-based), builds an
 (E, C, d) dispatch buffer and exchanges it with an ``all_to_all`` endpoint
 descriptor — optionally with Quantize/Dequantize on the wire.  The expert
 FFN runs on the local expert shard; the return path mirrors the dispatch;
 an all-gather of one-hop ``multicast_axis`` transfers rebuilds the sequence.
+
+**Gradients.**  Each plane transfer of the distributed path is an
+``autograd.Function`` whose forward is the ``xdma.transfer`` it always was
+and whose backward is the transpose ``jax.vjp`` takes through the
+reference's ``shard_map`` body: an all-to-all's is the mirrored
+all-to-all (with the int8 wire only the scales carry a gradient: the
+values are integers), a ``reduce``'s is a ``reduce``, the ring
+all-gather's is this rank's block of the (replicated) output's gradient.
+The inputs enter as ``shard_map`` hands them in: ``x``, the router and
+replicated experts sum their gradient over the model axis
+(``copy_to_axis``; the sequence split is ``split_along``), and an output
+replicated over the axis divides its gradient by the axis size.  So the
+sharded MoE's gradient is the reference's sharded one, which is not the
+single-process layer's: routing, capacity and the aux loss belong to each
+(data block, sequence slice) on the expert-parallel path, to each data
+block on the others.
 
 Local path (tests / no mesh): same math, no collectives.
 
@@ -135,9 +152,103 @@ def _combine(cfg, out_buf, slot, keep, order, gates, T, d):
 
 
 # -- every remaining collective as a movement-plane task ---------------------
-def _pmean(x, axes, n_total: int):
+# Each is an autograd.Function: the forward is the plane's transfer, the
+# backward the transpose jax.vjp takes through the reference's shard_map body
+# (with replication checks off), a plane transfer too.
+class _PlanePmean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, n_total, n_model):
+        ctx.axes, ctx.n_total, ctx.n_model = axes, n_total, n_model
+        return xdma.transfer(x, reduce_descriptor(axes, n_total)) / n_total
+
+    @staticmethod
+    def backward(ctx, g):
+        # shard_map's transpose of an out spec P() divides the cotangent by
+        # the mesh's size, and pmean's transpose is a pmean.  A rank's
+        # cotangent here is its loss share's over the data axis and whole on
+        # every model rank: the sum over the mesh counts it n_model times.
+        g = xdma.transfer(g, reduce_descriptor(ctx.axes, ctx.n_total))
+        return g / (ctx.n_total * ctx.n_model), None, None, None
+
+
+def _pmean(x, axes, n_total: int, n_model: int):
     """pmean through the plane: a reduce-endpoint sum, then the local divide."""
-    return xdma.transfer(x, reduce_descriptor(axes, n_total)) / n_total
+    return _PlanePmean.apply(x, axes, n_total, n_model)
+
+
+class _PlaneReduce(torch.autograd.Function):
+    """psum over an axis as a ``reduce`` task; its transpose is a psum."""
+
+    @staticmethod
+    def forward(ctx, x, axis, n):
+        ctx.desc = reduce_descriptor(axis, n)
+        return xdma.transfer(x, ctx.desc)
+
+    @staticmethod
+    def backward(ctx, g):
+        return xdma.transfer(g, ctx.desc), None, None
+
+
+class _ReplicaMean(torch.autograd.Function):
+    """The identity on an output replicated over the model axis; the
+    gradient divided by the axis size, as ``shard_map``'s transpose divides
+    the cotangent of an out spec that does not name the axis."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+@functools.lru_cache(maxsize=None)
+def _a2a_desc(axis: str, split_axis: int, concat_axis: int) -> XDMADescriptor:
+    return XDMADescriptor(dst=Endpoint.all_to_all(axis, split_axis=split_axis,
+                                                  concat_axis=concat_axis))
+
+
+def _quantize_vjp(x, g):
+    """``x``'s gradient through ``Dequantize(Quantize(x))`` for the output's
+    cotangent ``g``, as ``jax.vjp`` takes it: through the scales only (the
+    int8 values are integers), each row's ``amax / 127`` reaching its
+    largest |x|, shared among ties."""
+    xf = x.to(torch.float32)
+    q = XP.Quantize()(x)
+    ds = (q.values.to(torch.float32) * g.to(torch.float32)).sum(
+        -1, keepdim=True)
+    ax = xf.abs()
+    amax = ax.amax(-1, keepdim=True)
+    at = (ax == amax).to(torch.float32)
+    damax = torch.where(amax > 0, ds / 127.0, torch.zeros_like(ds))
+    return (torch.sign(xf) * at * (damax / at.sum(-1, keepdim=True))
+            ).to(x.dtype)
+
+
+class _PlaneA2A(torch.autograd.Function):
+    """Task ``i`` of the dispatch queue, an all-to-all (split ``s``, concat
+    ``c``).  The backward is the mirrored all-to-all (split ``c``, concat
+    ``s``) of the cotangent, then, where the wire carries the int8 codec,
+    the codec's own gradient on the source side."""
+
+    @staticmethod
+    def forward(ctx, x, queue, i):
+        desc = queue.descriptors[i]
+        ep = desc.remote
+        ctx.back = _a2a_desc(ep.axis, ep.concat_axis, ep.split_axis)
+        ctx.wire = any(isinstance(pl, XP.Quantize) for pl in desc.pre)
+        if ctx.wire:
+            ctx.save_for_backward(x)
+        return queue.run_task(x, i)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = xdma.transfer(g.contiguous(), ctx.back)
+        if ctx.wire:
+            g = _quantize_vjp(ctx.saved_tensors[0], g)
+        return g, None, None
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,25 +257,41 @@ def _hop_desc(axis: str, n: int) -> XDMADescriptor:
     return XDMADescriptor(dst=Endpoint.multicast_axis(axis, perm))
 
 
+class _RingGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, n):
+        ctx.axis, ctx.n = axis_name, n
+        parts = [x]
+        for _ in range(n - 1):
+            parts.append(xdma.transfer(parts[-1], _hop_desc(axis_name, n)))
+        stacked = torch.stack(parts)      # [j] = shard of rank (i - j) % n
+        idx = S.axis_index(axis_name)
+        order = torch.remainder(idx - torch.arange(n, device=x.device), n)
+        ordered = stacked[order]          # [s] = shard of rank s
+        B, Sl, d = x.shape
+        return ordered.movedim(0, 1).reshape(B, n * Sl, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the output is replicated over the axis and its gradient whole on
+        # every rank: this rank's slice takes its own block
+        Sl = g.shape[1] // ctx.n
+        r = S.axis_index(ctx.axis)
+        return g[:, r * Sl:(r + 1) * Sl].contiguous(), None, None
+
+
 def _ring_all_gather(x, axis_name: str, n: int):
     """``lax.all_gather(x, axis, axis=1, tiled=True)`` as n-1 rotating
     one-hop broadcasts (``multicast_axis`` transfers), each recorded as a
     ``multicast`` endpoint in the capture ledger.
 
     ``x`` is ``(B, S_local, d)``; returns ``(B, n * S_local, d)`` ordered by
-    source rank, exactly like the tiled all-gather it replaces.
+    source rank, exactly like the tiled all-gather it replaces.  The
+    gradient is this rank's block of the output's.
     """
     if n == 1:
         return x
-    parts = [x]
-    for _ in range(n - 1):
-        parts.append(xdma.transfer(parts[-1], _hop_desc(axis_name, n)))
-    stacked = torch.stack(parts)          # [j] = shard of rank (i - j) % n
-    idx = S.axis_index(axis_name)
-    order = torch.remainder(idx - torch.arange(n, device=x.device), n)
-    ordered = stacked[order]              # [s] = shard of rank s
-    B, Sl, d = x.shape
-    return ordered.movedim(0, 1).reshape(B, n * Sl, d)
+    return _RingGather.apply(x, axis_name, n)
 
 
 def _dispatch_queue(model_axis: str, dtype, wire_plugins) -> XDMAQueue:
@@ -235,10 +362,10 @@ def _moe_tokens(cfg, p, tokens, *, model_axis: Optional[str], n_model: int,
     else:
         if queue is not None:
             # (E, C, d) -> (E_local, n_model*C, d): the XDMA dispatch tunnel
-            buf = queue.run_task(buf, 0)
+            buf = _PlaneA2A.apply(buf, queue, 0)
         out = _expert_ffn(cfg, p, buf)
         if queue is not None:
-            out = queue.run_task(out, 1)
+            out = _PlaneA2A.apply(out, queue, 1)
     y = _combine(cfg, out, slot, keep, order, gates, T, d)
     return y, aux
 
@@ -246,17 +373,19 @@ def _moe_tokens(cfg, p, tokens, *, model_axis: Optional[str], n_model: int,
 def _expert_ffn_tp(cfg, p, buf, model_axis, n_model):
     """TP experts: d_ff sharded over the model axis; the per-layer all-reduce
     is a ``reduce``-endpoint XDMA task (the plane's spelling of psum)."""
-    out = _expert_ffn(cfg, p, buf)
-    return xdma.transfer(out, reduce_descriptor(model_axis, n_model))
+    return _PlaneReduce.apply(_expert_ffn(cfg, p, buf), model_axis, n_model)
 
 
 def ep_enabled(cfg, n_model: int) -> bool:
     return cfg.n_experts % n_model == 0
 
 
-def _shard(w, dim: int, n: int, r: int):
-    """Block ``r`` of ``n`` of ``w`` along ``dim`` (a ``P`` spec's slice)."""
-    size = w.shape[dim] // n
+def _block(w, dim: int, n: int, r: int, whole: int):
+    """Block ``r`` of ``n`` of ``w`` along ``dim`` (a ``P`` spec's slice);
+    ``w`` itself where it is the block already (not ``whole`` long there)."""
+    if w.shape[dim] != whole:
+        return w
+    size = whole // n
     return w.narrow(dim, r * size, size)
 
 
@@ -275,7 +404,7 @@ def moe_apply(cfg, p, x, *, mesh=None, scheduler=None, overlap_chunks: int = 2):
 
     ``scheduler`` (a :class:`~repro_torch.runtime.DistributedScheduler`)
     routes the EP dispatch through chunked per-link FIFOs (see
-    :func:`_moe_tokens`); pass a fresh one per call.
+    :func:`_moe_tokens`); pass a fresh one per call.  It has no backward.
     """
     B, Sq, d = x.shape
     axes = cfg.axes
@@ -284,54 +413,59 @@ def moe_apply(cfg, p, x, *, mesh=None, scheduler=None, overlap_chunks: int = 2):
                              n_model=1)
         return y.reshape(B, Sq, d), aux
 
-    n_model = S.axis_size(axes.model)
-    r = S.axis_index(axes.model)
+    m = axes.model
+    n_model = S.axis_size(m)
+    r = S.axis_index(m)
     all_axes = tuple(mesh.axis_names)
     n_total = int(mesh.world_size)
     wire = (XP.Quantize(),) if getattr(cfg, "moe_wire_int8", False) else ()
     use_ep = ep_enabled(cfg, n_model) and Sq % n_model == 0 and Sq >= n_model
     tp_ok = cfg.d_ff_expert % n_model == 0
+    E, f = cfg.n_experts, cfg.d_ff_expert
 
+    # shard_map's in specs: the router replicated (its gradient summed over
+    # the axis), the experts by expert, by d_ff, or replicated
+    pl = {"router": S.copy_to_axis(p["router"], m)}
     if ep_enabled(cfg, n_model):
-        pl = {"router": p["router"],
-              **{w: _shard(p[w], 0, n_model, r)
-                 for w in ("w_gate", "w_up", "w_down")}}
+        pl.update({w: _block(p[w], 0, n_model, r, E)
+                   for w in ("w_gate", "w_up", "w_down")})
     elif tp_ok:
-        pl = {"router": p["router"],
-              "w_gate": _shard(p["w_gate"], 2, n_model, r),
-              "w_up": _shard(p["w_up"], 2, n_model, r),
-              "w_down": _shard(p["w_down"], 1, n_model, r)}
+        pl.update(w_gate=_block(p["w_gate"], 2, n_model, r, f),
+                  w_up=_block(p["w_up"], 2, n_model, r, f),
+                  w_down=_block(p["w_down"], 1, n_model, r, f))
     else:
-        pl = p
+        pl.update({w: S.copy_to_axis(p[w], m)
+                   for w in ("w_gate", "w_up", "w_down")})
 
     if use_ep:
         # split the sequence across model ranks
         Sl = Sq // n_model
-        xs = x[:, r * Sl:(r + 1) * Sl]
-        y, aux = _moe_tokens(cfg, pl, xs.reshape(-1, d),
-                             model_axis=axes.model, n_model=n_model,
-                             wire_plugins=wire, scheduler=scheduler,
+        xs = S.split_along(x, m, 1)
+        y, aux = _moe_tokens(cfg, pl, xs.reshape(-1, d), model_axis=m,
+                             n_model=n_model, wire_plugins=wire,
+                             scheduler=scheduler,
                              overlap_chunks=overlap_chunks)
-        y = _ring_all_gather(y.reshape(B, Sl, d), axes.model, n_model)
+        y = _ring_all_gather(y.reshape(B, Sl, d), m, n_model)
     elif ep_enabled(cfg, n_model):
         # decode-scale EP: every model rank routes the full block (identical
         # dispatch); the a2a moves only the (E, C, d) token buffer, never the
         # expert weights
-        y, aux = _moe_tokens(cfg, pl, x.reshape(-1, d),
-                             model_axis=axes.model, n_model=n_model,
+        y, aux = _moe_tokens(cfg, pl, S.copy_to_axis(x, m).reshape(-1, d),
+                             model_axis=m, n_model=n_model,
                              wire_plugins=wire, scheduler=scheduler,
                              overlap_chunks=overlap_chunks)
-        y = y.reshape(x.shape)
+        y = _ReplicaMean.apply(y.reshape(x.shape), n_model)
     else:
-        tokens = x.reshape(-1, d)
+        tokens = S.copy_to_axis(x, m).reshape(-1, d)
         gates, eidx, aux = _route(cfg, pl["router"], tokens)
         T = tokens.shape[0]
         buf, slot, keep, order, _ = _dispatch(cfg, tokens, eidx, gates,
                                               _capacity(cfg, T))
         if tp_ok:
-            out = _expert_ffn_tp(cfg, pl, buf, axes.model, n_model)
+            out = _expert_ffn_tp(cfg, pl, buf, m, n_model)
         else:
             out = _expert_ffn(cfg, pl, buf)    # replicated experts (fallback)
-        y = _combine(cfg, out, slot, keep, order, gates, T, d).reshape(x.shape)
-    aux = _pmean(aux, all_axes, n_total)
+        y = _combine(cfg, out, slot, keep, order, gates, T, d)
+        y = _ReplicaMean.apply(y.reshape(x.shape), n_model)
+    aux = _pmean(aux, all_axes, n_total, n_model)
     return y, aux

@@ -5,13 +5,37 @@ exponential gating and a matrix state C in R^{hd x hd}, in the stabilized
 chunkwise form (log-space gates, running max stabilizer); ``mlstm_sequential``
 is the step oracle.  sLSTM has recurrent gate weights and runs step by step.
 The reference's scans are Python loops here.
+
+Under a registered model axis (``cfg.axes.model``, the sharded trainer)
+the training blocks run tensor-parallel as the reference's GSPMD program
+partitions them by its path rules, ``x`` and the output replicated over
+the axis:
+
+* mLSTM: each rank a block of the ``H * hd`` value channels (``wv`` by
+  column, ``wo`` by row, its partial sums reduced over the axis).  A value
+  channel reads its head's whole q and k and gates, so the block runs as
+  heads of ``gcd(hd, H * hd / n)`` value channels, each with its real
+  head's q, k (from this rank's columns of ``wq`` / ``wk`` where the block
+  is whole heads, else from the weights gathered whole) and gates (``wi``,
+  ``wf``, ``f_bias`` replicated).  The norm sums its squares over the axis.
+* sLSTM: the recurrence couples a head's channels step by step, so each
+  rank runs whole heads (``w_z`` by column, the other gates' replicated
+  weights and biases read by block, ``r_*`` by head), with no collective in
+  the time loop; the norm sums its squares over the axis and ``w_out`` is
+  row-parallel.  Where the heads do not divide the axis every rank runs
+  the whole block, its sharded weights gathered.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
-from .norms import rms_norm
+from repro_torch import sharding as SH
+
+from .norms import rms_norm, rms_norm_tp
 from ._cumsum import cumsum
 from ._init import Init
 
@@ -72,20 +96,22 @@ def _mlstm_chunk(state, q, k, v, li, lf):
     return (C_new, n_new, m_new), h
 
 
-def _mlstm_zero(B, H, hd, device):
-    return (torch.zeros((B, H, hd, hd), dtype=_F32, device=device),
+def _mlstm_zero(B, H, hd, device, hd_v=None):
+    return (torch.zeros((B, H, hd, hd if hd_v is None else hd_v),
+                        dtype=_F32, device=device),
             torch.zeros((B, H, hd), dtype=_F32, device=device),
             torch.full((B, H), -1e30, dtype=_F32, device=device))
 
 
 def mlstm_scan(q, k, v, log_i, log_f, *, chunk=128, state=None):
-    """q,k,v (B,T,H,hd) f32; log_i/log_f (B,T,H).  Returns (h, state)."""
+    """q,k (B,T,H,hd), v (B,T,H,hd_v) f32; log_i/log_f (B,T,H).  Returns
+    (h, state)."""
     B, T, H, hd = q.shape
     Q = max(1, min(chunk, T))
     while T % Q:
         Q -= 1
     if state is None:
-        state = _mlstm_zero(B, H, hd, q.device)
+        state = _mlstm_zero(B, H, hd, q.device, v.shape[-1])
     hs = []
     for c in range(T // Q):
         sl = slice(c * Q, (c + 1) * Q)
@@ -116,6 +142,10 @@ def mlstm_sequential(q, k, v, log_i, log_f, state=None):
 
 
 def mlstm_apply(cfg, p, x, *, cache=None):
+    tp = SH.active_axis(cfg.axes.model)
+    if tp is not None and cache is None and \
+            cfg.n_heads * cfg.head_dim % tp.size == 0:
+        return _mlstm_tp(cfg, p, x, tp), None
     B, T, d = x.shape
     dt_ = x.dtype
     H, hd = cfg.n_heads, cfg.head_dim
@@ -134,6 +164,42 @@ def mlstm_apply(cfg, p, x, *, cache=None):
     out = h @ p["wo"].to(dt_)
     new_cache = {"mlstm": state} if cache is not None else None
     return out, new_cache
+
+
+def _mlstm_tp(cfg, p, x, ax):
+    """The training block tensor-parallel over ``ax`` (see the module's
+    docstring)."""
+    B, T, d = x.shape
+    dt_ = x.dtype
+    H, hd = cfg.n_heads, cfg.head_dim
+    m, n, r = ax.name, ax.size, ax.index
+    cb = H * hd // n                  # this rank's value channels
+    g = math.gcd(hd, cb)              # value channels a head of the block
+    head = torch.div(r * cb + g * torch.arange(cb // g, device=x.device), hd,
+                     rounding_mode="floor")      # each one's real head
+    x = SH.copy_to_axis(x, m)
+
+    def qk(name):
+        if cb % hd == 0:              # whole heads: this rank's columns
+            w = SH.block_of(p[name], m, H * hd, 1)
+            return (x @ w.to(dt_)).reshape(B, T, cb // hd, hd).to(_F32)
+        lo, hi = r * cb // hd, (r * cb + cb - 1) // hd + 1
+        w = SH.whole_of(p[name], m, H * hd, 1)[:, lo * hd:hi * hd]
+        y = (x @ w.to(dt_)).reshape(B, T, hi - lo, hd).to(_F32)
+        return y[:, :, head - lo]
+
+    q = qk("wq")
+    k = qk("wk") * hd ** -0.5
+    v = (x @ SH.block_of(p["wv"], m, H * hd, 1).to(dt_)).reshape(
+        B, T, cb // g, g).to(_F32)
+    log_i = (x @ SH.copy_to_axis(p["wi"], m).to(dt_)).to(_F32)[..., head]
+    log_f = F.logsigmoid((x @ SH.copy_to_axis(p["wf"], m).to(dt_)).to(_F32)
+                         + SH.copy_to_axis(p["f_bias"], m))[..., head]
+    h, _ = mlstm_scan(q, k, v, log_i, log_f, chunk=min(128, T))
+    h = rms_norm_tp(h.reshape(B, T, cb).to(dt_),
+                    SH.block_of(p["norm"], m, H * hd, 0), H * hd, m)
+    return SH.reduce_from_axis(
+        h @ SH.block_of(p["wo"], m, H * hd, 0).to(dt_), m)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +243,14 @@ def _slstm_step(cfg, p, carry, xw):
 
 
 def slstm_apply(cfg, p, x, *, cache=None, chunk=64):
+    tp = SH.active_axis(cfg.axes.model)
+    if tp is not None and cache is None:
+        if cfg.n_heads % tp.size == 0:
+            return _slstm_tp(cfg, p, x, tp), None
+        # every rank runs the whole block: its sharded weights gathered
+        H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+        p = dict(p, w_z=SH.replica_of(p["w_z"], tp.name, H * hd, 1),
+                 w_out=SH.replica_of(p["w_out"], tp.name, d, 0))
     B, T, d = x.shape
     dt_ = x.dtype
     H, hd = cfg.n_heads, cfg.head_dim
@@ -199,3 +273,33 @@ def slstm_apply(cfg, p, x, *, cache=None, chunk=64):
     y = rms_norm(hs, p["norm"]) @ p["w_out"].to(dt_)
     new_cache = {"slstm": carry} if cache is not None else None
     return y, new_cache
+
+
+def _slstm_tp(cfg, p, x, ax):
+    """The training block tensor-parallel over ``ax``: this rank's heads
+    (see the module's docstring)."""
+    B, T, d = x.shape
+    dt_ = x.dtype
+    H, hd = cfg.n_heads, cfg.head_dim
+    m, n = ax.name, ax.size
+    cb = H * hd // n
+    x = SH.copy_to_axis(x, m)
+
+    def col(name, dim):
+        return SH.block_of(p[name], m, H * hd, dim)
+
+    xw = torch.stack([(x @ col(f"w_{g}", 1).to(dt_)) + col(f"b_{g}", 0).to(dt_)
+                      for g in ("z", "i", "f", "o")], dim=2).to(_F32)
+    local = {f"r_{g}": SH.block_of(p[f"r_{g}"], m, H, 0)
+             for g in ("z", "i", "f", "o")}
+    lcfg = dataclasses.replace(cfg, n_heads=H // n)
+    zero = torch.zeros((B, cb), dtype=_F32, device=x.device)
+    carry = (zero, zero, zero, torch.full_like(zero, -1e30))
+    hs = []
+    for t in range(T):
+        carry = _slstm_step(lcfg, local, carry, xw[:, t])
+        hs.append(carry[2])
+    hs = torch.stack(hs, dim=1).to(dt_)
+    y = rms_norm_tp(hs, SH.block_of(p["norm"], m, d, 0), d, m)
+    return SH.reduce_from_axis(y @ SH.block_of(p["w_out"], m, d, 0).to(dt_),
+                               m)

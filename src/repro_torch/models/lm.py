@@ -21,8 +21,10 @@ axis, and each weight is made whole over the batch axis where it is used
 (FSDP: cast to ``cfg.dtype`` first, then all-gathered, inside the layer
 loop, so ``remat="block"`` redoes the gather in the backward), as the
 reference's GSPMD program computes it.  The logits come back
-vocab-sharded.  Only attention and dense FFN slots are covered
-(:func:`check_shardable`); sharded prefill and decode raise.
+vocab-sharded (whole where the vocabulary does not split over the model
+axis).  Every slot is covered: attention (self and cross), dense
+and MoE FFNs, Mamba, mLSTM and sLSTM, and the encoder's layers; sharded
+prefill and decode raise (ROADMAP.md §1 item 10a).
 
 Where a gradient is taken (autograd on and a parameter that requires one)
 under ``cfg.remat == "block"``, it checkpoints each period's slots and each
@@ -62,8 +64,7 @@ from repro_torch.layers.norms import init_rms, rms_norm
 from repro_torch.layers.rope import rope_for
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache",
-           "params_from_numpy", "period_slice", "check_shardable", "Shards",
-           "shards_of"]
+           "params_from_numpy", "period_slice", "Shards", "shards_of"]
 
 def _device(device):
     return torch.device("cuda" if device is None else device)
@@ -198,7 +199,8 @@ def _stack(trees):
 # ---------------------------------------------------------------------------
 # one sublayer slot
 # ---------------------------------------------------------------------------
-def _constrain_slot_params(cfg, tree, shards=None, specs=None, period=None):
+def _constrain_slot_params(cfg, tree, shards=None, specs=None, period=None,
+                           n_stack=None):
     """The identity with no mesh axis set; with one, the reference pins each
     weight's sharding (the identity here) and casts matrices to the compute
     dtype inside the layer loop.  Under the sharded trainer (``shards``)
@@ -206,7 +208,7 @@ def _constrain_slot_params(cfg, tree, shards=None, specs=None, period=None):
     (``specs``, in ``tree``'s leaf order): :meth:`Shards.at_use`."""
     if shards is not None:
         return _pytree.unflatten(tree, [
-            shards.at_use(w, sp, period=period)
+            shards.at_use(w, sp, period=period, n_stack=n_stack)
             for w, sp in zip(_pytree.leaves(tree), specs)])
     if cfg.axes.model is None and not cfg.axes.batch:
         return tree
@@ -220,26 +222,6 @@ def _constrain_slot_params(cfg, tree, shards=None, specs=None, period=None):
 # ---------------------------------------------------------------------------
 # the sharded trainer: where each weight lives, and FSDP at use
 # ---------------------------------------------------------------------------
-_NOT_COVERED = ("is not ported to the sharded trainer (ROADMAP.md §1 item "
-                "10c)")
-
-
-def check_shardable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config with a slot the sharded
-    trainer does not cover: MoE, Mamba, xLSTM, encoder or cross-attention.
-    Such a config never trains replicated in its place."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: the encoder and "
-                                  f"cross-attention {_NOT_COVERED}")
-    for spec in cfg.period + cfg.tail:
-        if spec.kind != ATTN:
-            raise NotImplementedError(f"{cfg.name}: a {spec.kind} slot "
-                                      f"{_NOT_COVERED}")
-        if spec.moe:
-            raise NotImplementedError(f"{cfg.name}: an MoE slot "
-                                      f"{_NOT_COVERED}")
-
-
 class Shards:
     """This rank's view of a sharded config's parameters: each leaf's
     fitted spec (the train state's, :func:`repro_torch.launch.mesh.
@@ -247,11 +229,10 @@ class Shards:
 
     def __init__(self, cfg: ModelConfig):
         from repro_torch.launch.mesh import MeshSpec, spec_leaves, state_specs
-        check_shardable(cfg)
         if len(cfg.axes.batch) > 1:
             raise NotImplementedError(
                 f"a batch axis over several mesh axes {cfg.axes.batch} is "
-                "not ported to the sharded trainer")
+                "not ported to the sharded trainer (ROADMAP.md §1 item 10b)")
         self.cfg = cfg
         self.data = cfg.axes.batch[0] if cfg.axes.batch else None
         self.model = cfg.axes.model
@@ -267,7 +248,7 @@ class Shards:
                                    else path[:2])
             self.specs.setdefault(top, []).append(sp)
 
-    def at_use(self, w, spec, *, period=None):
+    def at_use(self, w, spec, *, period=None, n_stack=None):
         """A stored block ready for use: cast to ``cfg.dtype`` (a float
         matrix), then whole over the batch axis — all-gathered along the dim
         its spec shards there (the gradient reduce-scattered), or, for a
@@ -275,7 +256,8 @@ class Shards:
         it (the gradient summed back to it); a leaf replicated over the
         batch axis enters through ``copy_to_axis``.  The model axis's
         shards stay for the layers.  ``period`` marks ``w`` as period
-        ``period``'s slot of a leaf stacked over periods."""
+        ``period``'s slot of a leaf stacked over ``n_stack`` layers
+        (``cfg.n_periods``, or the encoder's ``cfg.encoder_layers``)."""
         spec = tuple(spec)
         lead = None
         if period is not None:
@@ -286,8 +268,8 @@ class Shards:
         if d is None:
             return w
         if lead == d:
-            return SH.broadcast_from(w, d,
-                                    period // (self.cfg.n_periods // self.dp))
+            n_stack = self.cfg.n_periods if n_stack is None else n_stack
+            return SH.broadcast_from(w, d, period // (n_stack // self.dp))
         if lead is not None:
             raise ValueError(f"a stacked leaf's period dim over {lead!r}")
         dims = [i for i, e in enumerate(spec) if e == d]
@@ -435,25 +417,33 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
 # ---------------------------------------------------------------------------
 # encoder (whisper)
 # ---------------------------------------------------------------------------
-def _encode(cfg, params, audio_embeds):
+def _encode(cfg, params, audio_embeds, sh=None):
+    """The encoder's layers over the audio frames, then its norm; under the
+    sharded trainer (``sh``) each layer's weights made ready at use."""
     enc_cfg = dataclasses.replace(cfg, encoder_layers=0)
     spec = LayerSpec(ATTN)
     x = audio_embeds.to(cfg.dtype)
     pos = torch.arange(x.shape[1], device=x.device)[None].expand(x.shape[:2])
 
-    def layer(x, p):
-        p = _constrain_slot_params(enc_cfg, p)
+    def layer(x, p, i):
+        p = _constrain_slot_params(
+            enc_cfg, p, sh, None if sh is None else sh.specs["encoder"],
+            period=i, n_stack=cfg.encoder_layers)
         return _apply_slot(enc_cfg, spec, p, x, pos, causal=False)[0]
 
     remat = cfg.remat == "block" and _needs_grad(params)  # jax.checkpoint
-    for p in _unstack(params["encoder"], cfg.encoder_layers):
-        x = _checkpoint(layer, x, p) if remat else layer(x, p)
-    return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+    for i, p in enumerate(_unstack(params["encoder"], cfg.encoder_layers)):
+        x = _checkpoint(layer, x, p, i) if remat else layer(x, p, i)
+    scale = params["enc_norm"]["scale"]
+    if sh is not None:
+        scale = sh.at_use(scale, sh.specs["enc_norm"][0])
+    return rms_norm(x, scale, cfg.norm_eps)
 
 
-def _inputs(cfg, params, batch, embed=None):
+def _inputs(cfg, params, batch, embed=None, sh=None):
     """``(x, positions, enc_out)``; ``embed`` the embedding leaves at use
-    (the sharded trainer's), else ``params["embed"]``."""
+    and ``sh`` the :class:`Shards` (the sharded trainer's), else
+    ``params["embed"]``."""
     embed = params["embed"] if embed is None else embed
     if "embeds" in batch:
         x = batch["embeds"].to(cfg.dtype)
@@ -467,7 +457,7 @@ def _inputs(cfg, params, batch, embed=None):
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     enc_out = None
     if cfg.encoder_layers:
-        enc_out = _encode(cfg, params, batch["audio_embeds"])
+        enc_out = _encode(cfg, params, batch["audio_embeds"], sh)
     return x, positions, enc_out
 
 
@@ -483,7 +473,7 @@ def forward(cfg: ModelConfig, params, batch, *, mesh=None):
     sh = shards_of(cfg)
     embed = (None if sh is None
              else sh.embed_at_use(params["embed"], "embeds" not in batch))
-    x, positions, enc_out = _inputs(cfg, params, batch, embed)
+    x, positions, enc_out = _inputs(cfg, params, batch, embed, sh)
     aux_total = _zero_aux(x)
 
     def block(x, aux, slot_params, i):

@@ -75,7 +75,7 @@ __all__ = ["Axes", "CPU_AXES", "constrain", "kv_cache_spec", "spec",
            "reduce_from_axis", "gather_along", "split_along",
            "unsplit_along", "broadcast_from", "all_reduce", "all_gather",
            "collective_stats", "active_axis", "block_of", "whole_of",
-           "HostHop"]
+           "replica_of", "HostHop"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -648,6 +648,15 @@ def block_of(w: Optional[torch.Tensor], name, whole: int, dim: int):
     if w is None or w.shape[dim] != whole:
         return w
     return split_along(w, name, dim)
+
+
+def replica_of(w: Optional[torch.Tensor], name, whole: int, dim: int):
+    """A weight whole along ``dim`` for work every rank of ``name`` repeats
+    in full: gathered (the gradient's block taken back, each rank holding
+    the whole gradient) where it is sharded there, else the weight itself."""
+    if w is None or w.shape[dim] == whole:
+        return w
+    return unsplit_along(w, name, dim)
 
 
 def whole_of(w: Optional[torch.Tensor], name, whole: int, dim: int):

@@ -47,6 +47,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import MN, Endpoint, describe
 from repro_torch.core import api as xdma
 from repro_torch.core.descriptor import reduce_descriptor
+from repro_torch.layers import embedding as E
 from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
@@ -124,13 +125,13 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None,
     logits.  Under the sharded trainer the batch is this rank's data block
     and the logits its vocabulary block: the loss and the metrics are this
     rank's share of the global batch's means (their sum over the data axis
-    is the mean), the logits never gathered."""
+    is the mean; the MoE aux, global already, enters as its ``1 / dp``
+    share), the logits never gathered."""
     sh = lm.shards_of(cfg)
     logits, aux = lm.forward(cfg, params, batch, mesh=mesh)
     labels = batch["labels"]
     logits = logits.to(_F32)
-    logz, ll = _logz_and_label_logit(
-        logits, labels, None if sh is None else S.active_axis(sh.model))
+    logz, ll = _logz_and_label_logit(logits, labels, E.vocab_axis(cfg))
     if sh is None:
         nll = (logz - ll).mean()
         zloss = (logz ** 2).mean()
@@ -138,6 +139,9 @@ def loss_fn(cfg: ModelConfig, params, batch, *, mesh=None,
         count = labels.numel() * sh.dp
         nll = (logz - ll).sum() / count
         zloss = (logz ** 2).sum() / count
+        # the MoE aux is a pmean over the whole mesh, the same on every
+        # rank: each data rank's share of it
+        aux = aux / sh.dp
     total = nll + aux_weight * aux + z_weight * zloss
     return total, {"nll": nll, "aux": aux, "zloss": zloss}
 

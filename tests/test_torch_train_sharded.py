@@ -5,13 +5,15 @@ smoke config 3 steps on the reference's (1, 4) mesh with a checkpoint at
 step 2, then resumes from it: the resumed step's loss and state bitwise
 the uninterrupted run's.  Its checkpoint holds whole leaves, so it
 restores bitwise into the port's single-process trainer and into the
-reference's ``CheckpointManager``.  A config the sharded trainer does not
-cover (Mamba) raises before any rank starts.
+reference's ``CheckpointManager``.  The same world trains jamba's smoke
+config (Mamba and MoE slots), and every config's train-state specs fit a
+(2, 2) and a (1, 4) mesh.
 """
 import pytest
 
 pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
 import os  # noqa: E402
 
 import jax  # noqa: E402
@@ -93,9 +95,41 @@ def test_sharded_checkpoint_restores_into_the_single_process_trainers(run):
     assert len(hist) == 1 and np.isfinite(hist[0])
 
 
-def test_uncovered_config_raises_before_any_rank_starts():
-    """A Mamba slot under ``--ranks`` is not ported: it raises, it never
-    trains replicated."""
-    with pytest.raises(NotImplementedError, match="mamba"):
-        LT.main(["--arch", "jamba-1.5-large-398b", "--smoke", "--ranks", "4",
-                 "--device", "cpu", "--steps", "1"])
+def test_sharded_launcher_trains_jamba(run):
+    """jamba's smoke config (attention, Mamba and MoE slots) for 2 steps
+    on the launcher's (1, 4) mesh: finite losses, the same on every rank
+    (the metrics are global)."""
+    world, _ = run
+    losses = world[0]["jamba"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    for rank in world:
+        assert rank["jamba"] == losses
+
+
+@pytest.mark.parametrize("arch", PCF.ARCHS)
+def test_state_specs_build_for_every_config(arch):
+    """Every config's train-state specs fit a (2, 2) and a (1, 4) mesh:
+    each leaf's block shape divides, the MoE experts split by expert or by
+    ``d_ff``, the Mamba, mLSTM and sLSTM matrices over the model axis."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.configs.base import ShapeConfig
+    shape = ShapeConfig("t", 16, 8, "train")
+    for dims in ((2, 2), (1, 4)):
+        mesh = M.MeshSpec(dims, ("data", "model"))
+        cfg = PCF.smoke_config(arch)
+        cfg = dataclasses.replace(cfg.with_axes(M.axes_for(mesh, shape)),
+                                  fsdp=True)
+        specs, shapes = M.state_specs(cfg, mesh)
+        flat = _pytree.flatten_with_paths(shapes)
+        leaves = M.spec_leaves(specs, shapes)
+        assert len(leaves) == len(flat)
+        for (path, t), sp in zip(flat, leaves):
+            M.local_shape(t.shape, sp, mesh)
+            key = _pytree.path_key(path)
+            if not key.startswith("params/"):
+                continue
+            if key.endswith("ffn/w_gate") and t.dim() == 4:   # experts
+                ep = cfg.n_experts % dims[1] == 0
+                assert (tuple(sp)[1:2] == ("model",)) == ep, (key, dims, sp)
+            if key.endswith(("mamba/w_x", "mlstm/wv", "slstm/w_z")):
+                assert "model" in sp, (arch, dims, key, sp)

@@ -385,14 +385,18 @@ def tp_layer_configs(configs, dataclasses, f32):
     """The layer cases' smoke configs in f32, by regime on a model axis of
     2: qwen3 (H4, KV2: head-parallel, tied), the same with one KV head (the
     KV heads repeated), qwen2 (H7, KV1: sequence-parallel) and phi4-mini
-    (an untied head)."""
+    (an untied head; with a vocabulary of 255, which does not split over
+    the axis)."""
     q3 = configs.smoke_config("qwen3_1p7b")
     return {"head": dataclasses.replace(q3, dtype=f32),
             "repeat": dataclasses.replace(q3, dtype=f32, n_kv_heads=1),
             "seq": dataclasses.replace(configs.smoke_config("qwen2_0p5b"),
                                        dtype=f32),
             "untied": dataclasses.replace(
-                configs.smoke_config("phi4_mini_3p8b"), dtype=f32)}
+                configs.smoke_config("phi4_mini_3p8b"), dtype=f32),
+            "odd": dataclasses.replace(
+                configs.smoke_config("phi4_mini_3p8b"), dtype=f32,
+                vocab=255)}
 
 
 def tp_step_config(configs, dataclasses, dtype):
@@ -404,6 +408,73 @@ def tp_step_config(configs, dataclasses, dtype):
     return dataclasses.replace(configs.smoke_config("phi4_mini_3p8b"),
                                dtype=dtype, d_model=256, d_ff=4096,
                                vocab=4096)
+
+
+TP_CROSS_SK = 24                           # kv_x rows of the cross case
+# the MoE layer cases on the model axis of 2: (config changes, sequence)
+TP_MOE = {"ep": ({}, 16),                          # experts split, S split
+          "ep_nosplit": ({}, 15),                  # S % 2: every rank routes
+          "tp": ({"n_experts": 5}, 16),            # d_ff_expert split
+          "replicated": ({"n_experts": 5, "d_ff_expert": 33}, 16),
+          "int8": ({"moe_wire_int8": True}, 16)}   # EP with the int8 wire
+TP_MOE_DAUX = 0.5                          # the aux loss's cotangent
+TP_MODELS = ("jamba", "xlstm", "whisper")
+
+
+def tp_slot_configs(configs, dataclasses, f32):
+    """The other slots' layer cases in f32 on a model axis of 2: jamba's
+    Mamba (4 SSM heads, one or two a rank; 3 heads of 32 channels, a head
+    split between the ranks), xlstm's mLSTM (2 heads; 1 head of 64, split)
+    and sLSTM (2 heads; 1 head, run whole on every rank), whisper's
+    cross-attention in the three regimes (4 heads: head-parallel; 1 KV
+    head: repeated; 3 heads: sequence-parallel)."""
+    jamba = dataclasses.replace(configs.smoke_config("jamba_1p5_large_398b"),
+                                dtype=f32)
+    xl = dataclasses.replace(configs.smoke_config("xlstm_125m"), dtype=f32)
+    one = dataclasses.replace(xl, n_heads=1, n_kv_heads=1, head_dim=64)
+    cross = dataclasses.replace(configs.smoke_config("whisper_small"),
+                                dtype=f32)
+    return {"mamba": jamba,
+            "mamba_split": dataclasses.replace(jamba, ssm_heads=3,
+                                               ssm_d_inner=96),
+            "mlstm": xl, "mlstm_split": one, "slstm": xl, "slstm_whole": one,
+            "cross": cross,
+            "cross_repeat": dataclasses.replace(cross, n_kv_heads=1),
+            "cross_seq": dataclasses.replace(cross, n_heads=3, n_kv_heads=3)}
+
+
+def tp_moe_config(configs, dataclasses, f32, name):
+    """The qwen3-moe smoke config in f32 (8 experts of d_ff 32, top 2, the
+    default capacity factor) with case ``name``'s changes."""
+    return dataclasses.replace(configs.smoke_config("qwen3_moe_30b_a3b"),
+                               dtype=f32, **TP_MOE[name][0])
+
+
+TP_ARCH = {"jamba": "jamba_1p5_large_398b", "xlstm": "xlstm_125m",
+           "whisper": "whisper_small"}
+# jamba's experts (2 x 4 x 256 x 512) and Mamba w_z / w_x (2 x 256 x 2048),
+# whisper's encoder and decoder FFNs (2 x 256 x 2048) reach FSDP's 1 << 20
+# elements; its encoder reads 24 frames against 16 decoder tokens.  xlstm
+# stays at its smoke width.
+TP_WIDE = {"jamba": dict(d_model=256, ssm_d_inner=2048, d_ff_expert=512),
+           "xlstm": {},
+           "whisper": dict(d_model=256, d_ff=2048, encoder_seq=24)}
+
+
+# jamba's f32 steps: no warmup, and an eps at which Adam's first update is
+# not lr * sign(g) for a gradient within its noise of zero.  jamba's
+# gradients (its Mamba's) are 1e-5 to 3e-5 of their scale off the
+# reference's, single-process too (tests/test_torch_train_steps.py); at the
+# default 1e-8 that flips a few elements near zero, 2 lr = 6e-4 apart.  At
+# 1e-4 an element's update moves at most lr / eps = 3 times its gradient's
+# error, and every element whose gradient is above 1e-4 moves by lr.
+TP_JAMBA_OPT = dict(warmup_steps=0, eps=1e-4)
+
+
+def tp_model_config(configs, dataclasses, dtype, name):
+    """The whole-model cases' smoke configs, widened by ``TP_WIDE``."""
+    return dataclasses.replace(configs.smoke_config(TP_ARCH[name]),
+                               dtype=dtype, **TP_WIDE[name])
 
 
 def tp_opt_config(AdamWConfig, run):
@@ -418,9 +489,12 @@ def tp_opt_config(AdamWConfig, run):
 def tp_body(mesh, inp):
     """One rank of the (2, 2) world: each sharded layer's output, input
     gradient and weight gradients (whole: gathered over the model axis,
-    summed over the data axis), embedding plus vocab-parallel loss, the
-    whole model's gradient of one microbatch, and two steps of the sharded
-    step in f32 and in bf16 with the state they leave (whole)."""
+    summed over the data axis) — attention, MLPs, Mamba, mLSTM, sLSTM,
+    cross-attention and the MoE layer's paths —, embedding plus
+    vocab-parallel loss, the whole model's gradient of one microbatch (and
+    of jamba's, xlstm's and whisper's), and two steps of the sharded step
+    in f32 and in bf16 (and jamba's in f32) with the state they leave
+    (whole)."""
     import dataclasses
 
     from repro_torch import _pytree, configs
@@ -429,9 +503,12 @@ def tp_body(mesh, inp):
     from repro_torch.launch import mesh as M
     from repro_torch.layers import attention as A
     from repro_torch.layers import embedding as E
+    from repro_torch.layers import mamba as MB
     from repro_torch.layers import mlp as F
+    from repro_torch.layers import moe as MOE
+    from repro_torch.layers import xlstm as X
     from repro_torch.models import lm
-    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.train import step as T
 
     torch.set_num_threads(1)
@@ -451,20 +528,22 @@ def tp_body(mesh, inp):
     def whole_rows(t):
         return S.all_gather(t, "data", 0)
 
-    def layer(cfg, p, fn, x_np, dy_np):
+    def layer(cfg, p, fn, x_np, dy_np, extra=()):
         """``fn(cfg, local params, x)`` on this rank's rows with the model
         axis sharding ``p`` by its rules: the whole output, input gradient
-        and weight gradients."""
+        (and that of each tensor of ``extra``) and weight gradients."""
         specs = M.fit_specs(mesh, M.infer_param_specs(p, cfg.axes), p)
         local = M.shard_tree(p, specs, mesh)
         leaves = [t.requires_grad_() for t in _pytree.leaves(local)]
         local = _pytree.unflatten(local, leaves)
         x = rows(x_np).requires_grad_()
         y = fn(cfg, local, x)
-        got = torch.autograd.grad(y, [x] + leaves, rows(dy_np))
-        grads = M.gather_tree(_pytree.unflatten(local, list(got[1:])),
+        k = 1 + len(extra)
+        got = torch.autograd.grad(y, [x, *extra] + leaves, rows(dy_np))
+        grads = M.gather_tree(_pytree.unflatten(local, list(got[k:])),
                               specs, mesh)
         return {"y": whole_rows(y.detach()), "dx": whole_rows(got[0]),
+                "dextra": [whole_rows(g) for g in got[1:k]],
                 "grads": [S.all_reduce(g, "data")
                           for g in _pytree.leaves(grads)]}
 
@@ -486,25 +565,68 @@ def tp_body(mesh, inp):
         x = E.embed(cfg, p, tokens)
         logits = E.lm_head(cfg, p, x).to(torch.float32)
         logz, ll = T._logz_and_label_logit(logits, labels,
-                                           S.active_axis("model"))
+                                           E.vocab_axis(cfg))
         n = labels.numel() * dp
         return ((logz - ll).sum() / n
                 + 1e-4 * ((logz ** 2).sum() / n))
 
-    for name in ("head", "untied"):
+    for name in ("head", "untied", "odd"):
         cfg = cfgs[name]
         p = tree(inp["embed"][name])
         specs = M.fit_specs(mesh, M.infer_param_specs(p, cfg.axes), p)
         local = M.shard_tree(p, specs, mesh)
         leaves = [t.requires_grad_() for t in _pytree.leaves(local)]
         local = _pytree.unflatten(local, leaves)
-        loss = embed_loss(cfg, local, rows(inp["tokens"]),
-                          rows(inp["labels"]))
+        loss = embed_loss(cfg, local, rows(inp["tokens"]) % cfg.vocab,
+                          rows(inp["labels"]) % cfg.vocab)
         got = torch.autograd.grad(loss, leaves)
         grads = M.gather_tree(_pytree.unflatten(local, list(got)), specs,
                               mesh)
         out["embed_" + name] = {
             "loss": S.all_reduce(loss.detach(), "data"),
+            "grads": [S.all_reduce(g, "data")
+                      for g in _pytree.leaves(grads)]}
+
+    # the other slots, each tree under its slot's key (the path rules read
+    # it): Mamba, mLSTM, sLSTM, cross-attention over a longer kv_x
+    apply = {"mamba": MB.mamba_apply, "mlstm": X.mlstm_apply,
+             "slstm": X.slstm_apply}
+    for name, cfg in tp_slot_configs(configs, dataclasses,
+                                     torch.float32).items():
+        cfg, slot = cfg.with_axes(axes), name.split("_")[0]
+        if slot == "cross":
+            kv = rows(inp["kv"]).requires_grad_()
+            fn = (lambda c, p, x: A.attn_apply(  # noqa: E731
+                c, p["cross"], x, rows(pos), causal=False, kv_x=kv,
+                apply_rope=False, cross=True)[0])
+            extra = [kv]
+        else:
+            fn = (lambda c, p, x, s=slot: apply[s](c, p[s], x)[0])  # noqa: E731
+            extra = []
+        out[name] = layer(cfg, tree(inp["slot"][name]), fn, inp["x"][name],
+                          inp["dy"][name], extra)
+
+    # the MoE layer's four paths and the int8 wire: (y, aux) and their
+    # gradients, each data rank's aux cotangent its share
+    for name in TP_MOE:
+        cfg = tp_moe_config(configs, dataclasses, torch.float32,
+                            name).with_axes(axes)
+        c = inp["moe"][name]
+        p = tree({"ffn": c["p"]})
+        specs = M.fit_specs(mesh, M.infer_param_specs(p, cfg.axes), p)
+        local = M.shard_tree(p, specs, mesh)
+        leaves = [t.requires_grad_() for t in _pytree.leaves(local)]
+        local = _pytree.unflatten(local, leaves)
+        x = rows(c["x"]).requires_grad_()
+        y, aux = MOE.moe_apply(cfg, local["ffn"], x, mesh=mesh)
+        got = torch.autograd.grad(
+            [y, aux], [x] + leaves,
+            [rows(c["dy"]), torch.tensor(TP_MOE_DAUX / dp)])
+        grads = M.gather_tree(_pytree.unflatten(local, list(got[1:])),
+                              specs, mesh)
+        out["moe_" + name] = {
+            "y": whole_rows(y.detach()), "aux": aux.detach(),
+            "dx": whole_rows(got[0]),
             "grads": [S.all_reduce(g, "data")
                       for g in _pytree.leaves(grads)]}
 
@@ -531,6 +653,49 @@ def tp_body(mesh, inp):
     out["grads"] = _pytree.leaves(M.gather_tree(
         _pytree.unflatten(state["params"], grads), specs["params"], mesh))
 
+    # jamba, xlstm and whisper: one microbatch's gradient (rank 0 keeps
+    # it), then jamba's sharded f32 step, 2 steps of 2 microbatches
+    for name in TP_MODELS:
+        cfg = dataclasses.replace(tp_model_config(
+            configs, dataclasses, torch.float32, name).with_axes(axes),
+            fsdp=True)
+        mspecs, _ = M.state_specs(cfg, mesh)
+        params = M.shard_tree(tree(inp["models"][name]["params"]),
+                              mspecs["params"], mesh)
+        mb = [{k: torch.from_numpy(v) for k, v in b.items()}
+              for b in inp["models"][name]["batches"]]
+        loss, _, grads = T._value_and_grad(
+            cfg, params, T._data_block(mb[0], "data"), mesh=mesh)
+        grads = _pytree.leaves(M.gather_tree(
+            _pytree.unflatten(params, grads), mspecs["params"], mesh))
+        out["model_" + name] = {
+            "loss": S.all_reduce(loss, "data"),
+            "fsdp": sorted(
+                "/".join(map(str, (k for _, k in path)))
+                for (path, _), sp in zip(
+                    _pytree.flatten_with_paths(params),
+                    M.spec_leaves(mspecs["params"], params))
+                if "data" in sp),
+            "grads": grads if mesh.rank == 0 else None}
+        if name != "jamba":
+            continue
+        st = {"params": params, "opt": M.shard_tree(
+            adamw_init(tree(inp["models"][name]["params"])),
+            mspecs["opt"], mesh),
+            "step": torch.zeros((), dtype=torch.int32)}
+        step = T.make_train_step(cfg, shape, AdamWConfig(**TP_JAMBA_OPT),
+                                 mesh=mesh)
+        losses = []
+        for b in mb:
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+        whole = M.gather_tree(st, mspecs, mesh)
+        out["jamba_f32"] = {
+            "losses": losses, "step": whole["step"],
+            **({k: _pytree.leaves(v) for k, v in (
+                ("params", whole["params"]), ("mu", whole["opt"]["mu"]),
+                ("nu", whole["opt"]["nu"]))} if mesh.rank == 0 else {})}
+
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         cfg = sharded_cfg(dtype)
         step = T.make_train_step(cfg, shape, tp_opt_config(AdamWConfig, name),
@@ -556,11 +721,15 @@ LAUNCH_KW = dict(steps=3, batch=4, seq=16, smoke=True, ckpt_every=2,
                  microbatches=1, lr=3e-4, resume=True, seed=0)
 
 
+LAUNCH_MOE_ARCH = "jamba-1.5-large-398b"
+
+
 def launcher_body(mesh, ckpt_dir):
     """One rank of ``launch/train.py --ranks 4 --smoke``'s world
     (``train_rank``): 3 steps with a checkpoint at step 2 (and the final
     one at 3), then the step-3 checkpoint removed and the run resumed from
-    step 2.  Returns both runs' losses and final states (rank 0's)."""
+    step 2; then jamba's smoke config (attention, Mamba and MoE slots) for
+    2 steps.  Returns the runs' losses and final states (rank 0's)."""
     import os
     import shutil
 
@@ -578,6 +747,9 @@ def launcher_body(mesh, ckpt_dir):
         shutil.rmtree(os.path.join(ckpt_dir, "step_0000000003"))
     dist.barrier()
     resumed = LT.train_rank(mesh, LAUNCH_ARCH, kw)
+    jamba = LT.train_rank(mesh, LAUNCH_MOE_ARCH,
+                          dict(LAUNCH_KW, steps=2, ckpt_dir=None))
     return {"full": full["history"], "resumed": resumed["history"],
             "state": full["state"], "resumed_state": resumed["state"],
-            "mesh": mesh.shape, "ledger": full["ledger"]}
+            "mesh": mesh.shape, "ledger": full["ledger"],
+            "jamba": jamba["history"]}

@@ -99,12 +99,27 @@ kernel against its plain PyTorch version on the same inputs:
   (the expert-parallel path, 64 experts a rank, the sequence split) first
   held to the single-process emulation of its slice-wise routing, then
   trained, every block moving; (d) jamba-1.5-large cut to one dense Mamba
-  slot, (e) xlstm-125m and (f) whisper-small whole (1500 encoder frames),
+  slot, (e) xlstm-125m cut to 4 of 12 layers and (f) whisper-small to 4 +
+  4 of its 12 + 12 layers (1500 encoder frames),
   each held to the single-process step ((e) by its first step: see
   ``FIRST_STEP_HELD``), with ms a step, peak memory a rank and collective
   bytes; (b) ``launch/train.py --ranks 4
   --smoke`` for 3 steps with a checkpoint at step 2, resumed from it
-  bitwise, its whole-leaf checkpoint restored on the card bitwise.
+  bitwise, its whole-leaf checkpoint restored on the card bitwise;
+* sharded serving (phase 21): 4 gloo ranks on the card as a (2, 2)
+  ("data", "model") mesh or a (1, 4) view of it, f32, TF32 off: (a)
+  qwen2-0.5b whole on (1, 4), B 4 x 512 prompts, 8 steps (the
+  sequence-parallel prefill, the cache split by sequence); (b) phi4-mini
+  at full width cut to 4 of 32 layers on (2, 2) with the XDMA cache (KV
+  heads split, the batch over the data axis), then
+  ``ContinuousBatchingEngine`` with 4 requests; (c) whisper-small and
+  xlstm-125m whole on (1, 4) (the cross and recurrent caches).  Each
+  part's logits, teacher-forced with the single-process tokens, within
+  1e-4 of max|logit| (or twice the gap one ulp on every weight opens in
+  the single-process run, where that is larger) of the single-process
+  port on the card; ``ServingEngine(mesh=)``'s tokens equal its tokens
+  under the tie rule; kernel 1 moves each rank's cache blocks through the
+  plane (and the pool's pages), its round trip bitwise.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -124,7 +139,7 @@ the training checkpoint (phase 19's path has none: the reduce lowers to
 collectives, and the broadcast's MN -> MN hops are kernel 1's identity
 plan, a copy; nor has phase 20's: plain torch and ``torch.distributed``,
 and the launcher's checkpoint staged MN -> MN, whose restore phase 20
-counts).  Phase 4 also drives the chains kernels 2
+counts), phase 21 kernel 1 in every rank on the plane and (b)'s pool.  Phase 4 also drives the chains kernels 2
 and 3 once refused (integer streams, nine streamed ops, logical rank 5),
 and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (the last
 two on its chunked path, timed) and with bf16 q and f32 k / v.  Phase 3 also times the Prefill store at
@@ -2256,6 +2271,8 @@ SLOT_OPT = dict(warmup_steps=0, eps=1e-5)
 # single-process gradient (measured in the same run), the first gradient
 # norm within 1e-4 and the first loss within 1e-3
 FIRST_STEP_HELD = ("xlstm",)
+XLSTM_PERIODS = 1              # (e): 1 of xlstm-125m's 3 periods
+WHISPER_LAYERS = 4             # (f): 4 of whisper-small's 12 + 12 layers
 MOE_DAUX = 0.5                 # the MoE layer check's aux cotangent
 MOE_BOUND = 1e-4               # its bound, of each tensor's largest value
 
@@ -2268,8 +2285,10 @@ def phase20_slot_configs():
     out too, which (a) covers at full width: with it, 2.84 B parameters and
     a 34.0 GB state, the single-process step it is held to holds the old
     and the new state and the gradients at once, about 91 GB, and the four
-    ranks' steps ran the card out of memory); xlstm-125m and whisper-small
-    whole."""
+    ranks' steps ran the card out of memory); xlstm-125m cut to 1 of its 3
+    periods (4 of 12 layers: 3 mLSTM, 1 sLSTM) and whisper-small to 4 of
+    its 12 decoder and 4 of its 12 encoder layers, so that phase 21 fits
+    in the run's time limit."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.configs.base import MAMBA, LayerSpec
@@ -2281,8 +2300,10 @@ def phase20_slot_configs():
             configs.get_config("jamba_1p5_large_398b"),
             period=(LayerSpec(MAMBA),), n_periods=1, dtype=f32),
         "xlstm": dataclasses.replace(configs.get_config("xlstm_125m"),
-                                     dtype=f32),
+                                     n_periods=XLSTM_PERIODS, dtype=f32),
         "whisper": dataclasses.replace(configs.get_config("whisper_small"),
+                                       n_periods=WHISPER_LAYERS,
+                                       encoder_layers=WHISPER_LAYERS,
                                        dtype=f32)}
 
 
@@ -2730,6 +2751,395 @@ def phase20(card, slots):
             "launch": {"losses": hist, "resumed": resumed,
                        "restore_launches": launches, "s": launch_s},
             "slots": slot_times, "slots_s": slots_s}
+
+
+# -- phase 21: sharded serving ---------------------------------------------------
+SERVE_LOGIT_TOL = 1e-4          # x max|logit|: sharded vs single-process, f32,
+                                # or twice the run's one-ulp gap where larger
+SERVE_MESH = (2, 2)             # the world; (1, 4) is a view of its 4 ranks
+# part: (arch, periods (None: whole), mesh, B, prompt tokens, decode steps,
+# xdma_cache)
+SERVE_PARTS = {
+    "a": ("qwen2_0p5b", None, (1, 4), 4, 512, 8, False),
+    "b": ("phi4_mini_3p8b", 4, (2, 2), 4, 256, 8, True),
+    "c_whisper": ("whisper_small", None, (1, 4), 4, 64, 8, True),
+    "c_xlstm": ("xlstm_125m", None, (1, 4), 8, 256, 8, False),
+}
+# (b)'s continuous batching: 4 requests arriving together, ragged prompts
+SERVE_CB = dict(trace=((0.0, 64, 6), (0.0, 128, 6), (0.0, 96, 6),
+                       (0.0, 64, 6)), max_len=160, pages=2048, seed=SEED)
+
+
+def phase21_configs():
+    """``{part: (cfg, mesh shape, B, prompt, steps)}``, f32: (a) qwen2-0.5b
+    whole, (b) phi4-mini cut to 4 of its 32 layers with the XDMA cache,
+    (c) whisper-small (the XDMA self cache, the cross cache bshd) and
+    xlstm-125m whole."""
+    import dataclasses
+    from repro_torch import configs
+    out = {}
+    for name, (arch, periods, mesh, B, S, steps, xdma) in SERVE_PARTS.items():
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  dtype=torch.float32, xdma_cache=xdma)
+        if periods:
+            cfg = dataclasses.replace(cfg, n_periods=periods)
+        out[name] = (cfg, mesh, B, S, steps)
+    return out
+
+
+def serve_batch(cfg, dev, B, S, part):
+    """The part's prompt, drawn on ``dev`` from a seed (the same values in
+    this process and in every rank)."""
+    gen = torch.Generator(device=dev).manual_seed(
+        SEED + sorted(SERVE_PARTS).index(part))
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 device=dev, dtype=torch.int32)}
+    if cfg.encoder_layers:
+        b["audio_embeds"] = torch.randn(B, cfg.encoder_seq, cfg.d_model,
+                                        generator=gen, device=dev)
+    return b
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def greedy_run(cfg, params, batch, n, max_len, *, mesh=None, forced=None):
+    """Prefill, then ``n - 1`` decode steps: the greedy tokens (B, n) and
+    the logits each was picked from (B, n, V); with ``forced`` (B, n)
+    every step decodes its token instead (teacher forcing).  Also the
+    prefill's and each decode step's ms, the final cache, and the
+    collective ledger's growth over the decode steps."""
+    from repro_torch import sharding as S
+    from repro_torch.models import lm
+    lead = batch["tokens"]
+    dev = lead.device
+    cache = lm.init_cache(cfg, lead.shape[0], max_len, torch.float32,
+                          device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(cfg, params, batch, cache, mesh=mesh)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    before = S.collective_stats()
+    toks, lgs, step_ms = [], [], []
+    for i in range(n):
+        lgs.append(logits[:, -1].float())
+        toks.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+        if i + 1 < n:
+            tok = toks[-1] if forced is None else forced[:, i:i + 1].to(dev)
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(cfg, params, tok, cache,
+                                           mesh=mesh)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    after = S.collective_stats()
+    grown = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    return (torch.cat(toks, 1), torch.stack(lgs, 1), prefill_ms, step_ms,
+            cache, grown)
+
+
+def top2_margin(logits):
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def tokens_agree(got, want, margin, bound, what):
+    """``got`` equals ``want`` (B, n) row by row up to a row's first
+    divergence, which must fall where the single-process top-2 margin is
+    under ``bound`` (the tie rule); returns the divergences."""
+    got, want, margin = got.cpu(), want.cpu(), margin.cpu()
+    ties = []
+    for b in range(want.shape[0]):
+        diff = (got[b] != want[b]).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            check(float(margin[b, i]) < bound,
+                  f"{what}: row {b} diverges at step {i} where the "
+                  f"single-process top-2 margin {float(margin[b, i])} is not "
+                  f"under {bound}")
+            ties.append((b, i, float(margin[b, i])))
+    return ties
+
+
+def one_ulp(params, seed):
+    """Every float weight moved one ulp up or down at random (a seeded
+    coin a element): how far rounding alone moves a run."""
+    from repro_torch import _pytree
+    gen = None
+    leaves = []
+    for t in _pytree.leaves(params):
+        if gen is None:
+            gen = torch.Generator(device=t.device).manual_seed(seed)
+        up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+        inf = torch.full((), math.inf, dtype=t.dtype, device=t.device)
+        leaves.append(torch.where(up, torch.nextafter(t, inf),
+                                  torch.nextafter(t, -inf)))
+    return _pytree.unflatten(params, leaves)
+
+
+def phase21_reference(card, device):
+    """The single-process port on the card, TF32 off, for each part: the
+    greedy tokens, their logits and top-2 margins, the part's logit bound
+    (``SERVE_LOGIT_TOL`` of max|logit|, or twice the gap a one-ulp move of
+    every weight opens in the same teacher-forced run, where that is
+    larger: the run's own conditioning), and for (b) each request's greedy
+    tokens alone (the continuous engine's reference)."""
+    from repro_torch.models import lm
+    from repro_torch.serving import trace_stream
+    dev = torch.device(device)
+    undo = no_tf32()
+    refs = {}
+    try:
+        for name, (cfg, _, B, S, n) in phase21_configs().items():
+            params = lm.init_params(cfg, SEED, device=dev)
+            batch = serve_batch(cfg, dev, B, S, name)
+            toks, lgs, pre_ms, step_ms, _, _ = greedy_run(cfg, params, batch,
+                                                          n, S + n)
+            moved = one_ulp(params, SEED)
+            _, lgs_ulp, _, _, _, _ = greedy_run(cfg, moved, batch, n, S + n,
+                                                forced=toks)
+            del moved
+            scale = float(lgs.abs().max())
+            gap = float((lgs_ulp - lgs).abs().max())
+            refs[name] = {"tokens": toks.cpu(), "logits": lgs.cpu(),
+                          "margin": top2_margin(lgs).cpu(),
+                          "prefill_ms": pre_ms, "step_ms": step_ms,
+                          "scale": scale, "ulp_gap": gap,
+                          "bound": max(SERVE_LOGIT_TOL * scale, 2 * gap)}
+            if name == "b":
+                reqs = trace_stream(cfg, SERVE_CB["trace"],
+                                    seed=SERVE_CB["seed"])
+                cb = {}
+                for rq in reqs:
+                    t, lg, _, _, _, _ = greedy_run(
+                        cfg, params, {"tokens": torch.from_numpy(
+                            rq.tokens).to(dev)[None]}, rq.max_new,
+                        SERVE_CB["max_len"])
+                    cb[rq.rid] = {"tokens": t[0].cpu(),
+                                  "margin": top2_margin(lg)[0].cpu()}
+                refs[name]["requests"] = cb
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+    return refs
+
+
+def serve_view(mesh, shape):
+    """The mesh ``shape`` over a (2, 2) world's 4 ranks: the world's own,
+    or the (1, 4) view (a data axis of 1, the model axis over every
+    rank)."""
+    import torch.distributed as dist
+    from repro_torch import sharding as S
+    if tuple(shape) == tuple(mesh.shape):
+        return contextlib.nullcontext(mesh)
+    return S.Mesh((1, 4), mesh.axis_names, mesh.rank, mesh.device,
+                  mesh.backend, mesh.backend_note, {
+                      "data": S.MeshAxis("data", 1, 0),
+                      "model": S.MeshAxis("model", 4, mesh.rank,
+                                          dist.group.WORLD, mesh.backend),
+                      mesh.axis_names: mesh.axes[mesh.axis_names]})
+
+
+def serve_part(mesh, card, name, cfg, B, S, n, ref):
+    """One part in this rank: the weights drawn whole on the card from the
+    seed, one weight at a time, kept on the host and cut to this rank's
+    blocks by the serving specs; (1) the teacher-forced loop (the
+    single-process tokens fed back) for the logits, the prefill's and
+    each step's ms, the cache's bytes and one step's collective bytes;
+    (2) ``ServingEngine(mesh=)`` with the plane, its tokens and kernel 1's
+    launches on this rank's blocks, then one round trip of its final
+    cache through the plane, bitwise; (3) for (b)
+    ``ContinuousBatchingEngine(mesh=)``."""
+    from repro_torch import _pytree
+    from repro_torch import sharding as SH
+    from repro_torch.kernels import _build, agu
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     ServingEngine, trace_stream)
+
+    dev, r = mesh.device, mesh.rank
+    tag = f"[sharded serving ({name}) rank {r}]"
+    cfg = cfg.with_axes(SH.Axes(batch=("data",), model="model"))
+    specs, shapes = M.serving_specs(cfg, mesh)
+    t0 = time.perf_counter()
+    local = M.shard_tree(lm.init_params(cfg, SEED, device=dev, store="cpu"),
+                         specs, mesh, device=dev)
+    sync(dev)
+    out = {"init_s": time.perf_counter() - t0,
+           "param_bytes": tree_bytes(local), "whole_param_bytes":
+           tree_bytes(shapes)}
+    batch = serve_batch(cfg, dev, B, S, name)
+    toks, lgs, pre_ms, step_ms, cache, grown = greedy_run(
+        cfg, local, batch, n, S + n, mesh=mesh, forced=ref["tokens"])
+    want = ref["logits"].to(dev)
+    scale = float(want.abs().max())
+    err = float((lgs - want).abs().max())
+    check(bool(torch.isfinite(lgs).all()), f"{tag} non-finite logits")
+    check(err <= ref["bound"],
+          f"{tag} logits {err} off the single-process run (bound "
+          f"{ref['bound']}: {SERVE_LOGIT_TOL} x {scale}, or twice the "
+          f"one-ulp gap {ref['ulp_gap']})")
+    steps = n - 1
+    out.update(err=err, scale=scale, prefill_ms=pre_ms, step_ms=step_ms,
+               cache_bytes=tree_bytes(cache),
+               coll_bytes_per_step={k[len("bytes:"):]: v // steps
+                                    for k, v in grown.items()
+                                    if k.startswith("bytes:")},
+               host_hop_bytes_per_step=grown.get("host_hop_bytes", 0)
+               // steps)
+    del cache
+
+    eng = ServingEngine(cfg, local, S + n, cache_dtype=torch.float32,
+                        mesh=mesh, device=dev)
+    _build.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    got = eng.generate(batch, n)
+    sync(dev)
+    out["generate_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = {k.name: k.launches for k in _build.KERNELS}
+    check(agu.RELAYOUT.launches > 0,
+          f"{tag} kernel 1 did not launch on the plane")
+    out["tokens"] = got.cpu()
+    last = eng.last_cache
+    moved = eng._cache_through_plane(eng._new_scheduler(), last, "check")
+    for a, b in zip(_pytree.leaves(moved), _pytree.leaves(last)):
+        if isinstance(a, torch.Tensor):
+            assert_bitwise(a, b, f"{tag} the plane's round trip")
+    del eng, last, moved
+
+    if name == "b":
+        reqs = trace_stream(cfg, SERVE_CB["trace"], seed=SERVE_CB["seed"])
+        cont = ContinuousBatchingEngine(
+            cfg, local, SERVE_CB["max_len"], max_batch=4,
+            cache_dtype=torch.float32, capacity_pages=SERVE_CB["pages"],
+            mesh=mesh, device=dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rep = cont.serve(reqs)
+        sync(dev)
+        out["continuous"] = {
+            "tokens": rep.tokens, "steps": rep.steps,
+            "pool": rep.pool_stats, "s": time.perf_counter() - t0,
+            "launches": {k.name: k.launches for k in _build.KERNELS}}
+        check(agu.RELAYOUT.launches > 0,
+              f"{tag} kernel 1 did not launch on the page pool")
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase21_rank(mesh, card, refs):
+    """One rank of phase 21: every part on its mesh (the world's (2, 2) or
+    the (1, 4) view), TF32 off."""
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    undo = no_tf32()
+    try:
+        out = {}
+        for name, (cfg, shape, B, S, n) in phase21_configs().items():
+            with serve_view(mesh, shape) as m:
+                out[name] = serve_part(m, card, name, cfg, B, S, n,
+                                       refs[name])
+        return out
+    finally:
+        undo()
+
+
+def phase21(card, device="cuda"):
+    """Phase 21: sharded serving.  The single-process references here, then
+    ``phase21_rank`` in a world of 4 gloo ranks on the card: (a) qwen2-0.5b
+    whole on (1, 4) (sequence-parallel prefill, the cache split by
+    sequence), (b) phi4-mini cut to 4 layers on (2, 2) with the XDMA cache
+    (KV heads split, the batch over the data axis; then the continuous
+    engine), (c) whisper-small and xlstm-125m whole on (1, 4) (the cross
+    and recurrent caches).  Every rank's tokens are held to the
+    single-process tokens under the tie rule."""
+    import tempfile
+    from repro_torch import sharding as S
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs = phase21_reference(card, device)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with expandable_segments(), \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as work:
+        world = S.run_spmd(phase21_rank, SERVE_MESH, ("data", "model"),
+                           args=(card, refs), device=device, workdir=work)
+    world_s = time.perf_counter() - t0
+    times = {}
+    for name, (cfg, shape, B, S_, n) in phase21_configs().items():
+        ref = refs[name]
+        parts = [rk[name] for rk in world]
+        bound = 2 * ref["bound"]
+        ties = [tokens_agree(p["tokens"], ref["tokens"], ref["margin"],
+                             bound, f"sharded serving ({name}) rank {r}")
+                for r, p in enumerate(parts)]
+        line = (f"[sharded serving] ({name}) {cfg.name}, {cfg.n_layers} "
+                f"layers, f32, mesh {shape}, B {B} x {S_} + {n} steps: "
+                f"logits {[p['err'] for p in parts]} off the "
+                f"single-process run by rank (max|logit| "
+                f"{ref['scale']}; bound {ref['bound']}: {SERVE_LOGIT_TOL} "
+                f"of max|logit|, or twice the one-ulp gap "
+                f"{ref['ulp_gap']}); ServingEngine tokens equal the "
+                f"single-process tokens in every rank "
+                f"(divergences under the tie rule, margin below {bound}: "
+                f"{ties}); prefill {[p['prefill_ms'] for p in parts]} ms "
+                f"by rank (single-process {ref['prefill_ms']:.1f}), decode "
+                f"steps {[p['step_ms'] for p in parts]} ms by rank "
+                f"(single-process {ref['step_ms']}), generate with the "
+                f"plane {[p['generate_ms'] for p in parts]} ms; a rank's "
+                f"cache {[p['cache_bytes'] for p in parts]} bytes, its "
+                f"weights {[p['param_bytes'] for p in parts]} of "
+                f"{parts[0]['whole_param_bytes']} bytes; rank 0's collective "
+                f"bytes a decode step {parts[0]['coll_bytes_per_step']}, "
+                f"host hop {[p['host_hop_bytes_per_step'] for p in parts]} "
+                f"bytes a step by rank; kernel 1 on each rank's blocks "
+                f"{[p['launches']['agu_relayout'] for p in parts]} launches "
+                f"in generate, the round trip bitwise; on {card}")
+        times[name] = {k: [p[k] for p in parts] for k in (
+            "err", "prefill_ms", "step_ms", "generate_ms", "cache_bytes",
+            "param_bytes", "coll_bytes_per_step", "host_hop_bytes_per_step",
+            "launches", "init_s")}
+        times[name].update(scale=ref["scale"], ulp_gap=ref["ulp_gap"],
+                           bound=ref["bound"], ties=ties,
+                           ref_prefill_ms=ref["prefill_ms"],
+                           ref_step_ms=ref["step_ms"])
+        if name == "b":
+            reqs = ref["requests"]
+            for r, p in enumerate(parts):
+                c = p["continuous"]
+                for rid, want in reqs.items():
+                    tokens_agree(torch.as_tensor(c["tokens"][rid])[None],
+                                 want["tokens"][None], want["margin"][None],
+                                 bound, f"continuous ({name}) rank {r} "
+                                 f"request {rid}")
+                check(c["steps"] == parts[0]["continuous"]["steps"]
+                      and c["pool"] == parts[0]["continuous"]["pool"],
+                      f"continuous ({name}) rank {r}: decisions differ")
+            line += (f"; ContinuousBatchingEngine: 4 requests in "
+                     f"{parts[0]['continuous']['steps']} steps, tokens equal "
+                     f"each request's single-process run in every rank, "
+                     f"pool {parts[0]['continuous']['pool']}, kernel "
+                     f"launches by rank "
+                     f"{[p['continuous']['launches'] for p in parts]}, "
+                     f"{[p['continuous']['s'] for p in parts]} s")
+            times[name]["continuous"] = [
+                {k: v for k, v in p["continuous"].items() if k != "tokens"}
+                for p in parts]
+        log(line)
+    log(f"[sharded serving] references {ref_s:.1f} s, the world {world_s:.1f}"
+        f" s with 4 process starts on {card}")
+    times.update(ref_s=ref_s, world_s=world_s)
+    return times
 
 
 def main():
@@ -3921,6 +4331,9 @@ def main():
     # -- phase 20: the sharded trainer, 4 ranks on the one card ------------------
     tp_times = phase20(card, slot_times)
 
+    # -- phase 21: sharded serving, 4 ranks on the one card ----------------------
+    serve_times = phase21(card)
+
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
@@ -3951,7 +4364,8 @@ def main():
                    "continuous": continuous, "moe_serving": moe_serving,
                    "moe_ep": {"ms": moe_ep, "ranks": ep, "phase_s": ep_s},
                    "training": training, "dp_training": dp_times,
-                   "sharded_training": tp_times},
+                   "sharded_training": tp_times,
+                   "sharded_serving": serve_times},
                   f, indent=1)
     print(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                   for n in order]}), flush=True)

@@ -22,10 +22,14 @@ spec (a dim over a tuple of axes takes them row-major, as
 :func:`repro_torch.sharding.init_mesh` lays out ranks), and the blocks are
 all-gathered back into whole leaves.  :func:`state_specs` fits a model's
 train-state specs to a mesh, as the reference's launcher does before its
-``device_put``.
+``device_put``; :func:`serving_specs` fits its parameter specs without
+FSDP (the reference's dry run shards parameters over the data axis only
+for training) and :func:`serving_cache_specs` a decode cache's, for sharded
+prefill and decode.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import re
@@ -41,7 +45,8 @@ from repro_torch.sharding import Axes
 __all__ = ["MeshSpec", "make_production_mesh", "axes_for",
            "infer_param_specs", "infer_state_specs", "cache_specs",
            "fit_specs", "batch_input_specs", "state_shapes", "state_specs",
-           "spec_leaves", "local_shape", "shard_tree", "gather_tree"]
+           "spec_leaves", "local_shape", "shard_tree", "gather_tree",
+           "mesh_axes", "serving_specs", "serving_cache_specs"]
 
 
 class MeshSpec(NamedTuple):
@@ -342,6 +347,44 @@ def state_specs(cfg: ModelConfig, mesh):
     fitted to ``mesh``, as the reference's launcher shards its state.
     Returns ``(specs, shapes)``, the shapes a tree of meta tensors."""
     return _state_specs(cfg, tuple(mesh.shape), tuple(mesh.axis_names))
+
+
+def mesh_axes(axes: Axes, mesh) -> Axes:
+    """``axes`` with the sizes of ``mesh``: the model axis's size (the
+    MoE rule splits experts or ``d_ff`` by it, :func:`repro_torch.sharding.
+    kv_cache_spec` heads or the sequence) and the batch axes' product."""
+    sizes = _sizes(mesh)
+    bsize = math.prod(sizes[n] for n in axes.batch) if axes.batch else 0
+    return dataclasses.replace(
+        axes, model_size=sizes[axes.model] if axes.model else 0,
+        batch_size=bsize)
+
+
+@functools.lru_cache(maxsize=16)
+def _serving_specs(cfg: ModelConfig, shape: Tuple[int, ...],
+                   axis_names: Tuple[str, ...]):
+    from repro_torch.models import lm
+    mesh = MeshSpec(shape, axis_names)
+    params = lm.init_params(cfg, device="meta")
+    specs = infer_param_specs(params, mesh_axes(cfg.axes, mesh), fsdp=False)
+    return fit_specs(mesh, specs, params), params
+
+
+def serving_specs(cfg: ModelConfig, mesh):
+    """``cfg``'s parameter specs for serving, fitted to ``mesh``: the
+    tensor-parallel path rules of :func:`infer_param_specs` with no FSDP,
+    so every weight is replicated over the batch axes.  Returns ``(specs,
+    shapes)``, the shapes a tree of meta tensors (``shard_tree(params,
+    specs, mesh)`` gives a rank its blocks)."""
+    return _serving_specs(cfg, tuple(mesh.shape), tuple(mesh.axis_names))
+
+
+def serving_cache_specs(cfg: ModelConfig, cache_shapes, mesh):
+    """The specs of a decode cache (``lm.init_cache``'s tree, whole
+    shapes) fitted to ``mesh``: :func:`cache_specs` with the mesh's axis
+    sizes, a dim that does not split over its axes replicated."""
+    specs = cache_specs(cfg, cache_shapes, mesh_axes(cfg.axes, mesh))
+    return fit_specs(mesh, specs, cache_shapes)
 
 
 def _entry_names(entry) -> Tuple[str, ...]:

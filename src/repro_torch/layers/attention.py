@@ -244,10 +244,11 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
     """
     tp = SH.active_axis(cfg.axes.model)
     if tp is not None:
-        if cache is not None:
-            raise NotImplementedError("sharded decode is not ported "
-                                      "(ROADMAP.md §1 item 10a)")
         is_cross = cross or kv_x is not None
+        if cache is not None:
+            return _attn_cached_tp(cfg, p, x, positions, window=window,
+                                   cache=cache, cache_pos=cache_pos,
+                                   cross=is_cross, rope=apply_rope, ax=tp)
         return _attn_tp(cfg, p, x, positions,
                         causal=causal and not is_cross, window=window, ax=tp,
                         kv_x=kv_x if is_cross else None,
@@ -296,7 +297,19 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
         out = impl(q, k_att, v_att, causal=causal and not is_cross,
                    window=window, q_chunk=min(1024, S),
                    kv_chunk=min(1024, src.shape[1]))
-    elif cfg.xdma_cache:
+    else:
+        out, cache = _write_and_attend(cfg, q, k, v, cache, cache_pos,
+                                       window)
+
+    y = proj(out.reshape(B, S, H * hd), p["wo"])
+    return y, cache
+
+
+def _write_and_attend(cfg, q, k, v, cache, cache_pos, window):
+    """Decode: write the new K / V (B, S, KV, hd) at ``cache_pos``'s slot
+    and attend over the cache; returns ``(out, new cache)``."""
+    B, S = q.shape[:2]
+    if cfg.xdma_cache:
         # XDMA layout-optimal cache: K stored transposed, V dot-contiguous
         Smax = cache["k"].shape[3]
         slot = _slot(cache_pos, Smax, window)
@@ -310,24 +323,158 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
             ck[:, :, :, slot] = k[:, 0].to(dt_c)
             cv[:, :, slot, :] = v[:, 0].to(dt_c)
         cache = dict(cache, k=ck, v=cv)
-        out = decode_attention_xdma(q, ck, cv, _plus_one(cache_pos))
+        return decode_attention_xdma(q, ck, cv, _plus_one(cache_pos)), cache
+    Smax = cache["k"].shape[1]
+    slot = _slot(cache_pos, Smax, window)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    if _is_vector(cache_pos):
+        bidx = torch.arange(B, device=ck.device)
+        ck[bidx, slot] = k[:, 0].to(ck.dtype)
+        cv[bidx, slot] = v[:, 0].to(cv.dtype)
     else:
-        Smax = cache["k"].shape[1]
-        slot = _slot(cache_pos, Smax, window)
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        if _is_vector(cache_pos):
-            bidx = torch.arange(B, device=ck.device)
-            ck[bidx, slot] = k[:, 0].to(ck.dtype)
-            cv[bidx, slot] = v[:, 0].to(cv.dtype)
-        else:
-            ck[:, slot:slot + S] = k.to(ck.dtype)
-            cv[:, slot:slot + S] = v.to(cv.dtype)
-        cache = dict(cache, k=ck, v=cv)
-        out = decode_attention(q, ck, cv, _plus_one(cache_pos),
-                               rolling=window is not None)
+        ck[:, slot:slot + S] = k.to(ck.dtype)
+        cv[:, slot:slot + S] = v.to(cv.dtype)
+    cache = dict(cache, k=ck, v=cv)
+    return decode_attention(q, ck, cv, _plus_one(cache_pos),
+                            rolling=window is not None), cache
 
-    y = proj(out.reshape(B, S, H * hd), p["wo"])
-    return y, cache
+
+def _write_slots(cfg, k, v, cache, cache_pos, window, lo, Smax):
+    """Decode on a sequence-split cache: the new K / V (B, 1, KV, hd)
+    into this rank's block, slots ``[lo, lo + block)`` of ``Smax``, where
+    the step's slot falls in it (per row for a ragged ``cache_pos``)."""
+    xdma = cfg.xdma_cache
+    sl = cache["k"].shape[3 if xdma else 1]
+    local = _slot(cache_pos, Smax, window)
+    dt = cache["k"].dtype
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    if _is_vector(cache_pos):
+        local = local - lo
+        bidx = torch.nonzero((local >= 0) & (local < sl))[:, 0]
+        at = local[bidx]
+    elif lo <= local < lo + sl:
+        bidx, at = slice(None), local - lo
+    else:
+        return cache
+    if xdma:
+        ck[bidx, :, :, at] = k[bidx, 0].to(dt)
+        cv[bidx, :, at, :] = v[bidx, 0].to(dt)
+    else:
+        ck[bidx, at] = k[bidx, 0].to(dt)
+        cv[bidx, at] = v[bidx, 0].to(dt)
+    return dict(cache, k=ck, v=cv)
+
+
+def _attend_slots(q, k_blk, v_blk, length, lo, Smax, xdma, axis):
+    """Decode attention over a cache whose slots are split over ``axis``:
+    this rank holds slots ``[lo, lo + block)`` of ``Smax`` (layout
+    ``bshd``, or the XDMA pair K ``bkhs`` / V ``bksh``) and every rank the
+    whole query (B, 1, H, hd).  Each scores its block against its slots'
+    global indices, masked beyond ``length`` (a scalar or (B,)); the
+    softmax is merged over the axis (the row max all-reduced, then the
+    rescaled denominators and weighted V summed): the reference's
+    psum-merged attention."""
+    B, _, H, hd = q.shape
+    KV = k_blk.shape[1 if xdma else 2]
+    sl = k_blk.shape[3 if xdma else 1]
+    G = H // KV
+    qh = q[:, 0].reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bkhs->bkgs" if xdma else "bkgh,bskh->bkgs",
+                     qh.to(_F32), k_blk.to(_F32)) * hd ** -0.5
+    idx = lo + torch.arange(sl, device=s.device)
+    if _is_vector(length):
+        lv = torch.clamp(length.to(s.device), max=Smax)
+        s = torch.where((idx[None] < lv[:, None])[:, None, None, :], s,
+                        NEG_INF)
+    else:
+        s = torch.where((idx < min(int(length), Smax))[None, None, None], s,
+                        NEG_INF)
+    mx = SH.all_reduce(s.amax(-1), axis, "max")
+    pr = torch.exp(s - mx[..., None])
+    acc = torch.einsum("bkgs,bksh->bkgh" if xdma else "bkgs,bskh->bkgh",
+                       pr.to(v_blk.dtype).to(_F32), v_blk.to(_F32))
+    both = SH.all_reduce(torch.cat([acc, pr.sum(-1)[..., None]], -1), axis)
+    out = both[..., :hd] / both[..., hd:]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
+                    cross, rope, ax):
+    """The cached sublayer (one decode token, self- or cross-attention) in
+    every rank of the model axis ``ax``, the cache this rank's block by
+    ``kv_cache_spec`` (``launch.mesh.serving_cache_specs``) and the
+    weights this rank's blocks by the serving specs:
+
+    * KV heads that divide the axis: the cache holds this rank's KV heads;
+      the rank projects its query heads and their K / V from its columns,
+      writes its slot and attends on its heads (``decode_attention`` /
+      ``decode_attention_xdma``), the output projection row-parallel and
+      reduced over the axis (``_attn_tp``'s head-parallel branch);
+    * otherwise the cache holds slots ``[r Smax / n, (r + 1) Smax / n)``
+      of every head: the query and the new K / V are whole on every rank
+      (each rank's columns all-gathered: activations, not weights), the
+      rank that owns the step's slot writes it, and :func:`_attend_slots`
+      merges the softmax over the axis; the output projection takes this
+      rank's rows of ``wo`` (a reduce) or ``wo`` whole.
+
+    The cache is never gathered."""
+    B, S, d = x.shape
+    if S != 1:
+        raise ValueError(f"sharded decode takes one token a step, not {S}")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    m, n, r = ax.name, ax.size, ax.index
+    heads = KV % n == 0
+
+    def proj(w, b, whole):
+        """The projection's heads: this rank's (heads split), else whole."""
+        wt, bt = p[w], p.get(b)
+        if heads:
+            wt, bt = SH.block_of(wt, m, whole, 1), SH.block_of(bt, m, whole, 0)
+        y = x @ wt.to(dt)
+        if bt is not None:
+            y = y + bt.to(dt)
+        if not heads and wt.shape[1] != whole:     # this rank's columns
+            y = SH.all_gather(y, m, -1)
+        return y.reshape(B, S, -1, hd)
+
+    q = proj("wq", "bq", H * hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    if cross:
+        # encoder K / V precomputed in the cache, never updated
+        if heads:
+            out = decode_attention(q, cache["k"], cache["v"], cache["len"])
+        else:
+            sl = cache["k"].shape[1]
+            out = _attend_slots(q, cache["k"], cache["v"], cache["len"],
+                                r * sl, sl * n, False, m)
+    else:
+        k, v = proj("wk", "bk", KV * hd), proj("wv", "bv", KV * hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"])
+        if rope:
+            q, k = rope_for(cfg, q, positions), rope_for(cfg, k, positions)
+        if heads:
+            out, cache = _write_and_attend(cfg, q, k, v, cache, cache_pos,
+                                           window)
+        else:
+            sl = cache["k"].shape[3 if cfg.xdma_cache else 1]
+            cache = _write_slots(cfg, k, v, cache, cache_pos, window, r * sl,
+                                 sl * n)
+            out = _attend_slots(q, cache["k"], cache["v"],
+                                _plus_one(cache_pos), r * sl, sl * n,
+                                cfg.xdma_cache, m)
+    flat = out.reshape(B, S, -1)
+    wo = p["wo"]
+    if heads:
+        wo = SH.block_of(wo, m, H * hd, 0)
+    elif wo.shape[0] == H * hd:                    # whole: no reduce
+        return flat @ wo.to(dt), cache
+    else:
+        blk = wo.shape[0]
+        flat = flat[..., r * blk:(r + 1) * blk]
+    return SH.reduce_from_axis(flat @ wo.to(dt), m), cache
 
 
 def _attn_tp(cfg, p, x, positions, *, causal, window, ax, kv_x=None,

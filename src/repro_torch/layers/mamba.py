@@ -15,7 +15,8 @@ per-head ``dt_bias``, ``A_log``, ``D`` replicated.  A channel's scan reads
 only its own head's ``dt``, ``A_log`` and ``D``, so a block that splits a
 head takes that head's: the block runs as heads of ``gcd(P, d_inner / n)``
 channels, each with its real head's values.  The gated RMSNorm sums its
-squares over the axis.
+squares over the axis.  Sharded serving runs the same decomposition with
+this rank's block of the cache (:func:`_mamba_tp`).
 """
 from __future__ import annotations
 
@@ -124,8 +125,8 @@ def ssd_sequential(x, dt, Bm, Cm, log_a, h0=None):
 def mamba_apply(cfg, p, x, *, cache=None):
     """x (B,T,d).  cache = {"conv": (B,K-1,di), "h": (B,Hm,P,N)} for decode."""
     tp = SH.active_axis(cfg.axes.model)
-    if tp is not None and cache is None and cfg.ssm_d_inner % tp.size == 0:
-        return _mamba_tp(cfg, p, x, tp), None
+    if tp is not None and cfg.ssm_d_inner % tp.size == 0:
+        return _mamba_tp(cfg, p, x, tp, cache)
     B, T, d = x.shape
     dt_ = x.dtype
     di, N, Hm = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -161,18 +162,26 @@ def mamba_apply(cfg, p, x, *, cache=None):
     return out, new_cache
 
 
-def _mamba_tp(cfg, p, x, ax):
-    """The training block tensor-parallel over ``ax`` (see the module's
-    docstring): ``x`` and the output replicated over the axis."""
+def _mamba_tp(cfg, p, x, ax, cache=None):
+    """The block tensor-parallel over ``ax`` (see the module's docstring):
+    ``x`` and the output replicated over the axis.  Returns ``(out, new
+    cache)``, the cache None without one.  With a cache (serving) it is
+    this rank's block by its fitted spec: ``conv`` its channels of
+    ``d_inner``; ``h`` its SSM heads where they divide the axis (then the
+    block is whole heads), else every head on every rank.  A whole ``h``
+    is stepped whole on every rank from the channels all-gathered (an
+    activation of ``d_inner``) at decode, and gathered from the ranks'
+    blocks once after a prefill."""
     B, T, d = x.shape
     dt_ = x.dtype
-    di, Hm = cfg.ssm_d_inner, cfg.ssm_heads
+    di, Hm, N = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
     Pd = di // Hm
     m, n, r = ax.name, ax.size, ax.index
     cb = di // n                      # this rank's channels of d_inner
     g = math.gcd(Pd, cb)              # channels a head of the block
     head = torch.div(r * cb + g * torch.arange(cb // g, device=x.device), Pd,
                      rounding_mode="floor")      # each one's real head
+    whole_h = Hm % n != 0             # the fitted spec keeps h whole
     x = SH.copy_to_axis(x, m)
 
     def col(name, dim):               # this rank's block of d_inner
@@ -182,19 +191,48 @@ def _mamba_tp(cfg, p, x, ax):
         return SH.copy_to_axis(p[name], m)
 
     z = x @ col("w_z", 1).to(dt_)
-    xin, _ = _causal_conv(x @ col("w_x", 1).to(dt_), col("conv_w", 1))
+    xin, new_conv = _causal_conv(x @ col("w_x", 1).to(dt_), col("conv_w", 1),
+                                 None if cache is None else cache["conv"])
     xin = F.silu(xin)
     Bm = (x @ rep("w_B").to(dt_)).to(_F32)
     Cm = (x @ rep("w_C").to(dt_)).to(_F32)
-    dtv = F.softplus((x @ rep("w_dt").to(dt_)).to(_F32)
-                     + rep("dt_bias"))[..., head]
-    log_a = -torch.exp(rep("A_log")[head])[None, None] * dtv
+    dt_all = F.softplus((x @ rep("w_dt").to(dt_)).to(_F32) + rep("dt_bias"))
+    dtv = dt_all[..., head]
+    A = -torch.exp(rep("A_log"))
+    log_a = A[head][None, None] * dtv
     xh = xin.to(_F32).reshape(B, T, cb // g, g)
-    y, _ = ssd_scan(xh, dtv, Bm, Cm, log_a, chunk=min(128, T))
+    new_h = None
+    if cache is not None and T == 1 and whole_h:
+        # every head stepped on every rank: h = a h + dt B (x) ; y = C . h
+        xw = SH.all_gather(xin.to(_F32), m, -1).reshape(B, Hm, Pd)
+        a = torch.exp(A[None] * dt_all[:, 0])
+        new_h = a[:, :, None, None] * cache["h"] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt_all[:, 0], Bm[:, 0], xw)
+        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], new_h).reshape(B, 1, di)
+        y = y[..., r * cb:(r + 1) * cb].reshape(B, 1, cb // g, g)
+    elif cache is not None and T == 1:
+        h = cache["h"].reshape(B, cb // g, g, N)
+        h = torch.exp(log_a[:, 0])[:, :, None, None] * h + torch.einsum(
+            "bh,bn,bhp->bhpn", dtv[:, 0], Bm[:, 0], xh[:, 0])
+        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], h)[:, None]
+        new_h = h.reshape(cache["h"].shape)
+    else:
+        h0 = None
+        if cache is not None:
+            h0 = (cache["h"].reshape(B, di // g, g, N)[:, r * cb // g:
+                                                        (r + 1) * cb // g]
+                  if whole_h else cache["h"].reshape(B, cb // g, g, N))
+        y, h = ssd_scan(xh, dtv, Bm, Cm, log_a, chunk=min(128, T), h0=h0)
+        if cache is not None:
+            new_h = (SH.all_gather(h, m, 1) if whole_h else h).reshape(
+                cache["h"].shape)
     y = y + rep("D")[head][None, None, :, None] * xh
     y = y.reshape(B, T, cb).to(dt_)
     y = rms_norm_tp(y * F.silu(z), col("norm", 0), di, m)
-    return SH.reduce_from_axis(y @ col("w_out", 0).to(dt_), m)
+    out = SH.reduce_from_axis(y @ col("w_out", 0).to(dt_), m)
+    if cache is None:
+        return out, None
+    return out, {"conv": new_conv, "h": new_h}
 
 
 def init_mamba_cache(cfg, B, dtype=torch.float32, device=None):

@@ -24,6 +24,11 @@ the axis:
   the time loop; the norm sums its squares over the axis and ``w_out`` is
   row-parallel.  Where the heads do not divide the axis every rank runs
   the whole block, its sharded weights gathered.
+
+Sharded serving keeps the cache in this rank's block by its fitted spec
+(heads for mLSTM where they divide the axis, else whole; ``H * hd``
+channels for sLSTM) and steps it in the same decompositions
+(:func:`_mlstm_tp`, :func:`_slstm_tp`, :func:`_slstm_channels`).
 """
 from __future__ import annotations
 
@@ -143,9 +148,8 @@ def mlstm_sequential(q, k, v, log_i, log_f, state=None):
 
 def mlstm_apply(cfg, p, x, *, cache=None):
     tp = SH.active_axis(cfg.axes.model)
-    if tp is not None and cache is None and \
-            cfg.n_heads * cfg.head_dim % tp.size == 0:
-        return _mlstm_tp(cfg, p, x, tp), None
+    if tp is not None and cfg.n_heads * cfg.head_dim % tp.size == 0:
+        return _mlstm_tp(cfg, p, x, tp, cache)
     B, T, d = x.shape
     dt_ = x.dtype
     H, hd = cfg.n_heads, cfg.head_dim
@@ -166,9 +170,14 @@ def mlstm_apply(cfg, p, x, *, cache=None):
     return out, new_cache
 
 
-def _mlstm_tp(cfg, p, x, ax):
-    """The training block tensor-parallel over ``ax`` (see the module's
-    docstring)."""
+def _mlstm_tp(cfg, p, x, ax, cache=None):
+    """The block tensor-parallel over ``ax`` (see the module's docstring).
+    Returns ``(out, new cache)``, the cache None without one.  With a cache
+    (serving) it is this rank's block by its fitted spec: its heads where
+    they divide the axis (the block is whole heads), else every head on
+    every rank.  A whole state is stepped whole on every rank at decode
+    (q, k and v all-gathered: activations of ``H * hd``), and after a
+    prefill gathered from the ranks' blocks of value channels once."""
     B, T, d = x.shape
     dt_ = x.dtype
     H, hd = cfg.n_heads, cfg.head_dim
@@ -177,6 +186,7 @@ def _mlstm_tp(cfg, p, x, ax):
     g = math.gcd(hd, cb)              # value channels a head of the block
     head = torch.div(r * cb + g * torch.arange(cb // g, device=x.device), hd,
                      rounding_mode="floor")      # each one's real head
+    whole_c = H % n != 0              # the fitted spec keeps the state whole
     x = SH.copy_to_axis(x, m)
 
     def qk(name):
@@ -188,18 +198,49 @@ def _mlstm_tp(cfg, p, x, ax):
         y = (x @ w.to(dt_)).reshape(B, T, hi - lo, hd).to(_F32)
         return y[:, :, head - lo]
 
-    q = qk("wq")
-    k = qk("wk") * hd ** -0.5
-    v = (x @ SH.block_of(p["wv"], m, H * hd, 1).to(dt_)).reshape(
-        B, T, cb // g, g).to(_F32)
-    log_i = (x @ SH.copy_to_axis(p["wi"], m).to(dt_)).to(_F32)[..., head]
+    log_i = (x @ SH.copy_to_axis(p["wi"], m).to(dt_)).to(_F32)
     log_f = F.logsigmoid((x @ SH.copy_to_axis(p["wf"], m).to(dt_)).to(_F32)
-                         + SH.copy_to_axis(p["f_bias"], m))[..., head]
-    h, _ = mlstm_scan(q, k, v, log_i, log_f, chunk=min(128, T))
+                         + SH.copy_to_axis(p["f_bias"], m))
+    if cache is not None and T == 1 and whole_c:
+        # every head stepped on every rank from the whole q, k, v
+        def whole(name):
+            y = x @ SH.block_of(p[name], m, H * hd, 1).to(dt_)
+            return SH.all_gather(y, m, -1).reshape(B, T, H, hd).to(_F32)
+        h, state = mlstm_sequential(whole("wq"), whole("wk") * hd ** -0.5,
+                                    whole("wv"), log_i, log_f,
+                                    state=cache["mlstm"])
+        h = h.reshape(B, T, H * hd)[..., r * cb:(r + 1) * cb]
+    else:
+        q = qk("wq")
+        k = qk("wk") * hd ** -0.5
+        v = (x @ SH.block_of(p["wv"], m, H * hd, 1).to(dt_)).reshape(
+            B, T, cb // g, g).to(_F32)
+        state = None if cache is None else cache["mlstm"]
+        if state is not None and whole_c:
+            # this rank's heads of g value channels of the whole state
+            C, nn, mm = state
+            C = C.reshape(B, H, hd, hd // g, g).permute(0, 1, 3, 2, 4)
+            C = C.reshape(B, H * hd // g, hd, g)[:, r * cb // g:
+                                                 (r + 1) * cb // g]
+            state = (C, nn[:, head], mm[:, head])
+        if cache is not None and T == 1:
+            h, state = mlstm_sequential(q, k, v, log_i[..., head],
+                                        log_f[..., head], state=state)
+        else:
+            h, state = mlstm_scan(q, k, v, log_i[..., head],
+                                  log_f[..., head], chunk=min(128, T),
+                                  state=state)
+        if cache is not None and whole_c:
+            # the blocks' heads of g value channels back to whole heads
+            C, nn, mm = (SH.all_gather(t, m, 1) for t in state)
+            C = C.reshape(B, H, hd // g, hd, g).permute(0, 1, 3, 2, 4)
+            state = (C.reshape(B, H, hd, hd), nn[:, ::hd // g],
+                     mm[:, ::hd // g])
     h = rms_norm_tp(h.reshape(B, T, cb).to(dt_),
                     SH.block_of(p["norm"], m, H * hd, 0), H * hd, m)
-    return SH.reduce_from_axis(
+    out = SH.reduce_from_axis(
         h @ SH.block_of(p["wo"], m, H * hd, 0).to(dt_), m)
+    return out, (None if cache is None else {"mlstm": state})
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +268,13 @@ def _slstm_step(cfg, p, carry, xw):
     def rec(g):
         return torch.einsum("bhd,hde->bhe", hf,
                             p[f"r_{g}"].to(hf.dtype)).reshape(B, H * hd)
+    return _slstm_gates(carry, xw, rec)
 
+
+def _slstm_gates(carry, xw, rec):
+    """The step's gates and state update, elementwise in the channels of
+    ``carry`` and ``xw`` (``rec(g)``: gate ``g``'s recurrent input)."""
+    c, n, h, m = carry
     z = torch.tanh(xw[:, 0] + rec("z"))
     it = xw[:, 1] + rec("i")
     ft = xw[:, 2] + rec("f")
@@ -244,11 +291,19 @@ def _slstm_step(cfg, p, carry, xw):
 
 def slstm_apply(cfg, p, x, *, cache=None, chunk=64):
     tp = SH.active_axis(cfg.axes.model)
-    if tp is not None and cache is None:
-        if cfg.n_heads % tp.size == 0:
-            return _slstm_tp(cfg, p, x, tp), None
-        # every rank runs the whole block: its sharded weights gathered
+    block = None                      # this rank's channels of the cache
+    if tp is not None:
         H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+        if H % tp.size == 0:
+            return _slstm_tp(cfg, p, x, tp, cache)
+        if cache is not None and H * hd % tp.size == 0:
+            if x.shape[1] == 1:
+                return _slstm_channels(cfg, p, x, tp, cache)
+            cb = H * hd // tp.size
+            block = slice(tp.index * cb, (tp.index + 1) * cb)
+            cache = {"slstm": tuple(SH.all_gather(t, tp.name, -1)
+                                    for t in cache["slstm"])}
+        # every rank runs the whole block: its sharded weights gathered
         p = dict(p, w_z=SH.replica_of(p["w_z"], tp.name, H * hd, 1),
                  w_out=SH.replica_of(p["w_out"], tp.name, d, 0))
     B, T, d = x.shape
@@ -271,13 +326,51 @@ def slstm_apply(cfg, p, x, *, cache=None, chunk=64):
         hs.append(carry[2])
     hs = torch.stack(hs, dim=1).to(dt_)
     y = rms_norm(hs, p["norm"]) @ p["w_out"].to(dt_)
+    if block is not None:
+        carry = tuple(t[:, block] for t in carry)
     new_cache = {"slstm": carry} if cache is not None else None
     return y, new_cache
 
 
-def _slstm_tp(cfg, p, x, ax):
-    """The training block tensor-parallel over ``ax``: this rank's heads
-    (see the module's docstring)."""
+def _slstm_channels(cfg, p, x, ax, cache):
+    """One decode step with the heads not dividing ``ax`` and the cache
+    this rank's block of ``H * hd`` channels (its fitted spec's): the
+    rank's channels of every gate, their recurrent input from the whole
+    ``h`` (all-gathered, an activation of ``H * hd``) through ``r_*``
+    (whole: they do not split), the update elementwise on its channels;
+    the norm sums its squares over the axis and ``w_out`` is
+    row-parallel."""
+    B, _, d = x.shape
+    dt_ = x.dtype
+    H, hd = cfg.n_heads, cfg.head_dim
+    m, n, r = ax.name, ax.size, ax.index
+    cb = H * hd // n
+    x = SH.copy_to_axis(x, m)
+
+    def col(name, dim):
+        return SH.block_of(p[name], m, H * hd, dim)
+
+    xw = torch.stack([(x[:, 0] @ col(f"w_{g}", 1).to(dt_))
+                      + col(f"b_{g}", 0).to(dt_)
+                      for g in ("z", "i", "f", "o")], dim=1).to(_F32)
+    carry = cache["slstm"]
+    hf = SH.all_gather(carry[2], m, -1).reshape(B, H, hd)
+
+    def rec(g):
+        y = torch.einsum("bhd,hde->bhe", hf, p[f"r_{g}"].to(hf.dtype))
+        return y.reshape(B, H * hd)[:, r * cb:(r + 1) * cb]
+    carry = _slstm_gates(carry, xw, rec)
+    y = rms_norm_tp(carry[2][:, None].to(dt_),
+                    SH.block_of(p["norm"], m, d, 0), d, m)
+    y = SH.reduce_from_axis(y @ SH.block_of(p["w_out"], m, d, 0).to(dt_), m)
+    return y, {"slstm": carry}
+
+
+def _slstm_tp(cfg, p, x, ax, cache=None):
+    """The block tensor-parallel over ``ax``: this rank's heads (see the
+    module's docstring), the cache (serving) this rank's block of their
+    channels.  Returns ``(out, new cache)``, the cache None without
+    one."""
     B, T, d = x.shape
     dt_ = x.dtype
     H, hd = cfg.n_heads, cfg.head_dim
@@ -293,13 +386,16 @@ def _slstm_tp(cfg, p, x, ax):
     local = {f"r_{g}": SH.block_of(p[f"r_{g}"], m, H, 0)
              for g in ("z", "i", "f", "o")}
     lcfg = dataclasses.replace(cfg, n_heads=H // n)
-    zero = torch.zeros((B, cb), dtype=_F32, device=x.device)
-    carry = (zero, zero, zero, torch.full_like(zero, -1e30))
+    if cache is not None:
+        carry = cache["slstm"]
+    else:
+        zero = torch.zeros((B, cb), dtype=_F32, device=x.device)
+        carry = (zero, zero, zero, torch.full_like(zero, -1e30))
     hs = []
     for t in range(T):
         carry = _slstm_step(lcfg, local, carry, xw[:, t])
         hs.append(carry[2])
     hs = torch.stack(hs, dim=1).to(dt_)
     y = rms_norm_tp(hs, SH.block_of(p["norm"], m, d, 0), d, m)
-    return SH.reduce_from_axis(y @ SH.block_of(p["w_out"], m, d, 0).to(dt_),
-                               m)
+    y = SH.reduce_from_axis(y @ SH.block_of(p["w_out"], m, d, 0).to(dt_), m)
+    return y, (None if cache is None else {"slstm": carry})

@@ -23,8 +23,15 @@ loop, so ``remat="block"`` redoes the gather in the backward), as the
 reference's GSPMD program computes it.  The logits come back
 vocab-sharded (whole where the vocabulary does not split over the model
 axis).  Every slot is covered: attention (self and cross), dense
-and MoE FFNs, Mamba, mLSTM and sLSTM, and the encoder's layers; sharded
-prefill and decode raise (ROADMAP.md §1 item 10a).
+and MoE FFNs, Mamba, mLSTM and sLSTM, and the encoder's layers.
+
+**Sharded serving.**  Under the same registered axes :func:`prefill` and
+:func:`decode_step` run in every rank, the weights this rank's blocks by
+the serving specs (:func:`repro_torch.launch.mesh.serving_specs`: no
+FSDP), the batch's rows split over the data axis where they divide it,
+and :func:`init_cache` gives this rank's blocks of the cache (KV heads or
+sequence slots over the model axis, recurrent states by blocks); no rank
+gathers a cache.  The logits come back whole on every rank.
 
 Where a gradient is taken (autograd on and a parameter that requires one)
 under ``cfg.remat == "block"``, it checkpoints each period's slots and each
@@ -224,24 +231,38 @@ def _constrain_slot_params(cfg, tree, shards=None, specs=None, period=None,
 # ---------------------------------------------------------------------------
 class Shards:
     """This rank's view of a sharded config's parameters: each leaf's
-    fitted spec (the train state's, :func:`repro_torch.launch.mesh.
-    state_specs`) and the mesh axes the config names, all registered."""
+    fitted spec and the mesh axes the config names, all registered.  The
+    specs are the train state's (:func:`repro_torch.launch.mesh.
+    state_specs`), or with ``serving`` the serving parameter specs
+    (:func:`repro_torch.launch.mesh.serving_specs`: no FSDP, so
+    :meth:`at_use` gathers nothing)."""
 
-    def __init__(self, cfg: ModelConfig):
-        from repro_torch.launch.mesh import MeshSpec, spec_leaves, state_specs
+    def __init__(self, cfg: ModelConfig, serving: bool = False):
+        from repro_torch.launch.mesh import (MeshSpec, mesh_axes,
+                                             serving_specs, spec_leaves,
+                                             state_specs)
         if len(cfg.axes.batch) > 1:
             raise NotImplementedError(
                 f"a batch axis over several mesh axes {cfg.axes.batch} is "
                 "not ported to the sharded trainer (ROADMAP.md §1 item 10b)")
+        if serving and cfg.axes.seq:
+            raise NotImplementedError(
+                f"a context-parallel cache over {cfg.axes.seq!r} is not "
+                "ported to sharded serving (ROADMAP.md §1 item 10b)")
         self.cfg = cfg
         self.data = cfg.axes.batch[0] if cfg.axes.batch else None
         self.model = cfg.axes.model
         names = tuple(n for n in (self.data, self.model) if n is not None)
         self.dp = SH.axis_size(self.data) if self.data else 1
-        mesh = MeshSpec(tuple(SH.axis_size(n) for n in names), names)
-        specs, shapes = state_specs(cfg, mesh)
-        flat = zip(_pytree.flatten_with_paths(shapes["params"]),
-                   spec_leaves(specs["params"], shapes["params"]))
+        self.mesh = MeshSpec(tuple(SH.axis_size(n) for n in names), names)
+        self.axes = mesh_axes(cfg.axes, self.mesh)
+        if serving:
+            pspecs, pshapes = serving_specs(cfg, self.mesh)
+        else:
+            specs, shapes = state_specs(cfg, self.mesh)
+            pspecs, pshapes = specs["params"], shapes["params"]
+        flat = zip(_pytree.flatten_with_paths(pshapes),
+                   spec_leaves(pspecs, pshapes))
         self.specs: Dict[str, list] = {}
         for (path, _), sp in flat:
             top = _pytree.path_key(path[:1] if path[0][1] != "tail"
@@ -289,12 +310,39 @@ class Shards:
             out[k] = self.at_use(w, self.specs["embed"][sorted(p).index(k)])
         return out
 
+    # -- serving: the batch's data block and the cache's blocks -------------
+    def splits_batch(self, B: int) -> bool:
+        """A batch of ``B`` rows splits over the data axis when it divides
+        (the fitted cache specs' rule); else every data rank holds every
+        row."""
+        return self.data is not None and self.dp > 1 and B % self.dp == 0
 
-def shards_of(cfg: ModelConfig) -> Optional[Shards]:
-    """The sharded trainer's :class:`Shards` where ``cfg.axes`` names
-    registered mesh axes; None where it names none, or none of them is
-    registered (the reference's sharding constraints are the identity
-    outside a mesh).  Some registered and some not raises."""
+    def rows(self, t: torch.Tensor, B: int, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of ``t`` (``B`` rows along ``dim``)."""
+        if not self.splits_batch(B):
+            return t
+        n = B // self.dp
+        return t.narrow(dim, SH.axis_index(self.data) * n, n)
+
+    def batch_block(self, batch, B: int):
+        """This rank's rows of every batch leaf (dim 1 of M-RoPE's (3, B,
+        S) ``positions``, dim 0 of the others)."""
+        return {k: (v if v.dim() == 0 else self.rows(
+            v, B, 1 if k == "positions" and v.dim() == 3 else 0))
+            for k, v in batch.items()}
+
+    def whole_rows(self, t: torch.Tensor, B: int) -> torch.Tensor:
+        """The rows of every data rank, in order (an all-gather over the
+        data axis where the batch splits)."""
+        return SH.all_gather(t, self.data, 0) if self.splits_batch(B) else t
+
+
+def shards_of(cfg: ModelConfig, serving: bool = False) -> Optional[Shards]:
+    """The :class:`Shards` (the sharded trainer's, or with ``serving``
+    sharded serving's) where ``cfg.axes`` names registered mesh axes; None
+    where it names none, or none of them is registered (the reference's
+    sharding constraints are the identity outside a mesh).  Some
+    registered and some not raises."""
     names = tuple(cfg.axes.batch) + ((cfg.axes.model,)
                                      if cfg.axes.model else ())
     live = [SH.active_axis(n) is not None for n in names]
@@ -304,7 +352,7 @@ def shards_of(cfg: ModelConfig) -> Optional[Shards]:
         raise LookupError(f"cfg.axes names {names}, of which only "
                           f"{[n for n, ok in zip(names, live) if ok]} are "
                           "registered mesh axes")
-    return Shards(cfg)
+    return Shards(cfg, serving)
 
 
 def _ffn(cfg, spec, p, x, mesh):
@@ -388,13 +436,7 @@ def _slot_cache(cfg, spec: LayerSpec, B, max_len, dtype, lead, dev):
     raise ValueError(spec.kind)
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int,
-               dtype=torch.bfloat16, *, device=None):
-    """The decode cache, on ``device`` (the card unless given ``"cpu"``):
-    the reference's tree, period slots stacked over ``n_periods``.  ``pos``
-    is a 0-d int32 tensor on the CPU (host-side control state; a ragged
-    batch's (B,) positions live on the card)."""
-    dev = _device(device)
+def _whole_cache(cfg, B, max_len, dtype, dev):
     lead = (cfg.n_periods,)
     cache = {
         "blocks": tuple(_slot_cache(cfg, s, B, max_len, dtype, lead, dev)
@@ -412,6 +454,54 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
                               dtype=torch.int32, device=dev),
         }
     return cache
+
+
+def _local_cache(cfg, sh: Shards, B, max_len, dtype, dev):
+    """This rank's blocks of the cache by its fitted specs, each filled as
+    :func:`_whole_cache` fills the whole leaf.  A KV leaf whose sequence
+    the spec splits over the model axis must split evenly: the decode path
+    reads its slots' global indices from its block's place."""
+    from repro_torch.launch.mesh import (cache_specs, local_shape,
+                                         serving_cache_specs, spec_leaves)
+    whole = _whole_cache(cfg, B, max_len, dtype, torch.device("meta"))
+    fills = [t.reshape(-1)[0].item() for t in _pytree.leaves(
+        _whole_cache(cfg, 1, 1, dtype, torch.device("cpu")))]
+    fitted = spec_leaves(serving_cache_specs(cfg, whole, sh.mesh), whole)
+    wanted = spec_leaves(cache_specs(cfg, whole, sh.axes), whole)
+    out = []
+    for (path, t), sp, want, fill in zip(_pytree.flatten_with_paths(whole),
+                                         fitted, wanted, fills):
+        if path[-1][1] in ("k", "v") and sh.model in want \
+                and sh.model not in sp:
+            raise ValueError(
+                f"cache leaf {_pytree.path_key(path)} {tuple(t.shape)}: its "
+                f"sequence does not split over the {sh.model!r} axis of "
+                f"{sh.axes.model_size} (max_len {max_len}, or a window, or "
+                "the encoder's frames must be a multiple of it)")
+        if t.dim() == 0:                # pos: host-side control state
+            out.append(torch.full((), fill, dtype=t.dtype))
+            continue
+        out.append(torch.full(local_shape(t.shape, sp, sh.mesh), fill,
+                              dtype=t.dtype, device=dev))
+    return _pytree.unflatten(whole, out)
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int,
+               dtype=torch.bfloat16, *, device=None):
+    """The decode cache, on ``device`` (the card unless given ``"cpu"``):
+    the reference's tree, period slots stacked over ``n_periods``.  ``pos``
+    is a 0-d int32 tensor on the CPU (host-side control state; a ragged
+    batch's (B,) positions live on the card).  Under sharded serving
+    (``cfg.axes`` names registered mesh axes) it is this rank's blocks of
+    the whole cache of ``B`` rows, by ``launch.mesh.serving_cache_specs``:
+    the rows split over the data axis where ``B`` divides it, the KV heads
+    or the sequence over the model axis, the recurrent states by blocks of
+    channels or heads where they divide it."""
+    dev = _device(device)
+    sh = shards_of(cfg, serving=True)
+    if sh is not None:
+        return _local_cache(cfg, sh, B, max_len, dtype, dev)
+    return _whole_cache(cfg, B, max_len, dtype, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -512,10 +602,16 @@ def forward(cfg: ModelConfig, params, batch, *, mesh=None):
 # ---------------------------------------------------------------------------
 def _write_kv_cache(cfg, attn_p, x_normed, positions, slot_cache):
     """Project K/V from the normed input and write them into the cache
-    (rolled for sliding-window layers; transposed under ``xdma_cache``)."""
+    (rolled for sliding-window layers; transposed under ``xdma_cache``).
+    Under a registered model axis the cache is this rank's block:
+    :func:`_write_kv_block`."""
+    tp = SH.active_axis(cfg.axes.model)
+    if tp is not None:
+        return _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache,
+                               tp)
     B, S, _ = x_normed.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    dt, xd = slot_cache["k"].dtype, x_normed.dtype
+    xd = x_normed.dtype
 
     def proj(w, b):
         y = x_normed @ attn_p[w].to(xd)
@@ -525,6 +621,14 @@ def _write_kv_cache(cfg, attn_p, x_normed, positions, slot_cache):
     if cfg.qk_norm:
         k = rms_norm(k, attn_p["k_norm"])
     k = rope_for(cfg, k, positions)
+    return _store_kv(cfg, k, v, slot_cache)
+
+
+def _store_kv(cfg, k, v, slot_cache):
+    """The prompt's K / V (B, S, KV, hd) into every slot of the cache: the
+    prefix, or for ``S >= Smax`` the last ``Smax`` rolled to their slots."""
+    S = k.shape[1]
+    dt = slot_cache["k"].dtype
     smax = slot_cache["k"].shape[3] if cfg.xdma_cache else slot_cache["k"].shape[1]
     if S >= smax:
         shift = S % smax
@@ -544,6 +648,55 @@ def _write_kv_cache(cfg, attn_p, x_normed, positions, slot_cache):
         ck[:, :S] = k.to(dt)
         cv[:, :S] = v.to(dt)
     return dict(slot_cache, k=ck, v=cv)
+
+
+def _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache, ax):
+    """:func:`_write_kv_cache` into this rank's block of the cache over
+    the model axis ``ax``.  KV heads that divide the axis: this rank's
+    heads, from its columns of ``wk`` / ``wv``, into every slot.
+    Otherwise the block is slots ``[r Smax / n, (r + 1) Smax / n)`` of
+    every head: the positions those slots hold (the prompt's, or the
+    rolled last ``Smax`` for ``S >= Smax``) projected with the weights
+    whole; a slot the prompt does not reach keeps its value."""
+    B, S, _ = x_normed.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    xd = x_normed.dtype
+    m, n, r = ax.name, ax.size, ax.index
+    heads = KV % n == 0
+    part = SH.block_of if heads else SH.whole_of
+    src, pos = x_normed, positions
+    if not heads:
+        sl = slot_cache["k"].shape[3 if cfg.xdma_cache else 1]
+        smax = sl * n
+        slot = r * sl + torch.arange(sl, device=x_normed.device)
+        idx = (S - smax + (slot - S % smax) % smax if S >= smax
+               else torch.clamp(slot, max=S - 1))
+        src, pos = x_normed[:, idx], positions[..., idx]
+
+    def proj(w, b):
+        y = src @ part(attn_p[w], m, KV * hd, 1).to(xd)
+        if b in attn_p:
+            y = y + part(attn_p[b], m, KV * hd, 0).to(xd)
+        return y.reshape(B, src.shape[1], -1, hd)
+    k, v = proj("wk", "bk"), proj("wv", "bv")
+    if cfg.qk_norm:
+        k = rms_norm(k, attn_p["k_norm"])
+    k = rope_for(cfg, k, pos)
+    if heads:
+        return _store_kv(cfg, k, v, slot_cache)
+    dt = slot_cache["k"].dtype
+    if S >= smax:                       # every slot holds a prompt position
+        keep = torch.ones_like(slot, dtype=torch.bool)
+    else:
+        keep = slot < S
+    if cfg.xdma_cache:
+        k, v = k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3)
+        kk, vk = keep[None, None, None, :], keep[None, None, :, None]
+    else:
+        kk = vk = keep[None, :, None, None]
+    return dict(slot_cache,
+                k=torch.where(kk, k.to(dt), slot_cache["k"]).contiguous(),
+                v=torch.where(vk, v.to(dt), slot_cache["v"]).contiguous())
 
 
 def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None,
@@ -571,34 +724,88 @@ def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None,
     return x, new_cache
 
 
-def _refuse_sharded(cfg):
-    if shards_of(cfg) is not None:
-        raise NotImplementedError("sharded prefill and decode are not "
-                                  "ported (ROADMAP.md §1 item 10a)")
+def _cross_cache(cfg, params, enc_out, cross):
+    """The cross K / V of every decoder period from the encoder's output,
+    by the first slot's weights; under a registered model axis this rank's
+    block of them: its KV heads where they divide the axis, else its rows
+    of the encoder's frames."""
+    B = enc_out.shape[0]
+    KV, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.dtype
+    w = params["blocks"][0]["cross"]
+    tp = SH.active_axis(cfg.axes.model)
+
+    def kv(name, i):
+        wi, src = w[name][i], enc_out
+        if tp is not None and KV % tp.size == 0:
+            wi = SH.block_of(wi, tp.name, KV * hd, 1)
+        elif tp is not None:
+            rows = enc_out.shape[1] // tp.size
+            src = enc_out[:, tp.index * rows:(tp.index + 1) * rows]
+            wi = SH.whole_of(wi, tp.name, KV * hd, 1)
+        return (src @ wi.to(dt)).reshape(B, src.shape[1], -1, hd)
+    k = torch.stack([kv("wk", i) for i in range(cfg.n_periods)])
+    v = torch.stack([kv("wv", i) for i in range(cfg.n_periods)])
+    return {"k": k.to(dt), "v": v.to(dt), "len": cross["len"]}
+
+
+def _check_rows(cache, B: int):
+    """The cache holds the rows the batch block has."""
+    slots = cache["blocks"] + tuple(cache["tail"])
+    if slots:
+        t = _pytree.leaves(slots[0])[0]
+        have = t.shape[1 if cache["blocks"] else 0]
+        if have != B:
+            raise ValueError(f"the cache holds {have} rows, the batch block "
+                             f"{B}: init_cache with the whole batch")
+
+
+def _whole_logits(cfg, sh, logits, B: int):
+    """The logits whole on every rank of a sharded run (the reference's
+    ``out_shardings=None``): gathered along the vocabulary over the model
+    axis where it splits there, and over the data axis where the rows
+    do."""
+    if sh is None:
+        return logits
+    ax = E.vocab_axis(cfg)
+    if ax is not None:
+        logits = SH.all_gather(logits, ax.name, -1)
+    return sh.whole_rows(logits, B)
+
+
+def _slot_params(cfg, sh, tree, key, period=None):
+    if sh is None:
+        return _constrain_slot_params(cfg, tree)
+    return _constrain_slot_params(cfg, tree, sh, sh.specs[key],
+                                  period=period)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
     """Run the prompt through the model, writing KV/state caches.
 
-    Returns (logits_last (B,1,V), cache)."""
-    _refuse_sharded(cfg)
-    x, positions, enc_out = _inputs(cfg, params, batch)
-    B = x.shape[0]
+    Returns (logits_last (B,1,V), cache).
+
+    Sharded serving (``cfg.axes`` names registered mesh axes; every rank
+    of the mesh calls it): ``params`` are this rank's blocks by
+    ``launch.mesh.serving_specs``, ``batch`` the whole batch, of which the
+    rank takes its rows, and ``cache`` this rank's blocks
+    (:func:`init_cache`).  The layers run the sharded trainer's
+    tensor-parallel regimes and write this rank's block of each cache; the
+    logits come back whole on every rank."""
+    sh = shards_of(cfg, serving=True)
+    B = batch.get("tokens", batch.get("embeds")).shape[0]
+    if sh is not None:
+        batch = sh.batch_block(batch, B)
+    embed = (None if sh is None
+             else sh.embed_at_use(params["embed"], "embeds" not in batch))
+    x, positions, enc_out = _inputs(cfg, params, batch, embed, sh)
+    _check_rows(cache, x.shape[0])
     cache = dict(cache)
     if cfg.encoder_layers:
-        # cross K/V of every decoder period, from the first slot's weights
-        cross = params["blocks"][0]["cross"]
-        dt = cfg.dtype
-        k = torch.stack([(enc_out @ cross["wk"][i].to(dt)).reshape(
-            B, -1, cfg.n_kv_heads, cfg.head_dim) for i in range(cfg.n_periods)])
-        v = torch.stack([(enc_out @ cross["wv"][i].to(dt)).reshape(
-            B, -1, cfg.n_kv_heads, cfg.head_dim) for i in range(cfg.n_periods)])
-        cache["cross"] = {"k": k.to(dt), "v": v.to(dt),
-                          "len": cache["cross"]["len"]}
+        cache["cross"] = _cross_cache(cfg, params, enc_out, cache["cross"])
     per_period = []
     for i in range(cfg.n_periods):
-        slot_params = _constrain_slot_params(
-            cfg, period_slice(params["blocks"], i))
+        slot_params = _slot_params(cfg, sh, period_slice(params["blocks"], i),
+                                   "blocks", period=i)
         slot_caches = period_slice(cache["blocks"], i)
         new = []
         for spec, p, c in zip(cfg.period, slot_params, slot_caches):
@@ -607,40 +814,62 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
             new.append(nc)
         per_period.append(tuple(new))
     new_tail = []
-    for spec, p, c in zip(cfg.tail, params["tail"], cache["tail"]):
+    for t, (spec, p, c) in enumerate(zip(cfg.tail, params["tail"],
+                                         cache["tail"])):
+        if sh is not None:
+            p = _slot_params(cfg, sh, p, f"tail/{t}")
         x, nc = _prefill_slot(cfg, spec, p, x, positions, c, enc_out=enc_out,
                               mesh=mesh)
         new_tail.append(nc)
-    x = rms_norm(x, params["norm_final"]["scale"], cfg.norm_eps)
-    logits = E.lm_head(cfg, params["embed"], x[:, -1:])
+    x = rms_norm(x, _final_scale(params, sh), cfg.norm_eps)
+    logits = E.lm_head(cfg, params["embed"] if embed is None else embed,
+                       x[:, -1:])
     cache.update(blocks=_stack(per_period), tail=tuple(new_tail),
                  pos=torch.tensor(x.shape[1], dtype=torch.int32))
-    return logits, cache
+    return _whole_logits(cfg, sh, logits, B), cache
+
+
+def _final_scale(params, sh):
+    scale = params["norm_final"]["scale"]
+    return scale if sh is None else sh.at_use(scale,
+                                              sh.specs["norm_final"][0])
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None):
     """One decode step.  tokens (B,1) (or embeds (B,1,d)); returns
-    (logits (B,1,V), new cache).  The cache passed in is not modified."""
-    _refuse_sharded(cfg)
+    (logits (B,1,V), new cache).  The cache passed in is not modified.
+
+    Sharded serving (see :func:`prefill`): ``tokens`` are the whole
+    batch's, of which the rank takes its rows (and of a ragged ``pos``),
+    ``cache`` this rank's blocks; the logits come back whole on every
+    rank."""
+    sh = shards_of(cfg, serving=True)
     pos = cache["pos"]
+    B = tokens.shape[0]
+    if sh is not None:
+        tokens = sh.rows(tokens, B)
+    embed = (None if sh is None
+             else sh.embed_at_use(params["embed"], tokens.dim() != 3))
     if tokens.dim() == 3:
         x = tokens.to(cfg.dtype)
     else:
-        x = E.embed(cfg, params["embed"], tokens)
-    B = x.shape[0]
+        x = E.embed(cfg, params["embed"] if embed is None else embed, tokens)
+    Bl = x.shape[0]
+    _check_rows(cache, Bl)
     if pos.dim() >= 1:
         # ragged batch: per-request positions, shape (B,) -> (B, 1)
-        positions = pos.to(torch.int32)[:, None].to(x.device)
-        cache_pos = pos.to(x.device)
+        mine = pos if sh is None else sh.rows(pos, B)
+        positions = mine.to(torch.int32)[:, None].to(x.device)
+        cache_pos = mine.to(x.device)
     else:
         cache_pos = int(pos)
-        positions = torch.full((B, 1), cache_pos, dtype=torch.int32,
+        positions = torch.full((Bl, 1), cache_pos, dtype=torch.int32,
                                device=x.device)
     cross = cache.get("cross")
     per_period = []
     for i in range(cfg.n_periods):
-        slot_params = _constrain_slot_params(
-            cfg, period_slice(params["blocks"], i))
+        slot_params = _slot_params(cfg, sh, period_slice(params["blocks"], i),
+                                   "blocks", period=i)
         slot_caches = period_slice(cache["blocks"], i)
         cross_i = None if cross is None else period_slice(cross, i)
         new = []
@@ -651,12 +880,15 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None):
             new.append(dict(c, **nc))
         per_period.append(tuple(new))
     new_tail = []
-    for spec, p, c in zip(cfg.tail, params["tail"], cache["tail"]):
+    for t, (spec, p, c) in enumerate(zip(cfg.tail, params["tail"],
+                                         cache["tail"])):
+        if sh is not None:
+            p = _slot_params(cfg, sh, p, f"tail/{t}")
         x, nc, _ = _apply_slot(cfg, spec, p, x, positions, cache=c,
                                cache_pos=cache_pos, mesh=mesh)
         new_tail.append(dict(c, **nc))
-    x = rms_norm(x, params["norm_final"]["scale"], cfg.norm_eps)
-    logits = E.lm_head(cfg, params["embed"], x)
+    x = rms_norm(x, _final_scale(params, sh), cfg.norm_eps)
+    logits = E.lm_head(cfg, params["embed"] if embed is None else embed, x)
     new_cache = dict(cache, blocks=_stack(per_period), tail=tuple(new_tail),
                      pos=pos + 1)
-    return logits, new_cache
+    return _whole_logits(cfg, sh, logits, B), new_cache

@@ -25,6 +25,15 @@ plus an integer position.  Each serving step:
    back;
 6. the simulated clock advances by the step's scheduler makespan.
 
+Under sharded serving (``mesh=``, every rank of the mesh running the same
+engine on the same request stream, ``params`` this rank's blocks by
+``launch.mesh.serving_specs``) the batch is replicated over the data axis
+and each rank pages its model-axis blocks of every request's cache.  Every
+decision (admission, preemption, defrag, the clock) is read from state
+that is the same on every rank: the page counts and movements (the
+ranks' blocks share one geometry), the compute cost (the whole model's
+parameter count) and the tokens (from the whole logits).
+
 On the card every page store and load is kernel 1 (the page layout's
 relayout) and every evict and restore kernel 3 (the Compress wire codec).
 The scheduler's finished tasks are released once the pool has landed
@@ -92,8 +101,10 @@ def _leaf_metas(cfg, max_len: int, cache_dtype) -> Tuple[List[_LeafMeta], Any]:
     (B=1, L), (B=2, L) and (B=1, 2L) on the meta device (no memory): the
     axis that moves with B is the batch axis, the one that moves with L the
     sequence axis.  Leaves invariant to L (rolling windows shorter than
-    max_len, SSM states) page whole.  Returns (metas, B=1 template tree of
-    meta tensors)."""
+    max_len, SSM states) page whole.  Under sharded serving the probes are
+    this rank's blocks, so a page holds a rank's block (its rows of a
+    sequence split over the model axis).  Returns (metas, B=1 template
+    tree of meta tensors)."""
     probe = lambda b, l: lm.init_cache(cfg, b, l, cache_dtype,  # noqa: E731
                                        device="meta")
     t1 = probe(1, max_len)
@@ -236,6 +247,13 @@ class ContinuousBatchingEngine:
             raise NotImplementedError("continuous batching serves decoder "
                                       "LMs; encoder-decoder configs use "
                                       "ServingEngine")
+        if mesh is not None:
+            # sharded serving: every data rank serves every request (a
+            # request's rows would otherwise move between data ranks as the
+            # batch's composition changes), each rank's pages holding its
+            # model-axis blocks of the request's cache
+            cfg = dataclasses.replace(cfg, axes=dataclasses.replace(
+                cfg.axes, batch=()))
         self.cfg = cfg
         self.params = params
         self.max_len = int(max_len)
@@ -249,8 +267,13 @@ class ContinuousBatchingEngine:
         self.pool = pool if pool is not None else PagedKVPool(
             capacity_pages if capacity_pages is not None else 64, page_rows)
         self.metas, self._template = _leaf_metas(cfg, max_len, cache_dtype)
+        # the whole model's count (a rank's blocks hold a part of it): the
+        # simulated clock, and so every admission, is the same on every
+        # rank
         self._n_params = sum(
-            int(l.numel()) for l in _pytree.leaves(params)
+            int(l.numel()) for l in _pytree.leaves(
+                params if mesh is None else lm.init_params(cfg,
+                                                           device="meta"))
             if isinstance(l, torch.Tensor) and l.dim() >= 1)
         self.ring_depth = ring_depth
         self.backpressure = backpressure
@@ -274,7 +297,9 @@ class ContinuousBatchingEngine:
     def _pages_at(self, meta: _LeafMeta, pos: int) -> int:
         """Pool pages leaf ``meta`` occupies when ``pos`` tokens are valid."""
         if meta.kind == "seq":
-            rows = min(pos, self.max_len) * meta.rpt
+            # a sequence split over the model axis pages every rank's block
+            # as the first block fills, so every rank counts the same pages
+            rows = min(pos, self.max_len, meta.rows // meta.rpt) * meta.rpt
         elif meta.kind == "state":
             rows = meta.rows
         else:
@@ -304,7 +329,10 @@ class ContinuousBatchingEngine:
             plist = st.pages.setdefault(m.index, [])
             want = self._pages_at(m, st.pos)
             if m.kind == "seq" and dirty_from is not None:
-                first = (min(dirty_from, self.max_len - 1) * m.rpt) // R
+                # the written slot's row in its block (every rank stores
+                # from there: the same movements, and so the same clock)
+                first = ((min(dirty_from, self.max_len - 1)
+                          % (m.rows // m.rpt)) * m.rpt) // R
             else:
                 first = 0
             for j in range(first, want):

@@ -17,6 +17,16 @@ simulated timeline of the most recent call.
 
 The reference compiles prefill and decode with ``jax.jit``; the port runs
 them eagerly.  The engine runs on the card unless given ``device="cpu"``.
+
+**Sharded serving.**  With ``mesh=`` (every rank of a
+:func:`repro_torch.sharding.run_spmd` body whose mesh registers
+``cfg.axes``) the engine takes this rank's blocks of the weights, by
+``launch.mesh.serving_specs`` (``shard_tree(params, specs, mesh)``), never
+whole weights; ``generate`` takes the whole prompt, ``lm.prefill`` runs
+the rank's data block of it, the cache is this rank's blocks
+(``lm.init_cache``) and the plane moves them (kernel 1 on the card), and
+the tokens come back whole (B, n_steps) on every rank: the single-process
+engine's.
 """
 from __future__ import annotations
 

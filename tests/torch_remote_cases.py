@@ -753,3 +753,218 @@ def launcher_body(mesh, ckpt_dir):
             "state": full["state"], "resumed_state": resumed["state"],
             "mesh": mesh.shape, "ledger": full["ledger"],
             "jamba": jamba["history"]}
+
+
+# -- sharded serving: lm.prefill / decode_step and the engines on a mesh -----
+SERVE_WORLD = ((2, 2), ("data", "model"))
+SERVE_MESHES = ("1x4", "2x2")              # the (1, 4) mesh a view of it
+SERVE = dict(B=4, S=16, steps=4, max_len=32)
+SERVE_RAGGED = (16, 13, 11, 16)            # each row's position, ragged
+SERVE_BYTES_LEN = 256                      # the collective-bytes step's cache
+SERVE_ARCHS = ("phi4_mini_3p8b", "gemma3_27b", "qwen3_1p7b", "qwen2_0p5b",
+               "jamba_1p5_large_398b", "mixtral_8x7b", "qwen3_moe_30b_a3b",
+               "xlstm_125m", "qwen2_vl_7b", "whisper_small")
+# config changes by variant: the XDMA cache layout; xlstm with one head of
+# 64 (the mLSTM state whole on every rank, the sLSTM cache a block of a
+# head's channels); whisper with 3 heads (the cross cache split by frames)
+SERVE_VARIANTS = {"": {}, "xdma": dict(xdma_cache=True),
+                  "one_head": dict(n_heads=1, n_kv_heads=1, head_dim=64),
+                  "cross_seq": dict(n_heads=3, n_kv_heads=3)}
+SERVE_ENGINE_ARCHS = ("qwen3_1p7b", "jamba_1p5_large_398b")
+# the continuous engine's stream: (arrival, prompt length, new tokens)
+SERVE_STREAM = ((0.0, 8, 4), (0.0, 12, 3), (0.0, 16, 4), (0.0, 4, 5),
+                (0.0, 12, 4), (0.0, 8, 3))
+SERVE_POOL_PAGES = 256                     # jamba's Mamba states: 28 a request
+# jamba's Mamba layer with 3 SSM heads of 32 channels: d_inner splits over
+# either model axis, the heads over neither, so the state is whole on every
+# rank and its channel blocks split heads
+SERVE_MAMBA = dict(ssm_heads=3, ssm_d_inner=96)
+
+
+def serve_cases():
+    """``{case: (arch, variant, mesh, ragged)}``: every smoke config on
+    both meshes; qwen3 and gemma3 (window 8 against 16 prompt tokens: the
+    rolled write) with the XDMA cache, a ragged decode of each (qwen3's on
+    the heads split, gemma3's on the sequence split; qwen3's (1, 4) run is
+    the one held to the reference's own sharded run too); the two
+    variants."""
+    cases = {}
+    for mesh in SERVE_MESHES:
+        for arch in SERVE_ARCHS:
+            cases[f"{arch}@{mesh}"] = (arch, "", mesh, False)
+        cases[f"qwen3_1p7b+xdma@{mesh}"] = ("qwen3_1p7b", "xdma", mesh,
+                                           mesh == "2x2")
+        cases[f"gemma3_27b+xdma@{mesh}"] = ("gemma3_27b", "xdma", mesh,
+                                           mesh == "1x4")
+        cases[f"xlstm_125m+one_head@{mesh}"] = ("xlstm_125m", "one_head",
+                                               mesh, False)
+        cases[f"whisper_small+cross_seq@{mesh}"] = ("whisper_small",
+                                                   "cross_seq", mesh, False)
+    return cases
+
+
+def serve_config(configs, dataclasses, f32, arch, variant):
+    """``arch``'s smoke config in f32 with ``variant``'s changes.  An MoE
+    config's capacity factor is ``n_experts / top_k``, so that no expert
+    drops a token: the sharded MoE routes each (data block, sequence
+    slice) with its own capacity, as the reference's ``shard_map`` does,
+    and only with no drops is that the unsharded layer's routing."""
+    cfg = dataclasses.replace(configs.smoke_config(arch), dtype=f32,
+                              **SERVE_VARIANTS[variant])
+    if cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def serve_inputs(cfg, seed):
+    """Seeded numpy prompts of ``cfg``'s family (embeds and 3-row
+    positions for the vlm, audio frames for whisper) and the decode
+    steps' tokens."""
+    rng = np.random.default_rng(seed)
+    B, S = SERVE["B"], SERVE["S"]
+    b = {}
+    if cfg.family == "vlm":
+        b["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+        pos = np.broadcast_to(np.arange(S)[None], (B, S)).astype(np.int32)
+        b["positions"] = np.stack([pos, pos, pos])
+    else:
+        b["tokens"] = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    if cfg.family == "audio":
+        b["audio_embeds"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    steps = rng.integers(0, cfg.vocab, (SERVE["steps"], B, 1)).astype(
+        np.int32)
+    return b, steps
+
+
+def serve_view(mesh, name):
+    """The mesh ``name`` over the (2, 2) world's 4 ranks: the world's own,
+    or the (1, 4) view (a data axis of 1, the model axis over every
+    rank)."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding as S
+    if name == "2x2":
+        return contextlib.nullcontext(mesh)
+    world = mesh.axes[mesh.axis_names]
+    return S.Mesh((1, 4), mesh.axis_names, mesh.rank, mesh.device,
+                  mesh.backend, mesh.backend_note, {
+                      "data": S.MeshAxis("data", 1, 0),
+                      "model": S.MeshAxis("model", 4, mesh.rank,
+                                          dist.group.WORLD, mesh.backend),
+                      mesh.axis_names: world})
+
+
+def serve_body(mesh, inp):
+    """One rank of the (2, 2) world, each case on its mesh (the world's,
+    or the (1, 4) view): the case's weights cut to this rank's blocks by
+    the serving specs, ``lm.prefill`` of the whole prompt, the ragged
+    positions set where the case is ragged, then ``lm.decode_step`` over
+    the steps' tokens: every step's logits, this rank's final cache leaves
+    and its fresh cache's leaf shapes.  Then one decode step's collective
+    bytes against one layer's K block (qwen3), ``ServingEngine`` and
+    ``ContinuousBatchingEngine`` with ``mesh=`` (qwen3, jamba), and a
+    Mamba layer whose heads do not divide the axis (``SERVE_MAMBA``)
+    through a prefill and the decode steps with its cache: the outputs
+    (whole) and this rank's final cache."""
+    import dataclasses
+
+    from repro_torch import _pytree, configs
+    from repro_torch import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     ServingEngine, trace_stream)
+
+    torch.set_num_threads(1)
+    f32 = torch.float32
+    B, max_len = SERVE["B"], SERVE["max_len"]
+
+    def sharded(arch, variant, m):
+        cfg = serve_config(configs, dataclasses, f32, arch, variant)
+        cfg = cfg.with_axes(S.Axes(batch=("data",), model="model"))
+        params = lm.params_from_numpy(inp["params"][(arch, variant)],
+                                      device="cpu")
+        specs, _ = M.serving_specs(cfg, m)
+        return cfg, M.shard_tree(params, specs, m)
+
+    def tensors(b):
+        return {k: torch.from_numpy(v) for k, v in b.items()}
+
+    out = {"cases": {}, "bytes": {}, "engines": {}, "mamba": {}}
+    for name, (arch, variant, mname, ragged) in serve_cases().items():
+        with serve_view(mesh, mname) as m:
+            cfg, local = sharded(arch, variant, m)
+            b, steps = inp["inputs"][(arch, variant)]
+            cache = lm.init_cache(cfg, B, max_len, f32, device="cpu")
+            shapes = [tuple(t.shape) for t in _pytree.leaves(cache)]
+            logits, cache = lm.prefill(cfg, local, tensors(b), cache, mesh=m)
+            got = [logits]
+            if ragged:
+                cache = dict(cache, pos=torch.tensor(SERVE_RAGGED,
+                                                     dtype=torch.int32))
+            for t in steps:
+                logits, cache = lm.decode_step(cfg, local,
+                                               torch.from_numpy(t), cache,
+                                               mesh=m)
+                got.append(logits)
+            out["cases"][name] = {"logits": got, "shapes": shapes,
+                                  "cache": _pytree.leaves(cache)}
+
+    for mname in SERVE_MESHES:
+        with serve_view(mesh, mname) as m:
+            cfg, local = sharded("qwen3_1p7b", "", m)
+            b, steps = inp["inputs"][("qwen3_1p7b", "")]
+            cache = lm.init_cache(cfg, B, SERVE_BYTES_LEN, f32, device="cpu")
+            _, cache = lm.prefill(cfg, local, tensors(b), cache, mesh=m)
+            before = S.collective_stats()
+            _, cache = lm.decode_step(cfg, local, torch.from_numpy(steps[0]),
+                                      cache, mesh=m)
+            after = S.collective_stats()
+            k = cache["blocks"][0]["k"]
+            out["bytes"][mname] = {
+                "step": {key: v - before.get(key, 0)
+                         for key, v in after.items()
+                         if v != before.get(key, 0)},
+                "layer_k_block": k[0].numel() * k.element_size()}
+
+            for arch in SERVE_ENGINE_ARCHS:
+                cfg, local = sharded(arch, "", m)
+                b, _ = inp["inputs"][(arch, "")]
+                eng = ServingEngine(cfg, local, max_len, cache_dtype=f32,
+                                    mesh=m, device="cpu")
+                toks = eng.generate(tensors(b), SERVE["steps"])
+                cont = ContinuousBatchingEngine(
+                    cfg, local, max_len, max_batch=4, cache_dtype=f32,
+                    capacity_pages=SERVE_POOL_PAGES, mesh=m, device="cpu")
+                rep = cont.serve(trace_stream(cfg, SERVE_STREAM, seed=5))
+                out["engines"][f"{arch}@{mname}"] = {
+                    "tokens": toks, "served": rep.tokens,
+                    "steps": rep.steps, "pool": rep.pool_stats,
+                    "elapsed_s": rep.elapsed_s}
+    from repro_torch.layers import mamba as MB
+    for mname in SERVE_MESHES:
+        with serve_view(mesh, mname) as m:
+            cfg = dataclasses.replace(
+                configs.smoke_config("jamba_1p5_large_398b"), dtype=f32,
+                **SERVE_MAMBA).with_axes(S.Axes(batch=("data",),
+                                                model="model"))
+            specs, _ = M.serving_specs(cfg, m)
+            spec = {k: sp[1:] for k, sp in specs["blocks"][1]["mamba"].items()}
+            p = M.shard_tree(lm.params_from_numpy(inp["mamba"]["p"], "cpu"),
+                             spec, m)
+            sh = lm.shards_of(cfg, serving=True)
+            cache = {k: v[0] for k, v in lm.init_cache(
+                cfg, B, max_len, f32, device="cpu")["blocks"][1].items()}
+            ys = []
+            for x in [inp["mamba"]["x"]] + list(inp["mamba"]["steps"]):
+                y, cache = MB.mamba_apply(cfg, p, sh.rows(
+                    torch.from_numpy(x), B), cache=cache)
+                ys.append(sh.whole_rows(y, B))
+            out["mamba"][mname] = {"y": ys, "cache": cache}
+    out["ledger"] = S.collective_stats()
+    return out

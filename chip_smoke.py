@@ -99,9 +99,8 @@ kernel against its plain PyTorch version on the same inputs:
   (the expert-parallel path, 64 experts a rank, the sequence split) first
   held to the single-process emulation of its slice-wise routing, then
   trained, every block moving; (d) jamba-1.5-large cut to one dense Mamba
-  slot, (e) xlstm-125m cut to 4 of 12 layers and (f) whisper-small to 4 +
-  4 of its 12 + 12 layers (1500 encoder frames),
-  each held to the single-process step ((e) by its first step: see
+  slot, (e) xlstm-125m and (f) whisper-small whole (1500 encoder frames),
+  each held to the single-process step ((e) by its one step: see
   ``FIRST_STEP_HELD``), with ms a step, peak memory a rank and collective
   bytes; (b) ``launch/train.py --ranks 4
   --smoke`` for 3 steps with a checkpoint at step 2, resumed from it
@@ -112,14 +111,15 @@ kernel against its plain PyTorch version on the same inputs:
   sequence-parallel prefill, the cache split by sequence); (b) phi4-mini
   at full width cut to 4 of 32 layers on (2, 2) with the XDMA cache (KV
   heads split, the batch over the data axis), then
-  ``ContinuousBatchingEngine`` with 4 requests; (c) whisper-small and
+  ``ContinuousBatchingEngine`` with 4 requests on a pool that evicts and
+  restores the youngest requests' pages (kernel 3); (c) whisper-small and
   xlstm-125m whole on (1, 4) (the cross and recurrent caches).  Each
   part's logits, teacher-forced with the single-process tokens, within
-  1e-4 of max|logit| (or twice the gap one ulp on every weight opens in
-  the single-process run, where that is larger) of the single-process
-  port on the card; ``ServingEngine(mesh=)``'s tokens equal its tokens
-  under the tie rule; kernel 1 moves each rank's cache blocks through the
-  plane (and the pool's pages), its round trip bitwise.
+  twice the gap one ulp on every weight opens in the single-process run
+  of the single-process port on the card; ``ServingEngine(mesh=)``'s and
+  the continuous engine's tokens equal its tokens under the tie rule;
+  kernel 1 moves each rank's cache blocks through the plane (and the
+  pool's pages), its round trip bitwise.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -139,7 +139,8 @@ the training checkpoint (phase 19's path has none: the reduce lowers to
 collectives, and the broadcast's MN -> MN hops are kernel 1's identity
 plan, a copy; nor has phase 20's: plain torch and ``torch.distributed``,
 and the launcher's checkpoint staged MN -> MN, whose restore phase 20
-counts), phase 21 kernel 1 in every rank on the plane and (b)'s pool.  Phase 4 also drives the chains kernels 2
+counts), phase 21 kernel 1 in every rank on the plane and (b)'s pool and
+kernel 3 on (b)'s evictions and restores.  Phase 4 also drives the chains kernels 2
 and 3 once refused (integer streams, nine streamed ops, logical rank 5),
 and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (the last
 two on its chunked path, timed) and with bf16 q and f32 k / v.  Phase 3 also times the Prefill store at
@@ -2269,10 +2270,8 @@ SLOT_OPT = dict(warmup_steps=0, eps=1e-5)
 # sharded gradient no further from the single-process one, leaf by leaf as
 # a share of its scale, than twice what one ulp on every weight moves the
 # single-process gradient (measured in the same run), the first gradient
-# norm within 1e-4 and the first loss within 1e-3
+# norm within 1e-4 and the first loss within 1e-3; it takes that step alone
 FIRST_STEP_HELD = ("xlstm",)
-XLSTM_PERIODS = 1              # (e): 1 of xlstm-125m's 3 periods
-WHISPER_LAYERS = 4             # (f): 4 of whisper-small's 12 + 12 layers
 MOE_DAUX = 0.5                 # the MoE layer check's aux cotangent
 MOE_BOUND = 1e-4               # its bound, of each tensor's largest value
 
@@ -2285,10 +2284,8 @@ def phase20_slot_configs():
     out too, which (a) covers at full width: with it, 2.84 B parameters and
     a 34.0 GB state, the single-process step it is held to holds the old
     and the new state and the gradients at once, about 91 GB, and the four
-    ranks' steps ran the card out of memory); xlstm-125m cut to 1 of its 3
-    periods (4 of 12 layers: 3 mLSTM, 1 sLSTM) and whisper-small to 4 of
-    its 12 decoder and 4 of its 12 encoder layers, so that phase 21 fits
-    in the run's time limit."""
+    ranks' steps ran the card out of memory); xlstm-125m and
+    whisper-small whole."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.configs.base import MAMBA, LayerSpec
@@ -2300,10 +2297,8 @@ def phase20_slot_configs():
             configs.get_config("jamba_1p5_large_398b"),
             period=(LayerSpec(MAMBA),), n_periods=1, dtype=f32),
         "xlstm": dataclasses.replace(configs.get_config("xlstm_125m"),
-                                     n_periods=XLSTM_PERIODS, dtype=f32),
+                                     dtype=f32),
         "whisper": dataclasses.replace(configs.get_config("whisper_small"),
-                                       n_periods=WHISPER_LAYERS,
-                                       encoder_layers=WHISPER_LAYERS,
                                        dtype=f32)}
 
 
@@ -2387,7 +2382,8 @@ def moe_layer_check(mesh, cfg, plain_cfg, tag):
 def slot_case(mesh, card, name, plain_cfg):
     """One of (c)-(f) in this rank: the sharded step (``make_train_step``
     with ``mesh=``), 2 steps of B 4 (448 decoder tokens for whisper, 512
-    otherwise) in one microbatch, AdamW ``SLOT_OPT``, TF32 off; its times,
+    otherwise; 1 for a case held by its first step) in one microbatch,
+    AdamW ``SLOT_OPT``, TF32 off; its times,
     peak memory and collective ledger.  (c) checks its MoE layer first and
     that every block of every leaf moved; (d)-(f) hold rank 0's gathered
     parameters, losses and gradient norms to the single-process step (on
@@ -2420,7 +2416,9 @@ def slot_case(mesh, card, name, plain_cfg):
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=SLOT_B,
                      seed=SEED, family=cfg.family, d_model=cfg.d_model,
                      encoder_seq=cfg.encoder_seq)
-    batches = [batch_on(ds.batch_at(i), dev) for i in range(SLOT_STEPS)]
+    # a case held by its first step takes that step alone
+    n_steps = 1 if name in FIRST_STEP_HELD else SLOT_STEPS
+    batches = [batch_on(ds.batch_at(i), dev) for i in range(n_steps)]
     if name == "moe":
         out.update(moe_layer_check(mesh, cfg, plain_cfg, tag))
     gc.collect()
@@ -2586,11 +2584,12 @@ def phase20_slots(card):
         for rk in cases[1:]:
             check(rk["losses"] == c0["losses"],
                   f"sharded {name}: the ranks' losses differ")
-        ms = [max(rk["ms"][i] for rk in cases) for i in range(SLOT_STEPS)]
-        per_step = {k: v // SLOT_STEPS for k, v in c0["ledger"].items()}
+        steps = len(c0["ms"])
+        ms = [max(rk["ms"][i] for rk in cases) for i in range(steps)]
+        per_step = {k: v // steps for k, v in c0["ledger"].items()}
         by_op = {k[len("bytes:"):]: v for k, v in per_step.items()
                  if k.startswith("bytes:")}
-        wire = {k: v // SLOT_STEPS for k, v in c0["wire"].items()
+        wire = {k: v // steps for k, v in c0["wire"].items()
                 if k.startswith(("bytes:", "host_hop"))}
         held = (f"MoE layer vs the slice-wise emulation {c0['errs']} of "
                 f"scale (bound {MOE_BOUND}), the layer's forward and "
@@ -2608,8 +2607,7 @@ def phase20_slots(card):
                 f"against {c0['grad_norms']} ({c0['grad_norm_err']} "
                 f"relative, bound 1e-4), its gradient leaves "
                 f"{c0['grad_err']} of their scale off (bound twice one "
-                f"ulp's {c0['ulp_err']}; the second step not bound: "
-                f"FIRST_STEP_HELD)")
+                f"ulp's {c0['ulp_err']}; one step: FIRST_STEP_HELD)")
         log(f"[sharded training] ({name}) {c0['state_bytes'] / 1e9:.3f} GB "
             f"f32 state, mesh {TP_MESH}: {ms} ms a step (slowest rank); "
             f"losses {c0['losses']}; {held}; FSDP shards "
@@ -2754,8 +2752,9 @@ def phase20(card, slots):
 
 
 # -- phase 21: sharded serving ---------------------------------------------------
-SERVE_LOGIT_TOL = 1e-4          # x max|logit|: sharded vs single-process, f32,
-                                # or twice the run's one-ulp gap where larger
+SERVE_ULP_TIMES = 2             # the logit bound: this many times the gap that
+                                # one ulp on every weight opens in the same
+                                # single-process run
 SERVE_MESH = (2, 2)             # the world; (1, 4) is a view of its 4 ranks
 # part: (arch, periods (None: whole), mesh, B, prompt tokens, decode steps,
 # xdma_cache)
@@ -2765,9 +2764,13 @@ SERVE_PARTS = {
     "c_whisper": ("whisper_small", None, (1, 4), 4, 64, 8, True),
     "c_xlstm": ("xlstm_125m", None, (1, 4), 8, 256, 8, False),
 }
-# (b)'s continuous batching: 4 requests arriving together, ragged prompts
+# (b)'s continuous batching: 4 requests arriving together, ragged prompts,
+# a pool of 360 pages a rank (the prompts take 352 of a rank's blocks, 2
+# tokens a page): the youngest requests are evicted as the batch decodes
+# and restored as others finish (at 376 pages nothing is evicted, under 352
+# the prompts do not fit)
 SERVE_CB = dict(trace=((0.0, 64, 6), (0.0, 128, 6), (0.0, 96, 6),
-                       (0.0, 64, 6)), max_len=160, pages=2048, seed=SEED)
+                       (0.0, 64, 6)), max_len=160, pages=360, seed=SEED)
 
 
 def phase21_configs():
@@ -2819,7 +2822,8 @@ def greedy_run(cfg, params, batch, n, max_len, *, mesh=None, forced=None):
                           device=dev)
     sync(dev)
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(cfg, params, batch, cache, mesh=mesh)
+    logits, cache = lm.prefill(cfg, params, batch, cache, mesh=mesh,
+                               max_len=max_len)
     sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     before = S.collective_stats()
@@ -2831,7 +2835,7 @@ def greedy_run(cfg, params, batch, n, max_len, *, mesh=None, forced=None):
             tok = toks[-1] if forced is None else forced[:, i:i + 1].to(dev)
             t0 = time.perf_counter()
             logits, cache = lm.decode_step(cfg, params, tok, cache,
-                                           mesh=mesh)
+                                           mesh=mesh, max_len=max_len)
             sync(dev)
             step_ms.append((time.perf_counter() - t0) * 1e3)
     after = S.collective_stats()
@@ -2883,10 +2887,10 @@ def one_ulp(params, seed):
 def phase21_reference(card, device):
     """The single-process port on the card, TF32 off, for each part: the
     greedy tokens, their logits and top-2 margins, the part's logit bound
-    (``SERVE_LOGIT_TOL`` of max|logit|, or twice the gap a one-ulp move of
-    every weight opens in the same teacher-forced run, where that is
-    larger: the run's own conditioning), and for (b) each request's greedy
-    tokens alone (the continuous engine's reference)."""
+    (``SERVE_ULP_TIMES`` times the gap a one-ulp move of every weight opens
+    in the same teacher-forced run: the run's own conditioning), and for
+    (b) each request's greedy tokens alone (the continuous engine's
+    reference)."""
     from repro_torch.models import lm
     from repro_torch.serving import trace_stream
     dev = torch.device(device)
@@ -2908,7 +2912,7 @@ def phase21_reference(card, device):
                           "margin": top2_margin(lgs).cpu(),
                           "prefill_ms": pre_ms, "step_ms": step_ms,
                           "scale": scale, "ulp_gap": gap,
-                          "bound": max(SERVE_LOGIT_TOL * scale, 2 * gap)}
+                          "bound": SERVE_ULP_TIMES * gap}
             if name == "b":
                 reqs = trace_stream(cfg, SERVE_CB["trace"],
                                     seed=SERVE_CB["seed"])
@@ -2929,22 +2933,6 @@ def phase21_reference(card, device):
     return refs
 
 
-def serve_view(mesh, shape):
-    """The mesh ``shape`` over a (2, 2) world's 4 ranks: the world's own,
-    or the (1, 4) view (a data axis of 1, the model axis over every
-    rank)."""
-    import torch.distributed as dist
-    from repro_torch import sharding as S
-    if tuple(shape) == tuple(mesh.shape):
-        return contextlib.nullcontext(mesh)
-    return S.Mesh((1, 4), mesh.axis_names, mesh.rank, mesh.device,
-                  mesh.backend, mesh.backend_note, {
-                      "data": S.MeshAxis("data", 1, 0),
-                      "model": S.MeshAxis("model", 4, mesh.rank,
-                                          dist.group.WORLD, mesh.backend),
-                      mesh.axis_names: mesh.axes[mesh.axis_names]})
-
-
 def serve_part(mesh, card, name, cfg, B, S, n, ref):
     """One part in this rank: the weights drawn whole on the card from the
     seed, one weight at a time, kept on the host and cut to this rank's
@@ -2954,10 +2942,11 @@ def serve_part(mesh, card, name, cfg, B, S, n, ref):
     (2) ``ServingEngine(mesh=)`` with the plane, its tokens and kernel 1's
     launches on this rank's blocks, then one round trip of its final
     cache through the plane, bitwise; (3) for (b)
-    ``ContinuousBatchingEngine(mesh=)``."""
+    ``ContinuousBatchingEngine(mesh=)`` on a pool that evicts (kernel 3)
+    and restores (kernel 3) this rank's blocks of the youngest requests."""
     from repro_torch import _pytree
     from repro_torch import sharding as SH
-    from repro_torch.kernels import _build, agu
+    from repro_torch.kernels import _build, agu, datapath
     from repro_torch.launch import mesh as M
     from repro_torch.models import lm
     from repro_torch.serving import (ContinuousBatchingEngine,
@@ -2983,8 +2972,8 @@ def serve_part(mesh, card, name, cfg, B, S, n, ref):
     check(bool(torch.isfinite(lgs).all()), f"{tag} non-finite logits")
     check(err <= ref["bound"],
           f"{tag} logits {err} off the single-process run (bound "
-          f"{ref['bound']}: {SERVE_LOGIT_TOL} x {scale}, or twice the "
-          f"one-ulp gap {ref['ulp_gap']})")
+          f"{ref['bound']}: {SERVE_ULP_TIMES} x the one-ulp gap "
+          f"{ref['ulp_gap']})")
     steps = n - 1
     out.update(err=err, scale=scale, prefill_ms=pre_ms, step_ms=step_ms,
                cache_bytes=tree_bytes(cache),
@@ -3030,6 +3019,14 @@ def serve_part(mesh, card, name, cfg, B, S, n, ref):
             "launches": {k.name: k.launches for k in _build.KERNELS}}
         check(agu.RELAYOUT.launches > 0,
               f"{tag} kernel 1 did not launch on the page pool")
+        pool = rep.pool_stats
+        check(pool["evictions"] > 0 and pool["restores"] > 0
+              and rep.preemptions > 0,
+              f"{tag} the pool of {SERVE_CB['pages']} pages evicted "
+              f"{pool['evictions']} and restored {pool['restores']} pages")
+        check(datapath.BLOCK.launches > 0,
+              f"{tag} kernel 3 did not launch on the evictions and restores")
+        out["continuous"]["preemptions"] = rep.preemptions
     del local
     gc.collect()
     torch.cuda.empty_cache()
@@ -3043,8 +3040,9 @@ def phase21_rank(mesh, card, refs):
     undo = no_tf32()
     try:
         out = {}
+        from repro_torch import sharding as SH
         for name, (cfg, shape, B, S, n) in phase21_configs().items():
-            with serve_view(mesh, shape) as m:
+            with SH.view(mesh, shape) as m:
                 out[name] = serve_part(m, card, name, cfg, B, S, n,
                                        refs[name])
         return out
@@ -3087,9 +3085,8 @@ def phase21(card, device="cuda"):
                 f"layers, f32, mesh {shape}, B {B} x {S_} + {n} steps: "
                 f"logits {[p['err'] for p in parts]} off the "
                 f"single-process run by rank (max|logit| "
-                f"{ref['scale']}; bound {ref['bound']}: {SERVE_LOGIT_TOL} "
-                f"of max|logit|, or twice the one-ulp gap "
-                f"{ref['ulp_gap']}); ServingEngine tokens equal the "
+                f"{ref['scale']}; bound {ref['bound']}: {SERVE_ULP_TIMES} "
+                f"x the one-ulp gap {ref['ulp_gap']}); ServingEngine tokens equal the "
                 f"single-process tokens in every rank "
                 f"(divergences under the tie rule, margin below {bound}: "
                 f"{ties}); prefill {[p['prefill_ms'] for p in parts]} ms "
@@ -3126,7 +3123,9 @@ def phase21(card, device="cuda"):
                       and c["pool"] == parts[0]["continuous"]["pool"],
                       f"continuous ({name}) rank {r}: decisions differ")
             line += (f"; ContinuousBatchingEngine: 4 requests in "
-                     f"{parts[0]['continuous']['steps']} steps, tokens equal "
+                     f"{parts[0]['continuous']['steps']} steps, "
+                     f"{parts[0]['continuous']['preemptions']} preemptions "
+                     f"on a pool of {SERVE_CB['pages']} pages, tokens equal "
                      f"each request's single-process run in every rank, "
                      f"pool {parts[0]['continuous']['pool']}, kernel "
                      f"launches by rank "

@@ -232,7 +232,7 @@ def _plus_one(cache_pos):
 
 def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
                cache=None, cache_pos=None, kv_x=None, apply_rope=True,
-               cross=False):
+               cross=False, cache_slots=None):
     """Full attention sublayer.
 
     train/prefill: ``cache=None`` -> flash-chunked attention over x (or kv_x
@@ -240,7 +240,10 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
     under ``cfg.xdma_cache`` K (B,KV,hd,Smax) and V (B,KV,Smax,hd), plus
     ``cache_pos`` — a scalar (uniform batch) or a (B,) vector of per-request
     positions (ragged continuous batching); returns (out, new_cache).  The
-    cache passed in is not modified.
+    cache passed in is not modified.  ``cache_slots`` is the whole cache's
+    slot count (``min(window, max_len)``, or ``max_len``); sharded decode
+    reads from it whether a sequence the KV heads leave to the model axis
+    is split or whole (:func:`seq_block`).
     """
     tp = SH.active_axis(cfg.axes.model)
     if tp is not None:
@@ -248,7 +251,8 @@ def attn_apply(cfg, p, x, positions, *, causal=True, window=None,
         if cache is not None:
             return _attn_cached_tp(cfg, p, x, positions, window=window,
                                    cache=cache, cache_pos=cache_pos,
-                                   cross=is_cross, rope=apply_rope, ax=tp)
+                                   cross=is_cross, rope=apply_rope, ax=tp,
+                                   slots=cache_slots)
         return _attn_tp(cfg, p, x, positions,
                         causal=causal and not is_cross, window=window, ax=tp,
                         kv_x=kv_x if is_cross else None,
@@ -339,6 +343,33 @@ def _write_and_attend(cfg, q, k, v, cache, cache_pos, window):
                             rolling=window is not None), cache
 
 
+def seq_block(sl, ax, slots=None):
+    """``(lo, Smax, axis)`` of a KV leaf whose sequence the model axis
+    ``ax`` takes (the KV heads do not divide it), holding ``sl`` slots in
+    this rank: its first global slot, the whole cache's slots and the axis
+    its softmax merges over.  The fitted spec splits ``Smax`` slots evenly
+    over the axis (``lo = r sl``) and keeps a count the axis does not
+    divide whole on every rank (``lo = 0``, no merge: each rank writes and
+    attends over its own copy, as the reference does with a replicated
+    cache).  ``slots`` is ``Smax``; without it a block's ``sl`` the axis
+    divides tells a split cache, and any other needs ``slots`` (a whole
+    cache of ``sl`` slots and a block of ``sl n`` look alike)."""
+    n = ax.size
+    if slots is None:
+        if sl % n:
+            raise ValueError(
+                f"a KV block of {sl} slots over the {ax.name!r} axis of {n} "
+                "is a whole cache or a split one: pass the cache's max_len")
+        slots = sl * n
+    if slots % n == 0 and sl * n == slots:
+        return ax.index * sl, slots, ax.name
+    if slots % n and sl == slots:
+        return 0, slots, None
+    raise ValueError(f"a KV leaf of {sl} slots is neither the whole cache "
+                     f"of {slots} nor its block over the {ax.name!r} axis "
+                     f"of {n}")
+
+
 def _write_slots(cfg, k, v, cache, cache_pos, window, lo, Smax):
     """Decode on a sequence-split cache: the new K / V (B, 1, KV, hd)
     into this rank's block, slots ``[lo, lo + block)`` of ``Smax``, where
@@ -373,7 +404,8 @@ def _attend_slots(q, k_blk, v_blk, length, lo, Smax, xdma, axis):
     global indices, masked beyond ``length`` (a scalar or (B,)); the
     softmax is merged over the axis (the row max all-reduced, then the
     rescaled denominators and weighted V summed): the reference's
-    psum-merged attention."""
+    psum-merged attention.  With ``axis`` None the block is the whole
+    cache and nothing is merged."""
     B, _, H, hd = q.shape
     KV = k_blk.shape[1 if xdma else 2]
     sl = k_blk.shape[3 if xdma else 1]
@@ -389,17 +421,21 @@ def _attend_slots(q, k_blk, v_blk, length, lo, Smax, xdma, axis):
     else:
         s = torch.where((idx < min(int(length), Smax))[None, None, None], s,
                         NEG_INF)
-    mx = SH.all_reduce(s.amax(-1), axis, "max")
+    mx = s.amax(-1)
+    if axis is not None:
+        mx = SH.all_reduce(mx, axis, "max")
     pr = torch.exp(s - mx[..., None])
     acc = torch.einsum("bkgs,bksh->bkgh" if xdma else "bkgs,bskh->bkgh",
                        pr.to(v_blk.dtype).to(_F32), v_blk.to(_F32))
-    both = SH.all_reduce(torch.cat([acc, pr.sum(-1)[..., None]], -1), axis)
+    both = torch.cat([acc, pr.sum(-1)[..., None]], -1)
+    if axis is not None:
+        both = SH.all_reduce(both, axis)
     out = both[..., :hd] / both[..., hd:]
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
-                    cross, rope, ax):
+                    cross, rope, ax, slots=None):
     """The cached sublayer (one decode token, self- or cross-attention) in
     every rank of the model axis ``ax``, the cache this rank's block by
     ``kv_cache_spec`` (``launch.mesh.serving_cache_specs``) and the
@@ -415,7 +451,10 @@ def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
       (each rank's columns all-gathered: activations, not weights), the
       rank that owns the step's slot writes it, and :func:`_attend_slots`
       merges the softmax over the axis; the output projection takes this
-      rank's rows of ``wo`` (a reduce) or ``wo`` whole.
+      rank's rows of ``wo`` (a reduce) or ``wo`` whole.  Where the axis
+      does not divide the slots (``slots``, the cross cache's the encoder's
+      frames) the cache is whole on every rank: each writes and attends
+      over its own copy (:func:`seq_block`).
 
     The cache is never gathered."""
     B, S, d = x.shape
@@ -446,9 +485,10 @@ def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
         if heads:
             out = decode_attention(q, cache["k"], cache["v"], cache["len"])
         else:
-            sl = cache["k"].shape[1]
+            lo, smax, merge = seq_block(cache["k"].shape[1], ax,
+                                        cfg.encoder_seq)
             out = _attend_slots(q, cache["k"], cache["v"], cache["len"],
-                                r * sl, sl * n, False, m)
+                                lo, smax, False, merge)
     else:
         k, v = proj("wk", "bk", KV * hd), proj("wv", "bv", KV * hd)
         if cfg.qk_norm:
@@ -459,12 +499,13 @@ def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
             out, cache = _write_and_attend(cfg, q, k, v, cache, cache_pos,
                                            window)
         else:
-            sl = cache["k"].shape[3 if cfg.xdma_cache else 1]
-            cache = _write_slots(cfg, k, v, cache, cache_pos, window, r * sl,
-                                 sl * n)
+            lo, smax, merge = seq_block(
+                cache["k"].shape[3 if cfg.xdma_cache else 1], ax, slots)
+            cache = _write_slots(cfg, k, v, cache, cache_pos, window, lo,
+                                 smax)
             out = _attend_slots(q, cache["k"], cache["v"],
-                                _plus_one(cache_pos), r * sl, sl * n,
-                                cfg.xdma_cache, m)
+                                _plus_one(cache_pos), lo, smax,
+                                cfg.xdma_cache, merge)
     flat = out.reshape(B, S, -1)
     wo = p["wo"]
     if heads:

@@ -368,8 +368,9 @@ def _ffn(cfg, spec, p, x, mesh):
 
 def _apply_slot(cfg, spec: LayerSpec, p, x, positions, *, cache=None,
                 cache_pos=None, enc_out=None, cross_cache=None, mesh=None,
-                causal=True):
-    """One slot: ``(x, new_cache, aux)``."""
+                causal=True, max_len=None):
+    """One slot: ``(x, new_cache, aux)``; ``max_len`` the decode cache's
+    (:func:`_slots`)."""
     aux = _zero_aux(x)
     new_cache = {}
     h = rms_norm(x, p["norm_mix"]["scale"], cfg.norm_eps)
@@ -377,7 +378,8 @@ def _apply_slot(cfg, spec: LayerSpec, p, x, positions, *, cache=None,
         kv_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
         out, kv_cache = A.attn_apply(cfg, p["attn"], h, positions,
                                      causal=causal, window=spec.window,
-                                     cache=kv_cache, cache_pos=cache_pos)
+                                     cache=kv_cache, cache_pos=cache_pos,
+                                     cache_slots=_slots(spec, max_len))
         if kv_cache is not None:
             new_cache.update(kv_cache)
         x = x + out
@@ -399,6 +401,14 @@ def _apply_slot(cfg, spec: LayerSpec, p, x, positions, *, cache=None,
     if spec.ffn:
         x, aux = _ffn(cfg, spec, p, x, mesh)
     return x, new_cache, aux
+
+
+def _slots(spec: LayerSpec, max_len):
+    """An attention slot's cache slots for ``max_len`` (None: unknown),
+    as :func:`_slot_cache` sizes them."""
+    if max_len is None:
+        return None
+    return min(spec.window, max_len) if spec.window else max_len
 
 
 def _zero_aux(x):
@@ -458,26 +468,17 @@ def _whole_cache(cfg, B, max_len, dtype, dev):
 
 def _local_cache(cfg, sh: Shards, B, max_len, dtype, dev):
     """This rank's blocks of the cache by its fitted specs, each filled as
-    :func:`_whole_cache` fills the whole leaf.  A KV leaf whose sequence
-    the spec splits over the model axis must split evenly: the decode path
-    reads its slots' global indices from its block's place."""
-    from repro_torch.launch.mesh import (cache_specs, local_shape,
-                                         serving_cache_specs, spec_leaves)
+    :func:`_whole_cache` fills the whole leaf.  A KV sequence the model
+    axis does not divide stays whole on every rank, as the fitted spec
+    says."""
+    from repro_torch.launch.mesh import (local_shape, serving_cache_specs,
+                                         spec_leaves)
     whole = _whole_cache(cfg, B, max_len, dtype, torch.device("meta"))
     fills = [t.reshape(-1)[0].item() for t in _pytree.leaves(
         _whole_cache(cfg, 1, 1, dtype, torch.device("cpu")))]
     fitted = spec_leaves(serving_cache_specs(cfg, whole, sh.mesh), whole)
-    wanted = spec_leaves(cache_specs(cfg, whole, sh.axes), whole)
     out = []
-    for (path, t), sp, want, fill in zip(_pytree.flatten_with_paths(whole),
-                                         fitted, wanted, fills):
-        if path[-1][1] in ("k", "v") and sh.model in want \
-                and sh.model not in sp:
-            raise ValueError(
-                f"cache leaf {_pytree.path_key(path)} {tuple(t.shape)}: its "
-                f"sequence does not split over the {sh.model!r} axis of "
-                f"{sh.axes.model_size} (max_len {max_len}, or a window, or "
-                "the encoder's frames must be a multiple of it)")
+    for t, sp, fill in zip(_pytree.leaves(whole), fitted, fills):
         if t.dim() == 0:                # pos: host-side control state
             out.append(torch.full((), fill, dtype=t.dtype))
             continue
@@ -495,8 +496,10 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     (``cfg.axes`` names registered mesh axes) it is this rank's blocks of
     the whole cache of ``B`` rows, by ``launch.mesh.serving_cache_specs``:
     the rows split over the data axis where ``B`` divides it, the KV heads
-    or the sequence over the model axis, the recurrent states by blocks of
-    channels or heads where they divide it."""
+    or the sequence over the model axis (a sequence the axis does not
+    divide whole on every rank: pass the same ``max_len`` to
+    :func:`prefill` and :func:`decode_step`), the recurrent states by
+    blocks of channels or heads where they divide it."""
     dev = _device(device)
     sh = shards_of(cfg, serving=True)
     if sh is not None:
@@ -600,15 +603,16 @@ def forward(cfg: ModelConfig, params, batch, *, mesh=None):
 # ---------------------------------------------------------------------------
 # prefill (fills cache) and decode
 # ---------------------------------------------------------------------------
-def _write_kv_cache(cfg, attn_p, x_normed, positions, slot_cache):
+def _write_kv_cache(cfg, attn_p, x_normed, positions, slot_cache,
+                    slots=None):
     """Project K/V from the normed input and write them into the cache
     (rolled for sliding-window layers; transposed under ``xdma_cache``).
     Under a registered model axis the cache is this rank's block:
-    :func:`_write_kv_block`."""
+    :func:`_write_kv_block` (``slots`` the whole cache's)."""
     tp = SH.active_axis(cfg.axes.model)
     if tp is not None:
         return _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache,
-                               tp)
+                               tp, slots)
     B, S, _ = x_normed.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     xd = x_normed.dtype
@@ -650,25 +654,27 @@ def _store_kv(cfg, k, v, slot_cache):
     return dict(slot_cache, k=ck, v=cv)
 
 
-def _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache, ax):
+def _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache, ax,
+                    slots=None):
     """:func:`_write_kv_cache` into this rank's block of the cache over
     the model axis ``ax``.  KV heads that divide the axis: this rank's
     heads, from its columns of ``wk`` / ``wv``, into every slot.
     Otherwise the block is slots ``[r Smax / n, (r + 1) Smax / n)`` of
-    every head: the positions those slots hold (the prompt's, or the
-    rolled last ``Smax`` for ``S >= Smax``) projected with the weights
+    every head, or all ``Smax`` where the axis does not divide them
+    (``A.seq_block``): the positions those slots hold (the prompt's, or
+    the rolled last ``Smax`` for ``S >= Smax``) projected with the weights
     whole; a slot the prompt does not reach keeps its value."""
     B, S, _ = x_normed.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     xd = x_normed.dtype
-    m, n, r = ax.name, ax.size, ax.index
-    heads = KV % n == 0
+    m = ax.name
+    heads = KV % ax.size == 0
     part = SH.block_of if heads else SH.whole_of
     src, pos = x_normed, positions
     if not heads:
         sl = slot_cache["k"].shape[3 if cfg.xdma_cache else 1]
-        smax = sl * n
-        slot = r * sl + torch.arange(sl, device=x_normed.device)
+        lo, smax, _ = A.seq_block(sl, ax, slots)
+        slot = lo + torch.arange(sl, device=x_normed.device)
         idx = (S - smax + (slot - S % smax) % smax if S >= smax
                else torch.clamp(slot, max=S - 1))
         src, pos = x_normed[:, idx], positions[..., idx]
@@ -700,13 +706,14 @@ def _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache, ax):
 
 
 def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None,
-                  mesh=None):
+                  mesh=None, max_len=None):
     """Apply one slot in prefill mode, producing both output and cache."""
     h = rms_norm(x, p["norm_mix"]["scale"], cfg.norm_eps)
     if spec.kind == ATTN:
         out, _ = A.attn_apply(cfg, p["attn"], h, positions, causal=True,
                               window=spec.window)
-        new_cache = _write_kv_cache(cfg, p["attn"], h, positions, slot_cache)
+        new_cache = _write_kv_cache(cfg, p["attn"], h, positions, slot_cache,
+                                    _slots(spec, max_len))
         x = x + out
         if enc_out is not None:
             hc = rms_norm(x, p["norm_cross"]["scale"], cfg.norm_eps)
@@ -728,7 +735,8 @@ def _cross_cache(cfg, params, enc_out, cross):
     """The cross K / V of every decoder period from the encoder's output,
     by the first slot's weights; under a registered model axis this rank's
     block of them: its KV heads where they divide the axis, else its rows
-    of the encoder's frames."""
+    of the encoder's frames (all of them where the axis does not divide
+    them)."""
     B = enc_out.shape[0]
     KV, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.dtype
     w = params["blocks"][0]["cross"]
@@ -739,8 +747,10 @@ def _cross_cache(cfg, params, enc_out, cross):
         if tp is not None and KV % tp.size == 0:
             wi = SH.block_of(wi, tp.name, KV * hd, 1)
         elif tp is not None:
-            rows = enc_out.shape[1] // tp.size
-            src = enc_out[:, tp.index * rows:(tp.index + 1) * rows]
+            frames = enc_out.shape[1]
+            if frames % tp.size == 0:
+                rows = frames // tp.size
+                src = enc_out[:, tp.index * rows:(tp.index + 1) * rows]
             wi = SH.whole_of(wi, tp.name, KV * hd, 1)
         return (src @ wi.to(dt)).reshape(B, src.shape[1], -1, hd)
     k = torch.stack([kv("wk", i) for i in range(cfg.n_periods)])
@@ -779,7 +789,8 @@ def _slot_params(cfg, sh, tree, key, period=None):
                                   period=period)
 
 
-def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
+def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None,
+            max_len=None):
     """Run the prompt through the model, writing KV/state caches.
 
     Returns (logits_last (B,1,V), cache).
@@ -790,7 +801,10 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
     rank takes its rows, and ``cache`` this rank's blocks
     (:func:`init_cache`).  The layers run the sharded trainer's
     tensor-parallel regimes and write this rank's block of each cache; the
-    logits come back whole on every rank."""
+    logits come back whole on every rank.  ``max_len`` is the cache's
+    (:func:`init_cache`'s): needed where the model axis takes a KV
+    sequence and the block's slot count does not tell a split cache from
+    a whole one (``layers.attention.seq_block``)."""
     sh = shards_of(cfg, serving=True)
     B = batch.get("tokens", batch.get("embeds")).shape[0]
     if sh is not None:
@@ -810,7 +824,8 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
         new = []
         for spec, p, c in zip(cfg.period, slot_params, slot_caches):
             x, nc = _prefill_slot(cfg, spec, p, x, positions, c,
-                                  enc_out=enc_out, mesh=mesh)
+                                  enc_out=enc_out, mesh=mesh,
+                                  max_len=max_len)
             new.append(nc)
         per_period.append(tuple(new))
     new_tail = []
@@ -819,7 +834,7 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, mesh=None):
         if sh is not None:
             p = _slot_params(cfg, sh, p, f"tail/{t}")
         x, nc = _prefill_slot(cfg, spec, p, x, positions, c, enc_out=enc_out,
-                              mesh=mesh)
+                              mesh=mesh, max_len=max_len)
         new_tail.append(nc)
     x = rms_norm(x, _final_scale(params, sh), cfg.norm_eps)
     logits = E.lm_head(cfg, params["embed"] if embed is None else embed,
@@ -835,14 +850,15 @@ def _final_scale(params, sh):
                                               sh.specs["norm_final"][0])
 
 
-def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None):
+def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None,
+                max_len=None):
     """One decode step.  tokens (B,1) (or embeds (B,1,d)); returns
     (logits (B,1,V), new cache).  The cache passed in is not modified.
 
     Sharded serving (see :func:`prefill`): ``tokens`` are the whole
     batch's, of which the rank takes its rows (and of a ragged ``pos``),
-    ``cache`` this rank's blocks; the logits come back whole on every
-    rank."""
+    ``cache`` this rank's blocks, ``max_len`` its ``max_len``; the logits
+    come back whole on every rank."""
     sh = shards_of(cfg, serving=True)
     pos = cache["pos"]
     B = tokens.shape[0]
@@ -876,7 +892,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None):
         for spec, p, c in zip(cfg.period, slot_params, slot_caches):
             x, nc, _ = _apply_slot(cfg, spec, p, x, positions, cache=c,
                                    cache_pos=cache_pos, cross_cache=cross_i,
-                                   mesh=mesh)
+                                   mesh=mesh, max_len=max_len)
             new.append(dict(c, **nc))
         per_period.append(tuple(new))
     new_tail = []
@@ -885,7 +901,8 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, *, mesh=None):
         if sh is not None:
             p = _slot_params(cfg, sh, p, f"tail/{t}")
         x, nc, _ = _apply_slot(cfg, spec, p, x, positions, cache=c,
-                               cache_pos=cache_pos, mesh=mesh)
+                               cache_pos=cache_pos, mesh=mesh,
+                               max_len=max_len)
         new_tail.append(dict(c, **nc))
     x = rms_norm(x, _final_scale(params, sh), cfg.norm_eps)
     logits = E.lm_head(cfg, params["embed"] if embed is None else embed, x)

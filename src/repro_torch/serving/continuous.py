@@ -503,7 +503,8 @@ class ContinuousBatchingEngine:
                                        self.cache_dtype, device=self.device)
                 logits, cache = lm.prefill(self.cfg, self.params,
                                            {"tokens": toks}, cache0,
-                                           mesh=self.mesh)
+                                           mesh=self.mesh,
+                                           max_len=self.max_len)
                 cost = 2.0 * self._n_params * len(group) * plen / HW_FLOPS
                 cfut = sched.submit_compute(lambda *a: None, cost_s=cost,
                                             label=f"compute:prefill:{plen}")
@@ -556,7 +557,8 @@ class ContinuousBatchingEngine:
             toks = torch.tensor([[st.generated[-1]] for st in active],
                                 dtype=torch.int32, device=self.device)
             logits, cache = lm.decode_step(self.cfg, self.params, toks, cache,
-                                           mesh=self.mesh)
+                                           mesh=self.mesh,
+                                           max_len=self.max_len)
             gfuts = [f for g in gathered for fl in g.values() for f in fl]
             cost = 2.0 * self._n_params * len(active) / HW_FLOPS
             cfut = sched.submit_compute(lambda *a: None, *gfuts, cost_s=cost,

@@ -43,12 +43,14 @@ from repro_torch.serving import transfer as T
 __all__ = ["ServingEngine", "make_serve_step"]
 
 
-def make_serve_step(cfg: ModelConfig, *, mesh=None):
+def make_serve_step(cfg: ModelConfig, *, mesh=None, max_len=None):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
-    against the full KV/state cache."""
+    against the full KV/state cache (``max_len`` its, for sharded
+    serving: ``lm.decode_step``)."""
 
     def serve_step(params, cache, tokens):
-        return lm.decode_step(cfg, params, tokens, cache, mesh=mesh)
+        return lm.decode_step(cfg, params, tokens, cache, mesh=mesh,
+                              max_len=max_len)
 
     return serve_step
 
@@ -164,14 +166,15 @@ class ServingEngine:
         cache = lm.init_cache(self.cfg, B, self.max_len, self.cache_dtype,
                               device=self.device)
         logits, cache = lm.prefill(self.cfg, self.params, batch, cache,
-                                   mesh=self.mesh)
+                                   mesh=self.mesh, max_len=self.max_len)
         cache = self._cache_through_plane(sched, cache, "kv:prefill")
         outs = []
         tok = _greedy(logits)
         for i in range(n_steps):
             outs.append(tok)
             logits, cache = lm.decode_step(self.cfg, self.params, tok, cache,
-                                           mesh=self.mesh)
+                                           mesh=self.mesh,
+                                           max_len=self.max_len)
             cache = self._cache_through_plane(sched, cache, f"kv:decode{i}")
             tok = _greedy(logits)
         self.last_cache = cache

@@ -71,7 +71,7 @@ from repro_torch.runtime import telemetry as _tm
 __all__ = ["Axes", "CPU_AXES", "constrain", "kv_cache_spec", "spec",
            "MeshAxis", "Mesh", "mesh_axis", "axis_index", "axis_size",
            "axis_scope", "local_axis", "registered_axes", "axis_over",
-           "pick_backend", "init_mesh", "run_spmd", "copy_to_axis",
+           "pick_backend", "view", "init_mesh", "run_spmd", "copy_to_axis",
            "reduce_from_axis", "gather_along", "split_along",
            "unsplit_along", "broadcast_from", "all_reduce", "all_gather",
            "collective_stats", "active_axis", "block_of", "whole_of",
@@ -276,6 +276,27 @@ class Mesh:
 
     def __exit__(self, *exc):
         return self._scope.__exit__(*exc)
+
+
+def view(mesh: Mesh, shape: Sequence[int]) -> Mesh:
+    """``mesh``'s ranks as a mesh of ``shape`` over the same two axis names:
+    a copy of ``mesh`` for its own shape, or ``(1, world)``: a first axis
+    of size 1 (no group) and the second over every rank (the world's
+    group, the whole world's axis kept).  A context manager, as
+    :class:`Mesh` is."""
+    shape = tuple(int(s) for s in shape)
+    if shape == tuple(mesh.shape):
+        return dataclasses.replace(mesh)
+    names = mesh.axis_names
+    if len(names) != 2 or shape != (1, mesh.world_size):
+        raise ValueError(f"no view of mesh {mesh.shape} over {names} as "
+                         f"{shape}: only (1, {mesh.world_size})")
+    world = mesh.axes[names]
+    return dataclasses.replace(mesh, shape=shape, axes={
+        names[0]: MeshAxis(names[0], 1, 0),
+        names[1]: MeshAxis(names[1], world.size, world.index, world.group,
+                           world.backend),
+        names: world})
 
 
 def init_mesh(rank: int, shape: Sequence[int], axis_names: Sequence[str], *,

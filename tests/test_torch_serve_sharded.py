@@ -18,6 +18,9 @@ on the same seeded prompts and decode tokens:
   inside a head), MoE (jamba, mixtral, qwen3-moe);
 * qwen3 and gemma3 with the XDMA cache layout (gemma3's window of 8
   against 16 prompt tokens: the rolled write), a ragged decode of each;
+* on (1, 4) a max_len of 30, which the model axis does not divide: the
+  KV cache whole on every rank (qwen3; gemma3's global layers beside its
+  window's split cache; whisper with 18 frames, its cross cache whole);
 * every step's logits within 2e-5 of max|logit|, in every rank; every
   rank's final cache leaf within 2e-5 of its scale of the matching block
   of the reference's cache (``pos`` and ``len`` exact), each block the
@@ -28,7 +31,8 @@ on the same seeded prompts and decode tokens:
   every rank, its channel blocks splitting heads) through a prefill and
   the decode steps, against the reference's layer with a cache;
 * ``ServingEngine`` and ``ContinuousBatchingEngine`` (6 requests of mixed
-  length) with ``mesh=``: the single-process port engines' tokens;
+  length) with ``mesh=``: the single-process port engines' tokens, also
+  on a pool so small that every rank evicts and restores pages;
 * the reference's own sharded run (qwen3, (1, 4), the XDMA cache, in a
   subprocess with 4 XLA CPU devices, started before the world): the
   port's logits within the same bound of it.
@@ -64,8 +68,8 @@ from torch_parity import reset_global_state  # noqa: E402,F401
 
 BOUND = 2e-5                    # x max|logit|, x each cache leaf's scale
 CASES = RC.serve_cases()
-KEYS = sorted({(a, v) for a, v, _, _ in CASES.values()})
-SHAPES = {"1x4": (1, 4), "2x2": (2, 2)}
+KEYS = sorted({(a, v) for a, v, *_ in CASES.values()})
+SHAPES = RC.SERVE_MESHES
 B, MAX_LEN, STEPS = RC.SERVE["B"], RC.SERVE["max_len"], RC.SERVE["steps"]
 
 
@@ -81,13 +85,13 @@ def _pcfg(key):
     return RC.serve_config(PCF, dataclasses, torch.float32, *key)
 
 
-def _reference(rcfg, params, b, steps, ragged):
+def _reference(rcfg, params, b, steps, ragged, max_len):
     """The reference's jitted, unsharded prefill and decode steps: every
     step's logits and the final cache (numpy)."""
     pre = jax.jit(functools.partial(RL.prefill, rcfg))
     dec = jax.jit(functools.partial(RL.decode_step, rcfg))
     batch = {k: jnp.asarray(v) for k, v in b.items()}
-    logits, cache = pre(params, batch, RL.init_cache(rcfg, B, MAX_LEN,
+    logits, cache = pre(params, batch, RL.init_cache(rcfg, B, max_len,
                                                      jnp.float32))
     out = [np.asarray(logits)]
     if ragged:
@@ -206,14 +210,14 @@ def world(inp, reference_sharded, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def reference(inp):
-    """Each (arch, variant, ragged)'s unsharded reference run."""
+    """Each (arch, variant, ragged, max_len)'s unsharded reference run."""
     out = {}
-    for arch, variant, _, ragged in CASES.values():
+    for arch, variant, _, ragged, L in CASES.values():
         key = (arch, variant)
-        if (key, ragged) not in out:
+        if (key, ragged, L) not in out:
             b, steps = inp["inputs"][key]
-            out[(key, ragged)] = _reference(_rcfg(key), inp["params"][key],
-                                            b, steps, ragged)
+            out[(key, ragged, L)] = _reference(
+                _rcfg(key), inp["params"][key], b, steps, ragged, L)
     return out
 
 
@@ -241,11 +245,11 @@ def _axes_cfg(key):
     return _pcfg(key).with_axes(S.Axes(batch=("data",), model="model"))
 
 
-def _cache_specs(key, shape):
+def _cache_specs(key, shape, max_len=MAX_LEN):
     """The fitted specs of the case's cache on ``shape``, in leaf order,
     and the whole cache's meta tree."""
     cfg = _axes_cfg(key)
-    whole = PL._whole_cache(cfg, B, MAX_LEN, torch.float32,
+    whole = PL._whole_cache(cfg, B, max_len, torch.float32,
                             torch.device("meta"))
     mesh = M.MeshSpec(shape, ("data", "model"))
     return M.spec_leaves(M.serving_cache_specs(cfg, whole, mesh), whole), \
@@ -257,8 +261,8 @@ def test_sharded_logits_match_the_unsharded_reference(world, reference,
                                                       case):
     """Prefill's and every decode step's logits, whole (B, 1, V) on every
     rank, within 2e-5 of max|logit| of the reference's unsharded run."""
-    arch, variant, _, ragged = CASES[case]
-    want, _ = reference[((arch, variant), ragged)]
+    arch, variant, _, ragged, L = CASES[case]
+    want, _ = reference[((arch, variant), ragged, L)]
     for rank in world:
         got = rank["cases"][case]["logits"]
         assert len(got) == len(want) == STEPS + 1
@@ -277,10 +281,10 @@ def test_every_rank_holds_its_block_of_the_reference_cache(world, reference,
     reference's final cache, within 2e-5 of that block's scale; ``pos`` and
     ``len`` exact; every leaf of the fresh cache ``local_shape`` of its
     fitted spec."""
-    arch, variant, mname, ragged = CASES[case]
+    arch, variant, mname, ragged, L = CASES[case]
     shape = SHAPES[mname]
-    _, cache = reference[((arch, variant), ragged)]
-    specs, whole = _cache_specs((arch, variant), shape)
+    _, cache = reference[((arch, variant), ragged, L)]
+    specs, whole = _cache_specs((arch, variant), shape, L)
     ref = PL.params_from_numpy(cache, device="cpu")
     mesh = M.MeshSpec(shape, ("data", "model"))
     names = [_pytree.path_key(p) for p, _ in _pytree.flatten_with_paths(ref)]
@@ -362,10 +366,14 @@ def single_process(inp):
         toks = ServingEngine(cfg, params, MAX_LEN, cache_dtype=torch.float32,
                              device="cpu").generate(
             {k: torch.from_numpy(v) for k, v in b.items()}, STEPS)
-        rep = ContinuousBatchingEngine(
-            cfg, params, MAX_LEN, max_batch=4, cache_dtype=torch.float32,
-            capacity_pages=RC.SERVE_POOL_PAGES, device="cpu").serve(trace_stream(cfg, RC.SERVE_STREAM, seed=5))
-        out[arch] = {"tokens": toks, "served": rep.tokens}
+        served = {}
+        for L in {MAX_LEN, RC.SERVE_TIGHT["max_len"]}:
+            served[L] = ContinuousBatchingEngine(
+                cfg, params, L, max_batch=4, cache_dtype=torch.float32,
+                capacity_pages=RC.SERVE_POOL_PAGES, device="cpu").serve(
+                    trace_stream(cfg, RC.SERVE_STREAM, seed=5)).tokens
+        out[arch] = {"tokens": toks, "served": served[MAX_LEN],
+                     "tight": served[RC.SERVE_TIGHT["max_len"]]}
     return out
 
 
@@ -396,6 +404,27 @@ def test_continuous_engine_with_a_mesh_gives_the_single_process_tokens(
     r0 = world[0]["engines"][case]
     for rank in world:
         got = rank["engines"][case]
+        assert sorted(got["served"]) == sorted(want)
+        for rid in want:
+            np.testing.assert_array_equal(got["served"][rid], want[rid])
+        assert (got["steps"], got["pool"], got["elapsed_s"]) == (
+            r0["steps"], r0["pool"], r0["elapsed_s"])
+
+
+@pytest.mark.parametrize("mesh", RC.SERVE_MESHES)
+def test_continuous_engine_with_a_mesh_evicts_and_restores_its_blocks(
+        world, single_process, mesh):
+    """``ContinuousBatchingEngine(mesh=)`` on a pool too small for the
+    stream (``SERVE_TIGHT``: on (1, 4) each page a rank's rows of a
+    sequence-split block): every rank preempts, evicts and restores pages,
+    all make the same decisions, and every request's tokens are the
+    single-process engine's (a pool that evicts nothing)."""
+    want = single_process["qwen3_1p7b"]["tight"]
+    r0 = world[0]["engines"][f"tight@{mesh}"]
+    for rank in world:
+        got = rank["engines"][f"tight@{mesh}"]
+        assert got["preemptions"] > 0
+        assert got["pool"]["evictions"] > 0 and got["pool"]["restores"] > 0
         assert sorted(got["served"]) == sorted(want)
         for rid in want:
             np.testing.assert_array_equal(got["served"][rid], want[rid])
@@ -454,13 +483,32 @@ def test_a_mamba_state_whole_on_every_rank_steps_as_the_reference(
                 block[k]), k
 
 
-def test_init_cache_refuses_a_sequence_that_does_not_split():
-    """A sequence-split KV cache (KV 2 on a model axis of 4) needs its
-    slots to split evenly: a max_len of 30 is refused by name, with no
-    collective."""
+def test_init_cache_keeps_a_sequence_that_does_not_split_whole():
+    """A sequence-split KV cache (KV 2 on a model axis of 4) whose max_len
+    the axis does not divide: every rank holds the whole sequence, as the
+    fitted spec says (the ``+uneven`` cases serve it against the
+    reference); one that divides splits."""
     cfg = _axes_cfg(("qwen3_1p7b", ""))
     with S.axis_scope([S.MeshAxis("data", 1, 0), S.MeshAxis("model", 4, 0)]):
-        with pytest.raises(ValueError, match="does not split"):
-            PL.init_cache(cfg, B, 30, torch.float32, device="cpu")
-        cache = PL.init_cache(cfg, B, 32, torch.float32, device="meta")
-    assert tuple(cache["blocks"][0]["k"].shape) == (2, B, 8, 2, 16)
+        whole = PL.init_cache(cfg, B, 30, torch.float32, device="meta")
+        split = PL.init_cache(cfg, B, 32, torch.float32, device="meta")
+    assert tuple(whole["blocks"][0]["k"].shape) == (2, B, 30, 2, 16)
+    assert tuple(split["blocks"][0]["k"].shape) == (2, B, 8, 2, 16)
+
+
+@pytest.mark.parametrize("slots, sl, want", [
+    (None, 8, (16, 32, "model")), (32, 8, (16, 32, "model")),
+    (30, 30, (0, 30, None)), (None, 30, ValueError), (30, 8, ValueError),
+    (32, 32, ValueError)])
+def test_seq_block_tells_a_split_cache_from_a_whole_one(slots, sl, want):
+    """``attention.seq_block`` on rank 2 of a model axis of 4: a block the
+    axis divides is a split cache without ``max_len``; a block it does not
+    divide needs it (a whole cache of 30 slots and a block of 120 look
+    alike); a leaf that is neither is refused."""
+    from repro_torch.layers import attention as A
+    ax = S.MeshAxis("model", 4, 2)
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            A.seq_block(sl, ax, slots)
+    else:
+        assert A.seq_block(sl, ax, slots) == want

@@ -757,7 +757,7 @@ def launcher_body(mesh, ckpt_dir):
 
 # -- sharded serving: lm.prefill / decode_step and the engines on a mesh -----
 SERVE_WORLD = ((2, 2), ("data", "model"))
-SERVE_MESHES = ("1x4", "2x2")              # the (1, 4) mesh a view of it
+SERVE_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}  # (1, 4) a view of the world
 SERVE = dict(B=4, S=16, steps=4, max_len=32)
 SERVE_RAGGED = (16, 13, 11, 16)            # each row's position, ragged
 SERVE_BYTES_LEN = 256                      # the collective-bytes step's cache
@@ -766,15 +766,26 @@ SERVE_ARCHS = ("phi4_mini_3p8b", "gemma3_27b", "qwen3_1p7b", "qwen2_0p5b",
                "xlstm_125m", "qwen2_vl_7b", "whisper_small")
 # config changes by variant: the XDMA cache layout; xlstm with one head of
 # 64 (the mLSTM state whole on every rank, the sLSTM cache a block of a
-# head's channels); whisper with 3 heads (the cross cache split by frames)
+# head's channels); whisper with 3 heads (the cross cache split by frames),
+# and with one KV head and 18 frames (the cross cache whole on a model axis
+# of 4; the encoder's query heads divide it: the repeat regime)
 SERVE_VARIANTS = {"": {}, "xdma": dict(xdma_cache=True),
                   "one_head": dict(n_heads=1, n_kv_heads=1, head_dim=64),
-                  "cross_seq": dict(n_heads=3, n_kv_heads=3)}
+                  "cross_seq": dict(n_heads=3, n_kv_heads=3),
+                  "cross_whole": dict(n_kv_heads=1, encoder_seq=18)}
+# a max_len the model axis of 4 does not divide: the fitted spec keeps a
+# sequence-split KV cache whole on every rank
+SERVE_UNEVEN_LEN = 30
 SERVE_ENGINE_ARCHS = ("qwen3_1p7b", "jamba_1p5_large_398b")
 # the continuous engine's stream: (arrival, prompt length, new tokens)
 SERVE_STREAM = ((0.0, 8, 4), (0.0, 12, 3), (0.0, 16, 4), (0.0, 4, 5),
                 (0.0, 12, 4), (0.0, 8, 3))
 SERVE_POOL_PAGES = 256                     # jamba's Mamba states: 28 a request
+# qwen3 on a pool a rank where the stream's youngest requests are evicted
+# and restored: max_len 64 (a (1, 4) rank's K block 16 slots, 2 pages), the
+# pages by mesh (one more page a rank and nothing is evicted; under 12 on
+# (1, 4), 8 on (2, 2), the engine runs out of pages)
+SERVE_TIGHT = dict(max_len=64, pages={"1x4": 13, "2x2": 9})
 # jamba's Mamba layer with 3 SSM heads of 32 channels: d_inner splits over
 # either model axis, the heads over neither, so the state is whole on every
 # rank and its channel blocks split heads
@@ -782,24 +793,34 @@ SERVE_MAMBA = dict(ssm_heads=3, ssm_d_inner=96)
 
 
 def serve_cases():
-    """``{case: (arch, variant, mesh, ragged)}``: every smoke config on
-    both meshes; qwen3 and gemma3 (window 8 against 16 prompt tokens: the
-    rolled write) with the XDMA cache, a ragged decode of each (qwen3's on
-    the heads split, gemma3's on the sequence split; qwen3's (1, 4) run is
-    the one held to the reference's own sharded run too); the two
-    variants."""
+    """``{case: (arch, variant, mesh, ragged, max_len)}``: every smoke
+    config on both meshes; qwen3 and gemma3 (window 8 against 16 prompt
+    tokens: the rolled write) with the XDMA cache, a ragged decode of each
+    (qwen3's on the heads split, gemma3's on the sequence split; qwen3's
+    (1, 4) run is the one held to the reference's own sharded run too);
+    the variants; on (1, 4) a max_len of ``SERVE_UNEVEN_LEN`` for qwen3,
+    gemma3 (its window's cache split, its global cache whole) and whisper
+    with 18 frames (its self and cross caches whole)."""
+    L = SERVE["max_len"]
     cases = {}
     for mesh in SERVE_MESHES:
         for arch in SERVE_ARCHS:
-            cases[f"{arch}@{mesh}"] = (arch, "", mesh, False)
+            cases[f"{arch}@{mesh}"] = (arch, "", mesh, False, L)
         cases[f"qwen3_1p7b+xdma@{mesh}"] = ("qwen3_1p7b", "xdma", mesh,
-                                           mesh == "2x2")
+                                           mesh == "2x2", L)
         cases[f"gemma3_27b+xdma@{mesh}"] = ("gemma3_27b", "xdma", mesh,
-                                           mesh == "1x4")
+                                           mesh == "1x4", L)
         cases[f"xlstm_125m+one_head@{mesh}"] = ("xlstm_125m", "one_head",
-                                               mesh, False)
+                                               mesh, False, L)
         cases[f"whisper_small+cross_seq@{mesh}"] = ("whisper_small",
-                                                   "cross_seq", mesh, False)
+                                                   "cross_seq", mesh, False,
+                                                   L)
+    U = SERVE_UNEVEN_LEN
+    cases["qwen3_1p7b+uneven@1x4"] = ("qwen3_1p7b", "", "1x4", False, U)
+    cases["gemma3_27b+xdma+uneven@1x4"] = ("gemma3_27b", "xdma", "1x4",
+                                           True, U)
+    cases["whisper_small+cross_whole@1x4"] = ("whisper_small",
+                                              "cross_whole", "1x4", False, U)
     return cases
 
 
@@ -839,26 +860,6 @@ def serve_inputs(cfg, seed):
     return b, steps
 
 
-def serve_view(mesh, name):
-    """The mesh ``name`` over the (2, 2) world's 4 ranks: the world's own,
-    or the (1, 4) view (a data axis of 1, the model axis over every
-    rank)."""
-    import contextlib
-
-    import torch.distributed as dist
-
-    from repro_torch import sharding as S
-    if name == "2x2":
-        return contextlib.nullcontext(mesh)
-    world = mesh.axes[mesh.axis_names]
-    return S.Mesh((1, 4), mesh.axis_names, mesh.rank, mesh.device,
-                  mesh.backend, mesh.backend_note, {
-                      "data": S.MeshAxis("data", 1, 0),
-                      "model": S.MeshAxis("model", 4, mesh.rank,
-                                          dist.group.WORLD, mesh.backend),
-                      mesh.axis_names: world})
-
-
 def serve_body(mesh, inp):
     """One rank of the (2, 2) world, each case on its mesh (the world's,
     or the (1, 4) view): the case's weights cut to this rank's blocks by
@@ -870,7 +871,8 @@ def serve_body(mesh, inp):
     ``ContinuousBatchingEngine`` with ``mesh=`` (qwen3, jamba), and a
     Mamba layer whose heads do not divide the axis (``SERVE_MAMBA``)
     through a prefill and the decode steps with its cache: the outputs
-    (whole) and this rank's final cache."""
+    (whole) and this rank's final cache.  The continuous engine runs qwen3
+    once more on a pool that evicts and restores (``SERVE_TIGHT``)."""
     import dataclasses
 
     from repro_torch import _pytree, configs
@@ -896,13 +898,14 @@ def serve_body(mesh, inp):
         return {k: torch.from_numpy(v) for k, v in b.items()}
 
     out = {"cases": {}, "bytes": {}, "engines": {}, "mamba": {}}
-    for name, (arch, variant, mname, ragged) in serve_cases().items():
-        with serve_view(mesh, mname) as m:
+    for name, (arch, variant, mname, ragged, L) in serve_cases().items():
+        with S.view(mesh, SERVE_MESHES[mname]) as m:
             cfg, local = sharded(arch, variant, m)
             b, steps = inp["inputs"][(arch, variant)]
-            cache = lm.init_cache(cfg, B, max_len, f32, device="cpu")
+            cache = lm.init_cache(cfg, B, L, f32, device="cpu")
             shapes = [tuple(t.shape) for t in _pytree.leaves(cache)]
-            logits, cache = lm.prefill(cfg, local, tensors(b), cache, mesh=m)
+            logits, cache = lm.prefill(cfg, local, tensors(b), cache, mesh=m,
+                                       max_len=L)
             got = [logits]
             if ragged:
                 cache = dict(cache, pos=torch.tensor(SERVE_RAGGED,
@@ -910,13 +913,13 @@ def serve_body(mesh, inp):
             for t in steps:
                 logits, cache = lm.decode_step(cfg, local,
                                                torch.from_numpy(t), cache,
-                                               mesh=m)
+                                               mesh=m, max_len=L)
                 got.append(logits)
             out["cases"][name] = {"logits": got, "shapes": shapes,
                                   "cache": _pytree.leaves(cache)}
 
     for mname in SERVE_MESHES:
-        with serve_view(mesh, mname) as m:
+        with S.view(mesh, SERVE_MESHES[mname]) as m:
             cfg, local = sharded("qwen3_1p7b", "", m)
             b, steps = inp["inputs"][("qwen3_1p7b", "")]
             cache = lm.init_cache(cfg, B, SERVE_BYTES_LEN, f32, device="cpu")
@@ -946,9 +949,19 @@ def serve_body(mesh, inp):
                     "tokens": toks, "served": rep.tokens,
                     "steps": rep.steps, "pool": rep.pool_stats,
                     "elapsed_s": rep.elapsed_s}
+            cfg, local = sharded("qwen3_1p7b", "", m)
+            rep = ContinuousBatchingEngine(
+                cfg, local, SERVE_TIGHT["max_len"], max_batch=4,
+                cache_dtype=f32, capacity_pages=SERVE_TIGHT["pages"][mname],
+                mesh=m, device="cpu").serve(
+                    trace_stream(cfg, SERVE_STREAM, seed=5))
+            out["engines"][f"tight@{mname}"] = {
+                "served": rep.tokens, "steps": rep.steps,
+                "pool": rep.pool_stats, "elapsed_s": rep.elapsed_s,
+                "preemptions": rep.preemptions}
     from repro_torch.layers import mamba as MB
     for mname in SERVE_MESHES:
-        with serve_view(mesh, mname) as m:
+        with S.view(mesh, SERVE_MESHES[mname]) as m:
             cfg = dataclasses.replace(
                 configs.smoke_config("jamba_1p5_large_398b"), dtype=f32,
                 **SERVE_MAMBA).with_axes(S.Axes(batch=("data",),

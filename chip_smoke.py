@@ -99,7 +99,8 @@ kernel against its plain PyTorch version on the same inputs:
   (the expert-parallel path, 64 experts a rank, the sequence split) first
   held to the single-process emulation of its slice-wise routing, then
   trained, every block moving; (d) jamba-1.5-large cut to one dense Mamba
-  slot, (e) xlstm-125m and (f) whisper-small whole (1500 encoder frames),
+  slot, (e) xlstm-125m cut to one period (4 of its 12 layers) and (f)
+  whisper-small cut to 4 + 4 of its 12 + 12 layers (1500 encoder frames),
   each held to the single-process step ((e) by its one step: see
   ``FIRST_STEP_HELD``), with ms a step, peak memory a rank and collective
   bytes; (b) ``launch/train.py --ranks 4
@@ -107,13 +108,15 @@ kernel against its plain PyTorch version on the same inputs:
   bitwise, its whole-leaf checkpoint restored on the card bitwise;
 * sharded serving (phase 21): 4 gloo ranks on the card as a (2, 2)
   ("data", "model") mesh or a (1, 4) view of it, f32, TF32 off: (a)
-  qwen2-0.5b whole on (1, 4), B 4 x 512 prompts, 8 steps (the
+  qwen2-0.5b cut to 12 of its 24 layers on (1, 4), B 4 x 512 prompts, 8
+  steps (the
   sequence-parallel prefill, the cache split by sequence); (b) phi4-mini
   at full width cut to 4 of 32 layers on (2, 2) with the XDMA cache (KV
   heads split, the batch over the data axis), then
   ``ContinuousBatchingEngine`` with 4 requests on a pool that evicts and
-  restores the youngest requests' pages (kernel 3); (c) whisper-small and
-  xlstm-125m whole on (1, 4) (the cross and recurrent caches).  Each
+  restores the youngest requests' pages (kernel 3); (c) whisper-small
+  whole and xlstm-125m cut to one period on (1, 4) (the cross and
+  recurrent caches).  Each
   part's logits, teacher-forced with the single-process tokens, within
   twice the gap one ulp on every weight opens in the single-process run
   of the single-process port on the card; ``ServingEngine(mesh=)``'s and
@@ -2284,8 +2287,10 @@ def phase20_slot_configs():
     out too, which (a) covers at full width: with it, 2.84 B parameters and
     a 34.0 GB state, the single-process step it is held to holds the old
     and the new state and the gradients at once, about 91 GB, and the four
-    ranks' steps ran the card out of memory); xlstm-125m and
-    whisper-small whole."""
+    ranks' steps ran the card out of memory); xlstm-125m cut to one period
+    (3 mLSTM and 1 sLSTM layer of its 12) and whisper-small to 4 + 4 of
+    its 12 + 12 layers (with phase 22 the run needs the time these cuts
+    save)."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.configs.base import MAMBA, LayerSpec
@@ -2297,8 +2302,9 @@ def phase20_slot_configs():
             configs.get_config("jamba_1p5_large_398b"),
             period=(LayerSpec(MAMBA),), n_periods=1, dtype=f32),
         "xlstm": dataclasses.replace(configs.get_config("xlstm_125m"),
-                                     dtype=f32),
+                                     n_periods=1, dtype=f32),
         "whisper": dataclasses.replace(configs.get_config("whisper_small"),
+                                       n_periods=4, encoder_layers=4,
                                        dtype=f32)}
 
 
@@ -2759,10 +2765,10 @@ SERVE_MESH = (2, 2)             # the world; (1, 4) is a view of its 4 ranks
 # part: (arch, periods (None: whole), mesh, B, prompt tokens, decode steps,
 # xdma_cache)
 SERVE_PARTS = {
-    "a": ("qwen2_0p5b", None, (1, 4), 4, 512, 8, False),
+    "a": ("qwen2_0p5b", 12, (1, 4), 4, 512, 8, False),
     "b": ("phi4_mini_3p8b", 4, (2, 2), 4, 256, 8, True),
     "c_whisper": ("whisper_small", None, (1, 4), 4, 64, 8, True),
-    "c_xlstm": ("xlstm_125m", None, (1, 4), 8, 256, 8, False),
+    "c_xlstm": ("xlstm_125m", 1, (1, 4), 8, 256, 8, False),
 }
 # (b)'s continuous batching: 4 requests arriving together, ragged prompts,
 # a pool of 360 pages a rank (the prompts take 352 of a rank's blocks, 2
@@ -2775,9 +2781,9 @@ SERVE_CB = dict(trace=((0.0, 64, 6), (0.0, 128, 6), (0.0, 96, 6),
 
 def phase21_configs():
     """``{part: (cfg, mesh shape, B, prompt, steps)}``, f32: (a) qwen2-0.5b
-    whole, (b) phi4-mini cut to 4 of its 32 layers with the XDMA cache,
-    (c) whisper-small (the XDMA self cache, the cross cache bshd) and
-    xlstm-125m whole."""
+    cut to 12 of its 24 layers, (b) phi4-mini cut to 4 of its 32 layers
+    with the XDMA cache, (c) whisper-small whole (the XDMA self cache, the
+    cross cache bshd) and xlstm-125m cut to one period (4 of 12 layers)."""
     import dataclasses
     from repro_torch import configs
     out = {}
@@ -2868,19 +2874,39 @@ def tokens_agree(got, want, margin, bound, what):
     return ties
 
 
-def one_ulp(params, seed):
+def one_ulp(params, seed, chunk=1 << 26):
     """Every float weight moved one ulp up or down at random (a seeded
-    coin a element): how far rounding alone moves a run."""
+    coin a element): how far rounding alone moves a run.  A bf16 weight
+    moves by its bits (``nextafter`` has no bf16 kernel), ``chunk``
+    elements at a time (a 27 B model's embedding is 1.4 G elements): its
+    magnitude one step away from zero or toward it, zero up and the
+    largest finite magnitude down."""
     from repro_torch import _pytree
     gen = None
     leaves = []
     for t in _pytree.leaves(params):
         if gen is None:
             gen = torch.Generator(device=t.device).manual_seed(seed)
-        up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
-        inf = torch.full((), math.inf, dtype=t.dtype, device=t.device)
-        leaves.append(torch.where(up, torch.nextafter(t, inf),
-                                  torch.nextafter(t, -inf)))
+        if t.dtype != torch.bfloat16:
+            up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+            inf = torch.full((), math.inf, dtype=t.dtype, device=t.device)
+            leaves.append(torch.where(up, torch.nextafter(t, inf),
+                                      torch.nextafter(t, -inf)))
+            continue
+        flat = t.reshape(-1)
+        out = torch.empty_like(flat)
+        one = torch.ones((), dtype=torch.int32, device=t.device)
+        for s in range(0, flat.numel(), chunk):
+            x = flat[s:s + chunk]
+            up = torch.rand(x.shape, generator=gen, device=t.device) < 0.5
+            bits = x.view(torch.int16).to(torch.int32)
+            mag, sign = bits & 0x7FFF, bits & 0x8000
+            step = torch.where(up | (mag == 0), one, -one)
+            step = torch.where(mag + step >= 0x7F80, -one, step)
+            v = (mag + step) | sign
+            out[s:s + chunk] = torch.where(v >= 0x8000, v - 0x10000, v).to(
+                torch.int16).view(torch.bfloat16)
+        leaves.append(out.view(t.shape))
     return _pytree.unflatten(params, leaves)
 
 
@@ -3053,11 +3079,11 @@ def phase21_rank(mesh, card, refs):
 def phase21(card, device="cuda"):
     """Phase 21: sharded serving.  The single-process references here, then
     ``phase21_rank`` in a world of 4 gloo ranks on the card: (a) qwen2-0.5b
-    whole on (1, 4) (sequence-parallel prefill, the cache split by
+    (12 layers) on (1, 4) (sequence-parallel prefill, the cache split by
     sequence), (b) phi4-mini cut to 4 layers on (2, 2) with the XDMA cache
     (KV heads split, the batch over the data axis; then the continuous
-    engine), (c) whisper-small and xlstm-125m whole on (1, 4) (the cross
-    and recurrent caches).  Every rank's tokens are held to the
+    engine), (c) whisper-small whole and xlstm-125m (4 layers) on (1, 4)
+    (the cross and recurrent caches).  Every rank's tokens are held to the
     single-process tokens under the tie rule."""
     import tempfile
     from repro_torch import sharding as S
@@ -3139,6 +3165,556 @@ def phase21(card, device="cuda"):
         f" s with 4 process starts on {card}")
     times.update(ref_s=ref_s, world_s=world_s)
     return times
+
+
+# -- phase 22: the production mesh's last regimes and the dry run -------------
+POD_MESH = (2, 2, 1)           # ("pod", "data", "model"): the batch over a pair
+POD_NAMES = ("pod", "data", "model")
+POD_TRAIN = dict(B=4, S=512, micro=1, steps=2)
+# (b): prefill_32k / decode_32k's cache on 4 prompts of 512 tokens
+POD_SERVE = dict(B=4, S=512, max_len=32768, steps=4)
+LONG_ARCH = "gemma3_27b"       # (c): one period (5 local + 1 global layer)
+LONG_SLOTS = 1 << 19           # long_500k's 524288 cache slots
+LONG_POS = 500_000             # the cache's filled length (a seq rank 1 slot)
+# (d): the dry run's cells, each in a process of its own started after the
+# build; (arch, shape, --multi-pod)
+DRY_CELLS = (("qwen3-1.7b", "train_4k", True),
+             ("gemma3-27b", "long_500k", False))
+
+
+def phase22_configs():
+    """(a) and (b): qwen3-1.7b at full width cut to 2 of its 28 layers, in
+    f32; (c): gemma3-27b at full width cut to one period of its layers (5
+    local and 1 global) and its tail of 2, 8 of 62, its weights and cache
+    in bf16."""
+    import dataclasses
+    from repro_torch import configs
+    pod = dataclasses.replace(configs.get_config(TP_ARCH),
+                              n_periods=TP_PERIODS, dtype=torch.float32)
+    long = dataclasses.replace(configs.get_config(LONG_ARCH), n_periods=1,
+                               dtype=torch.bfloat16)
+    return pod, long
+
+
+def start_dryrun():
+    """(d): one ``python -m repro_torch.launch.dryrun`` a cell, started
+    now, read in phase 22: meta tensors on the host, no card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, multi_pod in DRY_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multi-pod"] if multi_pod
+                                          else [])
+        procs.append(((arch, shape, multi_pod), time.perf_counter(),
+                      subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_dryrun(procs, card):
+    """(d)'s records: every field but XLA's temp and peak bytes set."""
+    out = {}
+    for (arch, shape, multi_pod), t0, proc in procs:
+        stdout, stderr = proc.communicate(timeout=900)
+        check(proc.returncode == 0,
+              f"dry run {arch} {shape}: exit {proc.returncode}\n{stderr}")
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        nulls = sorted(k for k, v in rec.items() if v is None)
+        nulls += sorted(k for k, v in rec["bytes_per_device"].items()
+                        if v is None and k not in ("temp", "peak"))
+        check(not nulls, f"dry run {arch} {shape}: null fields {nulls}")
+        check(rec["flops_per_device"] > 0
+              and len(rec["roofline_s"]) == 3,
+              f"dry run {arch} {shape}: {rec}")
+        log(f"[dry run] (d) {json.dumps(rec)}")
+        log(f"[dry run] (d) {arch} {shape} on {rec['mesh']}: rank 0 of "
+            f"{rec['n_devices']} counted in {rec['count_s']} s (a process "
+            f"of its own, {time.perf_counter() - t0:.1f} s after it "
+            f"started); bounds against the H100 data sheet, counts not "
+            f"timings; the run on {card}")
+        out[f"{arch}/{shape}/{rec['mesh']}"] = rec
+    return out
+
+
+def long_cache(cfg, dev, mesh=None):
+    """(c)'s cache: every leaf of the whole ``LONG_SLOTS`` cache drawn from
+    a seed on ``dev``, one at a time (bf16 K / V; ``pos`` at
+    ``LONG_POS``); with ``mesh`` each leaf's block by the fitted cache
+    specs, the whole leaf freed before the next is drawn."""
+    from repro_torch import _pytree
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    whole = lm._whole_cache(cfg, 1, LONG_SLOTS, torch.bfloat16,
+                            torch.device("meta"))
+    specs = (None if mesh is None else M.spec_leaves(
+        M.serving_cache_specs(cfg, whole, mesh), whole))
+    out = []
+    for i, t in enumerate(_pytree.leaves(whole)):
+        if t.dim() == 0:
+            out.append(torch.tensor(LONG_POS, dtype=torch.int32))
+            continue
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+        x = torch.randn(t.shape, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        if specs is not None:
+            x = M.shard_tree([x], [specs[i]], mesh)[0]
+        out.append(x)
+        del x
+    return _pytree.unflatten(whole, out)
+
+
+def long_token(cfg, dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 99)
+    return torch.randint(0, cfg.vocab, (1, 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def phase22_reference(card, device):
+    """The single-process port on the card, TF32 off: (b) the greedy
+    tokens of qwen3-1.7b (2 layers, f32) over B 4 x 512 prompts into a
+    cache of 32768 slots, their logits and margins and the one-ulp bound;
+    (c) gemma3-27b's one period in bf16 decoding one token on the whole
+    seeded cache of ``LONG_SLOTS`` slots, its logits and the one-ulp
+    bound, with the weights' and the cache's bytes."""
+    from repro_torch import _pytree
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import make_serve_step
+    dev = torch.device(device)
+    pod, long = phase22_configs()
+    undo = no_tf32()
+    refs = {}
+    try:
+        P = POD_SERVE
+        n = P["steps"] + 1
+        params = lm.init_params(pod, SEED, device=dev)
+        batch = serve_batch(pod, dev, P["B"], P["S"], "a")
+        toks, lgs, pre_ms, step_ms, _, _ = greedy_run(pod, params, batch, n,
+                                                      P["max_len"])
+        moved = one_ulp(params, SEED)
+        _, lgs_ulp, _, _, _, _ = greedy_run(pod, moved, batch, n,
+                                            P["max_len"], forced=toks)
+        del moved, params
+        gap = float((lgs_ulp - lgs).abs().max())
+        refs["b"] = {"tokens": toks.cpu(), "logits": lgs.cpu(),
+                     "margin": top2_margin(lgs).cpu(),
+                     "scale": float(lgs.abs().max()), "ulp_gap": gap,
+                     "bound": SERVE_ULP_TIMES * gap, "prefill_ms": pre_ms,
+                     "step_ms": step_ms}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # drawn on the card, kept f32 on the host, each leaf then put on
+        # the card in bf16: the card never holds the f32 tree
+        params = lm.init_params(long, SEED, device=dev, store="cpu")
+        params = _pytree.unflatten(params, [
+            p.to(dev, torch.bfloat16) if p.is_floating_point()
+            else p.to(dev) for p in _pytree.leaves(params)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        cache = long_cache(long, dev)
+        tok = long_token(long, dev)
+        serve = make_serve_step(long, max_len=LONG_SLOTS)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, _ = serve(params, cache, tok)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        moved = one_ulp(params, SEED)
+        logits_ulp, _ = serve(moved, cache, tok)
+        del moved
+        lg = logits[:, -1].float()
+        gap = float((logits_ulp[:, -1].float() - lg).abs().max())
+        global_k = cache["blocks"][-1]["k"]
+        refs["c"] = {"logits": lg.cpu(), "scale": float(lg.abs().max()),
+                     "ulp_gap": gap, "bound": SERVE_ULP_TIMES * gap,
+                     "ms": ms, "step_peak_bytes": peak,
+                     "param_bytes": tree_bytes(params),
+                     "cache_bytes": tree_bytes(cache),
+                     "global_cache_bytes": 2 * global_k.numel()
+                     * global_k.element_size()}
+        del params, cache, logits, logits_ulp
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        undo()
+    return refs
+
+
+def phase22_rank(mesh, card, refs):
+    """One rank of phase 22 in a (2, 2, 1) ("pod", "data", "model") world:
+    (a) the sharded f32 step with the batch and FSDP over ("pod", "data")
+    (rank 0 then runs the single-process step and holds the sharded one to
+    it); (b) prefill and decode with the batch over the pair, teacher-forced
+    for the logits, then ``ServingEngine(mesh=)``; (c) on the ranks as a
+    (2, 2) ("data", "model") mesh, ``seq="data"``: gemma3-27b's one period
+    decoding one token on its block of the seeded 524288-slot cache."""
+    import dataclasses
+
+    from repro_torch import _pytree
+    from repro_torch import sharding as S
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import _build, agu
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import make_serve_step
+    from repro_torch.train import step as T
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)             # four ranks share the host's cores
+    dev, r = mesh.device, mesh.rank
+    pod, long = phase22_configs()
+    undo = no_tf32()
+    out = {}
+    try:
+        # (a) the multi-pod step
+        tag = f"[multi-pod training rank {r}]"
+        A = POD_TRAIN
+        shape = ShapeConfig("pod", A["S"], A["B"], "train", A["micro"])
+        opt_cfg = AdamWConfig(warmup_steps=0)
+        cfg = dataclasses.replace(pod.with_axes(M.axes_for(mesh, shape)),
+                                  fsdp=True)
+        check(cfg.axes.batch == ("pod", "data"), f"{tag} axes {cfg.axes}")
+        specs, shapes = M.state_specs(cfg, mesh)
+        pairs = sorted({str(e) for sp in M.spec_leaves(
+            specs["params"], shapes["params"]) for e in sp
+            if isinstance(e, tuple)})
+        check(pairs == [str(("pod", "data"))], f"{tag} FSDP over {pairs}")
+        ds = SyntheticLM(vocab=cfg.vocab, seq_len=A["S"], global_batch=A["B"],
+                         seed=SEED)
+        batches = [batch_on(ds.batch_at(i), dev) for i in range(A["steps"])]
+        t0 = time.perf_counter()
+        state = T.init_state(cfg, SEED, device=dev, mesh=mesh)
+        sync(dev)
+        a = {"init_s": time.perf_counter() - t0,
+             "local_state_bytes": tree_bytes(state),
+             "state_bytes": tree_bytes(shapes)}
+        step = T.make_train_step(cfg, shape, opt_cfg, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        before = S.collective_stats()
+        a["ms"], a["losses"], a["grad_norms"] = [], [], []
+        for b in batches:
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            a["losses"].append(float(m["loss"]))
+            a["grad_norms"].append(float(m["grad_norm"]))
+            sync(dev)
+            a["ms"].append((time.perf_counter() - t0) * 1e3)
+        a["peak_bytes"] = torch.cuda.max_memory_allocated()
+        after = S.collective_stats()
+        a["bytes_per_step"] = {
+            k[len("bytes:"):]: (v - before.get(k, 0)) // A["steps"]
+            for k, v in after.items() if k.startswith("bytes:")
+            and v != before.get(k, 0)}
+        whole = M.gather_tree(state, specs, mesh, device="cpu")
+        del state
+        if r == 0:
+            ref_state = T.init_state(pod, SEED, device=dev)
+            start = ref_state["params"]
+            ref_step = T.make_train_step(pod, shape, opt_cfg)
+            a["ref_losses"], a["ref_grad_norms"] = [], []
+            for b in batches:
+                ref_state, rm = ref_step(ref_state, b)
+                a["ref_losses"].append(float(rm["loss"]))
+                a["ref_grad_norms"].append(float(rm["grad_norm"]))
+            trip = list(zip(_pytree.leaves(whole["params"]),
+                            _pytree.leaves(ref_state["params"]),
+                            _pytree.leaves(start)))
+            a["param_err"] = max(max_abs_err(x.to(dev), y)
+                                 for x, y, _ in trip)
+            a["min_move"] = min(max_abs_err(y, p0) for _, y, p0 in trip)
+            del ref_state, start, trip
+            for x, y in zip(a["losses"], a["ref_losses"]):
+                check(abs(x - y) <= 1e-5 * abs(y),
+                      f"{tag} sharded loss {x} vs single-process {y}")
+            for x, y in zip(a["grad_norms"], a["ref_grad_norms"]):
+                check(abs(x - y) <= 1e-5 * y,
+                      f"{tag} gradient norm {x} vs single-process {y}")
+            check(a["min_move"] > 3e-4,
+                  f"{tag} a leaf moved only {a['min_move']} in the steps")
+            check(a["param_err"] < 1e-4,
+                  f"{tag} gathered parameters {a['param_err']} off the "
+                  "single-process step's (bound 1e-4)")
+        del whole
+        out["a"] = a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) multi-pod serving
+        tag = f"[multi-pod serving rank {r}]"
+        P, ref = POD_SERVE, refs["b"]
+        n = P["steps"] + 1
+        cfg = pod.with_axes(S.Axes(batch=("pod", "data"), model="model"))
+        sp, shapes = M.serving_specs(cfg, mesh)
+        local = M.shard_tree(lm.init_params(cfg, SEED, device=dev,
+                                            store="cpu"), sp, mesh,
+                             device=dev)
+        batch = serve_batch(cfg, dev, P["B"], P["S"], "a")
+        toks, lgs, pre_ms, step_ms, cache, grown = greedy_run(
+            cfg, local, batch, n, P["max_len"], mesh=mesh,
+            forced=ref["tokens"])
+        err = float((lgs - ref["logits"].to(dev)).abs().max())
+        check(bool(torch.isfinite(lgs).all()), f"{tag} non-finite logits")
+        check(err <= ref["bound"],
+              f"{tag} logits {err} off the single-process run (bound "
+              f"{ref['bound']}: {SERVE_ULP_TIMES} x the one-ulp gap "
+              f"{ref['ulp_gap']})")
+        b = {"err": err, "prefill_ms": pre_ms, "step_ms": step_ms,
+             "cache_bytes": tree_bytes(cache),
+             "param_bytes": tree_bytes(local),
+             "coll_bytes_per_step": {
+                 k[len("bytes:"):]: v // P["steps"] for k, v in grown.items()
+                 if k.startswith("bytes:")}}
+        del cache
+        eng = ServingEngine(cfg, local, P["max_len"],
+                            cache_dtype=torch.float32, mesh=mesh, device=dev)
+        _build.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        b["tokens"] = eng.generate(batch, n).cpu()
+        sync(dev)
+        b["generate_ms"] = (time.perf_counter() - t0) * 1e3
+        b["launches"] = agu.RELAYOUT.launches
+        check(agu.RELAYOUT.launches > 0,
+              f"{tag} kernel 1 did not launch on the plane")
+        del eng, local
+        out["b"] = b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) long_500k: the context-parallel cache on the (2, 2) view
+        tag = f"[long context rank {r}]"
+        ref = refs["c"]
+        view = S.regroup(mesh, {"data": "pod", "model": "data",
+                                ("data", "model"): ("pod", "data")}, (2, 2))
+        with view as m:
+            cfg = long.with_axes(S.Axes(batch=(), model="model", seq="data"))
+            sp, shapes = M.serving_specs(cfg, m)
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            # the ranks draw the whole f32 weights in turn (one rank's at a
+            # time on the card), each keeping its bf16 blocks
+            for turn in range(mesh.world_size):
+                if turn == r:
+                    whole = lm.init_params(cfg, SEED, device=dev)
+                    local = M.shard_tree(whole, sp, m, device=dev)
+                    del whole
+                    local = _pytree.unflatten(local, [
+                        p.to(torch.bfloat16) if p.is_floating_point() else p
+                        for p in _pytree.leaves(local)])
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            cache = long_cache(cfg, dev, m)
+            sync(dev)
+            c = {"init_s": time.perf_counter() - t0,
+                 "init_peak_bytes": torch.cuda.max_memory_allocated(),
+                 "param_bytes": tree_bytes(local),
+                 "cache_bytes": tree_bytes(cache),
+                 "global_k_spec": M.serving_cache_specs(
+                     cfg, lm._whole_cache(cfg, 1, LONG_SLOTS, torch.bfloat16,
+                                          torch.device("meta")),
+                     m)["blocks"][-1]["k"]}
+            serve = make_serve_step(cfg, mesh=m, max_len=LONG_SLOTS)
+            tok = long_token(cfg, dev)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = S.collective_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            logits, new = serve(local, cache, tok)
+            sync(dev)
+            c["ms"] = (time.perf_counter() - t0) * 1e3
+            c["step_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            after = S.collective_stats()
+            c["coll_bytes"] = {k[len("bytes:"):]: v - before.get(k, 0)
+                               for k, v in after.items()
+                               if k.startswith("bytes:")
+                               and v != before.get(k, 0)}
+            lg = logits[:, -1].float()
+            c["err"] = float((lg - ref["logits"].to(dev)).abs().max())
+            check(bool(torch.isfinite(lg).all()), f"{tag} non-finite logits")
+            check(c["err"] <= ref["bound"],
+                  f"{tag} logits {c['err']} off the single-process decode "
+                  f"(bound {ref['bound']}: {SERVE_ULP_TIMES} x the one-ulp "
+                  f"gap {ref['ulp_gap']})")
+            check(int(new["pos"]) == LONG_POS + 1, f"{tag} pos {new['pos']}")
+            del local, cache, new, logits
+        out["c"] = c
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        undo()
+    return out
+
+
+def rank_block_kernels(card):
+    """The kernels on a rank's blocks, timed in this process on the same
+    geometry: kernel 1 on one leaf of phase 22 (b)'s cache (1 row x 32768
+    slots x 8 KV heads x 128, f32, as its (32768, 1024) matrix) through the
+    KV plane's store and load, and kernel 3 on one of phase 21 (b)'s pool
+    pages (32 x 128 f32) through its evict and restore wire (Compress /
+    Decompress over blocks of 8 rows).  Each round trip bitwise its input
+    and each leg bitwise its plain version; the kernel's time beside the
+    plain version's, a library yardstick's (the tile permutes) and the
+    bound (each leg reads and writes the matrix once)."""
+    from repro_torch.core import layouts as L
+    from repro_torch.core import xdma
+    from repro_torch.core.descriptor import page_descriptor
+    from repro_torch.kernels import _build, agu, datapath
+    from repro_torch.serving.transfer import kv_plane_descs
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def plain(x, d):
+        return datapath.plain(x, d.pre + d.post, d.src.layout, d.dst.layout)
+
+    def untiled_lib(x, tile):
+        R, C = x.shape
+        tr, tc = tile
+        tiled = x.view(R // tr, tr, C // tc, tc).permute(0, 2, 1,
+                                                         3).contiguous()
+        return tiled.permute(0, 2, 1, 3).contiguous().view(R, C)
+
+    out = {}
+    cases = (("plane", "agu_relayout", agu.RELAYOUT,
+              torch.randn(32768, 1024, generator=gen, device=dev),
+              kv_plane_descs(32768, 1024, "float32")),
+             ("page", "block_datapath", datapath.BLOCK,
+              torch.randn(32, 128, generator=gen, device=dev),
+              (page_descriptor(32, 128, "float32", direction="store",
+                               wire_compress_rows=8),
+               page_descriptor(32, 128, "float32", direction="load",
+                               wire_compress_rows=8))))
+    for name, kernel, counter, x, (store, load) in cases:
+        lay = store.dst.layout
+
+        def trip(x=x, store=store, load=load):
+            return xdma.transfer(xdma.transfer(x, store), load)
+        _build.reset_launches()
+        at_rest = xdma.transfer(x, store)
+        back = xdma.transfer(at_rest, load)
+        torch.cuda.synchronize()
+        check(counter.launches > 0,
+              f"{name}: kernel {kernel} did not launch on the round trip")
+        launches = counter.launches
+        assert_bitwise(at_rest, plain(x, store), f"{name}: the store")
+        assert_bitwise(back, plain(at_rest, load), f"{name}: the load")
+        assert_bitwise(back, x, f"{name}: the round trip")
+        assert_bitwise(untiled_lib(x, lay.tile), x, f"{name}: the library")
+        out[name] = {
+            "kernel": kernel, "launches": launches,
+            "shape": f"{tuple(x.shape)} {x.dtype}, MN <-> {lay.name}",
+            "ms": gpu_ms(trip),
+            "plain_ms": gpu_ms(lambda x=x, store=store, load=load: plain(
+                plain(x, store), load)),
+            "library_ms": gpu_ms(lambda x=x, t=lay.tile: untiled_lib(x, t)),
+            "bound_ms": bound_ms(4 * x.numel() * x.element_size())}
+        r = out[name]
+        log(f"[rank blocks] kernel {kernel} on {name} ({r['shape']}, "
+            f"{launches} launches a round trip): bitwise the plain version "
+            f"each way; {r['ms']:.4f} ms a round trip, plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.6f} on {card}")
+    return out
+
+
+def phase22(card, dry, device="cuda"):
+    """Phase 22: the references here, then ``phase22_rank`` in a world of
+    4 gloo ranks on the card as ("pod", "data", "model") = (2, 2, 1):
+    (a) multi-pod training, (b) multi-pod serving, (c) the single-pod
+    long_500k decode on the context-parallel cache; then (d) the dry run's
+    records (``dry``: the processes ``start_dryrun`` started)."""
+    import tempfile
+    from repro_torch import sharding as S
+
+    pod, long = phase22_configs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs = phase22_reference(card, device)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with expandable_segments(), \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-pod-") as work:
+        world = S.run_spmd(phase22_rank, POD_MESH, POD_NAMES,
+                           args=(card, refs), device=device, workdir=work)
+    world_s = time.perf_counter() - t0
+    a = [rk["a"] for rk in world]
+    for rk in a[1:]:
+        check(rk["losses"] == a[0]["losses"],
+              "multi-pod training: the ranks' losses differ")
+    log(f"[multi-pod training] (a) {pod.name}, {pod.n_layers} layers, f32, "
+        f"mesh {POD_MESH} over {POD_NAMES}, the batch and FSDP over (pod, "
+        f"data), B {POD_TRAIN['B']} x {POD_TRAIN['S']}: "
+        f"{[max(rk['ms'][i] for rk in a) for i in range(POD_TRAIN['steps'])]}"
+        f" ms a step (slowest rank); losses {a[0]['losses']} (single-process "
+        f"{a[0]['ref_losses']}, bound 1e-5 relative), gradient norms "
+        f"{a[0]['grad_norms']} (single-process {a[0]['ref_grad_norms']}, "
+        f"bound 1e-5 relative), parameters {a[0]['param_err']} off (bound "
+        f"1e-4; each leaf moved at least {a[0]['min_move']}); a rank's "
+        f"state {[rk['local_state_bytes'] for rk in a]} of "
+        f"{a[0]['state_bytes']} bytes, peak allocated in the steps "
+        f"{[rk['peak_bytes'] / 1e9 for rk in a]} GB; rank 0's collective "
+        f"bytes a step {a[0]['bytes_per_step']}; init "
+        f"{[round(rk['init_s'], 1) for rk in a]} s on {card}")
+    ref, b = refs["b"], [rk["b"] for rk in world]
+    bound = 2 * ref["bound"]
+    ties = [tokens_agree(p["tokens"], ref["tokens"], ref["margin"], bound,
+                         f"multi-pod serving rank {r}")
+            for r, p in enumerate(b)]
+    log(f"[multi-pod serving] (b) {pod.name}, {pod.n_layers} layers, f32, "
+        f"mesh {POD_MESH}, the batch over (pod, data), B {POD_SERVE['B']} x "
+        f"{POD_SERVE['S']} into {POD_SERVE['max_len']} slots + "
+        f"{POD_SERVE['steps']} steps: logits {[p['err'] for p in b]} off "
+        f"the single-process run by rank (max|logit| {ref['scale']}; bound "
+        f"{ref['bound']}: {SERVE_ULP_TIMES} x the one-ulp gap "
+        f"{ref['ulp_gap']}); ServingEngine tokens equal the single-process "
+        f"tokens in every rank (divergences under the tie rule: {ties}); "
+        f"prefill {[p['prefill_ms'] for p in b]} ms by rank (single-process "
+        f"{ref['prefill_ms']:.1f}), decode steps {[p['step_ms'] for p in b]}"
+        f" ms (single-process {ref['step_ms']}), generate with the plane "
+        f"{[p['generate_ms'] for p in b]} ms, kernel 1 "
+        f"{[p['launches'] for p in b]} launches; a rank's cache "
+        f"{b[0]['cache_bytes']} bytes, weights {b[0]['param_bytes']} bytes;"
+        f" rank 0's collective bytes a decode step "
+        f"{b[0]['coll_bytes_per_step']} on {card}")
+    ref, c = refs["c"], [rk["c"] for rk in world]
+    log(f"[long context] (c) {long.name}, one period and the tail "
+        f"({long.n_layers} layers), bf16, mesh (2, 2) over (data, model), seq=data, the "
+        f"global layer's cache {LONG_SLOTS} slots ({ref['global_cache_bytes']}"
+        f" bytes whole, K and V; spec {c[0]['global_k_spec']}), len "
+        f"{LONG_POS}: one decode step {[p['ms'] for p in c]} ms by rank "
+        f"(single-process {ref['ms']:.1f} ms, its step's peak "
+        f"{ref['step_peak_bytes'] / 1e9:.3f} GB above the state), logits "
+        f"{[p['err'] for p in c]} off the single-process decode (max|logit|"
+        f" {ref['scale']}; bound {ref['bound']}: {SERVE_ULP_TIMES} x the "
+        f"one-ulp gap {ref['ulp_gap']}); weights {ref['param_bytes']} bytes"
+        f" whole, {[p['param_bytes'] for p in c]} a rank; the cache "
+        f"{ref['cache_bytes']} bytes whole, {[p['cache_bytes'] for p in c]}"
+        f" a rank; peak allocated a rank in the init "
+        f"{[p['init_peak_bytes'] / 1e9 for p in c]} GB, the step's above the "
+        f"state {[p['step_peak_bytes'] / 1e9 for p in c]} GB; rank 0's "
+        f"collective bytes {c[0]['coll_bytes']}; init "
+        f"{[round(p['init_s'], 1) for p in c]} s on {card}")
+    log(f"[phase 22] references {ref_s:.1f} s, the world {world_s:.1f} s "
+        f"with 4 process starts on {card}")
+    blocks = rank_block_kernels(card)
+    records = finish_dryrun(dry, card)
+    return {"ref_s": ref_s, "world_s": world_s, "rank_blocks": blocks,
+            "a": a, "b": [
+        {k: v for k, v in p.items() if k != "tokens"} for p in b], "c": c,
+        "refs": {k: {x: y for x, y in v.items()
+                     if x not in ("tokens", "logits", "margin")}
+                 for k, v in refs.items()}, "dry_run": records}
 
 
 def main():
@@ -3270,6 +3846,8 @@ def main():
     pool.shutdown()
     log(f"[build] phase 20 (c)-(f) joined {time.perf_counter() - t0:.1f} s "
         f"after the build started")
+    # phase 22 (d) counts on the host while the card runs phases 2-21
+    dry = start_dryrun()
 
     rows = {}          # kernel name -> JSON row
     pair_times = []
@@ -4333,6 +4911,9 @@ def main():
     # -- phase 21: sharded serving, 4 ranks on the one card ----------------------
     serve_times = phase21(card)
 
+    # -- phase 22: the production mesh's last regimes, 4 ranks on the card ------
+    pod_times = phase22(card, dry)
+
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
     for name in order:
@@ -4364,7 +4945,8 @@ def main():
                    "moe_ep": {"ms": moe_ep, "ranks": ep, "phase_s": ep_s},
                    "training": training, "dp_training": dp_times,
                    "sharded_training": tp_times,
-                   "sharded_serving": serve_times},
+                   "sharded_serving": serve_times,
+                   "production_regimes": pod_times},
                   f, indent=1)
     print(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                   for n in order]}), flush=True)

@@ -33,7 +33,8 @@ CUDA tensor, this module copies it to the host and back itself, and counts
 the bytes of both copies in the ``wire`` telemetry bank
 (``host_hop_bytes``), beside each collective's calls and payload bytes by
 op and backend.  NCCL moves CUDA tensors in place; a size-1 local axis
-(:func:`repro_torch.sharding.local_axis`) moves nothing.
+(:func:`repro_torch.sharding.local_axis`) moves nothing, and an axis of a
+:func:`repro_torch.sharding.meta_mesh` counts and moves nothing.
 """
 from __future__ import annotations
 
@@ -86,6 +87,8 @@ def _exchange(flat: torch.Tensor, send, recv, ax: S.MeshAxis) -> torch.Tensor:
     it, concatenated in rank order."""
     flat = flat[:sum(send)]
     _count("all_to_all", ax, flat.numel())
+    if S.on_meta(ax, flat):
+        return flat.new_empty(sum(recv))
     if ax.group is None:                 # size-1 axis: the bytes stay
         return flat[:recv[0]].clone()
     import torch.distributed as dist
@@ -98,6 +101,8 @@ def _exchange(flat: torch.Tensor, send, recv, ax: S.MeshAxis) -> torch.Tensor:
 
 def _all_reduce(t: torch.Tensor, ax: S.MeshAxis) -> torch.Tensor:
     _count("all_reduce", ax, t.numel() * t.element_size())
+    if S.on_meta(ax, t):
+        return torch.empty_like(t)
     if ax.group is None:
         return t.clone()
     import torch.distributed as dist
@@ -113,6 +118,8 @@ def _all_gather(t: torch.Tensor, ax: S.MeshAxis) -> torch.Tensor:
     along dim 0 in rank order."""
     b = _as_bytes(t)
     _count("all_gather", ax, b.numel())
+    if S.on_meta(ax, t):
+        return t.new_empty((ax.size * t.shape[0],) + tuple(t.shape[1:]))
     if ax.group is None:
         return t.clone()
     import torch.distributed as dist

@@ -1,29 +1,45 @@
-"""Dry-run: count one step's work for every (arch x input-shape) cell,
-with no allocation (PyTorch port: the twin of ``repro.launch.dryrun``).
+"""Dry-run: count one rank's step for every (arch x input-shape x mesh)
+cell on the production mesh, with no allocation (PyTorch port: the twin of
+``repro.launch.dryrun``).
 
 For each cell this:
-  1. builds the state (train) or the bf16 weights and the decode cache
-     (prefill, decode) on the ``meta`` device — shapes and dtypes only;
-  2. runs the step function (``make_train_step``, ``lm.prefill``,
-     ``make_serve_step``) once on meta tensors under
-     ``torch.utils.flop_counter.FlopCounterMode``, which counts the matrix
-     products the step issues (block rematerialisation included);
-  3. sums the state's bytes from the specs, and reports the two roofline
-     terms of one card against NVIDIA's H100 SXM data sheet (989 TFLOP/s
-     dense bf16, 3.35 TB/s HBM3), named as such.
+  1. builds the production mesh's shape (``make_production_mesh(...,
+     check_world=False)``: (16, 16) data x model, or (2, 16, 16) pod x
+     data x model with ``--multi-pod``) and sets ``cfg.axes`` by
+     ``axes_for`` (FSDP for ``train``), as the reference's ``lower_cell``
+     does;
+  2. plays rank 0 of that mesh in this one process: the mesh's axes, pairs
+     and world are registered on the ``meta`` backend
+     (:func:`repro_torch.sharding.meta_mesh`), where every collective
+     counts its call and bytes and moves nothing;
+  3. builds rank 0's blocks of the state on the ``meta`` device: the train
+     state by the fitted state specs, or the bf16 weights by the serving
+     specs and the decode cache by the fitted cache specs, and runs the
+     same step a real rank runs (``make_train_step(..., mesh=)``,
+     ``lm.prefill``, ``make_serve_step(..., mesh=)``) once under
+     ``torch.utils.flop_counter.FlopCounterMode``;
+  4. records the FLOPs per device, the state's bytes per device, the
+     collective bytes per device by op and by op and axis (the
+     ``collectives`` bank, :func:`repro_torch.sharding.collective_stats`,
+     and the MoE plane's ``wire`` bank), and the three roofline terms
+     against NVIDIA's H100 SXM data sheet, named in the record.
 
-The reference lowers and compiles each cell for a 256- or 512-device TPU
-mesh and reads XLA's cost analysis; ``repro.launch.hlo_cost`` walks XLA's
-optimised HLO text for trip counts and collective bytes.  Neither has a
-twin here: torch has no HLO to walk and no GSPMD mesh to lower for, so the
-port counts the work of one step on one card and records no collective
-term.  Where an op cannot run on meta (the MoE layer's dispatch sizes its
-buffers from the routing, a data-dependent shape), the cell records
-``null`` with the reason and makes up no number; any other failure raises.
+The reference compiles each cell for 256 or 512 TPU devices and reads
+XLA's memory and cost analyses; ``repro.launch.hlo_cost`` walks the
+optimised HLO text for trip counts and collective bytes.  ``hlo_cost`` has
+no twin here: torch has no HLO, and the port's collectives are explicit
+calls, so the ledger of one rank's step is the collective term.  XLA's
+``temp`` and ``peak`` bytes come from its buffer assignment, which meta
+tensors do not have: they are recorded as ``null`` with that reason, and
+no number is made up.  Any failure of a cell raises.
+
+The bound is optimistic: the collective term counts every byte at one
+NVLink's 450 GB/s each way, but a 256-card mesh spans 32 nodes of 8 cards,
+and what crosses between nodes runs on the network, far slower.
 
 Usage:
-  python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--out results.jsonl]
+  python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k [--multi-pod]
+  python -m repro_torch.launch.dryrun --all --both-meshes [--out results.jsonl]
 """
 from __future__ import annotations
 
@@ -33,15 +49,18 @@ import json
 import os
 import sys
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import _pytree
 from repro_torch import configs
+from repro_torch import sharding as SH
 from repro_torch.configs import specs as SP
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.core import remote
+from repro_torch.launch import mesh as MM
 from repro_torch.models import lm
 from repro_torch.serving.engine import make_serve_step
 from repro_torch.train.step import init_state, make_train_step
@@ -49,8 +68,11 @@ from repro_torch.train.step import init_state, make_train_step
 # NVIDIA H100 SXM data sheet, per card (dense, no sparsity, at 700 W)
 H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
+H100_NVLINK_BYTES_PER_S = 450e9     # NVLink 4: 900 GB/s, 450 GB/s each way
 HARDWARE = ("NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, "
-            "3.35 TB/s HBM3")
+            "3.35 TB/s HBM3, NVLink 900 GB/s (450 GB/s each way)")
+NO_BUFFERS = ("XLA's buffer assignment gives the reference its temp and "
+              "peak bytes; meta tensors have none, so they are not counted")
 
 META = torch.device("meta")
 
@@ -93,8 +115,8 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig, n_total: int,
     return 2.0 * n_active * shape.global_batch + attn
 
 
-def _meta(specs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    return {k: torch.empty(s, dtype=dt, device=META)
+def _meta(specs: Dict[str, Any], device=META) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros(s, dtype=dt, device=device)
             for k, (s, dt) in specs.items()}
 
 
@@ -110,26 +132,54 @@ def _bf16(params):
         params)
 
 
-def cell_step(cfg: ModelConfig, shape: ShapeConfig):
-    """``(run, state_bytes)``: ``run()`` takes one step of the cell on meta
-    tensors; ``state_bytes`` is what the step's state holds (train: params
-    and optimizer; serving: bf16 weights and the cache)."""
-    batch = _meta(SP.batch_specs(cfg, shape))
+def cell_config(arch: Union[str, ModelConfig], shape: ShapeConfig, mesh, *,
+                xdma_cache: bool = False,
+                moe_int8: bool = False) -> ModelConfig:
+    """``arch``'s config (a name, or a config) with the axis roles of
+    ``shape`` on ``mesh`` (``axes_for``), FSDP for training and the
+    variants, as the reference's ``lower_cell`` sets them."""
+    cfg = configs.get_config(arch) if isinstance(arch, str) else arch
+    cfg = cfg.with_axes(MM.axes_for(mesh, shape))
+    if xdma_cache:
+        cfg = dataclasses.replace(cfg, xdma_cache=True)
+    if moe_int8:
+        cfg = dataclasses.replace(cfg, moe_wire_int8=True)
     if shape.kind == "train":
-        state = init_state(cfg, device=META)
-        step = make_train_step(cfg, shape)
+        cfg = dataclasses.replace(cfg, fsdp=True)
+    return cfg
+
+
+def cell_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
+              device=META, seed: int = 0):
+    """``(run, state_bytes)``: ``run()`` takes one step of the cell and
+    ``state_bytes`` is what the step's state holds (train: parameters and
+    optimizer; serving: bf16 weights and the cache), on ``device`` (meta:
+    shapes only; the batch is zeros, the weights ``seed``'s elsewhere).
+
+    With ``mesh`` (a registered mesh: :func:`repro_torch.sharding.
+    meta_mesh` or a ``run_spmd`` rank's, ``cfg`` from :func:`cell_config`)
+    it is this rank's step of the sharded program: its blocks of the
+    state, the whole batch, of which the step takes its rows."""
+    batch = _meta(SP.batch_specs(cfg, shape), device)
+    if shape.kind == "train":
+        state = init_state(cfg, seed, device=device, mesh=mesh)
+        step = make_train_step(cfg, shape, mesh=mesh)
         return (lambda: step(state, batch)), _nbytes(state)
-    params = _bf16(lm.init_params(cfg, device=META))
+    params = _bf16(lm.init_params(cfg, seed, device=device))
+    if mesh is not None:
+        specs, _ = MM.serving_specs(cfg, mesh)
+        params = MM.shard_tree(params, specs, mesh, device=device)
     cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
-                          device=META)
+                          device=device)
     state_bytes = _nbytes(params) + _nbytes(cache)
     if shape.kind == "prefill":
         def run():
             with torch.no_grad():
-                return lm.prefill(cfg, params, batch, cache)
+                return lm.prefill(cfg, params, batch, cache, mesh=mesh,
+                                  max_len=shape.seq_len)
         return run, state_bytes
-    tokens = _meta(SP.decode_token_specs(cfg, shape))
-    serve = make_serve_step(cfg)
+    tokens = _meta(SP.decode_token_specs(cfg, shape), device)
+    serve = make_serve_step(cfg, mesh=mesh, max_len=shape.seq_len)
 
     def run():
         with torch.no_grad():
@@ -138,49 +188,89 @@ def cell_step(cfg: ModelConfig, shape: ShapeConfig):
     return run, state_bytes
 
 
-def run_cell(arch: str, shape_name: str, *, xdma_cache: bool = False,
-             moe_int8: bool = False) -> Dict[str, Any]:
-    t0 = time.time()
-    shape = SHAPES[shape_name]
-    cfg = configs.get_config(arch)
-    if xdma_cache:
-        cfg = dataclasses.replace(cfg, xdma_cache=True)
-    if moe_int8:
-        cfg = dataclasses.replace(cfg, moe_wire_int8=True)
-    n_total, n_active = SP.count_params(cfg)
-    rec: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": "1",
-                           "n_devices": 1, "hardware": HARDWARE,
-                           "params_total": n_total,
-                           "params_active": n_active}
-    run, state_bytes = cell_step(cfg, shape)
-    rec["state_bytes"] = state_bytes
-    mf = model_flops(cfg, shape, n_total, n_active)
-    rec["model_flops"] = mf
+def _grown(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def count_step(run):
+    """``(flops, collectives, wire)`` of one call of ``run`` in this rank:
+    ``FlopCounterMode``'s total and what the ``collectives`` and ``wire``
+    banks grew by."""
     counter = FlopCounterMode(display=False)
-    moe = any(spec.moe for spec in cfg.period + cfg.tail)
-    try:
-        with counter:
-            run()
-    except (NotImplementedError, RuntimeError) as e:
-        # the MoE dispatch's data-dependent shapes have no meta kernel; any
-        # other failure is a fault of the step and propagates
-        if not moe:
-            raise
-        rec.update(flops=None, roofline_s=None, bottleneck=None,
-                   useful_flop_ratio=None, roofline_fraction=None,
-                   reason=f"{type(e).__name__} on the meta device: "
-                          f"{e}"[:500])
-        rec["count_s"] = round(time.time() - t0, 1)
-        return rec
-    flops = float(counter.get_total_flops())
-    rec["flops"] = flops
-    comp_t = flops / H100_BF16_FLOPS
-    mem_t = state_bytes / H100_HBM_BYTES_PER_S
-    rec["roofline_s"] = {"compute": comp_t, "memory": mem_t}
-    rec["bottleneck"] = max(rec["roofline_s"], key=rec["roofline_s"].get)
-    rec["useful_flop_ratio"] = (mf / flops) if flops else None
-    ach_t = max(comp_t, mem_t)
-    rec["roofline_fraction"] = ((mf / H100_BF16_FLOPS) / ach_t
+    coll, wire = SH.collective_stats(), remote.wire_stats()
+    with counter:
+        run()
+    return (int(counter.get_total_flops()),
+            _grown(coll, SH.collective_stats()),
+            _grown(wire, remote.wire_stats()))
+
+
+def collective_bytes(coll: Dict[str, int], wire: Dict[str, int]):
+    """``(by_op, by_op_and_axis)``: the payload bytes of a step's
+    collectives by op (the ``collectives`` bank's over every axis, the MoE
+    plane's ``wire`` bank's beside them) and by ``op:axis`` (the plane's
+    axis recorded as ``plane``)."""
+    by_axis = {}
+    for k, v in coll.items():
+        if k.startswith("bytes:"):
+            by_axis[k[len("bytes:"):]] = v
+    for k, v in wire.items():
+        if k.startswith("bytes:"):
+            by_axis[f"{k[len('bytes:'):]}:plane"] = v
+    by_op: Dict[str, int] = {}
+    for k, v in by_axis.items():
+        op = k.split(":")[0]
+        by_op[op] = by_op.get(op, 0) + v
+    return by_op, by_axis
+
+
+def run_cell(arch: Union[str, ModelConfig],
+             shape_name: Union[str, ShapeConfig], *,
+             multi_pod: bool = False, mesh: Optional[MM.MeshSpec] = None,
+             rank: int = 0, xdma_cache: bool = False,
+             moe_int8: bool = False) -> Dict[str, Any]:
+    """One cell's record: rank ``rank`` of the production mesh (or of
+    ``mesh``, a :class:`repro_torch.launch.mesh.MeshSpec`: a small mesh a
+    test also runs for real) counted on meta tensors.  ``arch`` is a name
+    or a config, ``shape_name`` a name of ``SHAPES`` or a shape."""
+    t0 = time.time()
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    if mesh is None:
+        mesh = MM.make_production_mesh(multi_pod=multi_pod,
+                                       check_world=False)
+    cfg = cell_config(arch, shape, mesh, xdma_cache=xdma_cache,
+                      moe_int8=moe_int8)
+    n_dev = mesh.size
+    n_total, n_active = SP.count_params(cfg)
+    ax = cfg.axes
+    rec: Dict[str, Any] = {
+        "arch": arch if isinstance(arch, str) else cfg.name,
+        "shape": shape.name, "mesh": "x".join(map(str, mesh.shape)),
+        "n_devices": n_dev, "rank": rank, "hardware": HARDWARE,
+        "axes": {"batch": list(ax.batch), "model": ax.model, "seq": ax.seq},
+        "params_total": n_total, "params_active": n_active}
+    with SH.meta_mesh(mesh.shape, mesh.axis_names, rank) as m:
+        run, state_bytes = cell_step(cfg, shape, m)
+        flops, coll, wire = count_step(run)
+    mf = model_flops(cfg, shape, n_total, n_active)
+    by_op, by_axis = collective_bytes(coll, wire)
+    rec.update(model_flops=mf, flops_per_device=flops,
+               useful_flop_ratio=mf / (flops * n_dev) if flops else None,
+               state_bytes_per_device=state_bytes,
+               bytes_per_device={"state": state_bytes, "temp": None,
+                                 "peak": None},
+               bytes_null=NO_BUFFERS,
+               collective_bytes_per_device=by_op,
+               collective_bytes_by_axis=by_axis,
+               collectives=coll, wire=wire)
+    terms = {"compute": flops / H100_BF16_FLOPS,
+             "memory": state_bytes / H100_HBM_BYTES_PER_S,
+             "collective": sum(by_op.values()) / H100_NVLINK_BYTES_PER_S}
+    rec["roofline_s"] = terms
+    rec["bottleneck"] = max(terms, key=terms.get)
+    ach_t = max(terms.values())
+    rec["roofline_fraction"] = ((mf / (n_dev * H100_BF16_FLOPS)) / ach_t
                                 if ach_t else None)
     rec["count_s"] = round(time.time() - t0, 1)
     return rec
@@ -197,11 +287,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--xdma-cache", action="store_true",
                     help="layout-optimal KV cache (the paper technique)")
     ap.add_argument("--moe-int8", action="store_true",
                     help="int8 wire format on the MoE dispatch (XDMA plugin)")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
@@ -212,7 +304,7 @@ def main(argv=None):
             for line in f:
                 try:
                     r = json.loads(line)
-                    done.add((r["arch"], r["shape"]))
+                    done.add((r["arch"], r["shape"], r["mesh"]))
                 except (ValueError, KeyError):
                     pass
 
@@ -223,20 +315,25 @@ def main(argv=None):
             with open(args.out, "a") as f:
                 f.write(line + "\n")
 
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
     if args.all:
-        cells = list(iter_cells())
+        cells = [(arch, shape_name, mp, skip)
+                 for arch, shape_name, skip in iter_cells()
+                 for mp in meshes]
     else:
         if not (args.arch and args.shape):
             ap.error("give --arch and --shape, or --all")
-        cells = [(args.arch, args.shape, None)]
-    for arch, shape_name, skip in cells:
+        cells = [(args.arch, args.shape, mp, None) for mp in meshes]
+    for arch, shape_name, mp, skip in cells:
+        mesh_name = "2x16x16" if mp else "16x16"
         if skip is not None:
-            emit({"arch": arch, "shape": shape_name, "skipped": skip})
+            emit({"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                  "skipped": skip})
             continue
-        if (arch, shape_name) in done:
+        if (arch, shape_name, mesh_name) in done:
             continue
-        rec = run_cell(arch, shape_name, xdma_cache=args.xdma_cache,
-                       moe_int8=args.moe_int8)
+        rec = run_cell(arch, shape_name, multi_pod=mp,
+                       xdma_cache=args.xdma_cache, moe_int8=args.moe_int8)
         variants = [v for v, on in (("xdma_cache", args.xdma_cache),
                                     ("moe_int8", args.moe_int8)) if on]
         if variants:

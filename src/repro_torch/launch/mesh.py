@@ -13,7 +13,12 @@ A mesh here is a shape and its axis names: :class:`MeshSpec`, or the
 :func:`repro_torch.sharding.run_spmd`, which builds the process groups of a
 mesh.  :func:`make_production_mesh` gives the assignment's (16, 16) data x
 model mesh, (2, 16, 16) pod x data x model for two pods, and refuses a
-world smaller than it.
+world smaller than it (unless asked for the shape alone, as the dry run
+asks).  :func:`axes_for` puts ``train_4k`` and ``prefill_32k`` on a batch
+over ``("pod", "data")`` on the two-pod mesh (FSDP shards over the pair
+too), and ``long_500k`` on a context-parallel cache: ``seq="data"``, its
+KV sequence over ``seq``, or over ``("data", "model")`` where the KV heads
+do not divide the model axis (:func:`repro_torch.sharding.kv_cache_spec`).
 
 :func:`shard_tree` and :func:`gather_tree` are the counterpart of
 ``jax.device_put(state, NamedSharding)`` and of reading a sharded array
@@ -61,12 +66,18 @@ class MeshSpec(NamedTuple):
         return math.prod(self.shape)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+def make_production_mesh(*, multi_pod: bool = False,
+                         check_world: bool = True) -> MeshSpec:
     """The assignment's mesh; raises when the world (the ranks of the
-    initialised process group, else the visible cards) is smaller."""
+    initialised process group, else the visible cards) is smaller.  With
+    ``check_world=False`` the mesh is a shape with no ranks behind it: the
+    dry run plays one of its ranks on meta tensors
+    (:func:`repro_torch.sharding.meta_mesh`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
+    if not check_world:
+        return MeshSpec(shape, axes)
     import torch.distributed as dist
     world = (dist.get_world_size() if dist.is_initialized()
              else torch.cuda.device_count())

@@ -170,10 +170,13 @@ def _mask_valid(s, length, Smax):
     is a scalar (uniform batch) or a (B,) vector of per-request lengths
     (continuous batching, where ragged requests share one decode step)."""
     pos = torch.arange(Smax, device=s.device)
-    if isinstance(length, torch.Tensor) and length.dim():
+    if isinstance(length, torch.Tensor):
+        # compared on the device: no read of the length on the host
         lv = torch.clamp(length.to(s.device), max=Smax)
-        valid = pos[None] < lv[:, None]                       # (B, Smax)
-        return torch.where(valid[:, None, None, :], s, NEG_INF)
+        if lv.dim():
+            valid = pos[None] < lv[:, None]                   # (B, Smax)
+            return torch.where(valid[:, None, None, :], s, NEG_INF)
+        return torch.where((pos < lv)[None, None, None], s, NEG_INF)
     valid = pos < min(int(length), Smax)
     return torch.where(valid[None, None, None], s, NEG_INF)
 
@@ -343,15 +346,28 @@ def _write_and_attend(cfg, q, k, v, cache, cache_pos, window):
                             rolling=window is not None), cache
 
 
+def kv_seq_axis(cfg, ax):
+    """The registered axis a KV cache's sequence splits over, by
+    :func:`repro_torch.sharding.kv_cache_spec`: the context-parallel
+    ``cfg.axes.seq`` where the KV heads divide the model axis ``ax`` (they
+    take it), else ``(seq, model)`` as one axis (the pair's group), or the
+    model axis alone with no ``seq``; None where nothing splits the
+    sequence."""
+    seq = cfg.axes.seq
+    heads = cfg.n_kv_heads % ax.size == 0
+    names = ((seq,) if seq else ()) + (() if heads else (ax.name,))
+    return SH.axis_over(names) if names else None
+
+
 def seq_block(sl, ax, slots=None):
-    """``(lo, Smax, axis)`` of a KV leaf whose sequence the model axis
-    ``ax`` takes (the KV heads do not divide it), holding ``sl`` slots in
-    this rank: its first global slot, the whole cache's slots and the axis
-    its softmax merges over.  The fitted spec splits ``Smax`` slots evenly
-    over the axis (``lo = r sl``) and keeps a count the axis does not
-    divide whole on every rank (``lo = 0``, no merge: each rank writes and
-    attends over its own copy, as the reference does with a replicated
-    cache).  ``slots`` is ``Smax``; without it a block's ``sl`` the axis
+    """``(lo, Smax, axis)`` of a KV leaf whose sequence the axis ``ax``
+    takes (:func:`kv_seq_axis`: ``seq``, the model axis, or the pair),
+    holding ``sl`` slots in this rank: its first global slot, the whole
+    cache's slots and the axis its softmax merges over.  The fitted spec
+    splits ``Smax`` slots evenly over the axis (``lo = r sl``) and keeps
+    a count the axis does not divide whole on every rank (``lo = 0``, no
+    merge: each rank writes and attends over its own copy, as the
+    reference does with a replicated cache).  ``slots`` is ``Smax``; without it a block's ``sl`` the axis
     divides tells a split cache, and any other needs ``slots`` (a whole
     cache of ``sl`` slots and a block of ``sl n`` look alike)."""
     n = ax.size
@@ -373,26 +389,39 @@ def seq_block(sl, ax, slots=None):
 def _write_slots(cfg, k, v, cache, cache_pos, window, lo, Smax):
     """Decode on a sequence-split cache: the new K / V (B, 1, KV, hd)
     into this rank's block, slots ``[lo, lo + block)`` of ``Smax``, where
-    the step's slot falls in it (per row for a ragged ``cache_pos``)."""
+    the step's slot falls in it (per row for a ragged ``cache_pos``: each
+    row writes its own slot or, where another rank owns it, its block's
+    value back, so the shapes do not depend on the positions)."""
     xdma = cfg.xdma_cache
     sl = cache["k"].shape[3 if xdma else 1]
     local = _slot(cache_pos, Smax, window)
     dt = cache["k"].dtype
     ck, cv = cache["k"].clone(), cache["v"].clone()
     if _is_vector(cache_pos):
-        local = local - lo
-        bidx = torch.nonzero((local >= 0) & (local < sl))[:, 0]
-        at = local[bidx]
-    elif lo <= local < lo + sl:
-        bidx, at = slice(None), local - lo
-    else:
+        local = local.to(ck.device) - lo
+        own = (local >= 0) & (local < sl)
+        at = torch.clamp(local, 0, sl - 1)
+        bidx = torch.arange(local.shape[0], device=ck.device)
+        if xdma:
+            ck[bidx, :, :, at] = torch.where(
+                own[:, None, None], k[:, 0].to(dt), ck[bidx, :, :, at])
+            cv[bidx, :, at, :] = torch.where(
+                own[:, None, None], v[:, 0].to(dt), cv[bidx, :, at, :])
+        else:
+            ck[bidx, at] = torch.where(own[:, None, None], k[:, 0].to(dt),
+                                       ck[bidx, at])
+            cv[bidx, at] = torch.where(own[:, None, None], v[:, 0].to(dt),
+                                       cv[bidx, at])
+        return dict(cache, k=ck, v=cv)
+    if not lo <= local < lo + sl:
         return cache
+    at = local - lo
     if xdma:
-        ck[bidx, :, :, at] = k[bidx, 0].to(dt)
-        cv[bidx, :, at, :] = v[bidx, 0].to(dt)
+        ck[:, :, :, at] = k[:, 0].to(dt)
+        cv[:, :, at, :] = v[:, 0].to(dt)
     else:
-        ck[bidx, at] = k[bidx, 0].to(dt)
-        cv[bidx, at] = v[bidx, 0].to(dt)
+        ck[:, at] = k[:, 0].to(dt)
+        cv[:, at] = v[:, 0].to(dt)
     return dict(cache, k=ck, v=cv)
 
 
@@ -418,6 +447,9 @@ def _attend_slots(q, k_blk, v_blk, length, lo, Smax, xdma, axis):
         lv = torch.clamp(length.to(s.device), max=Smax)
         s = torch.where((idx[None] < lv[:, None])[:, None, None, :], s,
                         NEG_INF)
+    elif isinstance(length, torch.Tensor):       # 0-d: the cross cache's
+        lv = torch.clamp(length.to(s.device), max=Smax)
+        s = torch.where((idx < lv)[None, None, None], s, NEG_INF)
     else:
         s = torch.where((idx < min(int(length), Smax))[None, None, None], s,
                         NEG_INF)
@@ -445,18 +477,23 @@ def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
       the rank projects its query heads and their K / V from its columns,
       writes its slot and attends on its heads (``decode_attention`` /
       ``decode_attention_xdma``), the output projection row-parallel and
-      reduced over the axis (``_attn_tp``'s head-parallel branch);
+      reduced over the axis (``_attn_tp``'s head-parallel branch).  Under
+      a context-parallel ``seq`` axis each rank's heads are split by
+      sequence over it: the rank that owns the step's slot writes it and
+      :func:`_attend_slots` merges the softmax over ``seq``;
     * otherwise the cache holds slots ``[r Smax / n, (r + 1) Smax / n)``
-      of every head: the query and the new K / V are whole on every rank
-      (each rank's columns all-gathered: activations, not weights), the
+      of every head, ``r`` and ``n`` over the model axis, or over the pair
+      ``(seq, model)`` under a ``seq`` axis (:func:`kv_seq_axis`): the
+      query and the new K / V are whole on every rank (each rank's columns
+      all-gathered over the model axis: activations, not weights), the
       rank that owns the step's slot writes it, and :func:`_attend_slots`
-      merges the softmax over the axis; the output projection takes this
-      rank's rows of ``wo`` (a reduce) or ``wo`` whole.  Where the axis
-      does not divide the slots (``slots``, the cross cache's the encoder's
-      frames) the cache is whole on every rank: each writes and attends
-      over its own copy (:func:`seq_block`).
+      merges the softmax over the split's axis; the output projection
+      takes this rank's rows of ``wo`` (a reduce) or ``wo`` whole.
 
-    The cache is never gathered."""
+    Where the split does not divide the slots (``slots``, the cross
+    cache's the encoder's frames) the cache is whole on every rank: each
+    writes and attends over its own copy (:func:`seq_block`).  The cache
+    is never gathered."""
     B, S, d = x.shape
     if S != 1:
         raise ValueError(f"sharded decode takes one token a step, not {S}")
@@ -464,6 +501,7 @@ def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
     dt = x.dtype
     m, n, r = ax.name, ax.size, ax.index
     heads = KV % n == 0
+    split = kv_seq_axis(cfg, ax)
 
     def proj(w, b, whole):
         """The projection's heads: this rank's (heads split), else whole."""
@@ -482,10 +520,10 @@ def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
         q = rms_norm(q, p["q_norm"])
     if cross:
         # encoder K / V precomputed in the cache, never updated
-        if heads:
+        if split is None:
             out = decode_attention(q, cache["k"], cache["v"], cache["len"])
         else:
-            lo, smax, merge = seq_block(cache["k"].shape[1], ax,
+            lo, smax, merge = seq_block(cache["k"].shape[1], split,
                                         cfg.encoder_seq)
             out = _attend_slots(q, cache["k"], cache["v"], cache["len"],
                                 lo, smax, False, merge)
@@ -495,12 +533,12 @@ def _attn_cached_tp(cfg, p, x, positions, *, window, cache, cache_pos,
             k = rms_norm(k, p["k_norm"])
         if rope:
             q, k = rope_for(cfg, q, positions), rope_for(cfg, k, positions)
-        if heads:
+        if split is None:
             out, cache = _write_and_attend(cfg, q, k, v, cache, cache_pos,
                                            window)
         else:
             lo, smax, merge = seq_block(
-                cache["k"].shape[3 if cfg.xdma_cache else 1], ax, slots)
+                cache["k"].shape[3 if cfg.xdma_cache else 1], split, slots)
             cache = _write_slots(cfg, k, v, cache, cache_pos, window, lo,
                                  smax)
             out = _attend_slots(q, cache["k"], cache["v"],
@@ -535,9 +573,10 @@ def _attn_tp(cfg, p, x, positions, *, causal, window, ax, kv_x=None,
       its query heads read, from ``wk`` / ``wv`` gathered whole (a spec can
       split them through half a head), each repeated to its query heads;
     * sequence-parallel (neither): each rank its block of query rows
-      (``q_offset = index * S / size``) over the whole K / V on the dense
-      schedule, every weight gathered whole, its output rows gathered along
-      S.
+      (``q_offset = index * ceil(S / size)``, the last block padded where
+      the axis does not divide S, as GSPMD pads an uneven split) over the
+      whole K / V on the dense schedule, every weight gathered whole, its
+      output rows gathered along S and the padding dropped.
 
     The input (and ``kv_x``) enters through ``copy_to_axis`` and so do
     ``q_norm`` / ``k_norm``, whose gradients each rank holds a part of."""
@@ -596,11 +635,15 @@ def _attn_tp(cfg, p, x, positions, *, causal, window, ax, kv_x=None,
                                                  SH.block_of).to(dt)
         return SH.reduce_from_axis(y, m)
 
-    if S % ms:                               # sequence-parallel
-        raise ValueError(f"sequence-parallel attention: S {S} does not "
-                         f"split over {ms} ranks of {m!r}")
-    Sl = S // ms
-    q = proj(x[:, r * Sl:(r + 1) * Sl], weight("wq", H * hd, 1, SH.whole_of),
+    # sequence-parallel: blocks of ceil(S / ms) query rows, the last padded
+    # where the axis does not divide S (the padded rows' outputs dropped)
+    Sl = -(-S // ms)
+    pad = Sl * ms - S
+    xq, pq = x, positions
+    if pad:
+        xq = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        pq = torch.nn.functional.pad(positions, (0, pad))
+    q = proj(xq[:, r * Sl:(r + 1) * Sl], weight("wq", H * hd, 1, SH.whole_of),
              weight("bq", H * hd, 0, SH.whole_of)).reshape(B, Sl, H, hd)
     k = proj(src, weight("wk", KV * hd, 1, SH.whole_of),
              weight("bk", KV * hd, 0, SH.whole_of)).reshape(B, Sk, KV, hd)
@@ -608,11 +651,11 @@ def _attn_tp(cfg, p, x, positions, *, causal, window, ax, kv_x=None,
              weight("bv", KV * hd, 0, SH.whole_of)).reshape(B, Sk, KV, hd)
     if cfg.qk_norm:
         q, k = rms_norm(q, q_norm), rms_norm(k, k_norm)
-    q = rope_to(q, positions[..., r * Sl:(r + 1) * Sl])
+    q = rope_to(q, pq[..., r * Sl:(r + 1) * Sl])
     k = rope_to(k, positions)
     out = chunked_attention_dense(q, k, v, causal=causal, window=window,
                                   q_offset=r * Sl, q_chunk=min(1024, S),
                                   kv_chunk=min(1024, Sk))
     y = out.reshape(B, Sl, H * hd) @ weight("wo", H * hd, 0,
                                             SH.whole_of).to(dt)
-    return SH.unsplit_along(y, m, 1)
+    return SH.unsplit_along(y, m, 1)[:, :S]

@@ -84,7 +84,12 @@ def _route(cfg, router_w, tokens):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # Switch-style aux loss: E * sum_e f_e * P_e
     E = cfg.n_experts
-    f_e = torch.bincount(eidx.reshape(-1), minlength=E).to(torch.float32)
+    # a scatter-add of a fixed size (the reference's .at[].add), which runs
+    # on meta tensors too: the dry run counts the routed step
+    flat = eidx.reshape(-1)
+    f_e = torch.zeros(E, dtype=torch.float32, device=flat.device).index_add(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=flat.device))
     f_e = f_e / torch.clamp(f_e.sum(), min=1.0)
     p_e = probs.mean(0)
     aux = E * torch.sum(f_e * p_e)
@@ -105,20 +110,25 @@ def _dispatch(cfg, tokens, eidx, gates, capacity):
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
     tok_of = torch.div(order, k, rounding_mode="floor")
-    counts = torch.bincount(se, minlength=E)
+    counts = torch.zeros(E, dtype=se.dtype, device=se.device).index_add(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=tokens.device) - starts[se]
     keep = pos < C
     slot = torch.where(keep, se * C + pos, torch.full_like(pos, E * C))
     # The expert-order permute is the XDMA GatherScatter stage (index-driven
-    # reorder on the stream).  Kept rows land in distinct slots, dropped ones
-    # nowhere (the reference adds them to a sentinel row it then drops), so
-    # one copy of the kept rows fills the buffer.
+    # reorder on the stream).  As in the reference, every row is added into
+    # a buffer of one row more, the dropped ones (zeroed) into the sentinel
+    # row it then drops: shapes that do not depend on the routing.  Kept
+    # rows land in distinct slots, so each holds its one row exactly (a
+    # -0.0 added to the buffer's +0.0 is +0.0, as in the reference).
     permute = XP.GatherScatter(indices=tok_of, axis=0)
-    contrib = permute(tokens)
-    buf = torch.zeros((E * C, d), dtype=tokens.dtype, device=tokens.device)
-    buf.index_copy_(0, slot[keep], contrib[keep])
-    return buf.reshape(E, C, d), slot, keep, order, tok_of
+    contrib = torch.where(keep[:, None], permute(tokens),
+                          torch.zeros((), dtype=tokens.dtype,
+                                      device=tokens.device))
+    buf = torch.zeros((E * C + 1, d), dtype=tokens.dtype,
+                      device=tokens.device).index_add(0, slot, contrib)
+    return buf[:-1].reshape(E, C, d), slot, keep, order, tok_of
 
 
 def _expert_ffn(cfg, p, buf):

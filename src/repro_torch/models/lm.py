@@ -28,10 +28,12 @@ and MoE FFNs, Mamba, mLSTM and sLSTM, and the encoder's layers.
 **Sharded serving.**  Under the same registered axes :func:`prefill` and
 :func:`decode_step` run in every rank, the weights this rank's blocks by
 the serving specs (:func:`repro_torch.launch.mesh.serving_specs`: no
-FSDP), the batch's rows split over the data axis where they divide it,
-and :func:`init_cache` gives this rank's blocks of the cache (KV heads or
-sequence slots over the model axis, recurrent states by blocks); no rank
-gathers a cache.  The logits come back whole on every rank.
+FSDP), the batch's rows split over the batch axes where they divide it
+(one axis, or a pair such as ("pod", "data")), and :func:`init_cache`
+gives this rank's blocks of the cache (KV heads over the model axis, the
+sequence over the model axis, over a context-parallel ``seq`` axis or
+over the pair of both, recurrent states by blocks); no rank gathers a
+cache.  The logits come back whole on every rank.
 
 Where a gradient is taken (autograd on and a parameter that requires one)
 under ``cfg.remat == "block"``, it checkpoints each period's slots and each
@@ -235,25 +237,24 @@ class Shards:
     specs are the train state's (:func:`repro_torch.launch.mesh.
     state_specs`), or with ``serving`` the serving parameter specs
     (:func:`repro_torch.launch.mesh.serving_specs`: no FSDP, so
-    :meth:`at_use` gathers nothing)."""
+    :meth:`at_use` gathers nothing).  ``data`` is the batch axes as one
+    (a name, or a tuple such as ``("pod", "data")`` registered as a pair)
+    and ``dp`` their product; ``mesh`` the named axes and their sizes,
+    the context-parallel ``seq`` axis among them."""
 
     def __init__(self, cfg: ModelConfig, serving: bool = False):
         from repro_torch.launch.mesh import (MeshSpec, mesh_axes,
                                              serving_specs, spec_leaves,
                                              state_specs)
-        if len(cfg.axes.batch) > 1:
-            raise NotImplementedError(
-                f"a batch axis over several mesh axes {cfg.axes.batch} is "
-                "not ported to the sharded trainer (ROADMAP.md §1 item 10b)")
-        if serving and cfg.axes.seq:
-            raise NotImplementedError(
-                f"a context-parallel cache over {cfg.axes.seq!r} is not "
-                "ported to sharded serving (ROADMAP.md §1 item 10b)")
         self.cfg = cfg
-        self.data = cfg.axes.batch[0] if cfg.axes.batch else None
-        self.model = cfg.axes.model
-        names = tuple(n for n in (self.data, self.model) if n is not None)
+        ax = cfg.axes
+        # the batch axes as one: a name, or a tuple registered as a pair
+        self.data = ax.batch_spec
+        self.model = ax.model
         self.dp = SH.axis_size(self.data) if self.data else 1
+        names = tuple(ax.batch) + tuple(
+            n for n in (ax.seq, ax.model)
+            if n is not None and n not in ax.batch)
         self.mesh = MeshSpec(tuple(SH.axis_size(n) for n in names), names)
         self.axes = mesh_axes(cfg.axes, self.mesh)
         if serving:
@@ -312,7 +313,7 @@ class Shards:
 
     # -- serving: the batch's data block and the cache's blocks -------------
     def splits_batch(self, B: int) -> bool:
-        """A batch of ``B`` rows splits over the data axis when it divides
+        """A batch of ``B`` rows splits over the batch axes when it divides
         (the fitted cache specs' rule); else every data rank holds every
         row."""
         return self.data is not None and self.dp > 1 and B % self.dp == 0
@@ -343,8 +344,8 @@ def shards_of(cfg: ModelConfig, serving: bool = False) -> Optional[Shards]:
     where it names none, or none of them is registered (the reference's
     sharding constraints are the identity outside a mesh).  Some
     registered and some not raises."""
-    names = tuple(cfg.axes.batch) + ((cfg.axes.model,)
-                                     if cfg.axes.model else ())
+    names = tuple(cfg.axes.batch) + tuple(
+        n for n in (cfg.axes.model, cfg.axes.seq) if n)
     live = [SH.active_axis(n) is not None for n in names]
     if not any(live):
         return None
@@ -656,24 +657,28 @@ def _store_kv(cfg, k, v, slot_cache):
 
 def _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache, ax,
                     slots=None):
-    """:func:`_write_kv_cache` into this rank's block of the cache over
-    the model axis ``ax``.  KV heads that divide the axis: this rank's
-    heads, from its columns of ``wk`` / ``wv``, into every slot.
-    Otherwise the block is slots ``[r Smax / n, (r + 1) Smax / n)`` of
-    every head, or all ``Smax`` where the axis does not divide them
+    """:func:`_write_kv_cache` into this rank's block of the cache, the
+    model axis ``ax`` and the cache's sequence split by ``kv_cache_spec``
+    (``A.kv_seq_axis``).  KV heads that divide the model axis: this rank's
+    heads, from its columns of ``wk`` / ``wv``; otherwise every head, the
+    weights whole.  A sequence split (over ``seq``, ``(seq, model)`` or
+    the model axis) gives the block slots ``[r Smax / n, (r + 1) Smax /
+    n)``, or all ``Smax`` where the split does not divide them
     (``A.seq_block``): the positions those slots hold (the prompt's, or
-    the rolled last ``Smax`` for ``S >= Smax``) projected with the weights
-    whole; a slot the prompt does not reach keeps its value."""
+    the rolled last ``Smax`` for ``S >= Smax``) are projected, and a slot
+    the prompt does not reach keeps its value.  With no sequence split
+    every slot is written."""
     B, S, _ = x_normed.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     xd = x_normed.dtype
     m = ax.name
     heads = KV % ax.size == 0
     part = SH.block_of if heads else SH.whole_of
+    split = A.kv_seq_axis(cfg, ax)
     src, pos = x_normed, positions
-    if not heads:
+    if split is not None:
         sl = slot_cache["k"].shape[3 if cfg.xdma_cache else 1]
-        lo, smax, _ = A.seq_block(sl, ax, slots)
+        lo, smax, _ = A.seq_block(sl, split, slots)
         slot = lo + torch.arange(sl, device=x_normed.device)
         idx = (S - smax + (slot - S % smax) % smax if S >= smax
                else torch.clamp(slot, max=S - 1))
@@ -688,7 +693,7 @@ def _write_kv_block(cfg, attn_p, x_normed, positions, slot_cache, ax,
     if cfg.qk_norm:
         k = rms_norm(k, attn_p["k_norm"])
     k = rope_for(cfg, k, pos)
-    if heads:
+    if split is None:
         return _store_kv(cfg, k, v, slot_cache)
     dt = slot_cache["k"].dtype
     if S >= smax:                       # every slot holds a prompt position
@@ -734,24 +739,26 @@ def _prefill_slot(cfg, spec, p, x, positions, slot_cache, *, enc_out=None,
 def _cross_cache(cfg, params, enc_out, cross):
     """The cross K / V of every decoder period from the encoder's output,
     by the first slot's weights; under a registered model axis this rank's
-    block of them: its KV heads where they divide the axis, else its rows
-    of the encoder's frames (all of them where the axis does not divide
+    block of them by ``kv_cache_spec``: its KV heads where they divide the
+    axis (every head otherwise), and its rows of the encoder's frames where
+    the frames split (over ``seq``, ``(seq, model)`` or the model axis:
+    ``A.kv_seq_axis``; all of them where the split does not divide
     them)."""
     B = enc_out.shape[0]
     KV, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.dtype
     w = params["blocks"][0]["cross"]
     tp = SH.active_axis(cfg.axes.model)
+    split = None if tp is None else A.kv_seq_axis(cfg, tp)
 
     def kv(name, i):
         wi, src = w[name][i], enc_out
-        if tp is not None and KV % tp.size == 0:
-            wi = SH.block_of(wi, tp.name, KV * hd, 1)
-        elif tp is not None:
-            frames = enc_out.shape[1]
-            if frames % tp.size == 0:
-                rows = frames // tp.size
-                src = enc_out[:, tp.index * rows:(tp.index + 1) * rows]
-            wi = SH.whole_of(wi, tp.name, KV * hd, 1)
+        if tp is not None:
+            part = SH.block_of if KV % tp.size == 0 else SH.whole_of
+            wi = part(wi, tp.name, KV * hd, 1)
+        frames = enc_out.shape[1]
+        if split is not None and frames % split.size == 0:
+            rows = frames // split.size
+            src = enc_out[:, split.index * rows:(split.index + 1) * rows]
         return (src @ wi.to(dt)).reshape(B, src.shape[1], -1, hd)
     k = torch.stack([kv("wk", i) for i in range(cfg.n_periods)])
     v = torch.stack([kv("wv", i) for i in range(cfg.n_periods)])

@@ -247,6 +247,12 @@ class ContinuousBatchingEngine:
             raise NotImplementedError("continuous batching serves decoder "
                                       "LMs; encoder-decoder configs use "
                                       "ServingEngine")
+        if mesh is not None and cfg.axes.seq:
+            raise NotImplementedError(
+                f"continuous batching on a context-parallel cache (its "
+                f"sequence over {cfg.axes.seq!r}) is not ported: a request's "
+                "pages would hold a block of its slots on each seq rank "
+                "(ROADMAP.md §1 item 10e); ServingEngine serves it")
         if mesh is not None:
             # sharded serving: every data rank serves every request (a
             # request's rows would otherwise move between data ranks as the

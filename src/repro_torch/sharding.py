@@ -17,7 +17,17 @@ registered under its name for the duration of an SPMD body:
   :func:`axis_scope` registers any axes for the scope of a block;
 * :func:`run_spmd` is the counterpart of ``shard_map_compat``: it spawns one
   process per rank, runs one body in each inside its mesh, and returns what
-  each rank's body returned.
+  each rank's body returned;
+* :func:`meta_mesh` is one rank of a mesh of any size with no process at
+  all: its axes are on the ``"meta"`` backend, where each collective counts
+  its call and bytes and returns a ``meta`` tensor of the result's shape.
+  The dry run plays rank 0 of the 256- and 512-card production meshes so.
+
+A mesh registers each axis under its name, each pair of axes under the
+pair's tuple (a batch over ``("pod", "data")``, a KV sequence over
+``("data", "model")``), and the whole world under the tuple of every name.
+A tuple's index is row-major over its axes, as a spec over a tuple of axes
+lays out its blocks.
 
 The backend follows the cards: NCCL needs one card per rank, so a world on
 CUDA whose size fits in the device count takes NCCL, anything else gloo
@@ -75,7 +85,7 @@ __all__ = ["Axes", "CPU_AXES", "constrain", "kv_cache_spec", "spec",
            "reduce_from_axis", "gather_along", "split_along",
            "unsplit_along", "broadcast_from", "all_reduce", "all_gather",
            "collective_stats", "active_axis", "block_of", "whole_of",
-           "replica_of", "HostHop"]
+           "replica_of", "HostHop", "meta_mesh", "on_meta", "regroup"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -299,11 +309,82 @@ def view(mesh: Mesh, shape: Sequence[int]) -> Mesh:
         names: world})
 
 
+def regroup(mesh: Mesh, axes: Dict[Any, Any], shape: Sequence[int]) -> Mesh:
+    """``mesh``'s ranks as a mesh of ``shape`` whose axes are some of
+    ``mesh``'s axes or pairs under new names: ``axes`` maps each new name
+    (a name, or the tuple of two new names for their pair) to the old one.
+    The old axes' groups and indices are kept, so the new mesh's row-major
+    order must be the old one's (a (2, 2, 1) ("pod", "data", "model")
+    world as (2, 2) ("data", "model"): ``{"data": "pod", "model": "data",
+    ("data", "model"): ("pod", "data")}``).  A context manager, as
+    :class:`Mesh` is."""
+    new = {name: dataclasses.replace(mesh.axes[old], name=name)
+           for name, old in axes.items()}
+    names = tuple(n for n in axes if not isinstance(n, tuple))
+    return dataclasses.replace(mesh, shape=tuple(int(s) for s in shape),
+                               axis_names=names, axes=new)
+
+
+def _axis_sets(axis_names: Tuple[str, ...]) -> List[Tuple[int, ...]]:
+    """The positions of every registered axis set, in one order: each axis,
+    each pair of axes where there are three or more (a spec may name two of
+    them together), and the whole world where there are two or more."""
+    n = len(axis_names)
+    sets = [(i,) for i in range(n)]
+    if n > 2:
+        sets += list(itertools.combinations(range(n), 2))
+    if n > 1:
+        sets.append(tuple(range(n)))
+    return sets
+
+
+def _set_key(axis_names, pos):
+    return axis_names[pos[0]] if len(pos) == 1 else tuple(
+        axis_names[i] for i in pos)
+
+
+def _set_place(shape, coords, pos) -> Tuple[int, int]:
+    """``(size, index)`` of a rank at ``coords`` along the axes at ``pos``,
+    the index row-major over them."""
+    size, index = 1, 0
+    for i in pos:
+        size *= shape[i]
+        index = index * shape[i] + coords[i]
+    return size, index
+
+
+def meta_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              rank: int = 0) -> Mesh:
+    """Rank ``rank`` of a mesh of ``shape`` with no process group: every
+    axis, pair and the world registered with this rank's index on the
+    ``"meta"`` backend.  A collective over such an axis counts its call and
+    bytes in the ``collectives`` (or ``wire``) bank as a real one does and
+    returns a ``meta`` tensor of its result's shape; a tensor that is not on
+    ``meta`` raises there.  A context manager, as :class:`Mesh` is."""
+    shape = tuple(int(s) for s in shape)
+    axis_names = tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axis names {axis_names} "
+                         "differ in length")
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} outside a mesh of {shape}")
+    coords = _unravel(rank, shape)
+    axes: Dict[Any, MeshAxis] = {}
+    for pos in _axis_sets(axis_names):
+        key = _set_key(axis_names, pos)
+        size, index = _set_place(shape, coords, pos)
+        axes[key] = MeshAxis(key, size, index, None, "meta")
+    return Mesh(shape, axis_names, rank, torch.device("meta"), "meta",
+                f"one rank of {math.prod(shape)} on the meta device: "
+                "collectives counted, nothing moved", axes)
+
+
 def init_mesh(rank: int, shape: Sequence[int], axis_names: Sequence[str], *,
               store_path: str, device="cuda") -> Mesh:
     """Start this rank's default process group (a ``FileStore`` at
     ``store_path``, shared by every rank and new for each world) and one
-    group per mesh axis.  Ranks are laid out row-major over ``shape``, as
+    group per mesh axis, per pair of axes (three axes or more) and the
+    world.  Ranks are laid out row-major over ``shape``, as
     ``jax.make_mesh`` lays out devices.  Every rank must call this with the
     same arguments but its own ``rank``."""
     import torch.distributed as dist
@@ -325,23 +406,30 @@ def init_mesh(rank: int, shape: Sequence[int], axis_names: Sequence[str], *,
         world_size=world, timeout=datetime.timedelta(seconds=_TIMEOUT_S))
     coords = _unravel(rank, shape)
     axes: Dict[Any, MeshAxis] = {}
-    for i, name in enumerate(axis_names):
-        others = [range(s) for j, s in enumerate(shape) if j != i]
+    for pos in _axis_sets(axis_names):
+        key = _set_key(axis_names, pos)
+        size, index = _set_place(shape, coords, pos)
+        if len(pos) == len(shape):
+            axes[key] = MeshAxis(key, size, index, dist.group.WORLD, backend)
+            continue
+        others = [range(s) for j, s in enumerate(shape) if j not in pos]
         mine = None
-        # every rank creates every group, in one order (new_group's contract)
+        # every rank creates every group, in one order (new_group's
+        # contract); a group's ranks ascend row-major over its axes
         for rest in itertools.product(*others):
+            fixed = iter(rest)
+            base = [None if j in pos else next(fixed)
+                    for j in range(len(shape))]
             ranks = []
-            for k in range(shape[i]):
-                c = list(rest)
-                c.insert(i, k)
+            for sub in itertools.product(*(range(shape[i]) for i in pos)):
+                c = list(base)
+                for i, v in zip(pos, sub):
+                    c[i] = v
                 ranks.append(_ravel(c, shape))
             group = dist.new_group(ranks, backend=backend)
             if rank in ranks:
                 mine = group
-        axes[name] = MeshAxis(name, shape[i], coords[i], mine, backend)
-    if len(axis_names) > 1:
-        axes[axis_names] = MeshAxis(axis_names, world, rank, dist.group.WORLD,
-                                    backend)
+        axes[key] = MeshAxis(key, size, index, mine, backend)
     return Mesh(shape, axis_names, rank, dev, backend, note, axes)
 
 
@@ -453,11 +541,26 @@ class HostHop:
         return t
 
 
+def on_meta(ax: MeshAxis, t: torch.Tensor) -> bool:
+    """Whether ``ax`` is an axis of a :func:`meta_mesh`, where a collective
+    moves nothing and returns a ``meta`` tensor; a tensor that is not on
+    ``meta`` raises there, so no real run goes through it unnoticed."""
+    if ax.backend != "meta":
+        return False
+    if t.device.type != "meta":
+        raise RuntimeError(
+            f"a {t.device.type} tensor at a collective over {ax.name!r}, an "
+            "axis of a meta mesh: it counts shapes and moves no data")
+    return True
+
+
 def _begin(op: str, ax: MeshAxis, t: torch.Tensor):
     """Count a call of ``op`` handed ``t``; the module and ``t``'s way
-    across."""
+    across (``(None, None)`` on a meta mesh: nothing moves)."""
     _LEDGER.inc(f"calls:{op}:{_label(ax.name)}")
     _LEDGER.inc(f"bytes:{op}:{_label(ax.name)}", _nbytes(t))
+    if on_meta(ax, t):
+        return None, None
     import torch.distributed as dist
     return dist, HostHop(ax, t.device, _LEDGER)
 
@@ -469,6 +572,8 @@ def _reduce_op(dist, op: str):
 def _all_reduce(t: torch.Tensor, ax: MeshAxis, op: str = "sum"):
     dist, hop = _begin(f"all_reduce_{op}" if op != "sum" else "all_reduce",
                        ax, t)
+    if dist is None:
+        return torch.empty_like(t)
     y = hop.out(t.contiguous())
     y = y.clone() if y is t else y            # all_reduce writes in place
     dist.all_reduce(y, _reduce_op(dist, op), group=ax.group)
@@ -478,6 +583,10 @@ def _all_reduce(t: torch.Tensor, ax: MeshAxis, op: str = "sum"):
 def _all_gather(t: torch.Tensor, ax: MeshAxis, dim: int):
     """The ranks' blocks concatenated along ``dim`` in axis order."""
     dist, hop = _begin("all_gather", ax, t)
+    if dist is None:
+        shape = list(t.shape)
+        shape[dim] *= ax.size
+        return t.new_empty(shape)
     src = hop.out(t.contiguous())
     parts = [torch.empty_like(src) for _ in range(ax.size)]
     dist.all_gather(parts, src, group=ax.group)
@@ -490,6 +599,10 @@ def _reduce_scatter(t: torch.Tensor, ax: MeshAxis, dim: int):
         raise ValueError(f"reduce-scatter over {ax.name!r}: dim {dim} of "
                          f"{tuple(t.shape)} does not split into {ax.size}")
     dist, hop = _begin("reduce_scatter", ax, t)
+    if dist is None:
+        shape = list(t.shape)
+        shape[dim] //= ax.size
+        return t.new_empty(shape)
     src = hop.out(t.movedim(dim, 0).contiguous())
     out = torch.empty((src.shape[0] // ax.size,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
@@ -502,6 +615,8 @@ def _reduce_scatter(t: torch.Tensor, ax: MeshAxis, dim: int):
 
 def _broadcast(t: torch.Tensor, ax: MeshAxis, index: int):
     dist, hop = _begin("broadcast", ax, t)
+    if dist is None:
+        return torch.empty_like(t)
     y = hop.out(t.contiguous())
     y = y.clone() if y is t else y
     dist.broadcast(y, src=dist.get_global_rank(ax.group, index),
@@ -512,6 +627,8 @@ def _broadcast(t: torch.Tensor, ax: MeshAxis, index: int):
 def _reduce_to(t: torch.Tensor, ax: MeshAxis, index: int):
     """The sum over the axis at rank ``index``; zeros elsewhere."""
     dist, hop = _begin("reduce", ax, t)
+    if dist is None:
+        return torch.empty_like(t)
     y = hop.out(t.contiguous())
     y = y.clone() if y is t else y
     dist.reduce(y, dst=dist.get_global_rank(ax.group, index),

@@ -80,7 +80,10 @@ def init_state(cfg: ModelConfig, seed: int = 0, *, device=None, mesh=None
     from repro_torch.launch import mesh as M
     dev = torch.device("cuda" if device is None else device)
     specs, shapes = M.state_specs(cfg, mesh)
-    params = M.shard_tree(lm.init_params(cfg, seed, device=dev, store="cpu"),
+    # on meta (the dry run) the whole tree is shapes only, and the host
+    # holds nothing
+    store = None if dev.type == "meta" else "cpu"
+    params = M.shard_tree(lm.init_params(cfg, seed, device=dev, store=store),
                           specs["params"], mesh, device=dev)
     step = torch.zeros((), dtype=torch.int32, device=dev)
 

@@ -78,36 +78,41 @@ def test_train_entry_point_returns_the_state():
     assert state["opt"]["mu"]["embed"]["embed"].dtype == torch.float32
 
 
-def test_dryrun_counts_a_cell_and_records_why_an_moe_cell_cannot():
+def test_dryrun_counts_a_dense_and_an_moe_cell_on_the_production_mesh():
     out = _run("repro_torch.launch.dryrun", "--arch", "qwen2-0.5b",
                "--shape", "decode_32k")
     assert out.returncode == 0, out.stderr
     rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["flops"] > 0 and rec["bottleneck"] == "memory"
-    assert "H100" in rec["hardware"] and rec["n_devices"] == 1
-    # one decode step reads every weight and cache byte: bf16 weights plus
-    # the bf16 cache of 128 x 32768 tokens
-    assert rec["state_bytes"] > 2 * rec["params_total"]
+    assert rec["flops_per_device"] > 0 and rec["bottleneck"] == "memory"
+    assert "H100" in rec["hardware"] and rec["n_devices"] == 256
+    assert rec["mesh"] == "16x16" and rec["axes"]["batch"] == ["data"]
+    # one decode step reads every weight and cache byte of the rank: its
+    # bf16 weights by the serving specs plus its bf16 cache of 8 of the
+    # 128 rows x 32768 tokens
+    assert rec["state_bytes_per_device"] > 2 * rec["params_total"] / 16
+    assert rec["collective_bytes_per_device"]["all_reduce"] > 0
     from repro_torch.launch import dryrun
     moe = dryrun.run_cell("mixtral-8x7b", "decode_32k")
-    assert moe["flops"] is None and "meta" in moe["reason"]
-    assert moe["model_flops"] > 0
+    assert moe["flops_per_device"] > 0 and moe["model_flops"] > 0
+    assert moe["collective_bytes_per_device"]["all_reduce"] > 0
+    assert set(moe["roofline_s"]) == {"compute", "memory", "collective"}
 
 
 def test_dryrun_raises_where_a_dense_cell_fails(monkeypatch):
-    """Only an MoE cell may record null: a dense arch's failing step is a
-    fault and propagates out of ``run_cell``."""
+    """No cell records null in place of a count: a failing step is a fault
+    and propagates out of ``run_cell``, a dense cell's and an MoE cell's
+    alike."""
     from repro_torch.launch import dryrun
 
-    def failing(cfg, shape):
+    def failing(cfg, shape, mesh=None, **kw):
         def run():
             raise RuntimeError("shape mismatch")
         return run, 0
     monkeypatch.setattr(dryrun, "cell_step", failing)
     with pytest.raises(RuntimeError, match="shape mismatch"):
         dryrun.run_cell("qwen2-0.5b", "decode_32k")
-    moe = dryrun.run_cell("mixtral-8x7b", "decode_32k")
-    assert moe["flops"] is None and "shape mismatch" in moe["reason"]
+    with pytest.raises(RuntimeError, match="shape mismatch"):
+        dryrun.run_cell("mixtral-8x7b", "decode_32k")
 
 
 def test_dryrun_step_on_a_smoke_config_counts_its_matmuls():

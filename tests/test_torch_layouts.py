@@ -66,6 +66,33 @@ def test_port_imports_neither_jax_nor_the_reference():
             "from repro_torch.launch import mesh as M, train as LT\n"
             "M.state_specs(configs.smoke_config('qwen3_1p7b'), "
             "M.MeshSpec(LT.mesh_shape(4), ('data', 'model')))\n"
+            "from repro_torch import sharding as S\n"
+            "from repro_torch.configs.base import SHAPES\n"
+            "pod = M.make_production_mesh(multi_pod=True, check_world=False)\n"
+            "with S.meta_mesh(pod.shape, pod.axis_names, 0):\n"
+            "    M.state_specs(configs.get_config('qwen3-1.7b').with_axes("
+            "M.axes_for(pod, SHAPES['train_4k'])), pod)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_the_dry_run_imports_no_reference_module():
+    """``repro_torch.launch.dryrun`` alone, one smoke cell counted on a
+    meta mesh: no ``repro`` module and no JAX in the process."""
+    code = ("import sys\n"
+            "from repro_torch import configs\n"
+            "from repro_torch.configs.base import ShapeConfig\n"
+            "from repro_torch.launch import dryrun, mesh\n"
+            "rec = dryrun.run_cell(configs.smoke_config('qwen3_1p7b'), "
+            "ShapeConfig('d', 32, 4, 'decode'), mesh=mesh.MeshSpec((2, 2, 2), "
+            "('pod', 'data', 'model')))\n"
+            "assert rec['flops_per_device'] > 0\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(repr(bad))\n")

@@ -981,3 +981,218 @@ def serve_body(mesh, inp):
             out["mamba"][mname] = {"y": ys, "cache": cache}
     out["ledger"] = S.collective_stats()
     return out
+
+
+# -- the production mesh's last regimes: tests/test_torch_mesh_regimes.py ----
+REGIME_WORLD = ((2, 2, 1), ("pod", "data", "model"))
+REGIME_SHAPE = dict(seq=16, batch=8, microbatches=2)
+# the multi-pod prefill and decode: the batch over ("pod", "data")
+REGIME_SERVE = dict(arch="qwen3_1p7b", B=4, S=12, steps=3, max_len=32)
+# context-parallel decode on the (2, 2) view ("data", "model") of the same
+# ranks, Axes(batch=(), model="model", seq="data"): B rows whole on every
+# rank, a prompt of S, then `steps` decode steps
+CP = dict(B=2, S=12, steps=3, max_len=32)
+CP_RAGGED = (12, 7)                         # each row's position, ragged
+CP_UNEVEN_LEN = 30                          # the pair of 4 does not divide it
+CP_ENGINE = ("heads", "pair")               # also through ServingEngine
+# sequence-parallel attention (3 heads on a model axis of 2) over 15 query
+# rows, which the axis does not divide: each rank 8 rows, the last padded;
+# self-attention, and cross-attention over 9 rows of kv_x
+UNEVEN = dict(B=2, S=15, Sk=9, heads=3)
+
+
+def uneven_config(configs, dataclasses, f32):
+    return dataclasses.replace(configs.smoke_config("phi4_mini_3p8b"),
+                               dtype=f32, n_heads=UNEVEN["heads"],
+                               n_kv_heads=UNEVEN["heads"])
+# case: (arch, config changes, ragged, max_len).  KV 2 on a model axis of 2:
+# each rank's heads split by sequence over "data"; KV 1: the sequence over
+# the pair ("data", "model"); gemma3's window of 8 against a prompt of 12:
+# the rolled write, its window cache split too
+CP_CASES = {
+    "heads": ("qwen3_1p7b", {}, False, 32),
+    "heads+xdma+ragged": ("gemma3_27b", dict(xdma_cache=True), True, 32),
+    "pair": ("qwen2_0p5b", {}, False, 32),
+    "pair+xdma+ragged": ("gemma3_27b", dict(xdma_cache=True, n_kv_heads=1),
+                         True, 32),
+    "pair+uneven": ("qwen2_0p5b", {}, False, CP_UNEVEN_LEN),
+}
+
+
+def regime_view(mesh):
+    """The (2, 2, 1) world's ranks as a (2, 2) ("data", "model") mesh: its
+    "data" the world's "pod" axis, its "model" the world's "data" axis and
+    its pair the world's ("pod", "data") pair (row-major either way)."""
+    from repro_torch import sharding as S
+    return S.regroup(mesh, {"data": "pod", "model": "data",
+                            ("data", "model"): ("pod", "data")}, (2, 2))
+
+
+def cp_config(configs, dataclasses, f32, name):
+    arch, kw, _, _ = CP_CASES[name]
+    return dataclasses.replace(configs.smoke_config(arch), dtype=f32, **kw)
+
+
+def cp_inputs(cfg, seed):
+    """Seeded prompt tokens (B, S) and the decode steps' tokens."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (CP["B"], CP["S"])).astype(
+        np.int32)}
+    steps = rng.integers(0, cfg.vocab, (CP["steps"], CP["B"], 1)).astype(
+        np.int32)
+    return b, steps
+
+
+def regime_body(mesh, inp):
+    """One rank of the (2, 2, 1) ("pod", "data", "model") world: (1) the
+    sharded f32 step, 2 steps of 2 microbatches, the batch and FSDP over
+    the pair ("pod", "data"), the state it leaves (whole) and the ledger;
+    (2) prefill and decode with the batch over the pair; (3) on the (2, 2)
+    view, every context-parallel case: prefill, then decode, every step's
+    logits, this rank's final cache leaves and their fitted specs."""
+    import dataclasses
+
+    from repro_torch import _pytree, configs
+    from repro_torch import sharding as S
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serving import ServingEngine
+    from repro_torch.train import step as T
+
+    torch.set_num_threads(1)
+    f32 = torch.float32
+    out = {}
+    shape = ShapeConfig("t", REGIME_SHAPE["seq"], REGIME_SHAPE["batch"],
+                        "train", REGIME_SHAPE["microbatches"])
+    cfg = dataclasses.replace(
+        tp_step_config(configs, dataclasses, f32).with_axes(
+            M.axes_for(mesh, shape)), fsdp=True)
+    specs, _ = M.state_specs(cfg, mesh)
+    state = M.shard_tree(lm.params_from_numpy(inp["state"], device="cpu"),
+                         specs, mesh)
+    step = T.make_train_step(cfg, shape, tp_opt_config(AdamWConfig, "f32"),
+                             mesh=mesh)
+    losses, norms = [], []
+    for b in inp["batches"]:
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    out["ledger"] = S.collective_stats()
+    whole = M.gather_tree(state, specs, mesh)
+    out["step"] = {"losses": losses, "grad_norms": norms,
+                   "axes": cfg.axes.batch,
+                   "fsdp": sorted({str(e) for sp in M.spec_leaves(
+                       specs["params"], whole["params"]) for e in sp
+                       if isinstance(e, tuple)}),
+                   "params": _pytree.leaves(whole["params"]),
+                   "mu": _pytree.leaves(whole["opt"]["mu"]),
+                   "nu": _pytree.leaves(whole["opt"]["nu"]),
+                   "step": whole["step"]}
+
+    def serve(cfg, m, params_np, b, steps, L, ragged=None):
+        sp, _ = M.serving_specs(cfg, m)
+        local = M.shard_tree(lm.params_from_numpy(params_np, device="cpu"),
+                             sp, m)
+        cache = lm.init_cache(cfg, b["tokens"].shape[0], L, f32,
+                              device="cpu")
+        logits, cache = lm.prefill(
+            cfg, local, {k: torch.from_numpy(v) for k, v in b.items()},
+            cache, mesh=m, max_len=L)
+        got = [logits]
+        if ragged is not None:
+            cache = dict(cache, pos=torch.tensor(ragged, dtype=torch.int32))
+        for t in steps:
+            logits, cache = lm.decode_step(cfg, local, torch.from_numpy(t),
+                                           cache, mesh=m, max_len=L)
+            got.append(logits)
+        whole = lm._whole_cache(cfg, b["tokens"].shape[0], L, f32,
+                                torch.device("meta"))
+        fitted = M.spec_leaves(M.serving_cache_specs(cfg, whole, m), whole)
+        return {"logits": got, "cache": _pytree.leaves(cache),
+                "specs": fitted}
+
+    R = REGIME_SERVE
+    scfg = dataclasses.replace(
+        configs.smoke_config(R["arch"]), dtype=f32).with_axes(
+            S.Axes(batch=("pod", "data"), model="model"))
+    b, steps = inp["pod_serve"]["inputs"]
+    out["pod_serve"] = serve(scfg, mesh, inp["pod_serve"]["params"], b,
+                             steps, R["max_len"])
+
+    out["cp"], out["cp_engine"], out["uneven"] = {}, {}, {}
+    with regime_view(mesh) as m:
+        from repro_torch.layers import attention as A
+        cfg = uneven_config(configs, dataclasses, f32).with_axes(
+            S.Axes(batch=(), model="model"))
+        u = inp["uneven"]
+        p = lm.params_from_numpy(u["p"], device="cpu")
+        specs = M.fit_specs(m, M.infer_param_specs(p, cfg.axes), p)
+        local = M.shard_tree(p, specs, m)
+        leaves = [t.requires_grad_() for t in _pytree.leaves(local)]
+        local = _pytree.unflatten(local, leaves)
+        pos = torch.from_numpy(u["pos"])
+        for name in ("self", "cross"):
+            x = torch.from_numpy(u["x"]).requires_grad_()
+            kv = torch.from_numpy(u["kv"]).requires_grad_()
+            y = A.attn_apply(cfg, local, x, pos,
+                             kv_x=kv if name == "cross" else None,
+                             apply_rope=name == "self")[0]
+            got = torch.autograd.grad(y, [x, kv] + leaves,
+                                      torch.from_numpy(u["dy"]),
+                                      allow_unused=True)
+            grads = M.gather_tree(_pytree.unflatten(local, list(got[2:])),
+                                  specs, m)
+            out["uneven"][name] = {"y": y.detach(), "dx": got[0],
+                                   "dkv": got[1],
+                                   "grads": _pytree.leaves(grads)}
+        for name, (_, _, ragged, L) in CP_CASES.items():
+            cfg = cp_config(configs, dataclasses, f32, name).with_axes(
+                S.Axes(batch=(), model="model", seq="data"))
+            b, steps = inp["cp"][name]["inputs"]
+            out["cp"][name] = serve(cfg, m, inp["cp"][name]["params"], b,
+                                    steps, L,
+                                    CP_RAGGED if ragged else None)
+            if name in CP_ENGINE:
+                sp, _ = M.serving_specs(cfg, m)
+                local = M.shard_tree(lm.params_from_numpy(
+                    inp["cp"][name]["params"], device="cpu"), sp, m)
+                out["cp_engine"][name] = ServingEngine(
+                    cfg, local, L, cache_dtype=f32, mesh=m,
+                    device="cpu").generate(
+                        {k: torch.from_numpy(v) for k, v in b.items()},
+                        CP["steps"])
+    return out
+
+
+# -- the dry run against the real step: tests/test_torch_dryrun_mesh.py ------
+DRY_WORLD = ((2, 2), ("data", "model"))
+# (arch, shape): a dense and an MoE smoke cell, each trained and decoded;
+# the dense one also on a context-parallel decode (B 1: seq over "data")
+DRY_CELLS = (("qwen3_1p7b", ("t", 16, 8, "train", 2)),
+             ("qwen3_1p7b", ("d", 32, 4, "decode", 1)),
+             ("qwen3_1p7b", ("long", 64, 1, "decode", 1)),
+             ("qwen3_moe_30b_a3b", ("t", 16, 8, "train", 2)),
+             ("qwen3_moe_30b_a3b", ("d", 32, 4, "decode", 1)))
+
+
+def dry_body(mesh):
+    """One rank of the (2, 2) world: each ``DRY_CELLS`` cell's real step on
+    the CPU (``dryrun.cell_step`` with ``device="cpu"``), counted by
+    ``dryrun.count_step``: its FLOPs, the growth of the collectives and
+    wire banks, and the state's bytes."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+
+    torch.set_num_threads(1)
+    out = []
+    for arch, shape in DRY_CELLS:
+        shape = ShapeConfig(*shape)
+        cfg = DR.cell_config(configs.smoke_config(arch), shape, mesh)
+        run, nbytes = DR.cell_step(cfg, shape, mesh, device="cpu")
+        flops, coll, wire = DR.count_step(run)
+        out.append({"flops": flops, "collectives": coll, "wire": wire,
+                    "state_bytes": nbytes})
+    return out

@@ -80,7 +80,8 @@ kernel against its plain PyTorch version on the same inputs:
   checkpointed through the plane (MNM8N128 at rest, the Compress wire;
   kernel 3's save and kernel 1's restore of the staged leaves held to the
   plain chain and the plain relayout, and timed), restored bitwise, resumed bitwise the uninterrupted run under
-  deterministic algorithms, then served;
+  deterministic algorithms, then served; step 2's allocator peak is held
+  (in phase 22 (d)) to the dry run's count of the same step on meta;
 * data-parallel training (phase 19): 4 ranks on the card, the full
   qwen2-0.5b in f32, one step with the plain reduce and one with the int8
   codec (a reduce descriptor per gradient leaf), the ranks' states equal,
@@ -122,7 +123,22 @@ kernel against its plain PyTorch version on the same inputs:
   of the single-process port on the card; ``ServingEngine(mesh=)``'s and
   the continuous engine's tokens equal its tokens under the tie rule;
   kernel 1 moves each rank's cache blocks through the plane (and the
-  pool's pages), its round trip bitwise.
+  pool's pages), its round trip bitwise;
+* the production mesh's last regimes (phase 22): 4 gloo ranks as a (2,
+  2, 1) ("pod", "data", "model") mesh: (a) qwen3-1.7b cut to 2 layers
+  trained and (b) served with the batch over ("pod", "data"); on a (2, 2)
+  view with ``seq="data"``, gemma3-27b at full width cut to 8 of 62
+  layers in bf16: (c) one decode on a seeded 524288-slot context-parallel
+  cache, (e) ``ContinuousBatchingEngine`` serving 6 requests of 512-4096
+  prompt tokens (staggered arrivals) on a context-parallel bf16 cache of
+  32768 slots, a pool that evicts and restores a request on every rank
+  (kernels 1 and 3), tokens and logits against each request's
+  single-process run; each part against the single-process port under
+  the one-ulp rule; (d) the dry run's records (``launch/dryrun.py`` on
+  meta, processes started after the build): ``train_4k`` on 2 x 16 x 16,
+  ``long_500k`` on 16 x 16 and phase 18's step on one card, every field
+  counted (bytes moved, argument, output, temp and peak), that step's
+  counted peak within 3 % + 256 MiB of the card's.
 
 Each phase resets the kernels' launch counts just before it drives the path
 and reads them just after; a kernel of the path that did not launch, a
@@ -1546,6 +1562,9 @@ def phase18(dev, gen, card, drive):
           f"training: {cfg.name} remat {cfg.remat}, dtype {cfg.dtype}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # the bytes live before the cell: the dry run's count of its step's
+    # peak (phase 22 (d), on meta) holds the state, the batch and the step
+    base = torch.cuda.memory_allocated()
     state = T.init_state(cfg, SEED, device=dev)
     nparam = sum(t.numel() for t in _pytree.leaves(state["params"]))
     check(nparam == TRAIN_PARAMS,
@@ -1566,8 +1585,14 @@ def phase18(dev, gen, card, drive):
     from torch.profiler import ProfilerActivity, profile
     losses, gnorms, wall = [], [], []
     by_name = {}                   # device ms by kernel, the last step
+    first_peak = 0
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
+        if i == 1:
+            # step 2's peak alone, the allocator warm (step 1 also made the
+            # cuBLAS workspace)
+            first_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         # the last step under the profiler (its trace takes seconds to read
         # back), the others timed bare
         prof = (profile(activities=[ProfilerActivity.CUDA])
@@ -1582,11 +1607,13 @@ def phase18(dev, gen, card, drive):
             prof.__exit__(None, None, None)
             for k, v in device_ms_by_name(prof).items():
                 by_name[k] = by_name.get(k, 0.0) + v
+        if i == 1:
+            step_peak = torch.cuda.max_memory_allocated() - base
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
         log18(f"step {i + 1}: loss {losses[-1]:.4f}, grad norm "
               f"{gnorms[-1]:.4f}, lr {float(m['lr']):.3e}, {wall[-1]:.1f} ms")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(first_peak, torch.cuda.max_memory_allocated())
     check(all(math.isfinite(v) for v in losses + gnorms),
           f"training: non-finite loss or grad norm {losses} {gnorms}")
     check(losses[-1] < losses[0],
@@ -1601,7 +1628,8 @@ def phase18(dev, gen, card, drive):
     share = mf / (step_ms / 1e3) / BF16_FLOPS
     times = {"step_ms": step_ms, "first_step_ms": wall[0], "steps_ms": wall,
              "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
-             "peak_bytes": peak, "device_busy_ms": busy,
+             "peak_bytes": peak, "step_peak_bytes": step_peak,
+             "base_bytes": base, "device_busy_ms": busy,
              "idle_share": idle, "model_flops": mf,
              "model_flops_share": share, "losses": losses,
              "grad_norms": gnorms, "top_kernels_ms": top}
@@ -1611,7 +1639,10 @@ def phase18(dev, gen, card, drive):
           f"{peak / 1e9:.2f} GB allocated, the card idle {idle} over step "
           f"{TRAIN_STEPS} ({wall[-1]:.1f} ms under torch.profiler, "
           f"{busy:.1f} ms of device time), model_flops {mf:.4e} a step = "
-          f"{share:.1%} of 989 TFLOP/s bf16; losses {losses} on {card}")
+          f"{share:.1%} of 989 TFLOP/s bf16; losses {losses}; step 2's "
+          f"peak {step_peak} bytes above the {base} live before the state "
+          f"was made (held to the dry run's count in phase 22 (d)) on "
+          f"{card}")
     log18(f"device time by kernel in step {TRAIN_STEPS} (the ten largest, "
           "ms): "
           + "; ".join(f"{k[:80]} {v:.1f} ({v / busy:.1%})"
@@ -2814,7 +2845,8 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def greedy_run(cfg, params, batch, n, max_len, *, mesh=None, forced=None):
+def greedy_run(cfg, params, batch, n, max_len, *, mesh=None, forced=None,
+               cache_dtype=torch.float32):
     """Prefill, then ``n - 1`` decode steps: the greedy tokens (B, n) and
     the logits each was picked from (B, n, V); with ``forced`` (B, n)
     every step decodes its token instead (teacher forcing).  Also the
@@ -2824,7 +2856,7 @@ def greedy_run(cfg, params, batch, n, max_len, *, mesh=None, forced=None):
     from repro_torch.models import lm
     lead = batch["tokens"]
     dev = lead.device
-    cache = lm.init_cache(cfg, lead.shape[0], max_len, torch.float32,
+    cache = lm.init_cache(cfg, lead.shape[0], max_len, cache_dtype,
                           device=dev)
     sync(dev)
     t0 = time.perf_counter()
@@ -3176,10 +3208,27 @@ POD_SERVE = dict(B=4, S=512, max_len=32768, steps=4)
 LONG_ARCH = "gemma3_27b"       # (c): one period (5 local + 1 global layer)
 LONG_SLOTS = 1 << 19           # long_500k's 524288 cache slots
 LONG_POS = 500_000             # the cache's filled length (a seq rank 1 slot)
+# (e): the continuous engine on (c)'s model and mesh, a bf16 cache of
+# 32768 slots (16384 a seq rank): 6 requests (arrival s on the simulated
+# clock, prompt tokens, new tokens), 3 at a time, pages of 4096 rows (512
+# tokens of a rank's 8 KV heads of the global layer, a rank's whole window
+# block of a local layer).  Each of the first three prompts sits just under
+# a page boundary, so their decodes grow the global K / V; the pool holds
+# their prompts and one growth, so the next growth evicts a request, which
+# is restored when one finishes.
+LONG_CB = dict(trace=((0.0, 1020, 12), (0.0, 1530, 10), (0.0, 2040, 16),
+                      (0.5, 4090, 8), (1.0, 512, 12), (1.5, 3000, 14)),
+               max_len=32768, batch=3, page_rows=4096, seed=SEED + 5)
 # (d): the dry run's cells, each in a process of its own started after the
-# build; (arch, shape, --multi-pod)
-DRY_CELLS = (("qwen3-1.7b", "train_4k", True),
-             ("gemma3-27b", "long_500k", False))
+# build: (arch, shape, the command's flags); the last counts phase 18's step
+# on one card, whose allocator peak must come within PEAK_REL of the counted
+# peak plus PEAK_SLACK (blocks rounded up, what kernels allocate inside)
+DRY_CELLS = (("qwen3-1.7b", "train_4k", ("--multi-pod",)),
+             ("gemma3-27b", "long_500k", ()),
+             ("qwen3-1.7b", "train_4k", (
+                 "--one-card", "--batch", str(TRAIN_B), "--seq",
+                 str(TRAIN_S), "--microbatches", str(TRAIN_MICRO))))
+PEAK_REL, PEAK_SLACK = 0.03, 256 << 20
 
 
 def phase22_configs():
@@ -3202,32 +3251,58 @@ def start_dryrun():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="")
     procs = []
-    for arch, shape, multi_pod in DRY_CELLS:
+    for arch, shape, flags in DRY_CELLS:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape] + (["--multi-pod"] if multi_pod
-                                          else [])
-        procs.append(((arch, shape, multi_pod), time.perf_counter(),
+               arch, "--shape", shape] + list(flags)
+        procs.append(((arch, shape, flags), time.perf_counter(),
                       subprocess.Popen(cmd, env=env, cwd=ROOT,
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)))
     return procs
 
 
-def finish_dryrun(procs, card):
-    """(d)'s records: every field but XLA's temp and peak bytes set."""
+def finish_dryrun(procs, card, train_peak):
+    """(d)'s records: every field set, the bytes held (argument, output,
+    temp, peak) and moved counted, the memory term the bytes moved over
+    the HBM rate; phase 18's step (``train_peak``: its allocator's peak
+    above the bytes live before the cell) within PEAK_REL + PEAK_SLACK of
+    its counted peak."""
     out = {}
-    for (arch, shape, multi_pod), t0, proc in procs:
+    for (arch, shape, flags), t0, proc in procs:
         stdout, stderr = proc.communicate(timeout=900)
         check(proc.returncode == 0,
               f"dry run {arch} {shape}: exit {proc.returncode}\n{stderr}")
         rec = json.loads(stdout.strip().splitlines()[-1])
+        mem = rec["bytes_per_device"]
         nulls = sorted(k for k, v in rec.items() if v is None)
-        nulls += sorted(k for k, v in rec["bytes_per_device"].items()
-                        if v is None and k not in ("temp", "peak"))
+        nulls += sorted(k for k, v in mem.items() if v is None)
         check(not nulls, f"dry run {arch} {shape}: null fields {nulls}")
         check(rec["flops_per_device"] > 0
               and len(rec["roofline_s"]) == 3,
               f"dry run {arch} {shape}: {rec}")
+        check(mem["peak"] >= mem["argument"] > 0 and mem["temp"] > 0
+              and rec["op_bytes_per_device"] > rec["state_bytes_per_device"]
+              and rec["roofline_s"]["memory"]
+              == rec["op_bytes_per_device"] / HBM_BYTES_PER_S,
+              f"dry run {arch} {shape}: bytes {mem}, moved "
+              f"{rec['op_bytes_per_device']}, terms {rec['roofline_s']}")
+        if "--one-card" in flags:
+            off = abs(train_peak - mem["peak"])
+            bound = PEAK_REL * mem["peak"] + PEAK_SLACK
+            log(f"[dry run] phase 18's step ({arch}, B {TRAIN_B} x "
+                f"{TRAIN_S} in {TRAIN_MICRO} microbatches, one card): "
+                f"counted peak {mem['peak']} bytes (argument "
+                f"{mem['argument']}, temp {mem['temp']}, bytes moved "
+                f"{rec['op_bytes_per_device']}), the card's "
+                f"max_memory_allocated over step 2 less the bytes live "
+                f"before the cell {train_peak}: {off} apart, "
+                f"{(train_peak - mem['peak']) / mem['peak']:+.2%} (bound "
+                f"{bound}: {PEAK_REL:.0%} + {PEAK_SLACK} bytes) on {card}")
+            check(off <= bound,
+                  f"dry run: phase 18's measured peak {train_peak} is "
+                  f"{off} bytes off the counted {mem['peak']} (bound "
+                  f"{bound})")
+            rec["measured_peak_bytes"] = train_peak
         log(f"[dry run] (d) {json.dumps(rec)}")
         log(f"[dry run] (d) {arch} {shape} on {rec['mesh']}: rank 0 of "
             f"{rec['n_devices']} counted in {rec['count_s']} s (a process "
@@ -3277,7 +3352,9 @@ def phase22_reference(card, device):
     cache of 32768 slots, their logits and margins and the one-ulp bound;
     (c) gemma3-27b's one period in bf16 decoding one token on the whole
     seeded cache of ``LONG_SLOTS`` slots, its logits and the one-ulp
-    bound, with the weights' and the cache's bytes."""
+    bound, with the weights' and the cache's bytes; (e) each request of
+    ``LONG_CB``'s stream alone on the same model, its greedy tokens,
+    logits and margins, and the one-ulp bound over them."""
     from repro_torch import _pytree
     from repro_torch.models import lm
     from repro_torch.serving.engine import make_serve_step
@@ -3326,7 +3403,6 @@ def phase22_reference(card, device):
         peak = torch.cuda.max_memory_allocated() - base
         moved = one_ulp(params, SEED)
         logits_ulp, _ = serve(moved, cache, tok)
-        del moved
         lg = logits[:, -1].float()
         gap = float((logits_ulp[:, -1].float() - lg).abs().max())
         global_k = cache["blocks"][-1]["k"]
@@ -3337,7 +3413,12 @@ def phase22_reference(card, device):
                      "cache_bytes": tree_bytes(cache),
                      "global_cache_bytes": 2 * global_k.numel()
                      * global_k.element_size()}
-        del params, cache, logits, logits_ulp
+        del cache, logits, logits_ulp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        refs["e"] = long_continuous_reference(long, params, moved, dev)
+        del params, moved
         gc.collect()
         torch.cuda.empty_cache()
     finally:
@@ -3547,13 +3628,103 @@ def phase22_rank(mesh, card, refs):
                   f"(bound {ref['bound']}: {SERVE_ULP_TIMES} x the one-ulp "
                   f"gap {ref['ulp_gap']})")
             check(int(new["pos"]) == LONG_POS + 1, f"{tag} pos {new['pos']}")
-            del local, cache, new, logits
-        out["c"] = c
+            del cache, new, logits
+            out["c"] = c
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (e) continuous batching on the context-parallel cache
+            out["e"] = long_continuous(m, cfg, local, refs["e"], f"[long "
+                                       f"continuous rank {r}]")
+            del local
         gc.collect()
         torch.cuda.empty_cache()
     finally:
         undo()
     return out
+
+
+def long_continuous_reference(cfg, params, moved, dev):
+    """(e)'s reference: each request of ``LONG_CB``'s stream alone,
+    greedy on the whole model (``params``) with a bf16 cache, its tokens,
+    logits and top-2 margins; the gap one ulp on every weight (``moved``)
+    opens, each request teacher-forced on its tokens, over them all."""
+    from repro_torch.serving import trace_stream
+    t0 = time.perf_counter()
+    E, cb, gap = LONG_CB, {}, 0.0
+    for rq in trace_stream(cfg, E["trace"], seed=E["seed"]):
+        b = {"tokens": torch.from_numpy(rq.tokens).to(dev)[None]}
+        t, lg, _, _, _, _ = greedy_run(cfg, params, b, rq.max_new,
+                                       E["max_len"],
+                                       cache_dtype=torch.bfloat16)
+        _, lg_ulp, _, _, _, _ = greedy_run(cfg, moved, b, rq.max_new,
+                                           E["max_len"], forced=t,
+                                           cache_dtype=torch.bfloat16)
+        gap = max(gap, float((lg_ulp - lg).abs().max()))
+        cb[rq.rid] = {"tokens": t[0].cpu(), "logits": lg[0].cpu(),
+                      "margin": top2_margin(lg)[0].cpu()}
+    return {"requests": cb, "ulp_gap": gap, "bound": SERVE_ULP_TIMES * gap,
+            "s": time.perf_counter() - t0}
+
+
+def long_continuous(mesh, cfg, local, ref, tag):
+    """(e) in one rank: ``ContinuousBatchingEngine(mesh=)`` serving
+    ``LONG_CB``'s stream on this rank's blocks of a context-parallel bf16
+    cache, on a pool of the first three prompts' pages and one growth (the
+    engine's own count, the same on every rank).  Every request's tokens,
+    its logits' distance from the single-process run up to the first
+    token the two pick otherwise, the decisions, and the launches of
+    kernel 1 (page stores and loads) and kernel 3 (evictions and
+    restores), which must both have run."""
+    from repro_torch.kernels import _build, agu, datapath
+    from repro_torch.serving import (ContinuousBatchingEngine, PagedKVPool,
+                                     trace_stream)
+    import torch.distributed as dist
+
+    E = LONG_CB
+    dev = mesh.device
+    reqs = trace_stream(cfg, E["trace"], seed=E["seed"])
+
+    def engine(pool):
+        return ContinuousBatchingEngine(
+            cfg, local, E["max_len"], max_batch=E["batch"],
+            cache_dtype=torch.bfloat16, pool=pool, mesh=mesh, device=dev,
+            keep_logits=True)
+    probe = engine(PagedKVPool(1, E["page_rows"]))
+    pages = (sum(probe._footprint(rq.prompt_len) for rq in reqs[:3])
+             + max(probe._growth(rq.prompt_len + k) for rq in reqs
+                   for k in range(rq.max_new)))
+    eng = engine(PagedKVPool(pages, E["page_rows"]))
+    _build.reset_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    rep = eng.serve(reqs)
+    sync(dev)
+    e = {"s": time.perf_counter() - t0, "steps": rep.steps,
+         "pool": rep.pool_stats, "pages": pages,
+         "preemptions": rep.preemptions, "elapsed_s": rep.elapsed_s,
+         "tokens": {k: torch.as_tensor(v) for k, v in rep.tokens.items()},
+         "launches": {k.name: k.launches for k in _build.KERNELS},
+         "footprints": [probe._footprint(rq.prompt_len) for rq in reqs],
+         "err": {}}
+    check(sorted(rep.tokens) == sorted(ref["requests"]),
+          f"{tag} served {sorted(rep.tokens)} of {len(reqs)} requests")
+    check(agu.RELAYOUT.launches > 0,
+          f"{tag} kernel 1 did not launch on the page pool")
+    check(datapath.BLOCK.launches > 0,
+          f"{tag} kernel 3 did not launch on the evictions and restores")
+    check(rep.preemptions > 0 and rep.pool_stats["evictions"] > 0
+          and rep.pool_stats["restores"] > 0,
+          f"{tag} the pool of {pages} pages evicted "
+          f"{rep.pool_stats['evictions']} and restored "
+          f"{rep.pool_stats['restores']} pages")
+    for rid, want in ref["requests"].items():
+        got, lg = e["tokens"][rid], torch.as_tensor(rep.logits[rid])
+        check(bool(torch.isfinite(lg).all()), f"{tag} non-finite logits")
+        diff = (got != want["tokens"]).nonzero()
+        n = int(diff[0]) + 1 if len(diff) else len(got)
+        e["err"][rid] = float((lg[:n] - want["logits"][:n]).abs().max())
+    return e
 
 
 def rank_block_kernels(card):
@@ -3627,12 +3798,14 @@ def rank_block_kernels(card):
     return out
 
 
-def phase22(card, dry, device="cuda"):
+def phase22(card, dry, train_peak, device="cuda"):
     """Phase 22: the references here, then ``phase22_rank`` in a world of
     4 gloo ranks on the card as ("pod", "data", "model") = (2, 2, 1):
     (a) multi-pod training, (b) multi-pod serving, (c) the single-pod
-    long_500k decode on the context-parallel cache; then (d) the dry run's
-    records (``dry``: the processes ``start_dryrun`` started)."""
+    long_500k decode on the context-parallel cache, (e) the continuous
+    engine on that cache; then (d) the dry run's records (``dry``: the
+    processes ``start_dryrun`` started; ``train_peak`` phase 18's measured
+    peak)."""
     import tempfile
     from repro_torch import sharding as S
 
@@ -3705,15 +3878,48 @@ def phase22(card, dry, device="cuda"):
         f"state {[p['step_peak_bytes'] / 1e9 for p in c]} GB; rank 0's "
         f"collective bytes {c[0]['coll_bytes']}; init "
         f"{[round(p['init_s'], 1) for p in c]} s on {card}")
+    ref, e = refs["e"], [rk["e"] for rk in world]
+    bound = 2 * ref["bound"]
+    for r, p in enumerate(e):
+        for rid, want in ref["requests"].items():
+            tokens_agree(p["tokens"][rid][None], want["tokens"][None],
+                         want["margin"][None], bound,
+                         f"long continuous rank {r} request {rid}")
+            check(p["err"][rid] <= ref["bound"],
+                  f"long continuous rank {r} request {rid}: logits "
+                  f"{p['err'][rid]} off the single-process run (bound "
+                  f"{ref['bound']}: {SERVE_ULP_TIMES} x the one-ulp gap "
+                  f"{ref['ulp_gap']})")
+        check((p["steps"], p["pool"], p["elapsed_s"]) == (
+            e[0]["steps"], e[0]["pool"], e[0]["elapsed_s"]),
+            f"long continuous rank {r}: decisions differ from rank 0's")
+    log(f"[long continuous] (e) {long.name}, {long.n_layers} layers, bf16, "
+        f"mesh (2, 2) over (data, model), seq=data, "
+        f"ContinuousBatchingEngine over a bf16 cache of "
+        f"{LONG_CB['max_len']} slots: {len(LONG_CB['trace'])} requests "
+        f"(arrival s, prompt, new) {LONG_CB['trace']}, {LONG_CB['batch']} at "
+        f"a time, pages of {LONG_CB['page_rows']} rows, a pool of "
+        f"{e[0]['pages']} pages a rank (footprints at the prompt "
+        f"{e[0]['footprints']}): {e[0]['steps']} steps, "
+        f"{e[0]['preemptions']} preemptions, pool {e[0]['pool']}, the same "
+        f"decisions on every rank; tokens equal each request's "
+        f"single-process run in every rank under the tie rule (margin "
+        f"below {bound}), logits {[max(p['err'].values()) for p in e]} off "
+        f"by rank (bound {ref['bound']}: {SERVE_ULP_TIMES} x the one-ulp "
+        f"gap {ref['ulp_gap']}); kernel launches by rank "
+        f"{[p['launches'] for p in e]}; served in "
+        f"{[round(p['s'], 1) for p in e]} s by rank (single-process "
+        f"references {ref['s']:.1f} s with their one-ulp runs) on {card}")
     log(f"[phase 22] references {ref_s:.1f} s, the world {world_s:.1f} s "
         f"with 4 process starts on {card}")
     blocks = rank_block_kernels(card)
-    records = finish_dryrun(dry, card)
+    records = finish_dryrun(dry, card, train_peak)
     return {"ref_s": ref_s, "world_s": world_s, "rank_blocks": blocks,
             "a": a, "b": [
         {k: v for k, v in p.items() if k != "tokens"} for p in b], "c": c,
+        "e": [{k: v for k, v in p.items() if k != "tokens"} for p in e],
         "refs": {k: {x: y for x, y in v.items()
-                     if x not in ("tokens", "logits", "margin")}
+                     if x not in ("tokens", "logits", "margin", "requests")}
                  for k, v in refs.items()}, "dry_run": records}
 
 
@@ -4912,7 +5118,7 @@ def main():
     serve_times = phase21(card)
 
     # -- phase 22: the production mesh's last regimes, 4 ranks on the card ------
-    pod_times = phase22(card, dry)
+    pod_times = phase22(card, dry, training["step_peak_bytes"])
 
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]

@@ -1,10 +1,14 @@
-"""Collective bytes of a few smoke cells on a (2, 2) ("data", "model") mesh:
-the port's dry run (rank 0 on meta, ``repro_torch.launch.dryrun.run_cell``)
-beside the reference's own count (its jitted step lowered and compiled for
-4 XLA host devices, the optimised HLO walked by ``repro.launch.hlo_cost``).
+"""Bytes of a few smoke cells on a (2, 2) ("data", "model") mesh: the port's
+dry run (rank 0 on meta, ``repro_torch.launch.dryrun.run_cell``) beside the
+reference's own count (its jitted step lowered and compiled for 4 XLA host
+devices, the optimised HLO walked by ``repro.launch.hlo_cost``, its memory
+analysis read): collective bytes a device by kind, the bytes the ops move
+(the port's ``op_bytes_per_device``, the reference's
+``hlo_bytes_per_device``), and the temp and peak bytes a device.
 
 The two partition differently (GSPMD chooses the reference's collectives,
-the port's are explicit calls), so they are set side by side, not held to
+the port's are explicit calls), and XLA fuses ops and assigns buffers where
+the port runs every op eagerly, so they are set side by side, not held to
 a bound.  Runs on the CPU; prints one JSON line a cell.
 
     PYTHONPATH=src python scripts/dryrun_vs_hlo.py
@@ -49,8 +53,9 @@ KINDS = {"all-gather": "all_gather", "all-reduce": "all_reduce",
 
 def reference_bytes(arch, shape):
     """The reference's lowered step of the smoke cell on 4 host devices, as
-    ``repro.launch.dryrun.lower_cell`` lowers a production cell: its
-    collective bytes a device by kind (``hlo_cost``'s walk)."""
+    ``repro.launch.dryrun.lower_cell`` lowers a production cell:
+    ``(collective bytes a device by kind, HBM bytes a device, temp, peak)``
+    (``hlo_cost``'s walk; XLA's memory analysis)."""
     mesh = make_mesh_compat(*MESH)
     rshape = RShape(*shape)
     cfg = RCF.smoke_config(arch).with_axes(RMM.axes_for(mesh, rshape))
@@ -90,20 +95,30 @@ def reference_bytes(arch, shape):
                               RDR._ns(mesh, tspecs, tok)),
                 out_shardings=(None, RDR._ns(mesh, cspecs, cache)),
             ).lower(params, cache, tok)
-    walk = hlo_cost.analyze(lowered.compile().as_text())
-    return {KINDS.get(k, k): int(v) for k, v in walk["collectives"].items()}
+    compiled = lowered.compile()
+    walk = hlo_cost.analyze(compiled.as_text())
+    mem = compiled.memory_analysis()
+    return ({KINDS.get(k, k): int(v) for k, v in walk["collectives"].items()},
+            int(walk["bytes"]), mem.temp_size_in_bytes,
+            mem.peak_memory_in_bytes)
 
 
 def main():
     for arch, shape in CELLS:
         rec = DR.run_cell(configs.smoke_config(arch), ShapeConfig(*shape),
                           mesh=M.MeshSpec(*MESH))
+        coll, moved, temp, peak = reference_bytes(arch, shape)
+        mem = rec["bytes_per_device"]
         print(json.dumps({
             "arch": arch, "shape": list(shape), "mesh": "2x2",
             "axes": rec["axes"],
-            "port_bytes_per_device": rec["collective_bytes_per_device"],
-            "reference_hlo_bytes_per_device": reference_bytes(arch, shape)}),
-            flush=True)
+            "port": {"collective_bytes_per_device":
+                     rec["collective_bytes_per_device"],
+                     "op_bytes_per_device": rec["op_bytes_per_device"],
+                     "temp": mem["temp"], "peak": mem["peak"]},
+            "reference": {"collective_bytes_per_device": coll,
+                          "hlo_bytes_per_device": moved,
+                          "temp": temp, "peak": peak}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from typing import Sequence, Tuple
 import torch
 
 from repro_torch import sharding as S
+from repro_torch.launch import op_cost
 from repro_torch.runtime import telemetry as _tm
 
 from . import plugins as P
@@ -81,6 +82,7 @@ def _count(op: str, ax: S.MeshAxis, nbytes: int) -> None:
     _BANK.inc(f"bytes:{op}", int(nbytes))
 
 
+@op_cost.one_op
 def _exchange(flat: torch.Tensor, send, recv, ax: S.MeshAxis) -> torch.Tensor:
     """``all_to_all_single`` of a byte vector: its first ``send[j]`` bytes
     after those for lower ranks to rank ``j`` of the axis, ``recv[j]`` from
@@ -99,6 +101,7 @@ def _exchange(flat: torch.Tensor, send, recv, ax: S.MeshAxis) -> torch.Tensor:
     return wire.back(out)
 
 
+@op_cost.one_op
 def _all_reduce(t: torch.Tensor, ax: S.MeshAxis) -> torch.Tensor:
     _count("all_reduce", ax, t.numel() * t.element_size())
     if S.on_meta(ax, t):
@@ -113,6 +116,7 @@ def _all_reduce(t: torch.Tensor, ax: S.MeshAxis) -> torch.Tensor:
     return wire.back(y)
 
 
+@op_cost.one_op
 def _all_gather(t: torch.Tensor, ax: S.MeshAxis) -> torch.Tensor:
     """``lax.all_gather(..., tiled=True)``: the ranks' tensors concatenated
     along dim 0 in rank order."""

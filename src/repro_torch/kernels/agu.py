@@ -12,7 +12,8 @@ hand-written CUDA relayout whose grid is its own (64 x 64 tiles of the
 destination, 16-byte accesses where the layouts' runs allow); its launches
 are counted by path, ``"direct"`` (both sides run along one axis) or
 ``"staged"`` (through shared memory).  :func:`relayout_plain` is its plain
-PyTorch version: the layout algebra composed, which the CPU takes.
+PyTorch version: the layout algebra composed, which the CPU takes (and the
+dry run on meta while it counts, the call one op: ``launch.op_cost``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import layouts as L
+from repro_torch.launch import op_cost
 from repro_torch.runtime import telemetry as _tm
 
 from . import _build, maps
@@ -131,13 +133,15 @@ def _relayout_cuda(x: torch.Tensor, src_layout: L.Layout,
     return out
 
 
+@op_cost.one_op
 def relayout_kernel(x: torch.Tensor, src_layout: L.Layout,
                     dst_layout: L.Layout, transpose: bool = False
                     ) -> torch.Tensor:
-    """Kernel 1 on a CUDA tensor; its plain version on a CPU tensor."""
+    """Kernel 1 on a CUDA tensor; its plain version on a CPU tensor (and
+    on a meta one while the dry run counts, for its shape)."""
     if x.device.type == "cuda":
         return _relayout_cuda(x, src_layout, dst_layout, transpose)
-    if x.device.type == "cpu":
+    if op_cost.plain_on(x):
         return relayout_plain(x, src_layout, dst_layout, transpose)
     raise NotImplementedError(f"no relayout kernel for device {x.device}")
 

@@ -13,7 +13,10 @@ are rounded to the stream dtype as jnp's rules require (``Scale`` and
 ``BiasAdd`` cast their constant to the stream dtype first), so one binary
 serves every chain.  On a CPU tensor each takes its plain version — the
 plugins' ``__call__`` composed with the layout algebra — and on a CUDA
-tensor it launches its kernel or raises.  Kernel 2 runs float32, bfloat16
+tensor it launches its kernel or raises; on a meta tensor the dry run
+(an active ``launch.op_cost.OpCost``) takes the plain version's shapes
+and counts the call as one op (:func:`repro_torch.launch.op_cost.one_op`),
+and elsewhere a meta tensor raises.  Kernel 2 runs float32, bfloat16
 and float16 streams, kernel 3 those and int8, uint8, int16, int32 and int64
 streams (a :class:`StreamedDatapath` hands an integer stream to kernel 3);
 a scale, bias or weight is a scalar or a vector over the last logical axis.
@@ -29,6 +32,7 @@ import torch
 
 from repro_torch.core import layouts as L
 from repro_torch.core import plugins as P
+from repro_torch.launch import op_cost
 
 from . import _build, maps
 
@@ -205,8 +209,9 @@ class StreamedDatapath:
             a.dst[d] = maps.DimMap(*mp)
         return a, keep
 
+    @op_cost.one_op
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
+        if op_cost.plain_on(x):
             return plain(x, self.chain, self.src_layout, self.dst_layout)
         if x.device.type != "cuda":
             raise NotImplementedError(f"no datapath kernel for {x.device}")
@@ -762,8 +767,9 @@ class BlockDatapath:
               path="rank2")
         return out
 
+    @op_cost.one_op
     def __call__(self, x: torch.Tensor):
-        if x.device.type == "cpu":
+        if op_cost.plain_on(x):
             return plain(x, self.chain, self.src_layout, self.dst_layout)
         if x.device.type != "cuda":
             raise NotImplementedError(f"no datapath kernel for {x.device}")

@@ -19,7 +19,10 @@ their promoted dtype first (exactly) and the result comes back in q's
 dtype, as the reference's dots promote.  On a CPU tensor they take the plain
 version, :func:`flash_attention_plain`, which runs the reference's own
 update over the reference's ``(q_chunk, kv_chunk)`` blocks; the chunks shape
-only that version (the kernel tiles 64 x 64).
+only that version (the kernel tiles 64 x 64).  On a meta tensor the dry run
+(an active ``launch.op_cost.OpCost``) takes the plain version's shapes
+and counts the call as one op (:func:`repro_torch.launch.op_cost.one_op`);
+elsewhere a meta tensor raises.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from repro_torch.launch import op_cost
 
 from . import _build, maps
 
@@ -185,11 +190,12 @@ def _check(q, k, v, rank: int):
                          f"v {tuple(v.shape)} do not fit together")
 
 
+@op_cost.one_op
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_chunk: int = 512, kv_chunk: int = 512):
     """q (BH, Sq, hd); k, v (BH, Sk, hd).  Returns (BH, Sq, hd)."""
     _check(q, k, v, 3)
-    if q.device.type == "cpu":
+    if op_cost.plain_on(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
     if q.device.type != "cuda":
@@ -200,6 +206,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     return out
 
 
+@op_cost.one_op
 def flash_attention_gqa(q, k, v, *, causal=True, window=None,
                         q_chunk: int = 512, kv_chunk: int = 512):
     """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> (B,Sq,H,hd) via the kernel."""
@@ -207,7 +214,7 @@ def flash_attention_gqa(q, k, v, *, causal=True, window=None,
     H, KV = q.shape[2], k.shape[2]
     if KV <= 0 or H % KV:
         raise ValueError(f"{H} query heads do not share {KV} kv heads evenly")
-    if q.device.type == "cpu":
+    if op_cost.plain_on(q):
         return flash_attention_gqa_plain(q, k, v, causal=causal, window=window,
                                          q_chunk=q_chunk, kv_chunk=kv_chunk)
     if q.device.type != "cuda":

@@ -6,7 +6,8 @@ being moved into the GeMM-optimal tiled layout.  On a CUDA tensor
 :func:`rmsnorm_relayout` launches ``csrc/rmsnorm_relayout.cu``, which keeps
 each row in registers between its sum of squares and its store; on a CPU
 tensor it takes the plain version, the oracle of :mod:`.ref` applied to the
-rows the reference's grid covers.
+rows the reference's grid covers (on a meta tensor too while the dry run
+counts: one op to ``launch.op_cost``).
 
 Shapes follow the reference: the columns must be a whole number of tiles
 (the reference's reshape fails otherwise), and rows past ``(m // tm) * tm``
@@ -18,6 +19,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.launch import op_cost
 
 from . import _build, maps, ref
 
@@ -76,6 +79,7 @@ def _launch(x, weight, tile_shape, eps):
     return out
 
 
+@op_cost.one_op
 def rmsnorm_relayout(x: torch.Tensor, weight: Optional[torch.Tensor],
                      tile_shape: Tuple[int, int], *, eps: float = 1e-6,
                      d_buf: int = 9) -> torch.Tensor:
@@ -86,7 +90,7 @@ def rmsnorm_relayout(x: torch.Tensor, weight: Optional[torch.Tensor],
     reference's grid and never the result, and the CUDA kernel tiles its
     work its own way (a thread group per row)."""
     tile_shape = tuple(int(t) for t in tile_shape)
-    if x.device.type == "cpu":
+    if op_cost.plain_on(x):
         return rmsnorm_relayout_plain(x, weight, tile_shape, eps=eps)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no rmsnorm_relayout kernel for {x.device}")

@@ -4,7 +4,8 @@ twin of ``repro.kernels.quant``).
 The wire-format producer for compressed collectives: rows are scaled to int8
 while being tiled to ``MNM32N128``, with per-row f32 scales alongside.  On a
 CUDA tensor :func:`quantize_tiled` launches ``csrc/quantize_tiled.cu``; on a
-CPU tensor it takes the plain version.  Values and scales equal the
+CPU tensor it takes the plain version (on a meta tensor too while the dry
+run counts: one op to ``launch.op_cost``).  Values and scales equal the
 reference's bit for bit: the scale is ``amax * f32(1 / 127)``, which is what
 XLA makes of the reference's ``amax / 127.0``, then an IEEE ``x / scale``
 rounded half to even.  Non-finite rows keep that promise: the row max
@@ -24,6 +25,8 @@ import ctypes
 from typing import Tuple
 
 import torch
+
+from repro_torch.launch import op_cost
 
 from . import _build, maps, ref
 
@@ -80,6 +83,7 @@ def _launch(x, tile_shape):
     return values, scales
 
 
+@op_cost.one_op
 def quantize_tiled(x: torch.Tensor, tile_shape=(32, 128), *, d_buf: int = 9):
     """Per-row symmetric int8 of ``x`` (m, n): ``(values, scales)`` with
     values int8 ``(m // tm, n // tn, tm, tn)`` and scales f32 ``(m, 1)``.
@@ -87,7 +91,7 @@ def quantize_tiled(x: torch.Tensor, tile_shape=(32, 128), *, d_buf: int = 9):
     ``d_buf`` is the reference's TPU burst depth; it picks only the
     reference's grid and never the result."""
     tile_shape = tuple(int(t) for t in tile_shape)
-    if x.device.type == "cpu":
+    if op_cost.plain_on(x):
         return quantize_tiled_plain(x, tile_shape)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no quantize_tiled kernel for {x.device}")

@@ -16,22 +16,31 @@ For each cell this:
      state by the fitted state specs, or the bf16 weights by the serving
      specs and the decode cache by the fitted cache specs, and runs the
      same step a real rank runs (``make_train_step(..., mesh=)``,
-     ``lm.prefill``, ``make_serve_step(..., mesh=)``) once under
-     ``torch.utils.flop_counter.FlopCounterMode``;
-  4. records the FLOPs per device, the state's bytes per device, the
-     collective bytes per device by op and by op and axis (the
-     ``collectives`` bank, :func:`repro_torch.sharding.collective_stats`,
-     and the MoE plane's ``wire`` bank), and the three roofline terms
-     against NVIDIA's H100 SXM data sheet, named in the record.
+     ``lm.prefill``, ``make_serve_step(..., mesh=)``) once, under
+     ``torch.utils.flop_counter.FlopCounterMode`` and
+     :class:`repro_torch.launch.op_cost.OpCost` together;
+  4. records the FLOPs per device, the bytes its ops move
+     (``op_bytes_per_device``, the twin of the reference's
+     ``hlo_bytes_per_device``), its ``bytes_per_device`` (the state, the
+     argument (state and batch), the output, temp and peak bytes: what a
+     card must hold), the collective bytes per device by op and by op and
+     axis (the ``collectives`` bank,
+     :func:`repro_torch.sharding.collective_stats`, and the MoE plane's
+     ``wire`` bank), and the three roofline terms against NVIDIA's H100
+     SXM data sheet, named in the record: compute (FLOPs), memory (the
+     bytes the ops move) and collective.
 
-The reference compiles each cell for 256 or 512 TPU devices and reads
-XLA's memory and cost analyses; ``repro.launch.hlo_cost`` walks the
-optimised HLO text for trip counts and collective bytes.  ``hlo_cost`` has
-no twin here: torch has no HLO, and the port's collectives are explicit
-calls, so the ledger of one rank's step is the collective term.  XLA's
-``temp`` and ``peak`` bytes come from its buffer assignment, which meta
-tensors do not have: they are recorded as ``null`` with that reason, and
-no number is made up.  Any failure of a cell raises.
+The reference compiles each cell for 256 or 512 TPU devices, reads XLA's
+memory analysis and walks the optimised HLO (``repro.launch.hlo_cost``)
+for its bytes; the port counts at dispatch (``op_cost``: how its four
+memory fields map to XLA's is set out there), and its collectives are
+explicit calls, so the ledger of one rank's step is the collective term.
+Any failure of a cell raises.
+
+``--one-card`` counts the step of one card with no mesh (the single-process
+program ``chip_smoke.py`` runs on the H100, whose allocator's peak is held
+to this count), and ``--batch`` / ``--seq`` / ``--microbatches`` resize the
+shape.
 
 The bound is optimistic: the collective term counts every byte at one
 NVLink's 450 GB/s each way, but a 256-card mesh spans 32 nodes of 8 cards,
@@ -39,13 +48,20 @@ and what crosses between nodes runs on the network, far slower.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k [--multi-pod]
+  python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
+      --one-card --batch 4 --microbatches 2
   python -m repro_torch.launch.dryrun --all --both-meshes [--out results.jsonl]
+
+``--all`` counts its cells a process a core, each record written as its
+cell ends (out of order: ``scripts/dryrun_table.py`` keys them).
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import sys
 import time
@@ -61,6 +77,7 @@ from repro_torch.configs import specs as SP
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.core import remote
 from repro_torch.launch import mesh as MM
+from repro_torch.launch import op_cost
 from repro_torch.models import lm
 from repro_torch.serving.engine import make_serve_step
 from repro_torch.train.step import init_state, make_train_step
@@ -71,8 +88,6 @@ H100_HBM_BYTES_PER_S = 3.35e12
 H100_NVLINK_BYTES_PER_S = 450e9     # NVLink 4: 900 GB/s, 450 GB/s each way
 HARDWARE = ("NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, "
             "3.35 TB/s HBM3, NVLink 900 GB/s (450 GB/s each way)")
-NO_BUFFERS = ("XLA's buffer assignment gives the reference its temp and "
-              "peak bytes; meta tensors have none, so they are not counted")
 
 META = torch.device("meta")
 
@@ -149,12 +164,25 @@ def cell_config(arch: Union[str, ModelConfig], shape: ShapeConfig, mesh, *,
     return cfg
 
 
+class Step:
+    """One step of a cell: ``step()`` takes it and returns what it
+    returns; ``arguments`` are the tensors live as it starts (its state
+    and its batch), which :func:`count_step` counts as held."""
+
+    def __init__(self, fn, arguments):
+        self.fn, self.arguments = fn, arguments
+
+    def __call__(self):
+        return self.fn()
+
+
 def cell_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
               device=META, seed: int = 0):
-    """``(run, state_bytes)``: ``run()`` takes one step of the cell and
-    ``state_bytes`` is what the step's state holds (train: parameters and
-    optimizer; serving: bf16 weights and the cache), on ``device`` (meta:
-    shapes only; the batch is zeros, the weights ``seed``'s elsewhere).
+    """``(step, state_bytes)``: ``step()`` takes one step of the cell (a
+    :class:`Step`) and ``state_bytes`` is what the step's state holds
+    (train: parameters and optimizer; serving: bf16 weights and the
+    cache), on ``device`` (meta: shapes only; the batch is zeros, the
+    weights ``seed``'s elsewhere).
 
     With ``mesh`` (a registered mesh: :func:`repro_torch.sharding.
     meta_mesh` or a ``run_spmd`` rank's, ``cfg`` from :func:`cell_config`)
@@ -164,7 +192,8 @@ def cell_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     if shape.kind == "train":
         state = init_state(cfg, seed, device=device, mesh=mesh)
         step = make_train_step(cfg, shape, mesh=mesh)
-        return (lambda: step(state, batch)), _nbytes(state)
+        return (Step(lambda: step(state, batch), (state, batch)),
+                _nbytes(state))
     params = _bf16(lm.init_params(cfg, seed, device=device))
     if mesh is not None:
         specs, _ = MM.serving_specs(cfg, mesh)
@@ -173,19 +202,19 @@ def cell_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
                           device=device)
     state_bytes = _nbytes(params) + _nbytes(cache)
     if shape.kind == "prefill":
-        def run():
+        def prefill():
             with torch.no_grad():
                 return lm.prefill(cfg, params, batch, cache, mesh=mesh,
                                   max_len=shape.seq_len)
-        return run, state_bytes
+        return Step(prefill, (params, cache, batch)), state_bytes
     tokens = _meta(SP.decode_token_specs(cfg, shape), device)
     serve = make_serve_step(cfg, mesh=mesh, max_len=shape.seq_len)
 
-    def run():
+    def decode():
         with torch.no_grad():
             t = tokens.get("tokens", tokens.get("embeds"))
             return serve(params, cache, t)
-    return run, state_bytes
+    return Step(decode, (params, cache, tokens)), state_bytes
 
 
 def _grown(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
@@ -194,16 +223,20 @@ def _grown(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
 
 
 def count_step(run):
-    """``(flops, collectives, wire)`` of one call of ``run`` in this rank:
-    ``FlopCounterMode``'s total and what the ``collectives`` and ``wire``
-    banks grew by."""
+    """``(flops, collectives, wire, memory)`` of one call of ``run`` in
+    this rank, counted in one run: ``FlopCounterMode``'s total, what the
+    ``collectives`` and ``wire`` banks grew by, and
+    :class:`repro_torch.launch.op_cost.OpCost`'s ``{"op_bytes",
+    "argument", "output", "temp", "peak"}`` (``run.arguments`` held from
+    the start, where ``run`` is a :class:`Step`)."""
     counter = FlopCounterMode(display=False)
+    cost = op_cost.OpCost(getattr(run, "arguments", ()))
     coll, wire = SH.collective_stats(), remote.wire_stats()
-    with counter:
-        run()
+    with counter, cost:
+        out = run()
     return (int(counter.get_total_flops()),
             _grown(coll, SH.collective_stats()),
-            _grown(wire, remote.wire_stats()))
+            _grown(wire, remote.wire_stats()), cost.result(out))
 
 
 def collective_bytes(coll: Dict[str, int], wire: Dict[str, int]):
@@ -229,18 +262,25 @@ def run_cell(arch: Union[str, ModelConfig],
              shape_name: Union[str, ShapeConfig], *,
              multi_pod: bool = False, mesh: Optional[MM.MeshSpec] = None,
              rank: int = 0, xdma_cache: bool = False,
-             moe_int8: bool = False) -> Dict[str, Any]:
+             moe_int8: bool = False, one_card: bool = False
+             ) -> Dict[str, Any]:
     """One cell's record: rank ``rank`` of the production mesh (or of
     ``mesh``, a :class:`repro_torch.launch.mesh.MeshSpec`: a small mesh a
-    test also runs for real) counted on meta tensors.  ``arch`` is a name
-    or a config, ``shape_name`` a name of ``SHAPES`` or a shape."""
+    test also runs for real) counted on meta tensors; with ``one_card``
+    the step of one card and no mesh (``arch``'s config as it is).
+    ``arch`` is a name or a config, ``shape_name`` a name of ``SHAPES`` or
+    a shape."""
     t0 = time.time()
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
-    if mesh is None:
-        mesh = MM.make_production_mesh(multi_pod=multi_pod,
-                                       check_world=False)
-    cfg = cell_config(arch, shape, mesh, xdma_cache=xdma_cache,
-                      moe_int8=moe_int8)
+    if one_card:
+        mesh = MM.MeshSpec((1,), ("data",))
+        cfg = configs.get_config(arch) if isinstance(arch, str) else arch
+    else:
+        if mesh is None:
+            mesh = MM.make_production_mesh(multi_pod=multi_pod,
+                                           check_world=False)
+        cfg = cell_config(arch, shape, mesh, xdma_cache=xdma_cache,
+                          moe_int8=moe_int8)
     n_dev = mesh.size
     n_total, n_active = SP.count_params(cfg)
     ax = cfg.axes
@@ -250,22 +290,27 @@ def run_cell(arch: Union[str, ModelConfig],
         "n_devices": n_dev, "rank": rank, "hardware": HARDWARE,
         "axes": {"batch": list(ax.batch), "model": ax.model, "seq": ax.seq},
         "params_total": n_total, "params_active": n_active}
-    with SH.meta_mesh(mesh.shape, mesh.axis_names, rank) as m:
-        run, state_bytes = cell_step(cfg, shape, m)
-        flops, coll, wire = count_step(run)
+    if one_card:
+        run, state_bytes = cell_step(cfg, shape)
+        flops, coll, wire, mem = count_step(run)
+    else:
+        with SH.meta_mesh(mesh.shape, mesh.axis_names, rank) as m:
+            run, state_bytes = cell_step(cfg, shape, m)
+            flops, coll, wire, mem = count_step(run)
     mf = model_flops(cfg, shape, n_total, n_active)
     by_op, by_axis = collective_bytes(coll, wire)
     rec.update(model_flops=mf, flops_per_device=flops,
                useful_flop_ratio=mf / (flops * n_dev) if flops else None,
                state_bytes_per_device=state_bytes,
-               bytes_per_device={"state": state_bytes, "temp": None,
-                                 "peak": None},
-               bytes_null=NO_BUFFERS,
+               op_bytes_per_device=mem["op_bytes"],
+               bytes_per_device={"state": state_bytes,
+                                 **{k: mem[k] for k in (
+                                     "argument", "output", "temp", "peak")}},
                collective_bytes_per_device=by_op,
                collective_bytes_by_axis=by_axis,
                collectives=coll, wire=wire)
     terms = {"compute": flops / H100_BF16_FLOPS,
-             "memory": state_bytes / H100_HBM_BYTES_PER_S,
+             "memory": mem["op_bytes"] / H100_HBM_BYTES_PER_S,
              "collective": sum(by_op.values()) / H100_NVLINK_BYTES_PER_S}
     rec["roofline_s"] = terms
     rec["bottleneck"] = max(terms, key=terms.get)
@@ -296,7 +341,19 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--one-card", action="store_true",
+                    help="one card's step with no mesh (the config as it is)")
+    ap.add_argument("--batch", type=int, help="the shape's global batch")
+    ap.add_argument("--seq", type=int, help="the shape's sequence length")
+    ap.add_argument("--microbatches", type=int,
+                    help="the shape's microbatches")
     args = ap.parse_args(argv)
+    resize = {k: v for k, v in (("global_batch", args.batch),
+                                ("seq_len", args.seq),
+                                ("microbatches", args.microbatches))
+              if v is not None}
+    if resize and args.all:
+        ap.error("--batch, --seq and --microbatches resize one cell's shape")
 
     done = set()
     if args.out and args.skip_existing and os.path.exists(args.out):
@@ -324,22 +381,43 @@ def main(argv=None):
         if not (args.arch and args.shape):
             ap.error("give --arch and --shape, or --all")
         cells = [(args.arch, args.shape, mp, None) for mp in meshes]
+    work = []
     for arch, shape_name, mp, skip in cells:
         mesh_name = "2x16x16" if mp else "16x16"
         if skip is not None:
             emit({"arch": arch, "shape": shape_name, "mesh": mesh_name,
                   "skipped": skip})
-            continue
-        if (arch, shape_name, mesh_name) in done:
-            continue
-        rec = run_cell(arch, shape_name, multi_pod=mp,
-                       xdma_cache=args.xdma_cache, moe_int8=args.moe_int8)
-        variants = [v for v, on in (("xdma_cache", args.xdma_cache),
-                                    ("moe_int8", args.moe_int8)) if on]
-        if variants:
-            rec["variant"] = "+".join(variants)
-        emit(rec)
+        elif (arch, shape_name, mesh_name) not in done:
+            shape = SHAPES[shape_name]
+            if resize:
+                shape = dataclasses.replace(shape, **resize)
+            work.append((arch, shape, dict(
+                multi_pod=mp, one_card=args.one_card,
+                xdma_cache=args.xdma_cache, moe_int8=args.moe_int8)))
+    if not args.all:
+        for cell in work:
+            emit(_count_cell(cell))
+        return 0
+    # the sweep: a process a core, each record written as its cell ends
+    # (one train cell of xlstm or jamba takes an hour or more)
+    with concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count(),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for fut in concurrent.futures.as_completed(
+                [pool.submit(_count_cell, cell) for cell in work]):
+            emit(fut.result())
     return 0
+
+
+def _count_cell(cell) -> Dict[str, Any]:
+    """One cell of the CLI's list: ``run_cell``'s record, its variant
+    named."""
+    arch, shape, kw = cell
+    rec = run_cell(arch, shape, **kw)
+    variants = [v for v in ("xdma_cache", "moe_int8") if kw[v]]
+    if variants:
+        rec["variant"] = "+".join(variants)
+    return rec
 
 
 if __name__ == "__main__":

@@ -28,11 +28,17 @@ plus an integer position.  Each serving step:
 Under sharded serving (``mesh=``, every rank of the mesh running the same
 engine on the same request stream, ``params`` this rank's blocks by
 ``launch.mesh.serving_specs``) the batch is replicated over the data axis
-and each rank pages its model-axis blocks of every request's cache.  Every
-decision (admission, preemption, defrag, the clock) is read from state
-that is the same on every rank: the page counts and movements (the
-ranks' blocks share one geometry), the compute cost (the whole model's
-parameter count) and the tokens (from the whole logits).
+and each rank pages its blocks of every request's cache: its KV heads, or
+its block of a sequence split over the model axis, over a context-parallel
+``seq`` axis or over the pair ``(seq, model)``
+(``layers.attention.kv_seq_axis``: rank r holds slots ``[r blk, (r + 1)
+blk)`` of every request), or the whole leaf where the split does not
+divide it.  Every decision (admission, preemption, defrag, the clock) is
+read from state that is the same on every rank: the page counts and
+movements (the ranks' blocks share one geometry; a sequence block pages
+whole as the first block fills, and a decode stores from the written
+slot's row in its block, on every rank), the compute cost (the whole
+model's parameter count) and the tokens (from the whole logits).
 
 On the card every page store and load is kernel 1 (the page layout's
 relayout) and every evict and restore kernel 3 (the Compress wire codec).
@@ -48,6 +54,7 @@ gang completes).  The engines run on the card unless given
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,19 +105,24 @@ class _LeafMeta:
 
 def _leaf_metas(cfg, max_len: int, cache_dtype) -> Tuple[List[_LeafMeta], Any]:
     """Classify every cache leaf by probing ``init_cache`` shapes at
-    (B=1, L), (B=2, L) and (B=1, 2L) on the meta device (no memory): the
+    (B=1, L), (B=2, L) and (B=1, kL) on the meta device (no memory): the
     axis that moves with B is the batch axis, the one that moves with L the
     sequence axis.  Leaves invariant to L (rolling windows shorter than
     max_len, SSM states) page whole.  Under sharded serving the probes are
     this rank's blocks, so a page holds a rank's block (its rows of a
-    sequence split over the model axis).  Returns (metas, B=1 template
-    tree of meta tensors)."""
+    sequence split over the model axis, ``seq`` or the pair); there k is
+    the mesh's size plus one, so that every axis divides kL exactly where
+    it divides L and the probe splits a leaf where L's cache does (k = 2
+    would split a max_len the axis does not divide).  Returns (metas, B=1
+    template tree of meta tensors)."""
     probe = lambda b, l: lm.init_cache(cfg, b, l, cache_dtype,  # noqa: E731
                                        device="meta")
+    sh = lm.shards_of(cfg, serving=True)
+    k = 2 if sh is None else math.prod(sh.mesh.shape) + 1
     t1 = probe(1, max_len)
     p1 = _pytree.flatten_with_paths(t1)
     l2 = _pytree.flatten_with_paths(probe(2, max_len))
-    ll = _pytree.flatten_with_paths(probe(1, 2 * max_len))
+    ll = _pytree.flatten_with_paths(probe(1, k * max_len))
     metas: List[_LeafMeta] = []
     for i, ((path, a), (_, b), (_, c)) in enumerate(zip(p1, l2, ll)):
         keys = _pytree.path_key(path)
@@ -182,6 +194,7 @@ class _ReqState:
     # simulated-clock stamp of every generated token (SLO metrics: TTFT is
     # token_times[0] - arrival, TBT the successive differences)
     token_times: List[float] = dataclasses.field(default_factory=list)
+    logits: List[torch.Tensor] = dataclasses.field(default_factory=list)
 
     @property
     def done_tokens(self) -> bool:
@@ -210,6 +223,9 @@ class ServeReport:
     ttft_p99_s: float = 0.0
     tbt_p50_s: float = 0.0
     tbt_p99_s: float = 0.0
+    # with ``keep_logits``: each request's (tokens, vocab) f32 logits, the
+    # row each of its tokens was picked from (whole logits under a mesh)
+    logits: Optional[Dict[int, np.ndarray]] = None
 
     def summary(self) -> str:
         return (f"{self.engine}: {self.n_requests} reqs, "
@@ -230,7 +246,8 @@ class ContinuousBatchingEngine:
     :class:`~repro_torch.serving.engine.ServingEngine` runs — when every
     active request sits at the same position the composed cache uses a
     scalar ``pos`` and every generated token is bit-identical to the
-    fixed-batch engine's.
+    fixed-batch engine's.  ``keep_logits`` keeps, on the host, the logits
+    each token was picked from (``ServeReport.logits``).
     """
 
     name = "continuous"
@@ -242,17 +259,12 @@ class ContinuousBatchingEngine:
                  capacity_pages: Optional[int] = None,
                  defrag: bool = True, mesh=None,
                  ring_depth: Optional[int] = None,
-                 backpressure: str = "block", device=None):
+                 backpressure: str = "block", device=None,
+                 keep_logits: bool = False):
         if cfg.encoder_layers:
             raise NotImplementedError("continuous batching serves decoder "
                                       "LMs; encoder-decoder configs use "
                                       "ServingEngine")
-        if mesh is not None and cfg.axes.seq:
-            raise NotImplementedError(
-                f"continuous batching on a context-parallel cache (its "
-                f"sequence over {cfg.axes.seq!r}) is not ported: a request's "
-                "pages would hold a block of its slots on each seq rank "
-                "(ROADMAP.md §1 item 10e); ServingEngine serves it")
         if mesh is not None:
             # sharded serving: every data rank serves every request (a
             # request's rows would otherwise move between data ranks as the
@@ -283,6 +295,7 @@ class ContinuousBatchingEngine:
             if isinstance(l, torch.Tensor) and l.dim() >= 1)
         self.ring_depth = ring_depth
         self.backpressure = backpressure
+        self.keep_logits = keep_logits
         self.last_scheduler = None
         self.steps = 0
         self.preemptions = 0
@@ -424,7 +437,12 @@ class ContinuousBatchingEngine:
     # -- admission policy ----------------------------------------------------
     def _admit(self, active, preempted, queue, clock):
         """Default (continuous) policy: restore preempted oldest-first, then
-        admit arrivals while the batch and the pool have room."""
+        admit arrivals while the batch and the pool have room.  A restore
+        takes its slots at once; an admission's prompt pages are taken by
+        its prefill, so each admission counts the pages of those admitted
+        before it in the step (the reference counts only the free pages,
+        and two arrivals that fit one at a time ran the pool out of pages
+        in their prefill)."""
         restored = []
         while preempted and len(active) < self.max_batch:
             st = preempted[0]
@@ -438,13 +456,15 @@ class ContinuousBatchingEngine:
             st.status = "active"
             active.append(st)
             restored.append(st)
-        admitted = []
+        admitted, free = [], self.pool.free_pages
         while queue and len(active) < self.max_batch:
             st = queue[0]
             if st.req.arrival_s > clock:
                 break
-            if self._footprint(st.req.prompt_len) > self.pool.free_pages:
+            need = self._footprint(st.req.prompt_len)
+            if need > free:
                 break
+            free -= need
             queue.pop(0)
             st.status = "active"
             active.append(st)
@@ -515,9 +535,12 @@ class ContinuousBatchingEngine:
                 cfut = sched.submit_compute(lambda *a: None, cost_s=cost,
                                             label=f"compute:prefill:{plen}")
                 nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+                kept = self._kept(logits)
                 for i, st in enumerate(group):
                     st.pos = plen
                     st.generated.append(int(nxt[i]))
+                    if kept is not None:
+                        st.logits.append(kept[i])
                 for i, (st, c1) in enumerate(
                         zip(group, self._split_cache(cache, len(group)))):
                     self._scatter(st, c1, deps=(cfut,), label="store")
@@ -573,12 +596,15 @@ class ContinuousBatchingEngine:
                 sched.flush()              # decode cost lands before the mark
                 cursor = self._mark(tel, sched, clock, cursor, "decode")
             nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            kept = self._kept(logits)
             for i, (st, c1) in enumerate(
                     zip(active, self._split_cache(cache, len(active)))):
                 written = st.pos                   # decode wrote this slot
                 st.pos = min(st.pos + 1, self.max_len)
                 if not st.done_tokens:
                     st.generated.append(int(nxt[i]))
+                    if kept is not None:
+                        st.logits.append(kept[i])
                 self._scatter(st, c1, deps=(cfut,), dirty_from=written,
                               label="decode")
             sched.flush()
@@ -619,6 +645,10 @@ class ContinuousBatchingEngine:
                     self._finish(st, active, clock)
 
         return self._report(states, clock)
+
+    def _kept(self, logits):
+        """The last position's logits on the host in f32, where kept."""
+        return (logits[:, -1].float().cpu() if self.keep_logits else None)
 
     def _gang_member(self, st: _ReqState) -> bool:
         return False                               # continuous: no gangs
@@ -663,7 +693,9 @@ class ContinuousBatchingEngine:
             ttft_p50_s=float(np.percentile(ttfts, 50)),
             ttft_p99_s=float(np.percentile(ttfts, 99)),
             tbt_p50_s=float(np.percentile(tbts, 50)),
-            tbt_p99_s=float(np.percentile(tbts, 99)))
+            tbt_p99_s=float(np.percentile(tbts, 99)),
+            logits=({st.req.rid: torch.stack(st.logits).numpy()
+                     for st in done} if self.keep_logits else None))
 
 
 class StaticBatchEngine(ContinuousBatchingEngine):

@@ -76,6 +76,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import torch
 
+from repro_torch.launch import op_cost
 from repro_torch.runtime import telemetry as _tm
 
 __all__ = ["Axes", "CPU_AXES", "constrain", "kv_cache_spec", "spec",
@@ -569,6 +570,7 @@ def _reduce_op(dist, op: str):
     return {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
 
+@op_cost.one_op
 def _all_reduce(t: torch.Tensor, ax: MeshAxis, op: str = "sum"):
     dist, hop = _begin(f"all_reduce_{op}" if op != "sum" else "all_reduce",
                        ax, t)
@@ -580,6 +582,7 @@ def _all_reduce(t: torch.Tensor, ax: MeshAxis, op: str = "sum"):
     return hop.back(y)
 
 
+@op_cost.one_op
 def _all_gather(t: torch.Tensor, ax: MeshAxis, dim: int):
     """The ranks' blocks concatenated along ``dim`` in axis order."""
     dist, hop = _begin("all_gather", ax, t)
@@ -593,6 +596,7 @@ def _all_gather(t: torch.Tensor, ax: MeshAxis, dim: int):
     return hop.back(torch.cat(parts, dim))
 
 
+@op_cost.one_op
 def _reduce_scatter(t: torch.Tensor, ax: MeshAxis, dim: int):
     """The sum over the axis of ``t``, this rank's block along ``dim``."""
     if t.shape[dim] % ax.size:
@@ -613,6 +617,7 @@ def _reduce_scatter(t: torch.Tensor, ax: MeshAxis, dim: int):
     return hop.back(out).movedim(0, dim)
 
 
+@op_cost.one_op
 def _broadcast(t: torch.Tensor, ax: MeshAxis, index: int):
     dist, hop = _begin("broadcast", ax, t)
     if dist is None:
@@ -624,6 +629,7 @@ def _broadcast(t: torch.Tensor, ax: MeshAxis, index: int):
     return hop.back(y)
 
 
+@op_cost.one_op
 def _reduce_to(t: torch.Tensor, ax: MeshAxis, index: int):
     """The sum over the axis at rank ``index``; zeros elsewhere."""
     dist, hop = _begin("reduce", ax, t)

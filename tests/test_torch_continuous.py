@@ -338,3 +338,29 @@ def test_finished_tasks_release_their_pages(model):
     held = [t for t in sched._tasks.values()
             if isinstance(t.value, torch.Tensor)]
     assert not held
+
+
+@pytest.mark.parametrize("pages", [6, 7])
+def test_admission_counts_the_pages_of_those_admitted_before(model, pages):
+    """Two prompts of 4 pages each arrive together on a pool of 6 or 7:
+    each fits alone, both do not.  The port admits the second when the
+    first has finished (the reference admits both against the same free
+    count and runs out of pages in their prefill), and each request's
+    tokens are those of a pool that holds both."""
+    rcfg, rp, cfg, pp = model
+    trace = [(0.0, 12, 3), (0.0, 12, 3)]
+    eng = _engine(ContinuousBatchingEngine, cfg, pp, max_len=24,
+                  capacity_pages=pages)
+    assert eng._footprint(12) == 4 and 4 + eng._growth(12) <= pages
+    got = eng.serve(trace_stream(cfg, trace, seed=2))
+    want = _engine(ContinuousBatchingEngine, cfg, pp, max_len=24,
+                   capacity_pages=64).serve(trace_stream(cfg, trace, seed=2))
+    assert got.pool_stats["peak_used"] == 4 < want.pool_stats["peak_used"]
+    assert got.steps > want.steps and got.preemptions == 0
+    for rid in want.tokens:
+        np.testing.assert_array_equal(got.tokens[rid], want.tokens[rid])
+    with pytest.raises(MemoryError, match="out of pages"):
+        RS.ContinuousBatchingEngine(
+            rcfg, rp, 24, cache_dtype=jnp.float32,
+            capacity_pages=pages).serve(RS.trace_stream(rcfg, trace,
+                                                        seed=2))

@@ -7,8 +7,9 @@ nothing.  Here one (2, 2) ("data", "model") gloo world on the CPU
 (a dense and an MoE smoke config, trained and decoded, and the dense one
 on a context-parallel decode), and every rank's FLOP count
 (``FlopCounterMode``), collective ledger (the ``collectives`` and MoE
-``wire`` banks' growth over the step, key by key) and state bytes equal
-``run_cell(..., mesh=, rank=)``'s for that rank.
+``wire`` banks' growth over the step, key by key), state bytes, and the
+bytes its ops move and hold (``op_cost``: bytes moved, argument, output,
+temp and peak) equal ``run_cell(..., mesh=, rank=)``'s for that rank.
 
 Below it: the meta mesh's own rules (a collective on a tensor that is not
 on meta raises; shapes and counts as a real axis gives them), the MoE
@@ -51,7 +52,9 @@ def test_the_meta_rank_counts_what_the_real_rank_does(world, cell):
     """Every rank of the real (2, 2) world against ``run_cell`` on meta for
     that rank: the same FLOPs, the same collective ledger key by key (calls
     and bytes by op and axis), the same MoE plane ledger, the same state
-    bytes; and the record's derived fields are read from them."""
+    bytes, the same bytes moved by the ops and the same argument, output
+    and peak bytes (meta's counted as the CPU's real tensors are); and the
+    record's derived fields are read from them."""
     arch, shape = RC.DRY_CELLS[cell]
     shape = ShapeConfig(*shape)
     mesh = M.MeshSpec(*RC.DRY_WORLD)
@@ -66,6 +69,16 @@ def test_the_meta_rank_counts_what_the_real_rank_does(world, cell):
         assert rec["wire"] == {k.replace("backend:gloo", "backend:meta"): v
                                for k, v in got["wire"].items()}, r
         assert rec["state_bytes_per_device"] == got["state_bytes"], r
+        mem = got["memory"]
+        assert rec["op_bytes_per_device"] == mem["op_bytes"] > \
+            got["state_bytes"], (r, rec["op_bytes_per_device"], mem)
+        assert rec["bytes_per_device"] == {
+            "state": got["state_bytes"],
+            **{k: mem[k] for k in ("argument", "output", "temp", "peak")}
+        }, (r, rec["bytes_per_device"], mem)
+        assert mem["peak"] >= mem["argument"] > 0, r
+        assert rec["roofline_s"]["memory"] == \
+            mem["op_bytes"] / DR.H100_HBM_BYTES_PER_S
         by_op, by_axis = DR.collective_bytes(got["collectives"], got["wire"])
         assert rec["collective_bytes_per_device"] == by_op
         assert rec["collective_bytes_by_axis"] == by_axis
@@ -180,16 +193,22 @@ def test_a_production_cell_is_counted_with_every_term(cell):
     """Rank 0 of the 2 x 16 x 16 mesh's ``decode_32k`` step (the batch
     over ("pod", "data"), the logits' rows gathered over the pair) and of
     the 16 x 16 mesh's ``long_500k`` decode (the cache over "data"): no
-    field null but XLA's temp and peak bytes, which meta tensors have no
-    counterpart of."""
+    field null, the temp and peak bytes counted (``op_cost``) and positive,
+    the peak at least the arguments, the ops' bytes above the state's and
+    the memory term those bytes over the HBM rate."""
     arch, shape, multi_pod = cell
     rec = DR.run_cell(arch, shape, multi_pod=multi_pod)
     assert rec["n_devices"] == (512 if multi_pod else 256)
     nulls = {k for k, v in rec.items() if v is None}
+    nulls |= {k for k, v in rec["bytes_per_device"].items() if v is None}
     assert not nulls, nulls
-    assert rec["bytes_per_device"]["temp"] is None
-    assert rec["bytes_per_device"]["peak"] is None
-    assert "buffer assignment" in rec["bytes_null"]
+    mem = rec["bytes_per_device"]
+    assert set(mem) == {"state", "argument", "output", "temp", "peak"}
+    assert mem["temp"] > 0 and mem["peak"] > 0
+    assert mem["peak"] >= mem["argument"] >= mem["state"] > 0
+    assert rec["op_bytes_per_device"] > rec["state_bytes_per_device"]
+    assert rec["roofline_s"]["memory"] == \
+        rec["op_bytes_per_device"] / DR.H100_HBM_BYTES_PER_S
     assert rec["flops_per_device"] > 0 and rec["state_bytes_per_device"] > 0
     assert set(rec["roofline_s"]) == {"compute", "memory", "collective"}
     assert all(v > 0 for v in rec["roofline_s"].values())

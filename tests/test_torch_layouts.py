@@ -60,7 +60,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.optim, repro_torch.optim.adamw, "
             "repro_torch.train, repro_torch.train.step, "
             "repro_torch.configs.specs, repro_torch.launch.mesh, "
-            "repro_torch.launch.train, repro_torch.launch.dryrun\n"
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.launch.op_cost\n"
             "from repro_torch import configs\n"
             "[configs.get_config(a) for a in configs.ARCHS]\n"
             "from repro_torch.launch import mesh as M, train as LT\n"
@@ -84,15 +85,17 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_the_dry_run_imports_no_reference_module():
     """``repro_torch.launch.dryrun`` alone, one smoke cell counted on a
-    meta mesh: no ``repro`` module and no JAX in the process."""
+    meta mesh (its bytes by ``launch.op_cost``): no ``repro`` module and no
+    JAX in the process."""
     code = ("import sys\n"
             "from repro_torch import configs\n"
             "from repro_torch.configs.base import ShapeConfig\n"
-            "from repro_torch.launch import dryrun, mesh\n"
+            "from repro_torch.launch import dryrun, mesh, op_cost\n"
             "rec = dryrun.run_cell(configs.smoke_config('qwen3_1p7b'), "
             "ShapeConfig('d', 32, 4, 'decode'), mesh=mesh.MeshSpec((2, 2, 2), "
             "('pod', 'data', 'model')))\n"
             "assert rec['flops_per_device'] > 0\n"
+            "assert rec['op_bytes_per_device'] > 0\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(repr(bad))\n")

@@ -21,7 +21,13 @@ two mesh axes and the context-parallel decode cache.
     window cache, and a slot count the pair does not divide (whole on
     every rank).  The serving bounds of ``tests/test_torch_serve_sharded
     .py``: logits within 2e-5 of max|logit| of the reference's unsharded
-    jitted run, every rank's cache leaf within 2e-5 of its block's scale.
+    jitted run, every rank's cache leaf within 2e-5 of its block's scale;
+  - ``ContinuousBatchingEngine(mesh=)`` on the same context-parallel
+    caches (ROADMAP §1 item 10e), requests arriving staggered on a pool
+    that evicts and restores: every request's tokens those of the port's
+    single-process engine and of the reference's unsharded engine on the
+    same seeded stream, its logits within twice the gap one ulp on every
+    weight opens in the single-process engine's.
 """
 import pytest
 
@@ -44,6 +50,7 @@ from repro.configs.base import ShapeConfig as RShape  # noqa: E402
 from repro.data.pipeline import SyntheticLM  # noqa: E402
 from repro.launch import mesh as RMM  # noqa: E402
 from repro.layers import attention as RA  # noqa: E402
+from repro import serving as RSV  # noqa: E402
 from repro.models import lm as RL  # noqa: E402
 from repro.optim import adamw as ROpt  # noqa: E402
 from repro.train import step as RS  # noqa: E402
@@ -56,7 +63,7 @@ from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.models import lm as PL  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine,  # noqa: E402
-                                 ServingEngine)
+                                 ServingEngine, trace_stream)
 from torch_parity import reset_global_state  # noqa: E402,F401
 
 BOUND = 2e-5                    # x max|logit|, x each cache leaf's scale
@@ -181,15 +188,6 @@ def test_the_production_regimes_are_the_reference_launchers():
         k = M.serving_cache_specs(cfg, cache, one)["blocks"][-1]["k"]
         assert k == ((None, None, "data", "model") if n_kv is None
                      else (None, None, ("data", "model"))), (n_kv, k)
-
-
-def test_the_continuous_engine_refuses_a_context_parallel_cache():
-    """The continuous engine pages a request's rows; a cache whose
-    sequence splits over ``seq`` is not ported to it, and it says so."""
-    cfg = configs.smoke_config("qwen3_1p7b").with_axes(
-        S.Axes(batch=(), model="model", seq="data"))
-    with pytest.raises(NotImplementedError, match=r"§1 item 10e"):
-        ContinuousBatchingEngine(cfg, {}, 32, mesh=object(), device="cpu")
 
 
 # -- one (2, 2, 1) world --------------------------------------------------------
@@ -432,3 +430,93 @@ def test_sequence_parallel_attention_over_rows_the_axis_does_not_divide(
         assert len(got["grads"]) == len(want["grads"])
         for g, w in zip(got["grads"], want["grads"]):
             _close(g, w, 1e-5 * _scale(w) + 1e-7, "weight gradient")
+
+
+# -- continuous batching on the context-parallel cache -------------------------
+def _one_ulp(tree, seed):
+    """Every float weight of a numpy tree one ulp up or down, by a seeded
+    coin an element: how far rounding alone moves a run."""
+    rng = np.random.default_rng(seed)
+
+    def move(x):
+        x = np.asarray(x)
+        if x.dtype != np.float32:
+            return x
+        up = rng.random(x.shape) < 0.5
+        return np.where(up, np.nextafter(x, np.float32(np.inf)),
+                        np.nextafter(x, np.float32(-np.inf))).astype(
+                            np.float32)
+    return jax.tree.map(move, tree)
+
+
+def _single_engine(cfg, params, L, keep_logits=True):
+    return ContinuousBatchingEngine(
+        cfg, params, L, cache_dtype=torch.float32, capacity_pages=512,
+        device="cpu", keep_logits=keep_logits, **RC.CP_CB_ENGINE)
+
+
+@pytest.fixture(scope="module")
+def cb_single(case):
+    """Each ``CP_CB`` case unsharded on a pool that evicts nothing: the
+    reference's engine's tokens, the port's single-process engine's tokens
+    and logits, and the gap one ulp on every weight opens in the port's
+    logits (the same stream, its tokens fed back as they come)."""
+    inp, _ = case
+    out = {}
+    for name, (cp, L, _) in RC.CP_CB.items():
+        params = inp["cp"][cp]["params"]
+        rcfg = RC.cp_config(RCF, dataclasses, jnp.float32, cp)
+        ref = RSV.ContinuousBatchingEngine(
+            rcfg, jax.tree.map(jnp.asarray, params), L,
+            cache_dtype=jnp.float32, capacity_pages=512,
+            **RC.CP_CB_ENGINE).serve(
+                RSV.trace_stream(rcfg, RC.CP_CB_STREAM, seed=4))
+        cfg = RC.cp_config(configs, dataclasses, torch.float32, cp)
+        rep = _single_engine(cfg, PL.params_from_numpy(params, "cpu"),
+                             L).serve(trace_stream(cfg, RC.CP_CB_STREAM,
+                                                   seed=4))
+        moved = _single_engine(cfg, PL.params_from_numpy(
+            _one_ulp(params, 11), "cpu"), L).serve(
+                trace_stream(cfg, RC.CP_CB_STREAM, seed=4))
+        gap = 0.0
+        for rid, lg in rep.logits.items():
+            # up to the first token the moved weights pick otherwise
+            diff = np.nonzero(moved.tokens[rid] != rep.tokens[rid])[0]
+            n = int(diff[0]) + 1 if len(diff) else len(lg)
+            gap = max(gap, _err(moved.logits[rid][:n], lg[:n]))
+        out[name] = {"reference": ref.tokens, "tokens": rep.tokens,
+                     "logits": rep.logits, "gap": gap}
+    return out
+
+
+@pytest.mark.parametrize("name", list(RC.CP_CB))
+def test_continuous_engine_on_a_context_parallel_cache(case, world,
+                                                       cb_single, name):
+    """``ContinuousBatchingEngine(mesh=)`` on the (2, 2) view with
+    ``seq="data"``: KV sequences over "data" alone, over the pair, whole
+    on every rank where the pair does not divide max_len, and gemma3's
+    XDMA cache with its rolled window.  Requests arrive staggered (ragged
+    positions in a decode) onto a pool that evicts and restores the
+    youngest on every rank.  Every rank serves every request the tokens
+    of the port's single-process engine and of the reference's unsharded
+    engine on the same stream, its logits within twice the one-ulp gap of
+    the single-process engine's, and every rank makes the same decisions
+    (steps, pool traffic, the simulated clock)."""
+    want = cb_single[name]
+    bound = 2 * want["gap"]
+    assert bound > 0
+    r0 = world[0]["cp_cb"][name]
+    for r, rank in enumerate(world):
+        got = rank["cp_cb"][name]
+        assert got["preemptions"] > 0, (r, got["pool"])
+        assert got["pool"]["evictions"] > 0 and \
+            got["pool"]["restores"] > 0, (r, got["pool"])
+        assert (got["steps"], got["pool"], got["elapsed_s"]) == (
+            r0["steps"], r0["pool"], r0["elapsed_s"]), r
+        assert sorted(got["tokens"]) == sorted(want["tokens"]) == \
+            sorted(want["reference"]) == list(range(len(RC.CP_CB_STREAM)))
+        for rid, toks in want["tokens"].items():
+            np.testing.assert_array_equal(got["tokens"][rid], toks)
+            np.testing.assert_array_equal(want["reference"][rid], toks)
+            err = _err(got["logits"][rid], want["logits"][rid])
+            assert err <= bound, (r, rid, err, want["gap"])

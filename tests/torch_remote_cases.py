@@ -1019,6 +1019,24 @@ CP_CASES = {
 }
 
 
+# continuous batching on the context-parallel cache (ROADMAP §1 item 10e),
+# on the (2, 2) view with seq="data": case -> (CP_CASES entry, max_len,
+# pool pages a rank).  Arrivals staggered on the simulated clock (ragged
+# positions in a decode), 3 requests at a time, pages of 8 rows, each pool
+# small enough that the youngest requests are evicted and restored on
+# every rank: qwen3's KV sequence over "data" alone, qwen2's over the pair
+# (max_len 64: a rank's block of 16 slots grows a second page), qwen2's
+# max_len of 30 whole on every rank, gemma3's XDMA layouts with its rolled
+# window (its window leaf paged whole every step).  (A pool under one
+# request's pages and its growth runs out of pages: 6 to 8, gemma3's 14.)
+CP_CB = {"heads": ("heads", 32, 10), "pair": ("pair", 64, 10),
+         "pair+uneven": ("pair+uneven", CP_UNEVEN_LEN, 12),
+         "gemma3": ("heads+xdma+ragged", 32, 26)}
+CP_CB_STREAM = ((0.0, 12, 4), (0.0, 6, 5), (4e-6, 9, 3), (4e-6, 16, 4),
+                (1.5e-5, 4, 5))
+CP_CB_ENGINE = dict(max_batch=3, page_rows=8)
+
+
 def regime_view(mesh):
     """The (2, 2, 1) world's ranks as a (2, 2) ("data", "model") mesh: its
     "data" the world's "pod" axis, its "model" the world's "data" axis and
@@ -1049,7 +1067,10 @@ def regime_body(mesh, inp):
     the pair ("pod", "data"), the state it leaves (whole) and the ledger;
     (2) prefill and decode with the batch over the pair; (3) on the (2, 2)
     view, every context-parallel case: prefill, then decode, every step's
-    logits, this rank's final cache leaves and their fitted specs."""
+    logits, this rank's final cache leaves and their fitted specs; then
+    ``ContinuousBatchingEngine(mesh=)`` on each ``CP_CB`` case: every
+    request's tokens and logits, the steps, the pool's counters and the
+    simulated clock."""
     import dataclasses
 
     from repro_torch import _pytree, configs
@@ -1058,7 +1079,8 @@ def regime_body(mesh, inp):
     from repro_torch.launch import mesh as M
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     ServingEngine, trace_stream)
     from repro_torch.train import step as T
 
     torch.set_num_threads(1)
@@ -1163,6 +1185,22 @@ def regime_body(mesh, inp):
                     device="cpu").generate(
                         {k: torch.from_numpy(v) for k, v in b.items()},
                         CP["steps"])
+        out["cp_cb"] = {}
+        for name, (case, L, pages) in CP_CB.items():
+            cfg = cp_config(configs, dataclasses, f32, case).with_axes(
+                S.Axes(batch=(), model="model", seq="data"))
+            sp, _ = M.serving_specs(cfg, m)
+            local = M.shard_tree(lm.params_from_numpy(
+                inp["cp"][case]["params"], device="cpu"), sp, m)
+            rep = ContinuousBatchingEngine(
+                cfg, local, L, cache_dtype=f32,
+                capacity_pages=pages, mesh=m, device="cpu",
+                keep_logits=True, **CP_CB_ENGINE).serve(
+                    trace_stream(cfg, CP_CB_STREAM, seed=4))
+            out["cp_cb"][name] = {
+                "tokens": rep.tokens, "logits": rep.logits,
+                "steps": rep.steps, "pool": rep.pool_stats,
+                "elapsed_s": rep.elapsed_s, "preemptions": rep.preemptions}
     return out
 
 
@@ -1181,7 +1219,8 @@ def dry_body(mesh):
     """One rank of the (2, 2) world: each ``DRY_CELLS`` cell's real step on
     the CPU (``dryrun.cell_step`` with ``device="cpu"``), counted by
     ``dryrun.count_step``: its FLOPs, the growth of the collectives and
-    wire banks, and the state's bytes."""
+    wire banks, the state's bytes, and the bytes its ops moved and held
+    (``op_cost``)."""
     from repro_torch import configs
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun as DR
@@ -1192,7 +1231,7 @@ def dry_body(mesh):
         shape = ShapeConfig(*shape)
         cfg = DR.cell_config(configs.smoke_config(arch), shape, mesh)
         run, nbytes = DR.cell_step(cfg, shape, mesh, device="cpu")
-        flops, coll, wire = DR.count_step(run)
+        flops, coll, wire, mem = DR.count_step(run)
         out.append({"flops": flops, "collectives": coll, "wire": wire,
-                    "state_bytes": nbytes})
+                    "state_bytes": nbytes, "memory": mem})
     return out

@@ -16,9 +16,11 @@ kernel against its plain PyTorch version on the same inputs:
 * ``ops.rmsnorm_relayout`` (kernel 4) on the same Prefill store;
 * ``ops.quantize_tiled`` (kernel 5) on one phi4-mini MLP gradient leaf,
   3072 x 8192 (the int8 wire codec);
-* ``flash_attention_gqa`` (kernel 6) on a phi4-mini prefill (S 4096, 24
-  query / 8 kv heads, hd 128, causal) and a gemma3-27B local layer (32 / 16
-  heads, window 1024), in bf16;
+* ``flash_attention_gqa`` (kernel 6, its ``wgmma`` path: TMA and Hopper's
+  warpgroup tensor cores) on a phi4-mini prefill (S 4096, 24 query / 8 kv
+  heads, hd 128, causal) and a gemma3-27B local layer (32 / 16 heads,
+  window 1024), in bf16, each timed beside its ``mma`` path (PR 17's
+  ``mma.sync`` design) through the C entry point, in turns;
 * the paper's Fig. 4 (phase 9): kernel 1 beside the three software setups
   of ``core.baselines`` on the same bytes at 4096 x 4096 f32 (the
   transposing pair at 512 x 512), all four bitwise equal, each setup's GPU
@@ -161,11 +163,14 @@ and the launcher's checkpoint staged MN -> MN, whose restore phase 20
 counts), phase 21 kernel 1 in every rank on the plane and (b)'s pool and
 kernel 3 on (b)'s evictions and restores.  Phase 4 also drives the chains kernels 2
 and 3 once refused (integer streams, nine streamed ops, logical rank 5),
-and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (the last
-two on its chunked path, timed) and with bf16 q and f32 k / v.  Phase 3 also times the Prefill store at
+and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (256 on
+its wgmma path beside its FMA path, 320 and 512 on its chunked path,
+timed), with bf16 q and f32 k / v, and the wgmma path's edges (f16, Sq !=
+Sk, ragged S 1000, a window of 0) and a view TMA cannot address (one mma
+launch).  Phase 3 also times the Prefill store at
 gemma3-27B width (d_model 5376).  Phase 7 holds kernel 5 on NaN, inf and
 -inf rows too.  Phase 8 asserts that both bf16 model layers took kernel 6's
-tensor-core path (``mma``) and its small f32 checks the FMA path (``fma``).
+wgmma path and its small f32 checks the FMA path (``fma``).
 
 The line before the last is one JSON object with each kernel's launches,
 error and times (CUDA events, median of several runs, GPU time only);
@@ -173,11 +178,13 @@ the last line is ``{"ok": true, "device": {...}}``.  Per-pair times go to
 ``chiprun_out/chip_smoke_times.json``, the compiler's output (registers and
 spills of every kernel) to ``chiprun_out/build_log.txt``; a tensor-core
 instance of kernel 6, a rows-path instance of kernel 2 or a generic-path
-instance of kernel 3 that spills fails the run.  Without a CUDA device it
+instance of kernel 3 that spills fails the run, as does a wgmma instance of
+kernel 6 whose products ptxas serialized or whose SASS lacks HGMMA.  Without a CUDA device it
 exits non-zero and prints no result.
 """
 import concurrent.futures
 import contextlib
+import ctypes
 import gc
 import json
 import math
@@ -3965,14 +3972,16 @@ def main():
         log(f"[ptxas] {src}: at most {max(regs, default=0)} registers a "
             f"thread, {spills} bytes of spill traffic over its kernels")
     # kernel 6 instance by instance: "flash_mma_kernel<__nv_bfloat16, 128,
-    # true>" (true: the head dim is the instance width); every tensor-core
-    # instance (2 dtypes x 4 widths x full or not) must be found and must
-    # not spill
-    mma_spills = {}
-    for mangled, regs, _, spill in ptxas_entries(
-            _build.BUILD_LOG.get("flash_attention.cu", "")):
-        name = re.search(r"\d(flash_mma_kernel|flash_kernel|"
-                         r"flash_chunked_kernel)I"
+    # true>" (true: the head dim is the instance width), "flash_wgmma_kernel<
+    # __half, 256>"; every tensor-core instance (mma: 2 dtypes x 4 widths x
+    # full or not; wgmma: 2 dtypes x 3 widths) must be found and must not
+    # spill, and ptxas must not have serialized a wgmma instance's products
+    # (its note C7518)
+    k6_log = _build.BUILD_LOG.get("flash_attention.cu", "")
+    mma_spills, wgmma_mangled = {}, {}
+    for mangled, regs, stack, spill in ptxas_entries(k6_log):
+        name = re.search(r"\d(flash_wgmma_kernel|flash_mma_kernel|"
+                         r"flash_kernel|flash_chunked_kernel)I"
                          r"(6__half|13__nv_bfloat16|f)Li(\d+)E(Lb([01])E)?",
                          mangled)
         if name:
@@ -3981,19 +3990,47 @@ def main():
             full = ("" if name.group(5) is None
                     else ", " + ("true" if name.group(5) == "1" else "false"))
             inst = f"{name.group(1)}<{dtype}, {name.group(3)}{full}>"
-            log(f"[ptxas] {inst}: {regs} registers, {spill} bytes of spill "
-                f"traffic")
-            if name.group(1) == "flash_mma_kernel":
+            log(f"[ptxas] {inst}: {regs} registers, {stack} bytes of stack, "
+                f"{spill} bytes of spill traffic")
+            if name.group(1) != "flash_kernel" and \
+                    name.group(1) != "flash_chunked_kernel":
                 mma_spills[inst] = spill
+            if name.group(1) == "flash_wgmma_kernel":
+                wgmma_mangled[inst] = mangled
     want_inst = {f"flash_mma_kernel<{t}, {hd}, {full}>"
                  for t in ("__half", "__nv_bfloat16")
                  for hd in (16, 32, 64, 128) for full in ("true", "false")}
+    want_inst |= {f"flash_wgmma_kernel<{t}, {hd}>"
+                  for t in ("__half", "__nv_bfloat16") for hd in (64, 128, 256)}
     check(set(mma_spills) == want_inst,
           f"kernel6: the build log of flash_attention.cu names tensor-core "
           f"instances {sorted(mma_spills)}, not {sorted(want_inst)} (a "
           f"library built without its log: remove build/kernels)")
     check(not any(mma_spills.values()),
-          f"kernel6: tensor-core instances spill: {mma_spills}")
+          f"kernel6: tensor-core instances spill: "
+          f"{ {k: v for k, v in mma_spills.items() if v} }")
+    serial = [inst for inst, m in wgmma_mangled.items()
+              if re.search(r"C7518[^\n]*" + re.escape(m), k6_log)]
+    check(not serial, f"kernel6: ptxas serialized the wgmma products of "
+                      f"{serial}")
+    # the wgmma instances run on Hopper's warpgroup tensor cores: SASS HGMMA
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass",
+                           str(_build._target("flash_attention.cu"))],
+                          capture_output=True, text=True, timeout=300).stdout
+    hgmma = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        mangled = fn.split("\n", 1)[0].strip()
+        inst = next((i for i, m in wgmma_mangled.items() if m == mangled),
+                    None)
+        if inst:
+            hgmma[inst] = (fn.count("HGMMA"), fn.count("UTMALDG"),
+                           fn.count("UTMASTG"))
+    log(f"[sass] kernel 6 wgmma instances (HGMMA, UTMALDG, UTMASTG): {hgmma}")
+    check(set(hgmma) == set(wgmma_mangled) and
+          all(h[0] and h[1] and h[2] for h in hgmma.values()),
+          f"kernel6: the library's SASS lacks HGMMA or TMA copies in "
+          f"{sorted(set(wgmma_mangled) - {i for i, h in hgmma.items() if all(h)})}")
     # kernel 2 instance by instance: 9 dtype pairs on the rows path (none may
     # spill), 9 x 2 (staged, re-read) on the generic
     rows_inst = 0
@@ -4587,9 +4624,20 @@ def main():
                 for _, window, qkv in attn_in]
 
     outs6, counts = drive("kernel6", [FA.FLASH], k6_path)
-    check(FA.FLASH.paths == {"mma": len(attn_in)},
+    check(FA.FLASH.paths == {"wgmma": len(attn_in)},
           f"kernel6: the bf16 model layers took paths {FA.FLASH.paths}, "
-          f"not the tensor-core path (mma) each")
+          f"not the Hopper tensor-core path (wgmma) each")
+
+    def k6_named(path, q, k, v, out, **kw):
+        """Kernel 6 on ``path`` through its C entry point, the arguments as
+        the wrapper builds them with that path named in them: the path
+        ``_path`` does not pick for this shape, timed beside it."""
+        a = FA.flash_args(q, k, v, out, **kw)
+        a.path = FA.PATHS.index(path)
+        return lambda: FA.FLASH(ctypes.addressof(a), q.data_ptr(),
+                                k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                path=path)
+
     # unit-variance inputs at hd 128 give nearly flat softmax rows, and
     # outputs of about 0.02 at late positions: atol stays well under them
     attn_tol = dict(rtol=2e-2, atol=2e-3)
@@ -4617,16 +4665,19 @@ def main():
                  on_cpu_one_thread(FA.flash_attention_gqa_plain,
                                    *(t.cpu() for t in sm), window=70),
                  attn_tol, "kernel6 small f16 GQA vs CPU")
-    check(FA.FLASH.paths["mma"] == len(attn_in) + 1,
-          f"kernel6: the f16 check took paths {FA.FLASH.paths}, not mma")
-    log(f"[kernel6] paths: model layers {{'mma': {len(attn_in)}}}, small "
-        f"checks f32 on fma, f16 on mma; all within tolerance")
-    # head dims between the instance widths (hd 8: the qwen2 smoke width;
-    # 80; 192 takes the FMA path in bf16) and mixed dtypes (cast up to
-    # their promotion, the result in q's dtype), GQA with a window
+    check(FA.FLASH.paths.get("mma") == 1,
+          f"kernel6: the f16 check (hd 32) took paths {FA.FLASH.paths}, not "
+          f"mma")
+    log(f"[kernel6] paths: model layers {{'wgmma': {len(attn_in)}}}, small "
+        f"checks f32 on fma, f16 hd 32 on mma; all within tolerance")
+    # head dims between the instance widths (hd 8: the qwen2 smoke width,
+    # on the mma path; 80 and 192 on the wgmma path, zero-padded to 128 and
+    # 256) and mixed dtypes (cast up to their promotion, the result in q's
+    # dtype), GQA with a window
     hd_cases = (("hd 8 bf16", 8, torch.bfloat16, torch.bfloat16, "mma"),
-                ("hd 80 bf16", 80, torch.bfloat16, torch.bfloat16, "mma"),
-                ("hd 192 bf16", 192, torch.bfloat16, torch.bfloat16, "fma"),
+                ("hd 80 bf16", 80, torch.bfloat16, torch.bfloat16, "wgmma"),
+                ("hd 192 bf16", 192, torch.bfloat16, torch.bfloat16,
+                 "wgmma"),
                 ("bf16 q, f32 k/v", 64, torch.bfloat16, torch.float32, "fma"))
     for what, hd, q_dt, kv_dt, path in hd_cases:
         sm = [torch.randn(2, 160, h, hd, generator=gen, device=dev) / s_
@@ -4644,30 +4695,93 @@ def main():
         assert_close(got.cpu(), want, attn_tol, f"kernel6 {what} vs CPU")
         log(f"[kernel6] {what} ({path}): max abs err "
             f"{max_abs_err(got.cpu(), want)} within {attn_tol}")
-    # the widest instance, timed: hd 256 (FMA path in bf16), S 2048, 8 heads
+    # the wgmma path's edges: (what, B, Sq, Sk, H, KV, hd, dtype, causal,
+    # window) against the plain version, each one wgmma launch; then a view
+    # one element past a 16-byte boundary, which TMA cannot address: one
+    # mma launch
+    wg_cases = (("f16 GQA causal, ragged S 1000", 2, 1000, 1000, 4, 2, 128,
+                 torch.float16, True, None),
+                ("Sq 300 < Sk 700, not causal", 1, 300, 700, 4, 2, 128,
+                 torch.bfloat16, False, None),
+                ("Sq 700 > Sk 300, causal", 1, 700, 300, 4, 2, 128,
+                 torch.bfloat16, True, None),
+                ("S 1000, causal window 200", 1, 1000, 1000, 4, 2, 128,
+                 torch.bfloat16, True, 200),
+                ("window 0 (no live key)", 1, 256, 256, 2, 2, 128,
+                 torch.bfloat16, True, 0),
+                ("hd 64 f16 window 96 not causal", 1, 520, 520, 4, 1, 64,
+                 torch.float16, False, 96),
+                ("hd 256 S 520 window 300", 1, 520, 520, 4, 2, 256,
+                 torch.bfloat16, True, 300))
+    for what, B, Sq, Sk, H, KV, hd, dt, causal, window in wg_cases:
+        sm = [(torch.randn(B, n, h, hd, generator=gen, device=dev) / s_).to(dt)
+              for n, h, s_ in ((Sq, H, 4), (Sk, KV, 4), (Sk, KV, 1))]
+        before = dict(FA.FLASH.paths)
+        got = FA.flash_attention_gqa(*sm, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(FA.FLASH.paths.get("wgmma", 0) == before.get("wgmma", 0) + 1
+              and sum(FA.FLASH.paths.values()) == sum(before.values()) + 1,
+              f"kernel6 {what}: paths {FA.FLASH.paths}, expected one wgmma")
+        want = FA.flash_attention_gqa_plain(*sm, causal=causal,
+                                            window=window)
+        assert_close(got, want, attn_tol, f"kernel6 {what} vs plain")
+        log(f"[kernel6] {what} (wgmma): max abs err {max_abs_err(got, want)} "
+            f"within {attn_tol}")
+    base = torch.randn(1, 200, 2, 66, generator=gen, device=dev).to(
+        torch.bfloat16)
+    uq = base.reshape(-1)[1:1 + 200 * 2 * 64].view(1, 200, 2, 64)
+    check(FA.flash_args(uq, uq, uq, torch.empty_like(uq), causal=True,
+                        window=None).vec == 0, "kernel6: the view is aligned")
+    before = dict(FA.FLASH.paths)
+    got = FA.flash_attention_gqa(uq, uq, uq, causal=True)
+    torch.cuda.synchronize()
+    check(FA.FLASH.paths.get("mma", 0) == before.get("mma", 0) + 1
+          and sum(FA.FLASH.paths.values()) == sum(before.values()) + 1,
+          f"kernel6 unaligned view: paths {FA.FLASH.paths}, expected one mma")
+    want = FA.flash_attention_gqa_plain(uq, uq, uq, causal=True)
+    assert_close(got, want, attn_tol, "kernel6 unaligned view vs plain")
+    log(f"[kernel6] unaligned view (mma): max abs err "
+        f"{max_abs_err(got, want)} within {attn_tol}")
+    del base, uq
+    # the widest instance, timed: hd 256 (wgmma path in bf16), S 2048, 8
+    # heads; the FMA path's 256-wide instance on the same inputs beside it
     wide = [torch.randn(1, 2048, 8, 256, generator=gen, device=dev).to(
         torch.bfloat16) for _ in range(3)]
+    before = FA.FLASH.paths.get("wgmma", 0)
     wide_out = FA.flash_attention_gqa(*wide, causal=True)
-    assert_close(wide_out, FA.flash_attention_gqa_plain(*wide, causal=True),
-                 attn_tol, "kernel6 hd 256 bf16")
+    check(FA.FLASH.paths.get("wgmma", 0) == before + 1,
+          f"kernel6 hd 256: paths {FA.FLASH.paths}, expected one wgmma")
+    wide_want = FA.flash_attention_gqa_plain(*wide, causal=True)
+    assert_close(wide_out, wide_want, attn_tol, "kernel6 hd 256 bf16")
+    wide_fma_out = torch.empty_like(wide_out)
+    wide_fma = k6_named("fma", *wide, wide_fma_out, causal=True, window=None)
+    wide_fma()
+    assert_close(wide_fma_out, wide_want, attn_tol,
+                 "kernel6 hd 256 bf16, fma path")
     wt = [t.transpose(1, 2).contiguous() for t in wide]
     wflops = 4 * 8 * 256 * (2048 * 2049 // 2)
-    wide_ms = gpu_ms(lambda: FA.flash_attention_gqa(*wide, causal=True),
-                     reps=5)
+    wide_run = lambda: FA.flash_attention_gqa(*wide, causal=True)  # noqa: E731
+    wide_ms = gpu_ms(wide_run, reps=5)
+    wide_fma_ms = gpu_ms(wide_fma, reps=3)
+    wide_ms = (wide_ms + gpu_ms(wide_run, reps=5)) / 2
     wide_plain = gpu_ms(lambda: FA.flash_attention_gqa_plain(*wide,
                                                              causal=True),
                         reps=3, warmup=1)
     wide_lib = gpu_ms(lambda: F.scaled_dot_product_attention(
         *wt, is_causal=True), reps=5)
-    log(f"[kernel6] hd 256 bf16 (fma path) B1 S2048 H8: {wide_ms:.4f} ms, "
-        f"plain {wide_plain:.4f} ms, SDPA {wide_lib:.4f} ms, bound "
-        f"{max(wflops / BF16_FLOPS, nbytes(*wide, wide_out) / HBM_BYTES_PER_S) * 1e3:.4f}"
-        f" ms ({wflops / wide_ms / 1e9:.1f} TFLOP/s) on {card}")
+    wide_bound = max(wflops / BF16_FLOPS,
+                     nbytes(*wide, wide_out) / HBM_BYTES_PER_S) * 1e3
+    log(f"[kernel6] hd 256 bf16 (wgmma path) B1 S2048 H8: {wide_ms:.4f} ms "
+        f"(fma path {wide_fma_ms:.4f}), plain {wide_plain:.4f} ms, SDPA "
+        f"{wide_lib:.4f} ms, bound {wide_bound:.4f} ms "
+        f"({wflops / wide_ms / 1e9:.1f} TFLOP/s) on {card}")
     pair_times.append({"pair": "flash_attention_gqa hd256 B1 S2048 H8 KV8 "
-                               "causal (fma path)", "dtype": "torch.bfloat16",
-                       "ms": wide_ms, "plain_ms": wide_plain,
-                       "library_ms": wide_lib, "flops": wflops})
-    del wide, wt, wide_out
+                               "causal (wgmma path)",
+                       "dtype": "torch.bfloat16",
+                       "ms": wide_ms, "fma_ms": wide_fma_ms,
+                       "plain_ms": wide_plain, "library_ms": wide_lib,
+                       "bound_ms": wide_bound, "flops": wflops})
+    del wide, wt, wide_out, wide_want, wide_fma_out
     # head dims above 256 (the chunked path): B1 S2048 H8, causal and with
     # a window, f32 and bf16, against the plain version; bf16 causal timed
     # beside its bound, the plain version and SDPA
@@ -4763,11 +4877,21 @@ def main():
         log(f"[kernel6] {name} library yardstick: {margin(got_lib, want)}")
         del got_lib
         flops = 4 * B * H * hd * pairs
+        # the PR 17 design (mma.sync) on the same inputs, checked, then
+        # timed in turns with the wgmma path: wgmma, mma, mma, wgmma
+        mma_out = torch.empty_like(out)
+        mma_run = k6_named("mma", *qkv, mma_out, causal=True, window=window)
+        mma_run()
+        assert_close(mma_out, want, attn_tol, f"kernel6 {name}, mma path")
+        wg_run = lambda: FA.flash_attention_gqa(   # noqa: E731
+            *qkv, causal=True, window=window)
+        turns = [gpu_ms(f, reps=5) for f in (wg_run, mma_run, mma_run,
+                                             wg_run)]
         r = {"pair": f"flash_attention_gqa {name} B{B} S{S} H{H} "
                      f"KV{qkv[1].shape[2]} hd{hd} window {window}",
              "dtype": "torch.bfloat16", "max_abs_err": max_abs_err(out, want),
-             "ms": gpu_ms(lambda: FA.flash_attention_gqa(
-                 *qkv, causal=True, window=window), reps=5),
+             "ms": (turns[0] + turns[3]) / 2,
+             "mma_ms": (turns[1] + turns[2]) / 2,
              "plain_ms": gpu_ms(lambda: FA.flash_attention_gqa_plain(
                  *qkv, causal=True, window=window), reps=3, warmup=1),
              "library_ms": gpu_ms(lib),
@@ -4776,10 +4900,13 @@ def main():
                              nbytes(*qkv, out) / HBM_BYTES_PER_S) * 1e3}
         pair_times.append(r)
         log(f"[kernel6] {name}: within {attn_tol} of the plain version "
-            f"(max abs err {r['max_abs_err']}); {r['ms']:.4f} ms, plain "
+            f"(max abs err {r['max_abs_err']}); wgmma {r['ms']:.4f} ms "
+            f"(turns {turns[0]:.4f}, {turns[3]:.4f}), mma "
+            f"{r['mma_ms']:.4f} ({turns[1]:.4f}, {turns[2]:.4f}), plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} ({flops / r['ms'] / 1e9:.1f} TFLOP/s)")
-        del want
+            f"{r['bound_ms']:.4f} ({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound) on {card}")
+        del want, mma_out
     r = pair_times[-2]                            # the phi4-mini prefill
     rows["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",

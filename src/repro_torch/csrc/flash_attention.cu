@@ -22,24 +22,55 @@
 // causal) that is 103 GFLOP, 0.104 ms at 989 TFLOP/s bf16, while the bytes
 // (q, k, v, o) take 0.020 ms.
 //
-// Head dims.  Each path is compiled for instance widths HD (16, 32, 64, 128;
-// the FMA path also 256) and runs a head dim hd <= HD on the next larger
-// instance: columns hd .. HD - 1 are zero in shared memory (they add nothing
-// to q . k or P . V) and are not stored, and the scale is hd^-0.5 of the true
-// hd.  A head dim of 129 to 256 takes the FMA path in every dtype (the mma
-// path would hold 2 x 128 accumulator and Q registers a thread there).  A
-// head dim above 256 takes the chunked path in every dtype: its tiles would
-// not fit in shared memory whole, so it loops over the head dim at run time.
+// Head dims.  Each path is compiled for instance widths HD and runs a head
+// dim hd <= HD on the next larger instance: columns hd .. HD - 1 are zero in
+// shared memory (they add nothing to q . k or P . V) and are not stored, and
+// the scale is hd^-0.5 of the true hd.  Widths: wgmma 64, 128, 256; mma 16,
+// 32, 64, 128; FMA 16, 32, 64, 128, 256.  A head dim above 256 takes the
+// chunked path in every dtype: its tiles would not fit in shared memory
+// whole, so it loops over the head dim at run time.
 //
-// Three paths.  The wrapper picks one by dtype and head dim
+// Four paths.  The wrapper picks one by dtype, head dim and alignment
 // (flash_attention.py, _path) and names it in FlashArgs.path, which is also
-// the label it counts the launch under (FLASH.paths["fma"] / ["mma"] /
-// ["chunked"]); xdma_flash_attention launches the path named there and refuses
-// a path that does not take the dtype or head dim.  Nothing falls back at
-// run time.
+// the label it counts the launch under (FLASH.paths["wgmma"] / ["mma"] /
+// ["fma"] / ["chunked"]); xdma_flash_attention launches the path named
+// there and refuses a path that does not take the dtype, head dim or
+// alignment.  Nothing falls back at run time.
 //
-// * bf16 / f16: flash_mma_kernel, on the tensor cores (the FlashAttention-2
-//   design on mma.sync.m16n8k16).  One block of 4 warps covers 64 query rows
+// * bf16 / f16, 33 <= hd <= 256, every base and stepped stride a multiple of
+//   16 bytes (`vec`): flash_wgmma_kernel, Hopper's warpgroup tensor cores
+//   fed by TMA (the FlashArgs strides become 4-d tensor maps {hd, S, heads,
+//   B}, 128-byte swizzled, encoded on the host with cuTensorMapEncodeTiled
+//   and passed as __grid_constant__ parameters).  A block of 384 threads
+//   covers 128 query rows of one (batch, head): a producer warpgroup, whose
+//   one thread loads the two consumers' Q tiles once and keeps K and V
+//   tiles of BK keys in a ring of 2 stages (each stage's K and V with a full
+//   and an empty mbarrier), and two consumer warpgroups of 64 rows each
+//   (setmaxnreg: 24 registers a producer thread, 240 a consumer's).  BK is
+//   128 at widths 64 and 128, 80 at 256.  A consumer computes S = Q K^T by
+//   wgmma m64nBKk16 with both operands K-major in shared memory, runs the
+//   online softmax on the f32 accumulators in registers (the mma path's
+//   rules below: exp2, masks only on blocks that cross Sk, the diagonal or
+//   the window's edge for one of its rows, in 32-bit arithmetic relative to
+//   the block), and adds P V by wgmma m64nHDk16 with P's accumulators,
+//   rounded to the dtype, as the A registers and V read MN-major (the
+//   transpose bit), so V is never transposed in memory.  Each consumer
+//   skips the key blocks outside its own rows' live keys (where each row
+//   has one) and hands their stages back unread.  A block's scores and the
+//   block before's P V are issued together, and the softmax runs while the
+//   tensor cores work on them (FA3's overlap within a warpgroup); at widths
+//   64 and 128 the two consumers also take turns to issue (pingpong, named
+//   barriers), so one's softmax runs beside the other's products, and the
+//   kernel is persistent: one block an SM walks the tiles heaviest first, in
+//   a zigzag over the grid, with Q's tile released (an empty mbarrier) once
+//   its last scores are in, so the next tile's Q and K / V load while this
+//   one's last P V and output run.  The output goes through shared memory
+//   (its own tile; at width 256 the consumer's Q tile), swizzled, to one
+//   TMA store a 64-column block, which clips rows past Sq and columns past
+//   hd; rows past Sq or Sk and columns past hd load as TMA's zeros.
+// * bf16 / f16 that the wgmma path does not take (hd <= 32, or a view that
+//   is not 16-byte aligned at hd <= 128): flash_mma_kernel, on the tensor
+//   cores (the FlashAttention-2 design on mma.sync.m16n8k16).  One block of 4 warps covers 64 query rows
 //   of one (batch, head); warp w owns rows 16 w .. 16 w + 15.  Q is copied
 //   once into shared memory with 16-byte cp.async and then held in registers
 //   as ldmatrix.x4 A-fragments for the whole key loop.  K and V come in
@@ -62,15 +93,16 @@
 //   through the warp's own rows of the Q buffer and stored as 16-byte packs.
 //   Where a tensor's base or strides are not 16-byte aligned (`vec` = 0),
 //   tiles are loaded and stored one element at a time, the rest unchanged.
-// * f32: flash_kernel, on the FMA pipes (f32 q . k in full f32, as the
+// * f32, and bf16 / f16 views that are not aligned at 129 <= hd <= 256:
+//   flash_kernel, on the FMA pipes (f32 q . k in full f32, as the
 //   reference's f32 dot; TF32 would keep about three digits).  One block of
 //   256 threads per (batch * head, 64-query block); the query tile and one
 //   64-key tile at a time sit in shared memory as f32, rows padded by one
 //   word; K and V take turns in one buffer.  Each thread owns a 4 x 4 patch
 //   of the 64 x 64 score tile (rows 4 ty .. 4 ty + 3, columns tx + 16 j) and
 //   a 4 x hd/16 patch of the output; the 16 threads of a row reduce its max
-//   and sum by shuffles.  On bf16 / f16 (head dims above 128 only) P is
-//   rounded to the dtype before P . V, as on the mma path.
+//   and sum by shuffles.  On bf16 / f16 P is rounded to the dtype before
+//   P . V, as on the tensor-core paths.
 // * hd > 256, every dtype: flash_chunked_kernel, the FMA kernel's arithmetic
 //   (and its sum order) over the head dim in chunks: scores summed over
 //   64-column chunks of Q and K, the output in 256-column slices, one grid z
@@ -78,10 +110,14 @@
 //   are recomputed per slice).  Bound as above; it runs at FMA rate, far
 //   below it.
 //
-// Both address heads by strides, so the GQA form (B, S, H, hd) is read in
+// All address heads by strides, so the GQA form (B, S, H, hd) is read in
 // place and query head h reads kv head h / G: nothing is transposed or
 // repeated.  Query blocks run last-first, so the longest causal rows start
 // first.
+//
+// The wgmma path's accumulator and A-register maps and its 128-byte swizzle
+// are listed at the top of hopper.cuh (tests/test_torch_flash.py holds them
+// too and builds S and O through them bitwise).
 //
 // Fragment maps of the mma path (PTX ISA, "Matrix Fragments for mma.m16n8k16
 // with floating point type" and "ldmatrix"; tests/test_torch_flash.py holds
@@ -103,8 +139,10 @@
 //                      regs 2, 3 = B of cols d+8..d+15.
 //   C -> A (P):        A of keys 16 kk.. = {C(2kk) c0c1, C(2kk) c2c3,
 //                      C(2kk+1) c0c1, C(2kk+1) c2c3}, packed low-first.
+#include <climits>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "xdma_common.cuh"
 
 namespace {
@@ -113,7 +151,7 @@ constexpr int BQ = 64, BK = 64, THREADS = 256, MMA_THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 constexpr double LOG2E = 1.4426950408889634;
 // FlashArgs.path, the index of its label in flash_attention.py's PATHS
-constexpr int64_t FMA_PATH = 0, MMA_PATH = 1, CHUNKED_PATH = 2;
+constexpr int64_t FMA_PATH = 0, MMA_PATH = 1, CHUNKED_PATH = 2, WGMMA_PATH = 3;
 
 struct FlashArgs {
   int64_t B, H, G;     // batch, query heads, query heads per kv head
@@ -121,8 +159,7 @@ struct FlashArgs {
   int64_t causal, has_window, window;
   int64_t dtype;       // q, k, v and o share it
   int64_t vec;         // 1: every base and stride is 16-byte aligned
-  int64_t path;        // FMA_PATH (f32), MMA_PATH (bf16 / f16), CHUNKED_PATH
-                       // (hd > 256, every dtype)
+  int64_t path;        // FMA_PATH, MMA_PATH, CHUNKED_PATH or WGMMA_PATH
   double scale;        // hd^-0.5, rounded to f32 in the kernel
   int64_t q_sb, q_sh, q_ss;   // element strides: batch, head, position
   int64_t k_sb, k_sh, k_ss;
@@ -138,14 +175,16 @@ __device__ __forceinline__ int64_t live_hi(const FlashArgs& a, int64_t qp) {
   return a.causal ? min(qp, a.Sk - 1) : a.Sk - 1;
 }
 
-// The key blocks a query block visits, [kbeg, kend): the skip rule.
+// The key blocks a query block of `bq` rows visits in blocks of `bk` keys,
+// [kbeg, kend): the skip rule.
 __device__ __forceinline__ void key_range(const FlashArgs& a, int64_t q0,
-                                          int64_t& kbeg, int64_t& kend) {
-  const int64_t q1 = min(q0 + BQ, a.Sq) - 1;
+                                          int64_t& kbeg, int64_t& kend,
+                                          int64_t bq = BQ, int64_t bk = BK) {
+  const int64_t q1 = min(q0 + bq, a.Sq) - 1;
   kbeg = 0;
   kend = a.Sk;
   if (live_lo(a, q1) <= live_hi(a, q1)) {
-    kbeg = live_lo(a, q0) / BK * BK;
+    kbeg = live_lo(a, q0) / bk * bk;
     kend = live_hi(a, q1) + 1;
   }
 }
@@ -731,6 +770,406 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ bf16 / f16 path on Hopper
+// flash_wgmma_kernel: 384 threads, one producer warpgroup and two consumer
+// warpgroups; a tile is 128 query rows of one (batch, head), consumer c
+// rows q0 + 64 c .. q0 + 64 c + 63.  All tiles are 128-byte swizzled, as
+// TMA writes them and wgmma reads them (hopper.cuh).
+template <int HD>
+struct WgShape {
+  static constexpr int BK = HD <= 128 ? 128 : 80;   // keys a block
+  static constexpr int NCB = HD / 64;               // 64-column blocks
+  static constexpr int QW = 64 * HD;        // elements: a consumer's Q / O
+  static constexpr int KV = BK * HD;        // elements: a stage of K or V
+  static constexpr int STAGES = 2;
+  // the consumers take turns to issue their products (pingpong): faster at
+  // widths 64 and 128 on the card, slower at 256 (PERF.md, PR 30)
+  static constexpr bool PINGPONG = HD <= 128;
+  // one block an SM walks the tiles, its output staged apart from Q, so
+  // the next tile's loads overlap this one's last products and store:
+  // faster at widths 64 and 128 on the card (PERF.md, PR 30); at 256 the
+  // output buffer does not fit beside the ring
+  static constexpr bool PERSIST = HD <= 128;
+  // barriers: Q's full and empty; K's and V's full and empty of each stage
+  static constexpr int NBAR = 2 + 4 * STAGES;
+  static constexpr size_t SMEM =
+      2 * ((PERSIST ? 4 : 2) * QW + 2 * STAGES * KV) + 8 * NBAR +
+      1024;                                               // + alignment
+};
+// the consumers' threads, and their warps (one arrival each on an empty
+// barrier: a warp's wgmma_wait has returned in all its lanes)
+constexpr int WG_THREADS = 384, WG_BQ = 128, CONSUMER_THREADS = 256;
+constexpr int CONSUMER_WARPS = CONSUMER_THREADS / 32;
+
+// Tile k of this block, heaviest first: (query block q0, batch * head bh),
+// or false past the last.  One tile a block, or (PERSIST) a zigzag over the
+// tiles in steps of the grid, so each block's tiles add up to about the
+// same work.
+template <bool PERSIST>
+__device__ __forceinline__ bool wg_tile(const FlashArgs& a, int k,
+                                        int64_t& q0, int64_t& bh) {
+  const int64_t nq = (a.Sq + WG_BQ - 1) / WG_BQ, nbh = a.B * a.H;
+  if (!PERSIST) {
+    q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * WG_BQ;
+    bh = blockIdx.x;
+    return k == 0;
+  }
+  const int64_t G = gridDim.x;
+  const int64_t t = k * G + ((k & 1) ? G - 1 - blockIdx.x : blockIdx.x);
+  if (t >= nq * nbh) return false;
+  q0 = (nq - 1 - t / nbh) * WG_BQ;
+  bh = t % nbh;
+  return true;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ,
+                   const __grid_constant__ CUtensorMap tmK,
+                   const __grid_constant__ CUtensorMap tmV,
+                   const __grid_constant__ CUtensorMap tmO, FlashArgs a) {
+  using W = WgShape<HD>;
+  constexpr int BKW = W::BK, NCB = W::NCB, STAGES = W::STAGES;
+  constexpr bool PP = W::PINGPONG, PERSIST = W::PERSIST;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* base =
+      smem_wg + ((1024 - (hopper::smem_u32(smem_wg) & 1023)) & 1023);
+  T* sQ = reinterpret_cast<T*>(base);   // consumer c: sQ + c QW, NCB blocks
+                                        // of 64 rows
+  T* sO = PERSIST ? sQ + 2 * W::QW : sQ;    // its output, the same way
+  T* sK = sO + 2 * W::QW;               // stage s: sK + s KV, NCB blocks of BK
+  if (!PERSIST) sK = sQ + 2 * W::QW;
+  T* sV = sK + STAGES * W::KV;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + STAGES * W::KV);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full_k = empty_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
+
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    hopper::mbar_init(empty_q, CONSUMER_WARPS);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty_k[s], CONSUMER_WARPS);
+      hopper::mbar_init(&empty_v[s], CONSUMER_WARPS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring of K / V stages full
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_map(&tmQ);
+      hopper::prefetch_map(&tmK);
+      hopper::prefetch_map(&tmV);
+      int gk = 0;                         // key blocks loaded, all tiles
+      int64_t q0, bh;
+      for (int k = 0; wg_tile<PERSIST>(a, k, q0, bh); ++k) {
+        const int64_t b = bh / a.H, h = bh % a.H, hk = h / a.G;
+        int64_t kbeg, kend;
+        key_range(a, q0, kbeg, kend, WG_BQ, BKW);
+        const int nblk = (int)((kend - kbeg + BKW - 1) / BKW);
+        // a fresh barrier's "previous" phase (parity 1) counts as complete,
+        // so the first pass through a ring does not wait
+        hopper::mbar_wait(empty_q, (k & 1) ^ 1);
+        hopper::mbar_expect_tx(full_q, 2 * W::QW * sizeof(T));
+        for (int c = 0; c < 2; ++c)
+          for (int j = 0; j < NCB; ++j)
+            hopper::tma_load_4d(sQ + c * W::QW + j * 64 * 64, &tmQ, full_q,
+                                64 * j, (int)(q0 + 64 * c), (int)h, (int)b);
+        for (int it = 0; it < nblk; ++it, ++gk) {
+          const int st = gk % STAGES;
+          const uint32_t ph = (gk / STAGES) & 1;
+          const int k0 = (int)(kbeg + (int64_t)it * BKW);
+          hopper::mbar_wait(&empty_k[st], ph ^ 1);
+          hopper::mbar_expect_tx(&full_k[st], W::KV * sizeof(T));
+          for (int j = 0; j < NCB; ++j)
+            hopper::tma_load_4d(sK + st * W::KV + j * BKW * 64, &tmK,
+                                &full_k[st], 64 * j, k0, (int)hk, (int)b);
+          hopper::mbar_wait(&empty_v[st], ph ^ 1);
+          hopper::mbar_expect_tx(&full_v[st], W::KV * sizeof(T));
+          for (int j = 0; j < NCB; ++j)
+            hopper::tma_load_4d(sV + st * W::KV + j * BKW * 64, &tmV,
+                                &full_v[st], 64 * j, k0, (int)hk, (int)b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    hopper::setmaxnreg_inc<240>();
+    const int cw = wg - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const T* sQw = sQ + cw * W::QW;
+    T* sOw = sO + cw * W::QW;
+    const float scale2 = (float)(a.scale * LOG2E);
+
+    float o[HD / 2];
+    float m[2], l[2];
+    float s[BKW / 2];
+    uint32_t pa[BKW / 16][4];
+    int64_t q0, bh, r0, r1;
+
+    auto release = [&](uint64_t* bar) {
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
+    // S = Q K^T, 64 x BK: HD / 16 steps of m64nBKk16, both from shared
+    auto scores = [&](int st) {
+      const T* Ks = sK + st * W::KV;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::WgmmaSS<BKW, T>::run(
+            s,
+            hopper::desc_sw128(sQw + (kk / 4) * 64 * 64 + (kk % 4) * 16, 16,
+                               1024),
+            hopper::desc_sw128(Ks + (kk / 4) * BKW * 64 + (kk % 4) * 16, 16,
+                               1024),
+            kk > 0);
+      hopper::wgmma_commit();
+    };
+    // O += P V: m64nHDk16 steps, P from registers, V MN-major from shared
+    auto pv = [&](int st) {
+      const T* Vs = sV + st * W::KV;
+      hopper::fence_regs(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKW / 16; ++kk)
+        hopper::WgmmaRS<HD, T>::run(
+            o, pa[kk], hopper::desc_sw128(Vs + kk * 16 * 64, BKW * 128, 1024),
+            1);
+      hopper::wgmma_commit();
+    };
+    // scale, mask, online softmax of the block at key k0: s becomes the f32
+    // p, corr the factor O must take before this block's P V
+    auto softmax = [&](int64_t k0, float (&corr)[2]) {
+#pragma unroll
+      for (int i = 0; i < BKW / 2; ++i) s[i] *= scale2;
+      // masks only where the block crosses Sk, the diagonal or the
+      // window's lower edge for one of this consumer's rows
+      const bool full = k0 + BKW <= a.Sk &&
+                        (!a.causal || k0 + BKW - 1 <= r0) &&
+                        (!a.has_window || k0 > r1 - a.window);
+      if (!full) {
+        // element 4 j + e holds key 8 j + 2 t + (e & 1) of the block and
+        // row warp 16 + g + 8 r (r = e >> 1) of the consumer's; the key's
+        // constant part 8 j + (e & 1) is held to row r's limits, 2 t taken
+        // into them: masked past hi (causal) or at or below lo (window).
+        // Keys past Sk (a ragged last block) take -inf: p = 0
+        const int64_t dq = r0 - k0, cap = (int64_t)1 << 30;
+        int hi[2], lo[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int64_t lr = warp * 16 + g + 8 * r + dq - 2 * t;
+          hi[r] = a.causal ? (int)max(min(lr, cap), -cap) : (int)cap;
+          lo[r] = a.has_window ? (int)max(min(lr - a.window, cap), -cap)
+                               : (int)-cap;
+        }
+#pragma unroll
+        for (int j = 0; j < BKW / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + (e & 1), r = e >> 1;
+            if (c > hi[r] || c <= lo[r]) s[4 * j + e] = NEG_INF;
+          }
+        const int klim = (int)min(a.Sk - k0, (int64_t)BKW) - 2 * t;
+        if (klim < BKW - 2 * t) {
+#pragma unroll
+          for (int j = 0; j < BKW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * j + (e & 1) >= klim) s[4 * j + e] = -INFINITY;
+        }
+      }
+      // registers 4 j + 2 r + c hold row r of the thread's two
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BKW / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        corr[r] = ex2(m[r] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < BKW / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = ex2(s[4 * j + 2 * r + c] - m_new);
+            s[4 * j + 2 * r + c] = p;
+            ps += p;                              // l sums the f32 p
+          }
+        l[r] = l[r] * corr[r] + ps;
+        m[r] = m_new;
+      }
+    };
+    // O's rows take corr; P rounded to the dtype: the accumulators of keys
+    // 16 kk .. 16 kk + 15 are the A registers of the kk-th step of P V
+    auto rescale_and_pack = [&](const float (&corr)[2]) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+#pragma unroll
+      for (int kk = 0; kk < BKW / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = Mma<T>::pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    };
+    // hand a stage back unread (a block outside the consumer's keys)
+    auto pass = [&](int gi) {
+      const int st = gi % STAGES;
+      const uint32_t ph = (gi / STAGES) & 1;
+      hopper::mbar_wait(&full_k[st], ph);
+      release(&empty_k[st]);
+      hopper::mbar_wait(&full_v[st], ph);
+      release(&empty_v[st]);
+    };
+
+    int gk = 0;                           // key blocks consumed, all tiles
+    for (int k = 0; wg_tile<PERSIST>(a, k, q0, bh); ++k) {
+      const int64_t b = bh / a.H, h = bh % a.H;
+      int64_t kbeg, kend;
+      key_range(a, q0, kbeg, kend, WG_BQ, BKW);
+      const int nblk = (int)((kend - kbeg + BKW - 1) / BKW);
+      r0 = q0 + 64 * cw;                      // the consumer's rows,
+      r1 = min(r0 + 63, a.Sq - 1);            // the last one clipped
+      const bool any = r0 < a.Sq;
+      // The skip rule on the consumer's 64 rows: where each has a live
+      // key, a key block outside every row's live range adds exactly
+      // nothing.  The blocks it computes are then [i0, i1) of the tile's;
+      // it hands the other stages back unread.
+      int i0 = 0, i1 = any ? nblk : 0;
+      if (any && live_lo(a, r1) <= live_hi(a, r1)) {
+        i0 = (int)((live_lo(a, r0) - kbeg) / BKW);
+        i1 = min(nblk, (int)((live_hi(a, r1) - kbeg) / BKW) + 1);
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      m[0] = m[1] = NEG_INF;
+      l[0] = l[1] = 0.f;
+
+      // With PP the two consumers take turns to issue their products
+      // (named barriers 3 and 4, the other's arrival opening a turn;
+      // consumer 0 first), so one's softmax runs beside the other's
+      // products.  Each takes nblk + 1 turns a tile, a turn with nothing to
+      // issue included.
+      int turns = 0;
+      auto turn_begin = [&]() {
+        if (PP) hopper::named_sync(3 + cw, CONSUMER_THREADS);
+      };
+      auto turn_end = [&]() {
+        if (PP && (cw == 0 || ++turns <= nblk))
+          hopper::named_arrive(4 - cw, CONSUMER_THREADS);
+      };
+
+      hopper::mbar_wait(full_q, k & 1);
+      if (PP && cw == 1) hopper::named_arrive(3, CONSUMER_THREADS);
+      for (int it = 0; it < i0; ++it) {
+        pass(gk + it);
+        turn_begin();
+        turn_end();
+      }
+      if (i0 < i1) {
+        // the first block: scores and softmax
+        float corr[2];
+        const int f = gk + i0;
+        hopper::mbar_wait(&full_k[f % STAGES], (f / STAGES) & 1);
+        turn_begin();
+        scores(f % STAGES);
+        turn_end();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        release(&empty_k[f % STAGES]);
+        softmax(kbeg + (int64_t)i0 * BKW, corr);
+        rescale_and_pack(corr);
+        // then each block's scores and the block before's P V run on the
+        // tensor cores while this warpgroup's softmax waits on the scores
+        for (int it = i0 + 1; it < i1; ++it) {
+          const int gi = gk + it, st = gi % STAGES, pst = (gi - 1) % STAGES;
+          hopper::mbar_wait(&full_k[st], (gi / STAGES) & 1);
+          hopper::mbar_wait(&full_v[pst], ((gi - 1) / STAGES) & 1);
+          turn_begin();
+          scores(st);
+          pv(pst);
+          turn_end();
+          hopper::wgmma_wait<1>();                // the scores have landed
+          hopper::fence_regs(s);
+          release(&empty_k[st]);
+          softmax(kbeg + (int64_t)it * BKW, corr);
+          hopper::wgmma_wait<0>();                // so has the P V
+          hopper::fence_regs(o);
+          release(&empty_v[pst]);
+          rescale_and_pack(corr);
+        }
+        // Q is read: the next tile's may load.  Then the last block's P V
+        release(empty_q);
+        const int last = gk + i1 - 1, lst = last % STAGES;
+        hopper::mbar_wait(&full_v[lst], (last / STAGES) & 1);
+        turn_begin();
+        pv(lst);
+        turn_end();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        release(&empty_v[lst]);
+      } else {
+        release(empty_q);
+        turn_begin();
+        turn_end();
+      }
+      for (int it = max(i0, i1); it < nblk; ++it) {
+        pass(gk + it);
+        turn_begin();
+        turn_end();
+      }
+      gk += nblk;
+
+      // epilogue: l over the quad, O / max(l, 1e-30) rounded into the
+      // consumer's output tile (swizzled as TMA reads it) once the last
+      // tile's store has read it, one TMA store a 64-column block; rows
+      // past Sq and columns past hd are not written
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      if (PERSIST) {
+        if (tid == 0) hopper::tma_store_wait_read();
+        hopper::named_sync(1 + cw, 128);
+      }
+      unsigned char* so = reinterpret_cast<unsigned char*>(sOw);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float denom = fmaxf(l[r], 1e-30f);
+        const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(
+              so + (j / 8) * 64 * 64 * sizeof(T) + row * 128 +
+              (((j % 8) ^ (row % 8)) * 16) + 4 * t) =
+              Mma<T>::pack(__fdiv_rn(o[4 * j + 2 * r], denom),
+                           __fdiv_rn(o[4 * j + 2 * r + 1], denom));
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + cw, 128);
+      if (tid == 0 && any) {
+        for (int j = 0; j < NCB; ++j)
+          hopper::tma_store_4d(&tmO, sOw + j * 64 * 64, 64 * j, (int)r0,
+                               (int)h, (int)b);
+        hopper::tma_store_commit();
+      }
+    }
+    if (tid == 0) hopper::tma_store_wait_read();
+  }
+}
+
 template <typename T>
 int launch(void (*kern)(const T*, const T*, const T*, T*, FlashArgs),
            int threads, size_t smem, const FlashArgs& a, const void* q,
@@ -781,7 +1220,8 @@ int dispatch(const FlashArgs& a, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Head dims 129 to 256, every dtype: the FMA kernel's 256-wide instance.
+// Head dims 129 to 256 on the FMA path (f32, and bf16 / f16 views the wgmma
+// path does not take): the FMA kernel's 256-wide instance.
 template <typename T>
 int dispatch_wide(const FlashArgs& a, const void* q, const void* k,
                   const void* v, void* o, cudaStream_t s) {
@@ -802,6 +1242,82 @@ int dispatch_chunked(const FlashArgs& a, const void* q, const void* k,
                    s, (a.hd + DC - 1) / DC);
 }
 
+// A (B, S, heads, hd) view as a 4-d tensor map {hd, S, heads, B} with a
+// box of 64 columns x `rows` positions, 128-byte swizzled; positions past S
+// and columns past hd read as zeros.  The strides are the view's own (a
+// size-1 dim's, never stepped, is replaced by a packed one).
+template <typename T>
+bool encode_map(CUtensorMap* map, const void* p, int64_t hd, int64_t S,
+                int64_t heads, int64_t B, int64_t ss, int64_t sh, int64_t sb,
+                uint32_t rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const int64_t step[3] = {ss, sh, sb};
+  cuuint64_t strides[3];
+  uint64_t packed = (uint64_t)hd * sizeof(T);
+  for (int i = 0; i < 3; ++i) {
+    packed = (packed + 15) / 16 * 16;
+    strides[i] = dims[i + 1] == 1 ? packed : (cuuint64_t)step[i] * sizeof(T);
+    packed = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, rows, 1, 1}, unit[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map,
+             std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             4, const_cast<void*>(p), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int HD>
+int launch_wgmma(const FlashArgs& a, const void* q, const void* k,
+                 const void* v, void* o, cudaStream_t stream) {
+  using W = WgShape<HD>;
+  CUtensorMap tq, tk, tv, to;
+  const int64_t kv = a.H / a.G;
+  if (!encode_map<T>(&tq, q, a.hd, a.Sq, a.H, a.B, a.q_ss, a.q_sh, a.q_sb,
+                     64) ||
+      !encode_map<T>(&tk, k, a.hd, a.Sk, kv, a.B, a.k_ss, a.k_sh, a.k_sb,
+                     W::BK) ||
+      !encode_map<T>(&tv, v, a.hd, a.Sk, kv, a.B, a.v_ss, a.v_sh, a.v_sb,
+                     W::BK) ||
+      !encode_map<T>(&to, o, a.hd, a.Sq, a.H, a.B, a.o_ss, a.o_sh, a.o_sb,
+                     64))
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_wgmma_kernel<T, HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t nq = (a.Sq + WG_BQ - 1) / WG_BQ, nbh = a.B * a.H;
+  if (nq > 65535 || nbh > 0x7fffffffLL || a.Sq > 0x7fffffffLL ||
+      a.Sk > 0x7fffffffLL || nq * nbh > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)nbh, (unsigned)nq);
+  if (W::PERSIST) {                       // one block an SM
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return (int)e;
+    grid = dim3((unsigned)min(nq * nbh, (int64_t)sms));
+  }
+  kern<<<grid, WG_THREADS, W::SMEM, stream>>>(tq, tk, tv, to, a);
+  return (int)cudaGetLastError();
+}
+
+// Head dims 33 to 256 in bf16 / f16, every base and stepped stride 16-byte
+// aligned (TMA's rule): the next larger width of 64, 128, 256.
+template <typename T>
+int dispatch_wgmma(const FlashArgs& a, const void* q, const void* k,
+                   const void* v, void* o, cudaStream_t s) {
+  if (!a.vec || a.hd < 33 || a.hd > 256) return (int)cudaErrorInvalidValue;
+  if (a.hd <= 64) return launch_wgmma<T, 64>(a, q, k, v, o, s);
+  if (a.hd <= 128) return launch_wgmma<T, 128>(a, q, k, v, o, s);
+  return launch_wgmma<T, 256>(a, q, k, v, o, s);
+}
+
 }  // namespace
 
 extern "C" int xdma_flash_attention(const void* args, const void* q,
@@ -817,6 +1333,12 @@ extern "C" int xdma_flash_attention(const void* args, const void* q,
     if (a.dtype == xdma::BF16)
       return dispatch_chunked<__nv_bfloat16>(a, q, k, v, o, s);
     if (a.dtype == xdma::F16) return dispatch_chunked<__half>(a, q, k, v, o, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a.path == WGMMA_PATH) {
+    if (a.dtype == xdma::BF16)
+      return dispatch_wgmma<__nv_bfloat16>(a, q, k, v, o, s);
+    if (a.dtype == xdma::F16) return dispatch_wgmma<__half>(a, q, k, v, o, s);
     return (int)cudaErrorInvalidValue;
   }
   if (a.path == FMA_PATH && a.hd > 128) {

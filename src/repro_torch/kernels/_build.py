@@ -3,7 +3,7 @@
 Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  A library is
 built at first use into ``build/kernels/`` at the root of the checkout,
-named by a hash of its source, the shared header and the flags, so an edited
+named by a hash of its source, the shared headers and the flags, so an edited
 source rebuilds and an unchanged one is reused.  :func:`build_all` starts
 one ``nvcc`` per source, all at once.
 
@@ -33,7 +33,10 @@ BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v", ARCH)
-_HEADERS = ("xdma_common.cuh",)
+_HEADERS = ("xdma_common.cuh", "hopper.cuh")
+# what a source links beyond the runtime: kernel 6 encodes its TMA tensor
+# maps with the driver API (cuTensorMapEncodeTiled)
+LINK = {"flash_attention.cu": ("-lcuda",)}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -55,7 +58,7 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(FLAGS + LINK.get(source, ())).encode())
     for name in (source,) + _HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
@@ -69,7 +72,8 @@ def _start(source: str) -> Optional[subprocess.Popen]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / source),
+           *LINK.get(source, ())]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 

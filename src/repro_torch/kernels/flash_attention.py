@@ -7,20 +7,23 @@ write the finite ``NEG_INF = -1e30``, P rounded to v's dtype before ``P . V``.
 On a CUDA tensor both entry points launch ``csrc/flash_attention.cu``, which
 addresses heads by strides: :func:`flash_attention_gqa` hands it the
 ``(B, S, H, hd)`` / ``(B, S, KV, hd)`` tensors as they are, and query head
-``h`` reads kv head ``h // G``.  bf16 and f16 take its tensor-core path
-(``mma.sync``), f32 its FMA path (full f32 products, as the reference's f32
-dot), and so does a head dim of 129 to 256 in every dtype; a head dim above
-256 takes its chunked path (the FMA path's arithmetic over the head dim in
-chunks), in every dtype; ``FLASH.paths`` counts the launches of each as
-``"mma"`` / ``"fma"`` / ``"chunked"``.  Up to 256 the kernel runs a head dim
-on the next larger of its instance widths with the columns past ``hd``
+``h`` reads kv head ``h // G``.  It has four paths, chosen in one place,
+:func:`_path`, and counted in ``FLASH.paths`` by label: bf16 and f16 at a
+head dim of 33 to 256 take ``"wgmma"`` (Hopper's warpgroup tensor cores,
+fed by TMA through tensor maps of the views' own strides) where every base
+and stepped stride is a multiple of 16 bytes, which TMA needs; other bf16 /
+f16 views take ``"mma"`` (``mma.sync``) up to 128 and ``"fma"`` above; f32
+takes ``"fma"`` (full f32 products, as the reference's f32 dot); a head dim
+above 256 takes ``"chunked"`` (the FMA path's arithmetic over the head dim
+in chunks), in every dtype.  Up to 256 the kernel runs a head dim on the
+next larger of its instance widths with the columns past ``hd``
 zero; q, k and v of different dtypes are cast up to
 their promoted dtype first (exactly) and the result comes back in q's
 dtype, as the reference's dots promote.  On a CPU tensor they take the plain
 version, :func:`flash_attention_plain`, which runs the reference's own
 update over the reference's ``(q_chunk, kv_chunk)`` blocks; the chunks shape
-only that version (the kernel tiles 64 x 64).  On a meta tensor the dry run
-(an active ``launch.op_cost.OpCost``) takes the plain version's shapes
+only that version (the kernel has its own tiles).  On a meta tensor the dry
+run (an active ``launch.op_cost.OpCost``) takes the plain version's shapes
 and counts the call as one op (:func:`repro_torch.launch.op_cost.one_op`);
 elsewhere a meta tensor raises.
 """
@@ -41,20 +44,27 @@ __all__ = ["flash_attention", "flash_attention_gqa", "flash_attention_plain",
 
 NEG_INF = -1e30
 _FMA_HEAD_DIM = 256         # the widest FMA instance; above it, chunked
-_MMA_HEAD_DIM = 128         # the widest tensor-core instance
+_MMA_HEAD_DIM = 128         # the widest mma.sync instance
+_WGMMA_HEAD_DIMS = (33, 256)    # the head dims the wgmma path takes
 
 # The kernel's code paths, by their index in FlashArgs.path
-PATHS = ("fma", "mma", "chunked")
-_PATH_OF = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 1}
+PATHS = ("fma", "mma", "chunked", "wgmma")
 
 
-def _path(dtype: torch.dtype, hd: int) -> int:
+def _path(dtype: torch.dtype, hd: int, vec: bool) -> int:
     """The path a launch takes: the only place the choice is made (the C
     entry point launches the path named in the arguments and refuses one
-    that does not fit the dtype and head dim)."""
+    that does not fit the dtype, head dim or alignment).  ``vec``: every
+    base and stepped stride is a multiple of 16 bytes, as TMA needs."""
     if hd > _FMA_HEAD_DIM:
         return PATHS.index("chunked")
-    return _PATH_OF[dtype] if hd <= _MMA_HEAD_DIM else 0
+    if dtype == torch.float32:
+        return PATHS.index("fma")
+    lo, hi = _WGMMA_HEAD_DIMS
+    if vec and lo <= hd <= hi:
+        return PATHS.index("wgmma")
+    return PATHS.index("mma" if hd <= _MMA_HEAD_DIM else "fma")
+
 
 FLASH = _build.register(_build.Kernel(
     "flash_attention", "flash_attention.cu", "xdma_flash_attention",
@@ -136,8 +146,8 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
     (B, Sk, KV, hd), strided views whose head dim is contiguous; query head
     ``h`` reads kv head ``h // (H // KV)``.  A (BH, S, hd) tensor enters as
     its (BH, S, 1, hd) view.  ``vec`` is 1 when every base address and every
-    stride the kernel steps by is a multiple of 16 bytes (the mma path's
-    16-byte copies); else that path moves one element at a time."""
+    stride the kernel steps by is a multiple of 16 bytes (TMA's rule, and
+    the mma path's 16-byte copies); ``path`` is :func:`_path`'s."""
     a = _FlashArgs()
     a.B, a.Sq, a.H, a.hd = q.shape
     a.G = a.H // k.shape[2]
@@ -146,7 +156,6 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
     a.has_window = int(window is not None)
     a.window = 0 if window is None else int(window)
     a.dtype = maps.dtype_code(q.dtype)
-    a.path = _path(q.dtype, a.hd)
     a.scale = a.hd ** -0.5
     a.vec = 1
     for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
@@ -160,6 +169,7 @@ def flash_args(q, k, v, out, *, causal: bool, window: Optional[int]
         if t.data_ptr() % 16 or any(st * t.element_size() % 16
                                     for st in steps):
             a.vec = 0
+    a.path = _path(q.dtype, a.hd, bool(a.vec))
     return a
 
 

@@ -680,7 +680,9 @@ def test_flash_attention_kernel_vs_plain(name):
     tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
            else dict(rtol=2e-2, atol=2e-2))
     before = FA.FLASH.launches
-    path = "fma" if dtype == torch.float32 else "mma"
+    # aligned views: bf16 / f16 at hd >= 33 on the wgmma path
+    path = ("fma" if dtype == torch.float32 else
+            "wgmma" if hd >= 33 else "mma")
     before_path = FA.FLASH.paths.get(path, 0)
     if H == 1:
         fold = lambda t: t[:, :, 0]                       # noqa: E731
@@ -700,15 +702,15 @@ def test_flash_attention_kernel_vs_plain(name):
     torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
 
 
-def _flash_half_vs_plain(q, k, v, causal, window):
-    """One launch of kernel 6 on its tensor-core path, held within 2e-2 of
-    the plain version."""
-    before = FA.FLASH.paths.get("mma", 0)
+def _flash_half_vs_plain(q, k, v, causal, window, path):
+    """One launch of kernel 6 on its tensor-core path ``path``, held within
+    2e-2 of the plain version."""
+    before = FA.FLASH.paths.get(path, 0)
     want = FA.flash_attention_gqa_plain(q.cpu(), k.cpu(), v.cpu(),
                                         causal=causal, window=window)
     got = FA.flash_attention_gqa(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert FA.FLASH.paths["mma"] == before + 1
+    assert FA.FLASH.paths[path] == before + 1
     assert got.shape == want.shape and got.dtype == want.dtype
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
                                atol=2e-2)
@@ -719,15 +721,19 @@ def _flash_half_vs_plain(q, k, v, causal, window):
                                    torch.float16])
 def test_flash_attention_any_head_dim_vs_plain(dtype, hd):
     """A head dim between the kernel's instance widths runs on the next
-    larger one (columns past hd zero, scale hd^-0.5 of the true hd); from
-    129 to 256 every dtype takes the FMA path, above 256 the chunked path.
-    GQA with a causal window."""
+    larger one (columns past hd zero, scale hd^-0.5 of the true hd): bf16 /
+    f16 on the wgmma path where hd >= 33 and the rows are 16-byte aligned
+    (hd a multiple of 8), else on the mma path up to 128 and the FMA path
+    above; f32 on the FMA path; above 256 the chunked path.  GQA with a
+    causal window."""
     B, S, H, KV = 1, 150, 4, 2
     q, k, v = (_logical((B * S * n, hd), torch.float32, seed=40 + i)
                .reshape(B, S, n, hd) / (4 if i < 2 else 1)
                for i, n in enumerate((H, KV, KV)))
     path = ("chunked" if hd > 256 else
-            "fma" if dtype == torch.float32 or hd > 128 else "mma")
+            "fma" if dtype == torch.float32 else
+            "wgmma" if hd >= 33 and hd % 8 == 0 else
+            "mma" if hd <= 128 else "fma")
     before = FA.FLASH.paths.get(path, 0)
     q, k, v = (t.to(dtype) for t in (q, k, v))
     want = FA.flash_attention_gqa_plain(q, k, v, causal=True, window=64)
@@ -759,7 +765,7 @@ def test_flash_attention_mixed_dtypes_vs_plain(q_dtype, kv_dtype):
                                atol=2e-2)
 
 
-# (B, Sq, Sk, H, KV, causal, window): each edge of the mma path
+# (B, Sq, Sk, H, KV, causal, window): each edge of the tensor-core paths
 FLASH_HALF_CASES = {
     "ragged_sk": (2, 200, 150, 1, 1, True, None),
     "sq_gt_sk": (1, 100, 40, 1, 1, True, None),
@@ -776,14 +782,15 @@ FLASH_HALF_CASES = {
 def test_flash_attention_mma_path_edges(name, dtype, hd):
     """Ragged Sk, Sq > Sk, rows with no live key (the reference averages
     every V row), a window without causal, GQA with a window, and no mask,
-    at every head dim, in bf16 and f16."""
+    at every head dim, in bf16 and f16: hd 16 and 32 on the mma path, 64
+    and 128 on the wgmma path."""
     B, Sq, Sk, H, KV, causal, window = FLASH_HALF_CASES[name]
     q = _logical((B * Sq * H, hd), torch.float32, seed=31).reshape(B, Sq, H, hd)
     k = _logical((B * Sk * KV, hd), torch.float32, seed=32).reshape(B, Sk, KV, hd)
     v = _logical((B * Sk * KV, hd), torch.float32, seed=33).reshape(B, Sk, KV, hd)
     q, k = q / 4, k / 4
     _flash_half_vs_plain(*(t.to(dtype).cuda() for t in (q, k, v)), causal,
-                         window)
+                         window, "wgmma" if hd >= 33 else "mma")
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -792,7 +799,8 @@ def test_flash_attention_mma_path_edges(name, dtype, hd):
 def test_flash_attention_mma_path_strided_gqa_views(aligned, dtype, hd):
     """q, k and v are strided, non-contiguous views of one packed (B, S,
     H + 2 KV, hd) buffer, read in place; unaligned, the buffer starts one
-    element past a 16-byte boundary and the kernel moves single elements."""
+    element past a 16-byte boundary: the wgmma path takes the aligned
+    views, the mma path (moving single elements) the others."""
     B, S, H, KV = 2, 160, 6, 2
     n = B * S * (H + 2 * KV) * hd
     flat = torch.empty(n + 1, dtype=dtype, device="cuda")
@@ -805,7 +813,7 @@ def test_flash_attention_mma_path_strided_gqa_views(aligned, dtype, hd):
     args = FA.flash_args(q, k, v, torch.empty_like(q), causal=True,
                          window=48)
     assert args.vec == int(aligned)
-    _flash_half_vs_plain(q, k, v, True, 48)
+    _flash_half_vs_plain(q, k, v, True, 48, "wgmma" if aligned else "mma")
 
 
 # -- the distributed Controller and the Fig. 4 baselines on the card ------------

@@ -56,9 +56,10 @@ kernel against its plain PyTorch version on the same inputs:
   bitwise the planeless loop's, decode logits against the forward's, one
   decoder layer in f32 against its CPU run, and the seven non-MoE smoke
   archs' tokens against their CPU runs;
-* continuous batching (phase 15) on the same model: four 32-token prompts
-  arriving together, bitwise ``ServingEngine.generate``'s tokens, then a
-  stream of eight requests (16, 32 and 48 prompt tokens) through
+* continuous batching (phase 15) on the same model cut to its first 8
+  layers: four 32-token prompts arriving together, bitwise
+  ``ServingEngine.generate``'s tokens, then a stream of eight requests
+  (16, 32 and 48 prompt tokens) through
   ``ContinuousBatchingEngine`` and ``StaticBatchEngine`` over a page pool
   of 75 % of the stream's peak: preemption forced, every restored page
   bitwise its evicted buffer, tokens equal each request's fixed-batch run
@@ -93,7 +94,7 @@ kernel against its plain PyTorch version on the same inputs:
   ("data", "model") mesh, qwen3-1.7b at full width cut to 2 layers in f32,
   tensor-parallel (head-parallel attention, column / row-parallel MLP,
   vocab-parallel embedding, head and loss) and FSDP (the embedding and
-  every matrix of a layer sharded over the data axis), 2 steps of B 4 x 512
+  every matrix of a layer sharded over the data axis), 2 steps of B 4 x 256
   in 2 microbatches held to the single-process step, with ms a step
   (slowest rank), each rank's peak memory beside the whole state, and the
   collective bytes a step by op and axis; (c)-(f) in another (2, 2) world
@@ -111,7 +112,7 @@ kernel against its plain PyTorch version on the same inputs:
   bitwise, its whole-leaf checkpoint restored on the card bitwise;
 * sharded serving (phase 21): 4 gloo ranks on the card as a (2, 2)
   ("data", "model") mesh or a (1, 4) view of it, f32, TF32 off: (a)
-  qwen2-0.5b cut to 12 of its 24 layers on (1, 4), B 4 x 512 prompts, 8
+  qwen2-0.5b cut to 12 of its 24 layers on (1, 4), B 4 x 512 prompts, 4
   steps (the
   sequence-parallel prefill, the cache split by sequence); (b) phi4-mini
   at full width cut to 4 of 32 layers on (2, 2) with the XDMA cache (KV
@@ -140,9 +141,21 @@ kernel against its plain PyTorch version on the same inputs:
   meta, processes started after the build): ``train_4k`` on 2 x 16 x 16,
   ``long_500k`` on 16 x 16 and phase 18's step on one card, every field
   counted (bytes moved, argument, output, temp and peak), that step's
-  counted peak within 3 % + 256 MiB of the card's.
+  counted peak within 3 % + 256 MiB of the card's;
+* the examples phase: the port's twins of the reference's four example
+  scripts (``examples/torch_*.py``) through the ``run`` their command lines
+  call: the quickstart's fifteen moves (kernels 1, 2 and 3; every parity
+  true, the ring's retries and incremental makespan, the telemetry against
+  the ledger, the multicast copies exact), the KV-cache loop (kernel 3
+  stores and loads its rank-3 K; its decoded tokens the CPU's),
+  compressed_dp in a world of 8 gloo ranks on the card, and train_lm
+  ``--full-100m`` (the full qwen2-0.5b, B 8 x 64, 4 steps, the restart
+  from step 3 bitwise the uninterrupted run, its serving plane on kernel
+  1).
 
-Each phase resets the kernels' launch counts just before it drives the path
+Each phase's seconds go on a line of their own as it ends (``[phase
+seconds]``).  Each phase resets the kernels' launch counts just before it
+drives the path
 and reads them just after; a kernel of the path that did not launch, a
 result that disagrees, or a kernel that does not build or launch fails the
 run with a non-zero exit.  Phases 2-4 also assert the launches by code
@@ -999,7 +1012,8 @@ def phase14(dev, gen, card, drive):
 
 # -- phase 15: continuous batching at full phi4-mini width ----------------------
 CB_PAGE_ROWS, CB_MAX_BATCH, CB_MAX_LEN = 32, 4, 64
-CB_ALIGNED = dict(n=4, prompt=32, max_new=8)      # (a): arriving together
+CB_PERIODS = 8                 # of phi4-mini's 32 layers (the time limit)
+CB_ALIGNED = dict(n=4, prompt=32, max_new=4)      # (a): arriving together
 CB_STREAM = dict(n=8, prompts=(16, 32, 48), max_new=6)   # (b): under load
 CB_MARGIN = 2e-3               # x max|logit|: phase 14's tie rule
 
@@ -1023,7 +1037,9 @@ def greedy_with_logits(cfg, params, tokens, n, max_len, cache_dtype):
 
 def phase15(dev, gen, card, drive, cfg, params):
     """Phase 15: continuous batching on the card at phi4-mini width (the
-    phase-14 parameters).  (a) four 32-token prompts arriving together,
+    phase-14 parameters, cut to their first ``CB_PERIODS`` layers: the
+    engines' page movements, and so their host time, grow with the layers;
+    the checks do not).  (a) four 32-token prompts arriving together,
     bitwise ``ServingEngine.generate``; (b) eight requests of 16, 32 and 48
     prompt tokens at a fixed gap through ``ContinuousBatchingEngine`` and
     ``StaticBatchEngine`` with a pool of 75 % of the stream's peak pages:
@@ -1037,7 +1053,13 @@ def phase15(dev, gen, card, drive, cfg, params):
                                      trace_stream, uniform_stream)
     from torch.profiler import ProfilerActivity, profile
 
+    import dataclasses
+    from repro_torch import _pytree
+
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_periods=CB_PERIODS)
+    params = dict(params, blocks=_pytree.tree_map_with_path(
+        lambda _, a: a[:CB_PERIODS], params["blocks"]))
 
     def log15(msg):
         log(f"[continuous {time.perf_counter() - t_phase:.1f} s] {msg}")
@@ -1114,6 +1136,8 @@ def phase15(dev, gen, card, drive, cfg, params):
     # the continuous engine must preempt (kernel 3 runs the evict / restore
     # codec); the static gang admits only when empty, so at this gap its
     # gangs may fit the pool, and its preemptions are logged
+    # (the profiler's read of a serve's many launches takes tens of
+    # seconds: the continuous engine's run alone is profiled)
     for name, cls, kernels in (
             ("continuous", ContinuousBatchingEngine,
              [agu.RELAYOUT, datapath.BLOCK]),
@@ -1121,12 +1145,13 @@ def phase15(dev, gen, card, drive, cfg, params):
         pool = CheckedPool(cap, CB_PAGE_ROWS)
         eng = cls(cfg, params, pool=pool, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with (profile(activities=[ProfilerActivity.CUDA])
+              if name == "continuous" else contextlib.nullcontext()) as prof:
             t0 = time.perf_counter()
             rep, counts = drive(f"{name} (b)", kernels,
                                 lambda: eng.serve(stream))
             wall = (time.perf_counter() - t0) * 1e3
-        busy = device_busy_ms(prof)
+        busy = device_busy_ms(prof) if prof is not None else 0.0
         idle = f"{1 - busy / wall:.1%}" if busy > 0 else "not measured"
         st = rep.pool_stats
         check(rep.n_requests == b["n"],
@@ -2111,7 +2136,7 @@ def phase19(card):
 TP_ARCH = "qwen3_1p7b"
 TP_PERIODS = 2                 # 2 of the 28 layers
 TP_MESH = (2, 2)               # ("data", "model"): head-parallel at model 2
-TP_B, TP_S, TP_MICRO, TP_STEPS = 4, 512, 2, 2
+TP_B, TP_S, TP_MICRO, TP_STEPS = 4, 256, 2, 2
 LAUNCH_KW = dict(steps=3, batch=4, seq=64, smoke=True, ckpt_every=2,
                  microbatches=1, lr=3e-4, resume=True, seed=SEED)
 
@@ -2151,7 +2176,7 @@ def phase20_rank(mesh, card, ckpt_dir):
     width cut to 2 layers, f32 with TF32 off, AdamW with no warmup (every
     weight moves about 3e-4 a step): the whole parameters drawn on the card
     one weight at a time and kept on the host, this rank's blocks put on
-    the card; 2 steps of B 4 x 512 in 2 microbatches.  Each rank reads its
+    the card; 2 steps of B 4 x 256 in 2 microbatches.  Each rank reads its
     peak memory in the init, the steps and a resume (the state gathered
     onto the host, rank 0 writing the whole-leaf checkpoint, every rank at
     once restoring its blocks through ``launch.train.restore_sharded``, as
@@ -2803,10 +2828,10 @@ SERVE_MESH = (2, 2)             # the world; (1, 4) is a view of its 4 ranks
 # part: (arch, periods (None: whole), mesh, B, prompt tokens, decode steps,
 # xdma_cache)
 SERVE_PARTS = {
-    "a": ("qwen2_0p5b", 12, (1, 4), 4, 512, 8, False),
-    "b": ("phi4_mini_3p8b", 4, (2, 2), 4, 256, 8, True),
-    "c_whisper": ("whisper_small", None, (1, 4), 4, 64, 8, True),
-    "c_xlstm": ("xlstm_125m", 1, (1, 4), 8, 256, 8, False),
+    "a": ("qwen2_0p5b", 12, (1, 4), 4, 512, 4, False),
+    "b": ("phi4_mini_3p8b", 4, (2, 2), 4, 256, 4, True),
+    "c_whisper": ("whisper_small", None, (1, 4), 4, 64, 4, True),
+    "c_xlstm": ("xlstm_125m", 1, (1, 4), 8, 256, 4, False),
 }
 # (b)'s continuous batching: 4 requests arriving together, ragged prompts,
 # a pool of 360 pages a rank (the prompts take 352 of a rank's blocks, 2
@@ -3209,9 +3234,9 @@ def phase21(card, device="cuda"):
 # -- phase 22: the production mesh's last regimes and the dry run -------------
 POD_MESH = (2, 2, 1)           # ("pod", "data", "model"): the batch over a pair
 POD_NAMES = ("pod", "data", "model")
-POD_TRAIN = dict(B=4, S=512, micro=1, steps=2)
+POD_TRAIN = dict(B=4, S=256, micro=1, steps=2)
 # (b): prefill_32k / decode_32k's cache on 4 prompts of 512 tokens
-POD_SERVE = dict(B=4, S=512, max_len=32768, steps=4)
+POD_SERVE = dict(B=4, S=512, max_len=32768, steps=2)
 LONG_ARCH = "gemma3_27b"       # (c): one period (5 local + 1 global layer)
 LONG_SLOTS = 1 << 19           # long_500k's 524288 cache slots
 LONG_POS = 500_000             # the cache's filled length (a seq rank 1 slot)
@@ -3930,6 +3955,151 @@ def phase22(card, dry, train_peak, device="cuda"):
                  for k, v in refs.items()}, "dry_run": records}
 
 
+# -- the examples phase: the user's four entry points on the card -------------
+EX_TRAIN = dict(steps=4, ckpt_every=3)   # the full qwen2-0.5b: 3 saves of
+                                         # its 5.9 GB state, 1 restart
+
+
+def fresh_process_state():
+    """The port's global state as a fresh process has it, as a user's
+    command starts: the CFG cache and its siblings (the autotune memos,
+    the scheduler's round cache, the page-geometry and KV-plane
+    descriptor memos, whose first calls search), agu_stats,
+    cfg_stats and every telemetry bank (the quickstart prints them)."""
+    from repro_torch.core import api, autotune, descriptor, plugin_compiler
+    from repro_torch.kernels import agu
+    from repro_torch.runtime import scheduler, telemetry
+    from repro_torch.serving import transfer
+    api.clear_cache()
+    autotune.clear_cache()
+    scheduler._ROUND_CACHE.clear()
+    descriptor.page_layout.cache_clear()
+    descriptor.page_descriptor.cache_clear()
+    transfer.kv_plane_descs.cache_clear()
+    agu.clear_agu_stats()
+    plugin_compiler.clear_stats()
+    telemetry.reset()
+
+
+def phase_examples(card, drive, device="cuda"):
+    """The examples phase: the port's twins of the reference's four
+    example scripts (``examples/torch_*.py``), each through its ``run``
+    on the card as its command line runs it.  The quickstart's fifteen
+    moves (kernels 1, 2 and 3 must launch; every parity flag true, the
+    ring's ``WouldBlock`` retries equal to its full events, its
+    incremental makespan equal to the replay, the telemetry's per-link
+    bytes equal to the ledger's, every multicast copy exact); the KV-cache
+    loop (kernel 3 on its rank-2 path: the RMSNorm store of the (B, S, d)
+    K matrix, logical rank 3, and the transposed load; the store within
+    the f32 chain tolerance of its plain chain, the load bitwise, the
+    decoded tokens the same example's on the CPU, TF32 off); compressed_dp
+    in a world of 8 gloo ranks on the card (every rank the same reduced
+    gradient, the error and wire bytes logged); train_lm with
+    ``--full-100m`` for ``EX_TRAIN`` steps (the full qwen2-0.5b, B 8 x 64
+    in 2 microbatches; the first batch's loss falls, the restart from the
+    step-3 checkpoint ends bitwise the uninterrupted run, the final
+    checkpoint restores bitwise; the serving plane's kernel 1 must
+    launch).  Any failed check fails the run.  Returns each example's wall
+    seconds and launches."""
+    import tempfile
+
+    from repro_torch.kernels import agu, datapath
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_compressed_dp as DP
+    import torch_kv_cache_serving as KV
+    import torch_quickstart as QS
+    import torch_train_lm as TL
+
+    out = {}
+
+    def example(name, kernels, body, failures, lines):
+        t0 = time.perf_counter()
+        rec, counts = drive(f"examples {name}", kernels, body)
+        wall = time.perf_counter() - t0
+        for line in lines(rec):
+            log(f"[examples {name}] {line}")
+        bad = failures(rec)
+        check(not bad, f"examples {name}: {bad}")
+        log(f"[examples {name}] {wall:.1f} s wall; kernel launches {counts} "
+            f"on {card}")
+        out[name] = {"s": wall, "launches": counts}
+        return rec
+
+    # the quickstart from a fresh process's state, on the card, then on the
+    # CPU: every line it prints (the counters, the cost model's makespans
+    # and speedups, the shapes and the flags) the CPU run's, which the CPU
+    # tests hold to the reference script's; the trace paths aside
+    trace = os.path.join(ROOT, "chiprun_out", "quickstart.trace.json")
+    fresh_process_state()
+    rec = example("quickstart", [agu.RELAYOUT, datapath.STREAMED,
+                                 datapath.BLOCK],
+                  lambda: QS.run(device, trace_path=trace), QS.failures,
+                  QS.lines)
+    fresh_process_state()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-qs-") as work:
+        cpu = QS.run("cpu", trace_path=os.path.join(work, "t.json"))
+    same = [QS.lines(dict(r, trace_export=("-", r["trace_export"][1])))
+            for r in (rec, cpu)]
+    differ = [(a, b) for a, b in zip(*same) if a != b]
+    check(len(same[0]) == len(same[1]) and not differ,
+          f"examples quickstart: lines on the card differ from the CPU "
+          f"run's: {differ}")
+    log(f"[examples quickstart] all {len(same[0])} lines equal the CPU "
+        f"run's (its trace path aside)")
+    del cpu
+    log(f"[examples quickstart] the RMSNorm parities' max abs err (f32 chain "
+        f"tolerance {QS.F32_TOL}): transfer {rec['transfer_parity'][1]}, "
+        f"async {rec['async_parity'][1]}; bitwise: kernel==plain, "
+        f"compressed roundtrip, ring outputs, autotune round trip")
+    out["quickstart"]["errors"] = {
+        k: rec[k][1] for k in ("transfer_parity", "async_parity")}
+
+    undo = no_tf32()
+    try:
+        rec = example("kv_cache_serving", [datapath.BLOCK],
+                      lambda: KV.run(device), KV.failures, KV.lines)
+        cpu = KV.run("cpu")
+    finally:
+        undo()
+    check(rec["decoded"] == cpu["decoded"],
+          f"examples kv_cache_serving: the card decoded {rec['decoded']}, "
+          f"the CPU {cpu['decoded']}")
+    log(f"[examples kv_cache_serving] the store's max abs err "
+        f"{rec['store_parity'][1]} (f32 chain tolerance {KV.F32_TOL}), the "
+        f"load bitwise; decoded tokens equal the CPU run's {cpu['decoded']}")
+    del rec, cpu
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = example("compressed_dp", [], lambda: DP.run(device), DP.failures,
+                  DP.lines)
+    log(f"[examples compressed_dp] {DP.WORKERS} ranks ({rec['backend']}), "
+        f"launches by rank {rec['launches']}")
+    out["compressed_dp"].update(rel_err=rec["rel_err"],
+                                rank_launches=rec["launches"])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-lm-") as work:
+        rec = example("train_lm", [agu.RELAYOUT],
+                      lambda: TL.run(device, full=True, ckpt_dir=work,
+                                     **EX_TRAIN),
+                      TL.failures, TL.lines)
+    log(f"[examples train_lm] --full-100m: losses {rec['losses']}, resumed "
+        f"from step {rec['restart_step']} {rec['resumed_losses']}, the first "
+        f"batch's loss {rec['first_batch_loss']}")
+    out["train_lm"].update(losses=rec["losses"],
+                           first_batch_loss=rec["first_batch_loss"])
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {k: sum(v["launches"][k] for v in out.values())
+             for k in ("agu_relayout", "streamed_datapath", "block_datapath")}
+    check(all(total.values()), f"examples: kernel launches {total}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3953,6 +4123,15 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
     log(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(card, flush=True)
+
+    # each phase's seconds, on a line of its own as it ends (the time limit)
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        log(f"[phase seconds] {name}: {phase_s[name]:.1f} s on {card}")
 
     t0 = time.perf_counter()
     # phase 20 (c)-(f) launches no kernel: its world trains on the card
@@ -4114,6 +4293,8 @@ def main():
             f"kernel 3 {datapath.BLOCK.paths}, kernel 6 {FA.FLASH.paths}")
         return out, counts
 
+    phase_done("build (phase 20 (c)-(f) alongside)")
+
     # -- phase 2: kernel 1, the AGU relayout (Fig. 4 at 4096^2 f32) ---------
     # (src, dst, transpose, path): "direct" where both layouts are innermost
     # along the same logical axis, "staged" through shared memory otherwise
@@ -4196,6 +4377,8 @@ def main():
     for r in pair_times:
         log_case("kernel1", r)
     del outs, inputs
+
+    phase_done("phase 2")
 
     # -- phase 3: kernel 2, the Prefill store at phi4-mini width -------------
     w = torch.randn(3072, generator=gen, device=dev).to(torch.bfloat16)
@@ -4286,6 +4469,8 @@ def main():
     log(f"[kernel4] the gemma3-width store (8192x5376 bf16) on kernel 4: "
         f"{k4_g:.4f} ms, kernel 2 {pair_times[-1]['ms']:.4f} ms on {card}")
     del y_cast, want_cast, xf, xg, y_g
+
+    phase_done("phase 3")
 
     # -- phase 4: kernel 3, the block datapath -------------------------------
     xt = L.MNM16N128.from_logical(xb)
@@ -4479,6 +4664,8 @@ def main():
         log_case("kernel3", pair_times[-1])
     del y_gather, y_comp, y_round, y_sum, y_max
 
+    phase_done("phase 4")
+
     # -- phase 5: the queue ----------------------------------------------------
     queue = xdma.XDMAQueue([store, load], name="prefill")
 
@@ -4495,6 +4682,8 @@ def main():
     log(f"[queue] store->load equals the two transfers; {xdma.cache_stats()}")
 
     del q_out, t_out, y_load, want_load, xt
+
+    phase_done("phase 5")
 
     # -- phase 6: kernel 4, ops.rmsnorm_relayout at phi4-mini width ----------
     x4 = torch.randn(8192, 3072, generator=gen, device=dev)
@@ -4542,6 +4731,8 @@ def main():
             x4, w4, (8, 128))),
         "bound_ms": bound_ms(nbytes(x4, w4, y4f))})
     del x4, y4, y4f, want4
+
+    phase_done("phase 6")
 
     # -- phase 7: kernel 5, ops.quantize_tiled on a phi4-mini gradient leaf --
     x5 = torch.randn(3072, 8192, generator=gen, device=dev) * \
@@ -4607,6 +4798,8 @@ def main():
         "plain_ms": gpu_ms(lambda: FQ.quantize_tiled_plain(x5b)),
         "bound_ms": bound_ms(nbytes(x5b, v5b, s5b))})
     del x5, x5b, v5, s5, v5b, s5b
+
+    phase_done("phase 7")
 
     # -- phase 8: kernel 6, flash_attention_gqa on two model layers ----------
     # (name, B, S, H, KV, hd, window): phi4-mini-3.8B prefill attention;
@@ -4917,6 +5110,8 @@ def main():
         "bound_by": "operations", "library_ms": r["library_ms"],
         "shape": r["pair"] + " bfloat16 causal"}
 
+    phase_done("phase 8")
+
     # -- phase 9: the paper's Fig. 4 on the card -----------------------------
     # Kernel 1 (xdma.transfer, backend "pallas") beside the three software
     # setups of core.baselines on the same bytes: (1) a host loop issuing
@@ -5004,6 +5199,8 @@ def main():
                 + (f", {row['copies']} copies" if "copies" in row else "")
                 + f" on {card}")
     del fig4_outs, fig4_in
+
+    phase_done("phase 9")
 
     # -- phase 10: the distributed Controller over the Prefill path ----------
     # One task graph through DistributedScheduler on host_device(devices=4)
@@ -5133,6 +5330,8 @@ def main():
         f"of the wall time, on {card}")
     del futs, serial, again
 
+    phase_done("phase 10")
+
     # -- phase 11: capture and replay ------------------------------------------
     telemetry.reset("links")
 
@@ -5169,6 +5368,8 @@ def main():
         f"loads back; launches {counts}")
     del tr, tsched
 
+    phase_done("phase 11")
+
     # -- phase 12: the collectives, 4 ranks on the one card ---------------------
     # A world of 4 processes: gloo on one card (NCCL needs a card a rank),
     # NCCL where there are 4; the kernels were built above, so the ranks
@@ -5201,19 +5402,29 @@ def main():
         f"{card}; phase {coll_s:.1f} s with 4 process starts; launches by "
         f"rank {[rk['counts'] for rk in ranks]}")
 
+    phase_done("phase 12")
+
     # -- phase 13: the movement-plane consumers, one process -------------------
     cons = phase13(dev, gen, card, drive, wall_ms)
 
+    phase_done("phase 13")
+
     # -- phase 14: the serving path, full phi4-mini through ServingEngine ------
     serving, cfg14, params14 = phase14(dev, gen, card, drive)
+
+    phase_done("phase 14")
 
     # -- phase 15: continuous batching on the phase-14 model ---------------------
     continuous = phase15(dev, gen, card, drive, cfg14, params14)
     del params14
     torch.cuda.empty_cache()
 
+    phase_done("phase 15")
+
     # -- phase 16: an MoE model served at full width -----------------------------
     moe_serving = phase16(dev, gen, card, drive)
+
+    phase_done("phase 16")
 
     # -- phase 17: MoE expert-parallel dispatch, 4 ranks on the one card ---------
     t0 = time.perf_counter()
@@ -5229,23 +5440,40 @@ def main():
         f"int8 wire by rank {[rk['counts'] for rk in ep]}; phase {ep_s:.1f} s "
         f"with 4 process starts on {card}")
 
+    phase_done("phase 17")
+
     # -- phase 18: training at full qwen3-1.7b width -----------------------------
     gc.collect()
     torch.cuda.empty_cache()
     training = phase18(dev, gen, card, drive)
     torch.cuda.empty_cache()
 
+    phase_done("phase 18")
+
     # -- phase 19: data-parallel training, 4 ranks on the one card ---------------
     dp_times = phase19(card)
+
+    phase_done("phase 19")
 
     # -- phase 20: the sharded trainer, 4 ranks on the one card ------------------
     tp_times = phase20(card, slot_times)
 
+    phase_done("phase 20")
+
     # -- phase 21: sharded serving, 4 ranks on the one card ----------------------
     serve_times = phase21(card)
 
+    phase_done("phase 21")
+
     # -- phase 22: the production mesh's last regimes, 4 ranks on the card ------
     pod_times = phase22(card, dry, training["step_peak_bytes"])
+
+    phase_done("phase 22")
+
+    # -- the examples phase: the user's four entry points ---------------------
+    examples = phase_examples(card, drive)
+    phase_done("examples")
+    log(f"[phase seconds] all phases: {sum(phase_s.values()):.1f} s on {card}")
 
     order = ["agu_relayout", "streamed_datapath", "block_datapath",
              "rmsnorm_relayout", "quantize_tiled", "flash_attention"]
@@ -5279,7 +5507,8 @@ def main():
                    "training": training, "dp_training": dp_times,
                    "sharded_training": tp_times,
                    "sharded_serving": serve_times,
-                   "production_regimes": pod_times},
+                   "production_regimes": pod_times,
+                   "examples": examples, "phase_s": phase_s},
                   f, indent=1)
     print(json.dumps({"kernels": [{k: rows[n][k] for k in ROW_KEYS}
                                   for n in order]}), flush=True)

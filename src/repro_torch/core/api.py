@@ -172,13 +172,24 @@ def _distinct(x, out):
     return out.clone() if out is x and isinstance(x, torch.Tensor) else out
 
 
+def _dense(x):
+    """``x`` as the dense physical buffer the kernels read: a strided view
+    on the card (a slice of a cache, say) is copied once; a JAX array, the
+    reference's buffer, has no strides.  The CPU's plain versions read any
+    view, so a CPU tensor passes as it is."""
+    if (isinstance(x, torch.Tensor) and x.device.type == "cuda"
+            and not x.is_contiguous()):
+        return x.contiguous()
+    return x
+
+
 def _fresh(fn: Callable) -> Callable:
     """The reference jits every lowering but ``pallas``, and a jitted call
     hands back a new array even for an identity movement.  Where the plain
     composition hands back its input tensor, copy it: the destination is a
     buffer of its own, and the trace's provenance (keyed by the identity of
     a tensor and of its full aliases) sees the reference's edges."""
-    return lambda x: _distinct(x, fn(x))
+    return lambda x: _distinct(x, fn(_dense(x)))
 
 
 def _compiled_or(desc: XDMADescriptor, compiled: Optional[Callable]) -> Callable:
@@ -203,17 +214,18 @@ def _relayout(desc: XDMADescriptor) -> Callable:
     return run
 
 
-def _lower(desc: XDMADescriptor) -> Callable:
-    """Build the Data-phase callable for a descriptor (the CFG phase)."""
+def _lower(desc: XDMADescriptor, *, tally: bool = True) -> Callable:
+    """Build the Data-phase callable for a descriptor (the CFG phase);
+    ``tally=False`` keeps it out of ``cfg_stats``."""
     if desc.movement != "local":
         return _lower_remote(desc)
     if desc.backend == "pallas":
-        return lambda x: engine.xdma_copy_pallas(x, desc)
+        return lambda x: engine.xdma_copy_pallas(_dense(x), desc)
     if desc.backend == "compiled":
         # forced single-kernel lowering: raises on non-fusible chains
         return _fresh(plugin_compiler.compile_local(desc))
     if desc.backend == "auto":
-        compiled = plugin_compiler.maybe_compile_local(desc)
+        compiled = plugin_compiler.maybe_compile_local(desc, tally=tally)
         if compiled is not None:
             return _fresh(_compiled_or(desc, compiled))
         if not desc.plugins:
@@ -395,14 +407,16 @@ class XDMAQueue:
         return dtype
 
     # -- execution ----------------------------------------------------------
-    def _task(self, i: int, desc: XDMADescriptor) -> Callable:
+    def _task(self, i: int, desc: XDMADescriptor, *,
+              tally: bool = True) -> Callable:
         # an auto task's resolved form joins the key (resolve_descriptor
         # memoizes, keeping the resolved object stable)
         base = self._descs[i]
         key = (i,) if desc is base else (i, desc.cache_key())
+        key += () if tally else ("run",)
         fn = self._tasks.get(key)
         if fn is None:
-            fn = self._tasks[key] = _lower(desc)
+            fn = self._tasks[key] = _lower(desc, tally=tally)
         return fn
 
     def run_task(self, x, i: int):
@@ -426,8 +440,11 @@ class XDMAQueue:
             return x
 
         def chain(v):
+            # the reference jits the local tasks into one program, which no
+            # CFG phase of the plugin compiler counts: neither do they here
             for i, d in enumerate(self._descs):
-                v = self._task(i, _resolve_auto(d, v))(v)
+                v = self._task(i, _resolve_auto(d, v),
+                               tally=d.movement != "local")(v)
             return _distinct(x, v)      # the reference's run is one program
 
         tel = _tm._ACTIVE

@@ -171,11 +171,15 @@ def compile_local(desc: XDMADescriptor) -> Callable:
                          validate)
 
 
-def maybe_compile_local(desc: XDMADescriptor) -> Optional[Callable]:
+def maybe_compile_local(desc: XDMADescriptor, *,
+                        tally: bool = True) -> Optional[Callable]:
     """``backend='auto'`` policy + stats: the compiled datapath, or None to
-    signal the plain-composition fallback."""
+    signal the plain-composition fallback.  ``tally=False`` leaves
+    ``cfg_stats`` alone (a queue's ``run``, one program in the reference,
+    which no CFG phase of the plugin compiler counts)."""
     ok, reason = can_fuse(desc)
-    _record(ok, reason)
+    if tally:
+        _record(ok, reason)
     if not ok:
         return None
     return compile_local(desc)

@@ -1173,3 +1173,22 @@ def test_training_checkpoint_on_the_card_resumes_bitwise(tmp_path):
     for a, b in zip(_pytree.leaves(back), _pytree.leaves(state)):
         assert a.device.type == "cuda"
         assert _equal_bits(a.reshape(-1), b.reshape(-1))
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_transfer_takes_a_strided_view_on_the_card(backend):
+    """A strided view on the card (the reference's KV example stores a
+    slice of its cache, ``cache[...][0, :, :S]``) goes through the kernels
+    as its dense copy: the same bytes as the contiguous tensor's transfer
+    (RMSNorm within the bf16 chain tolerance, the relayout bitwise)."""
+    cache = torch.randn(2, 96, 8, 64, device="cuda")
+    view = cache[:, :64].reshape(2, 64, 512)
+    assert not view.is_contiguous()
+    chain = (PC.RMSNormPlugin(),) if backend == "auto" else ()
+    desc = PC.describe("MN", "MNM8N128", *chain, backend=backend)
+    got = px.transfer(view, desc)
+    want = px.transfer(view.contiguous(), desc)
+    assert torch.equal(got, want)
+    plain = desc.dst_layout.from_logical(PC.apply_chain(
+        desc.plugins, view.cpu()))
+    torch.testing.assert_close(got.cpu(), plain, rtol=2e-5, atol=1e-5)

@@ -13,7 +13,8 @@ kernel's own argument struct; the tensor-core paths' fragment maps
 accumulators and A registers, TMA's 128-byte swizzle and what the wgmma
 descriptors read) by products built thread by thread and held bitwise
 against ``torch.matmul``; the kernel itself by the ``cuda`` tests on a GPU
-and by ``chip_smoke.py`` phase 8.
+and by ``chip_smoke.py`` phase 8.  The emulated kernel's cases run in
+``tests/test_torch_flash_emulated.py``.
 """
 import math
 
@@ -251,29 +252,6 @@ def _emulated(q, k, v, causal, window, gqa, stats=None):
     return flat.reshape(out.shape), a
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Sk,causal,window", [
-    (96, 96, True, None), (96, 96, False, None), (96, 96, True, 24),
-    (200, 200, True, 70), (130, 130, False, 8), (40, 100, False, None),
-    (100, 40, True, None), (130, 40, False, 8), (64, 64, True, 0)])
-def test_kernel_algorithm_emulated_matches_reference(Sq, Sk, causal, window,
-                                                     dtype):
-    """Covers the skip rule (windows, causal), ragged blocks, Sq != Sk, rows
-    with no live key at all (the reference then averages every V row) and a
-    window of 0, on the FMA path (f32) and the mma path (bf16)."""
-    import ml_dtypes
-    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
-    q, k, v = (rand((2, n, 16), 50 + i).astype(dt)
-               for i, n in enumerate((Sq, Sk, Sk)))
-    got, a = _emulated(*(to_torch(t) for t in (q, k, v)), causal, window,
-                       gqa=False)
-    assert (a.B, a.H, a.G, a.Sq, a.Sk, a.hd) == (2, 1, 1, Sq, Sk, 16)
-    want = r_flash(*(jnp.asarray(t) for t in (q, k, v)), causal=causal,
-                   window=window, q_chunk=32, kv_chunk=32)
-    np.testing.assert_allclose(got.numpy(), to_f32(want),
-                               **(F32_TOL if dtype == "float32" else BF16_TOL))
-
-
 @pytest.mark.parametrize("dtype,window", [("float32", None),
                                           ("bfloat16", 24),
                                           ("float16", 24)])
@@ -359,38 +337,6 @@ def test_kernel_args_name_the_path_by_alignment(dtype, hd, width, aligned,
                                      or width is not None))
 
 
-@pytest.mark.parametrize("hd", [64, 80, 192])
-@pytest.mark.parametrize("Sq,Sk,causal,window", [
-    (96, 96, True, None), (96, 96, False, None), (96, 96, True, 24),
-    (200, 200, True, 70), (130, 130, False, 8), (40, 100, False, None),
-    (100, 40, True, None), (130, 40, False, 8), (64, 64, True, 0),
-    (520, 520, True, 300)])
-def test_kernel_wgmma_emulated_matches_reference(Sq, Sk, causal, window, hd):
-    """The wgmma path's tiles over its own arguments: blocks of 128 query
-    rows as two consumers of 64, key blocks of 128 (width 128, hd 64 and 80
-    zero-padded to 64 and 128) or 80 (hd 192 zero-padded to 256), each
-    consumer's skip and mask rule, against the reference, bf16."""
-    import ml_dtypes
-    q, k, v = ((rand((2, n, hd), 130 + i) / (4 if i < 2 else 1)).astype(
-        ml_dtypes.bfloat16) for i, n in enumerate((Sq, Sk, Sk)))
-    stats = {}
-    got, a = _emulated(*(to_torch(t) for t in (q, k, v)), causal, window,
-                       gqa=False, stats=stats)
-    assert PF.PATHS[a.path] == "wgmma" and a.hd == hd
-    assert _tiles(a)[:3] == (128, 80 if hd > 128 else 128, 64)
-    want = r_flash(*(jnp.asarray(t) for t in (q, k, v)), causal=causal,
-                   window=window, q_chunk=32, kv_chunk=32)
-    np.testing.assert_allclose(got.numpy(), to_f32(want), **WIDE_BF16_TOL)
-    if (Sq, causal, window) == (520, True, 300):
-        # the crossing blocks masked, the inner ones whole, and blocks of
-        # the 128-row block's range that one consumer skips
-        assert stats["masked"] and stats["full"] and stats["skipped"]
-        want_q = PF.flash_attention_plain(*(to_torch(t) for t in (q, k, v)),
-                                          causal=causal, window=window)
-        np.testing.assert_allclose(got.numpy(), to_f32(want_q),
-                                   **WIDE_BF16_TOL)
-
-
 # -- head dims between the kernel's instance widths, and mixed dtypes --------
 @pytest.mark.parametrize("hd", [8, 80])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -404,25 +350,6 @@ def test_flash_any_head_dim_matches_reference(hd, dtype):
     got, want = _both(r_flash, PF.flash_attention, arrays, causal=True,
                       window=40, q_chunk=32, kv_chunk=32)
     np.testing.assert_allclose(got, want,
-                               **(F32_TOL if dtype == "float32" else BF16_TOL))
-
-
-@pytest.mark.parametrize("hd,dtype", [(8, "bfloat16"), (80, "float16"),
-                                      (192, "bfloat16"), (100, "float32")])
-def test_kernel_any_head_dim_emulated_matches_reference(hd, dtype):
-    """The kernel's arguments at a head dim between its instances: hd 8 on
-    the mma path, 80 and 192 on the wgmma path (zero-padded to 128 and
-    256), 100 in f32 on the FMA path."""
-    import ml_dtypes
-    dt = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16,
-          "float16": np.float16}[dtype]
-    q, k, v = (rand((1, 100, hd), 80 + i).astype(dt) for i in range(3))
-    got, a = _emulated(*(to_torch(t) for t in (q, k, v)), True, 50,
-                       gqa=False)
-    assert a.hd == hd
-    want = r_flash(*(jnp.asarray(t) for t in (q, k, v)), causal=True,
-                   window=50, q_chunk=20, kv_chunk=20)
-    np.testing.assert_allclose(got.numpy(), to_f32(want),
                                **(F32_TOL if dtype == "float32" else BF16_TOL))
 
 
@@ -463,23 +390,6 @@ def test_flash_head_dims_above_256_match_reference(hd, window, dtype):
     got, want = _both(r_gqa, PF.flash_attention_gqa, arrays, causal=True,
                       window=window, q_chunk=16, kv_chunk=16)
     np.testing.assert_allclose(got, want, **tol)
-
-
-@pytest.mark.parametrize("hd,dtype", [(320, "bfloat16"), (512, "float32")])
-def test_kernel_chunked_path_emulated_matches_reference(hd, dtype):
-    """The chunked path's arguments (the FMA path's rules; its chunks keep
-    the FMA path's sum order) against the reference."""
-    import ml_dtypes
-    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
-    q, k, v = ((rand((1, 100, hd), 120 + i) / 4).astype(dt) for i in range(3))
-    got, a = _emulated(*(to_torch(t) for t in (q, k, v)), True, 50,
-                       gqa=False)
-    assert PF.PATHS[a.path] == "chunked" and a.hd == hd
-    want = r_flash(*(jnp.asarray(t) for t in (q, k, v)), causal=True,
-                   window=50, q_chunk=20, kv_chunk=20)
-    np.testing.assert_allclose(got.numpy(), to_f32(want),
-                               **(F32_TOL if dtype == "float32"
-                                  else WIDE_BF16_TOL))
 
 
 def test_flash_kernel_refuses_an_empty_head_dim():

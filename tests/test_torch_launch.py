@@ -3,10 +3,10 @@ card they default to the card): ``python -m repro_torch.launch.serve``,
 ``python -m repro_torch.launch.train`` (the loss falls; a second run
 resumes from the first's checkpoint) and ``python -m
 repro_torch.launch.dryrun`` (one cell's counted FLOPs and bytes; an MoE
-cell records null and the reason)."""
+cell records null and the reason).  The train launcher's loss-and-resume
+run is in ``tests/test_torch_launch_train.py``."""
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -48,23 +48,6 @@ def _run(module, *args):
     return subprocess.run([sys.executable, "-m", module, *args], env=env,
                           capture_output=True, text=True, timeout=300,
                           cwd=ROOT)
-
-
-def test_train_launcher_loss_falls_and_resumes_on_the_cpu(tmp_path):
-    ckpt = str(tmp_path / "ckpt")
-    args = ("--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--batch",
-            "4", "--seq", "32", "--lr", "3e-3", "--ckpt-dir", ckpt,
-            "--ckpt-every", "5")
-    out = _run("repro_torch.launch.train", *args, "--steps", "20")
-    assert out.returncode == 0, out.stderr
-    first, last = re.search(r"final loss: ([\d.]+) \(from ([\d.]+)\)",
-                            out.stdout).group(2, 1)
-    assert float(last) < float(first) - 0.3, out.stdout
-    assert "on cpu" in out.stderr
-    out = _run("repro_torch.launch.train", *args, "--steps", "22")
-    assert out.returncode == 0, out.stderr
-    assert "resumed from step 20" in out.stderr
-    assert sorted(os.listdir(ckpt))[-1] == "step_0000000022"
 
 
 def test_train_entry_point_returns_the_state():

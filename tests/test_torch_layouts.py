@@ -106,6 +106,30 @@ def test_the_dry_run_imports_no_reference_module():
     assert out.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("example", ["torch_quickstart", "torch_train_lm",
+                                     "torch_kv_cache_serving",
+                                     "torch_compressed_dp"])
+def test_the_examples_import_no_reference_module(example):
+    """Each of the port's example scripts (``examples/torch_*.py``),
+    imported as a module (its ``run`` and ``lines`` resolved, ``__main__``
+    not run): no ``repro`` module and no JAX in the process."""
+    path = os.path.join(ROOT, "examples", f"{example}.py")
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location({example!r}, "
+            f"{path!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "assert callable(mod.run) and callable(mod.lines)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", CANONICAL)
 def test_from_and_to_logical_bitwise(name, dtype):

@@ -18,6 +18,7 @@ import repro.core.plugin_compiler as ref_pc
 import repro.kernels.agu as ref_agu
 import repro.runtime.scheduler as ref_sched
 import repro.runtime.telemetry as ref_tm
+import repro.serving.transfer as ref_transfer
 from repro.core import plugins as RP
 from repro.core import xdma as ref_xdma
 
@@ -28,24 +29,27 @@ import repro_torch.core.plugin_compiler as port_pc
 import repro_torch.kernels.agu as port_agu
 import repro_torch.runtime.scheduler as port_sched
 import repro_torch.runtime.telemetry as port_tm
+import repro_torch.serving.transfer as port_transfer
 
 
 def _reset_all():
     """Both packages' global state as a fresh process has it: the CFG cache
     and its siblings (the autotune memos, the scheduler's round cache), the
-    page-geometry memos, agu_stats, cfg_stats and every telemetry bank
+    page-geometry and KV-plane descriptor memos (their first calls count an
+    autotune search), agu_stats, cfg_stats and every telemetry bank
     (cfg_cache, agu, plugin_compiler, autotune, links, queues, rings,
     multicast)."""
-    for xdma, at, desc, sched, agu, pc, tm in (
+    for xdma, at, desc, sched, agu, pc, tm, tr in (
             (ref_xdma, ref_at, ref_descriptor, ref_sched, ref_agu, ref_pc,
-             ref_tm),
+             ref_tm, ref_transfer),
             (port_api, port_at, port_descriptor, port_sched, port_agu, port_pc,
-             port_tm)):
+             port_tm, port_transfer)):
         xdma.clear_cache()
         at.clear_cache()
         sched._ROUND_CACHE.clear()
         desc.page_layout.cache_clear()
         desc.page_descriptor.cache_clear()
+        tr.kv_plane_descs.cache_clear()
         agu.clear_agu_stats()
         pc.clear_stats()
         tm.reset()

@@ -94,7 +94,7 @@ kernel against its plain PyTorch version on the same inputs:
   ("data", "model") mesh, qwen3-1.7b at full width cut to 2 layers in f32,
   tensor-parallel (head-parallel attention, column / row-parallel MLP,
   vocab-parallel embedding, head and loss) and FSDP (the embedding and
-  every matrix of a layer sharded over the data axis), 2 steps of B 4 x 256
+  every matrix of a layer sharded over the data axis), 2 steps of B 4 x 512
   in 2 microbatches held to the single-process step, with ms a step
   (slowest rank), each rank's peak memory beside the whole state, and the
   collective bytes a step by op and axis; (c)-(f) in another (2, 2) world
@@ -148,10 +148,10 @@ kernel against its plain PyTorch version on the same inputs:
   true, the ring's retries and incremental makespan, the telemetry against
   the ledger, the multicast copies exact), the KV-cache loop (kernel 3
   stores and loads its rank-3 K; its decoded tokens the CPU's),
-  compressed_dp in a world of 8 gloo ranks on the card, and train_lm
-  ``--full-100m`` (the full qwen2-0.5b, B 8 x 64, 4 steps, the restart
-  from step 3 bitwise the uninterrupted run, its serving plane on kernel
-  1).
+  compressed_dp in a world of 8 gloo ranks on the card (bitwise its CPU
+  run), and train_lm ``--full-100m`` (the full qwen2-0.5b, B 8 x 64, 4
+  steps, the loss falling over them, the restart from step 3 bitwise the
+  uninterrupted run, its serving plane on kernel 1).
 
 Each phase's seconds go on a line of their own as it ends (``[phase
 seconds]``).  Each phase resets the kernels' launch counts just before it
@@ -1136,8 +1136,6 @@ def phase15(dev, gen, card, drive, cfg, params):
     # the continuous engine must preempt (kernel 3 runs the evict / restore
     # codec); the static gang admits only when empty, so at this gap its
     # gangs may fit the pool, and its preemptions are logged
-    # (the profiler's read of a serve's many launches takes tens of
-    # seconds: the continuous engine's run alone is profiled)
     for name, cls, kernels in (
             ("continuous", ContinuousBatchingEngine,
              [agu.RELAYOUT, datapath.BLOCK]),
@@ -1145,13 +1143,12 @@ def phase15(dev, gen, card, drive, cfg, params):
         pool = CheckedPool(cap, CB_PAGE_ROWS)
         eng = cls(cfg, params, pool=pool, **kw)
         torch.cuda.synchronize()
-        with (profile(activities=[ProfilerActivity.CUDA])
-              if name == "continuous" else contextlib.nullcontext()) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             rep, counts = drive(f"{name} (b)", kernels,
                                 lambda: eng.serve(stream))
             wall = (time.perf_counter() - t0) * 1e3
-        busy = device_busy_ms(prof) if prof is not None else 0.0
+        busy = device_busy_ms(prof)
         idle = f"{1 - busy / wall:.1%}" if busy > 0 else "not measured"
         st = rep.pool_stats
         check(rep.n_requests == b["n"],
@@ -2136,7 +2133,7 @@ def phase19(card):
 TP_ARCH = "qwen3_1p7b"
 TP_PERIODS = 2                 # 2 of the 28 layers
 TP_MESH = (2, 2)               # ("data", "model"): head-parallel at model 2
-TP_B, TP_S, TP_MICRO, TP_STEPS = 4, 256, 2, 2
+TP_B, TP_S, TP_MICRO, TP_STEPS = 4, 512, 2, 2
 LAUNCH_KW = dict(steps=3, batch=4, seq=64, smoke=True, ckpt_every=2,
                  microbatches=1, lr=3e-4, resume=True, seed=SEED)
 
@@ -2176,7 +2173,7 @@ def phase20_rank(mesh, card, ckpt_dir):
     width cut to 2 layers, f32 with TF32 off, AdamW with no warmup (every
     weight moves about 3e-4 a step): the whole parameters drawn on the card
     one weight at a time and kept on the host, this rank's blocks put on
-    the card; 2 steps of B 4 x 256 in 2 microbatches.  Each rank reads its
+    the card; 2 steps of B 4 x 512 in 2 microbatches.  Each rank reads its
     peak memory in the init, the steps and a resume (the state gathered
     onto the host, rank 0 writing the whole-leaf checkpoint, every rank at
     once restoring its blocks through ``launch.train.restore_sharded``, as
@@ -3234,7 +3231,7 @@ def phase21(card, device="cuda"):
 # -- phase 22: the production mesh's last regimes and the dry run -------------
 POD_MESH = (2, 2, 1)           # ("pod", "data", "model"): the batch over a pair
 POD_NAMES = ("pod", "data", "model")
-POD_TRAIN = dict(B=4, S=256, micro=1, steps=2)
+POD_TRAIN = dict(B=4, S=512, micro=1, steps=2)
 # (b): prefill_32k / decode_32k's cache on 4 prompts of 512 tokens
 POD_SERVE = dict(B=4, S=512, max_len=32768, steps=2)
 LONG_ARCH = "gemma3_27b"       # (c): one period (5 local + 1 global layer)
@@ -3960,27 +3957,6 @@ EX_TRAIN = dict(steps=4, ckpt_every=3)   # the full qwen2-0.5b: 3 saves of
                                          # its 5.9 GB state, 1 restart
 
 
-def fresh_process_state():
-    """The port's global state as a fresh process has it, as a user's
-    command starts: the CFG cache and its siblings (the autotune memos,
-    the scheduler's round cache, the page-geometry and KV-plane
-    descriptor memos, whose first calls search), agu_stats,
-    cfg_stats and every telemetry bank (the quickstart prints them)."""
-    from repro_torch.core import api, autotune, descriptor, plugin_compiler
-    from repro_torch.kernels import agu
-    from repro_torch.runtime import scheduler, telemetry
-    from repro_torch.serving import transfer
-    api.clear_cache()
-    autotune.clear_cache()
-    scheduler._ROUND_CACHE.clear()
-    descriptor.page_layout.cache_clear()
-    descriptor.page_descriptor.cache_clear()
-    transfer.kv_plane_descs.cache_clear()
-    agu.clear_agu_stats()
-    plugin_compiler.clear_stats()
-    telemetry.reset()
-
-
 def phase_examples(card, drive, device="cuda"):
     """The examples phase: the port's twins of the reference's four
     example scripts (``examples/torch_*.py``), each through its ``run``
@@ -3994,15 +3970,19 @@ def phase_examples(card, drive, device="cuda"):
     the f32 chain tolerance of its plain chain, the load bitwise, the
     decoded tokens the same example's on the CPU, TF32 off); compressed_dp
     in a world of 8 gloo ranks on the card (every rank the same reduced
-    gradient, the error and wire bytes logged); train_lm with
-    ``--full-100m`` for ``EX_TRAIN`` steps (the full qwen2-0.5b, B 8 x 64
-    in 2 microbatches; the first batch's loss falls, the restart from the
-    step-3 checkpoint ends bitwise the uninterrupted run, the final
+    gradient; the reduced gradient and every rank's residual bitwise, and
+    the error and wire bytes as printed, the same example's on the CPU,
+    which the CPU tests hold bitwise to the reference's jitted program);
+    train_lm with ``--full-100m`` for ``EX_TRAIN`` steps (the full
+    qwen2-0.5b, B 8 x 64 in 2 microbatches; the loss falls over the run,
+    the restart from the step-3 checkpoint ends bitwise the uninterrupted
+    run, the final
     checkpoint restores bitwise; the serving plane's kernel 1 must
     launch).  Any failed check fails the run.  Returns each example's wall
     seconds and launches."""
     import tempfile
 
+    from repro_torch.core import reset_process_state
     from repro_torch.kernels import agu, datapath
 
     sys.path.insert(0, os.path.join(ROOT, "examples"))
@@ -4031,12 +4011,12 @@ def phase_examples(card, drive, device="cuda"):
     # and speedups, the shapes and the flags) the CPU run's, which the CPU
     # tests hold to the reference script's; the trace paths aside
     trace = os.path.join(ROOT, "chiprun_out", "quickstart.trace.json")
-    fresh_process_state()
+    reset_process_state()
     rec = example("quickstart", [agu.RELAYOUT, datapath.STREAMED,
                                  datapath.BLOCK],
                   lambda: QS.run(device, trace_path=trace), QS.failures,
                   QS.lines)
-    fresh_process_state()
+    reset_process_state()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-qs-") as work:
         cpu = QS.run("cpu", trace_path=os.path.join(work, "t.json"))
     same = [QS.lines(dict(r, trace_export=("-", r["trace_export"][1])))
@@ -4076,6 +4056,19 @@ def phase_examples(card, drive, device="cuda"):
                   DP.lines)
     log(f"[examples compressed_dp] {DP.WORKERS} ranks ({rec['backend']}), "
         f"launches by rank {rec['launches']}")
+    cpu = DP.run("cpu")
+    bitwise = [name for name, a, b in
+               [("reduced", rec["reduced"], cpu["reduced"])]
+               + [(f"residual {r}", a, b)
+                  for r, (a, b) in enumerate(zip(rec["errs"], cpu["errs"]))]
+               if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    check(not bitwise and DP.lines(rec) == DP.lines(cpu),
+          f"examples compressed_dp: the card's {bitwise} not bitwise the CPU "
+          f"run's, or its lines {DP.lines(rec)} not the CPU's "
+          f"{DP.lines(cpu)}")
+    log(f"[examples compressed_dp] the reduced gradient and the {DP.WORKERS} "
+        f"residuals bitwise the CPU run's; its lines equal")
+    del cpu
     out["compressed_dp"].update(rel_err=rec["rel_err"],
                                 rank_launches=rec["launches"])
 
@@ -4087,10 +4080,8 @@ def phase_examples(card, drive, device="cuda"):
                                      **EX_TRAIN),
                       TL.failures, TL.lines)
     log(f"[examples train_lm] --full-100m: losses {rec['losses']}, resumed "
-        f"from step {rec['restart_step']} {rec['resumed_losses']}, the first "
-        f"batch's loss {rec['first_batch_loss']}")
-    out["train_lm"].update(losses=rec["losses"],
-                           first_batch_loss=rec["first_batch_loss"])
+        f"from step {rec['restart_step']} {rec['resumed_losses']}")
+    out["train_lm"].update(losses=rec["losses"])
     del rec
     gc.collect()
     torch.cuda.empty_cache()

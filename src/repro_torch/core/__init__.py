@@ -31,7 +31,7 @@ from .remote import (  # noqa: F401
 )
 from .api import (  # noqa: F401
     XDMAQueue, transfer, cache_stats, clear_cache,
-    cache_capacity, set_cache_capacity,
+    cache_capacity, set_cache_capacity, reset_process_state,
 )
 from . import api as xdma  # noqa: F401  (usage: from repro_torch.core import xdma)
 from . import baselines  # noqa: F401

@@ -142,6 +142,28 @@ def clear_cache() -> None:
         aux.clear()
 
 
+def reset_process_state() -> None:
+    """The port's global state as a fresh process has it: the CFG cache and
+    its siblings (the autotune memos, the scheduler's round cache), the
+    page-geometry and KV-plane descriptor memos (their first calls count
+    an autotune search), agu_stats, cfg_stats and every telemetry bank."""
+    # the runtime and the serving plane import this module
+    from repro_torch.kernels import agu
+    from repro_torch.runtime import scheduler
+    from repro_torch.serving import transfer
+
+    from . import descriptor
+    clear_cache()
+    _autotune.clear_cache()
+    scheduler._ROUND_CACHE.clear()
+    descriptor.page_layout.cache_clear()
+    descriptor.page_descriptor.cache_clear()
+    transfer.kv_plane_descs.cache_clear()
+    agu.clear_agu_stats()
+    plugin_compiler.clear_stats()
+    _tm.reset()
+
+
 def _check_ported(desc: XDMADescriptor) -> None:
     """Refuse a node-addressed multicast: it has no single-collective
     lowering; the scheduler forks it into per-hop tree tasks."""
@@ -172,24 +194,13 @@ def _distinct(x, out):
     return out.clone() if out is x and isinstance(x, torch.Tensor) else out
 
 
-def _dense(x):
-    """``x`` as the dense physical buffer the kernels read: a strided view
-    on the card (a slice of a cache, say) is copied once; a JAX array, the
-    reference's buffer, has no strides.  The CPU's plain versions read any
-    view, so a CPU tensor passes as it is."""
-    if (isinstance(x, torch.Tensor) and x.device.type == "cuda"
-            and not x.is_contiguous()):
-        return x.contiguous()
-    return x
-
-
 def _fresh(fn: Callable) -> Callable:
     """The reference jits every lowering but ``pallas``, and a jitted call
     hands back a new array even for an identity movement.  Where the plain
     composition hands back its input tensor, copy it: the destination is a
     buffer of its own, and the trace's provenance (keyed by the identity of
     a tensor and of its full aliases) sees the reference's edges."""
-    return lambda x: _distinct(x, fn(_dense(x)))
+    return lambda x: _distinct(x, fn(x))
 
 
 def _compiled_or(desc: XDMADescriptor, compiled: Optional[Callable]) -> Callable:
@@ -220,7 +231,7 @@ def _lower(desc: XDMADescriptor, *, tally: bool = True) -> Callable:
     if desc.movement != "local":
         return _lower_remote(desc)
     if desc.backend == "pallas":
-        return lambda x: engine.xdma_copy_pallas(_dense(x), desc)
+        return lambda x: engine.xdma_copy_pallas(x, desc)
     if desc.backend == "compiled":
         # forced single-kernel lowering: raises on non-fusible chains
         return _fresh(plugin_compiler.compile_local(desc))

@@ -115,8 +115,7 @@ def relayout_args(src_layout: L.Layout, dst_layout: L.Layout,
 
 def _relayout_cuda(x: torch.Tensor, src_layout: L.Layout,
                    dst_layout: L.Layout, transpose: bool) -> torch.Tensor:
-    if not x.is_contiguous():
-        raise ValueError("agu_relayout takes a contiguous physical buffer")
+    x = x.contiguous()      # a strided view is copied once
     if x.element_size() not in (1, 2, 4, 8):
         raise NotImplementedError(
             f"agu_relayout copies 1/2/4/8-byte words, not {x.dtype}")

@@ -58,12 +58,14 @@ def _column_const(value: Any, n: int, dtype: torch.dtype, device
         f"({n}), not a constant of shape {tuple(c.shape)}")
 
 
-def _check_input(x: torch.Tensor, shape: Sequence[int], dtype: torch.dtype):
+def _check_input(x: torch.Tensor, shape: Sequence[int],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as the dense buffer the kernels read (a strided view, a slice
+    of a cache say, is copied once)."""
     if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
         raise ValueError(f"compiled for {tuple(shape)} {dtype}, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("the datapath kernels take a contiguous buffer")
+    return x.contiguous()
 
 
 def plain(x, chain, src_layout: L.Layout, dst_layout: L.Layout):
@@ -219,7 +221,7 @@ class StreamedDatapath:
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
         """Launch kernel 2 on ``x``'s device and stream."""
-        _check_input(x, self.in_shape, self.in_dtype)
+        x = _check_input(x, self.in_shape, self.in_dtype)
         if self._block is not None:
             return self._block.launch(x)
         if self._parts is not None:
@@ -777,7 +779,7 @@ class BlockDatapath:
 
     def launch(self, x: torch.Tensor):
         """Launch kernel 3's passes on ``x``'s device and stream."""
-        _check_input(x, self.in_shape, self.in_dtype)
+        x = _check_input(x, self.in_shape, self.in_dtype)
         key = (x.device.type, x.device.index)
         stages = self._prepared.get(key)
         if stages is None:

@@ -62,8 +62,7 @@ def norm_args(x: torch.Tensor, weight: Optional[torch.Tensor],
 
 
 def _launch(x, weight, tile_shape, eps):
-    if not x.is_contiguous():
-        raise ValueError("rmsnorm_relayout takes a contiguous (m, n) buffer")
+    x = x.contiguous()      # a strided view is copied once
     if weight is not None:
         if weight.device != x.device or tuple(weight.shape) != (x.shape[1],):
             raise ValueError(f"the weight must be ({x.shape[1]},) on "

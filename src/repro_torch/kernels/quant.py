@@ -71,8 +71,7 @@ def quant_args(x: torch.Tensor, tile_shape: Tuple[int, int]) -> _QuantArgs:
 
 
 def _launch(x, tile_shape):
-    if not x.is_contiguous():
-        raise ValueError("quantize_tiled takes a contiguous (m, n) buffer")
+    x = x.contiguous()      # a strided view is copied once
     a = quant_args(x, tile_shape)
     tm, tn = tile_shape
     values = torch.empty((a.rows // tm, a.cols // tn, tm, tn),

@@ -23,13 +23,6 @@ from repro.core import plugins as RP
 from repro.core import xdma as ref_xdma
 
 import repro_torch.core.api as port_api
-import repro_torch.core.autotune as port_at
-import repro_torch.core.descriptor as port_descriptor
-import repro_torch.core.plugin_compiler as port_pc
-import repro_torch.kernels.agu as port_agu
-import repro_torch.runtime.scheduler as port_sched
-import repro_torch.runtime.telemetry as port_tm
-import repro_torch.serving.transfer as port_transfer
 
 
 def _reset_all():
@@ -38,21 +31,17 @@ def _reset_all():
     page-geometry and KV-plane descriptor memos (their first calls count an
     autotune search), agu_stats, cfg_stats and every telemetry bank
     (cfg_cache, agu, plugin_compiler, autotune, links, queues, rings,
-    multicast)."""
-    for xdma, at, desc, sched, agu, pc, tm, tr in (
-            (ref_xdma, ref_at, ref_descriptor, ref_sched, ref_agu, ref_pc,
-             ref_tm, ref_transfer),
-            (port_api, port_at, port_descriptor, port_sched, port_agu, port_pc,
-             port_tm, port_transfer)):
-        xdma.clear_cache()
-        at.clear_cache()
-        sched._ROUND_CACHE.clear()
-        desc.page_layout.cache_clear()
-        desc.page_descriptor.cache_clear()
-        tr.kv_plane_descs.cache_clear()
-        agu.clear_agu_stats()
-        pc.clear_stats()
-        tm.reset()
+    multicast); the port's through ``reset_process_state``."""
+    ref_xdma.clear_cache()
+    ref_at.clear_cache()
+    ref_sched._ROUND_CACHE.clear()
+    ref_descriptor.page_layout.cache_clear()
+    ref_descriptor.page_descriptor.cache_clear()
+    ref_transfer.kv_plane_descs.cache_clear()
+    ref_agu.clear_agu_stats()
+    ref_pc.clear_stats()
+    ref_tm.reset()
+    port_api.reset_process_state()
 
 
 @pytest.fixture(scope="module", autouse=True)

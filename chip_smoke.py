@@ -72,8 +72,9 @@ kernel against its plain PyTorch version on the same inputs:
   against their CPU runs;
 * MoE expert-parallel dispatch (phase 17): 4 ranks on the card, one
   qwen3-moe layer's experts split 32 a rank: the EP path against the local
-  path, the int8 wire, the scheduled chunked dispatch, the ring
-  all-gather;
+  path, the int8 wire and its backward (one f32 a row on the wire, the
+  gradients held to the plain version that moves the whole cotangent),
+  the scheduled chunked dispatch, the ring all-gather;
 * training (phase 18): the full qwen3-1.7b configuration (28 layers, bf16
   compute on f32 master parameters, f32 AdamW moments, block remat) takes 4 steps of B 4 x 4096
   tokens in 2 microbatches (one data rank's share of train_4k), the loss
@@ -176,7 +177,13 @@ and the launcher's checkpoint staged MN -> MN, whose restore phase 20
 counts), phase 21 kernel 1 in every rank on the plane and (b)'s pool and
 kernel 3 on (b)'s evictions and restores.  Phase 4 also drives the chains kernels 2
 and 3 once refused (integer streams, nine streamed ops, logical rank 5),
-and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (256 on
+the streams and ranks kernel 3 once refused at the main path's shape
+(8192 x 3072: a float8_e4m3fn and a bool Transpose, a uint32 ReduceStage
+sum, a Scale at logical rank 9, each launch counted on its path, the
+float8 Transpose timed) and every chain of
+``tests/test_torch_stream_dtypes.py`` over bool, uint8, uint16, uint32
+and both float8s, all bitwise their plain versions (float64 refused with
+its reason), and phase 8 kernel 6 at head dims 8, 80, 192, 256, 320 and 512 (256 on
 its wgmma path beside its FMA path, 320 and 512 on its chunked path,
 timed), with bf16 q and f32 k / v, and the wgmma path's edges (f16, Sq !=
 Sk, ragged S 1000, a window of 0) and a view TMA cannot address (one mma
@@ -367,6 +374,188 @@ def demangled(names):
     read = out.stdout.splitlines()
     return read if out.returncode == 0 and len(read) == len(names) else \
         list(names)
+
+
+# -- phase 4 (streams): the streams and ranks kernel 3 once refused -------------
+STREAM_DTYPES = (torch.bool, torch.uint8, torch.uint16, torch.uint32,
+                 torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def stream_input(shape, dtype, gen, dev):
+    """Seeded values of ``dtype``: bools, every word of an unsigned integer
+    (its int32 / int16 / uint8 bits), a float8 from a normal of scale 4."""
+    if dtype == torch.bool:
+        return torch.rand(shape, generator=gen, device=dev) < 0.5
+    if dtype.is_floating_point:
+        return (4 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    signed = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[dtype.itemsize]
+    lo, hi = (0, 256) if signed == torch.uint8 else (
+        -2 ** (8 * dtype.itemsize - 1), 2 ** (8 * dtype.itemsize - 1))
+    return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                         dtype=torch.int64).to(signed).view(dtype)
+
+
+def stream_chains(P, dtype):
+    """tests/test_torch_stream_dtypes.py's chains over ``dtype`` (48 rows:
+    a float8 sum in two padded windows; on a float8 stream also the sum
+    that ends its launch): (name, descriptor spelling)."""
+    scale = 1.5 if dtype.is_floating_point else 3
+    fill = torch.cat([torch.arange(47, -1, -2), torch.tensor([60, -49, -1])])
+    chains = [("transpose", ("MN", "MN", P.Transpose())),
+              ("gather_fill", ("MN", "MN", P.GatherScatter(indices=fill))),
+              ("reduce_sum", ("MN", "MN", P.ReduceStage("sum"))),
+              ("reduce_max", ("MN", "MN", P.ReduceStage("max"))),
+              ("compress_roundtrip", ("MN", "MN", P.Compress(block_rows=8),
+                                      P.Decompress())),
+              ("cast_to_f32", ("MN", "MN", P.Cast(torch.float32))),
+              ("cast_from_f32", ("MN", "MN", P.Cast(dtype))),
+              ("scale", ("MN", "MN", P.Scale(scale))),
+              ("tiled_store", ("MN", "MNM8N128"))]
+    if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        chains.append(("sum_scale_compress", (
+            "MN", "MN", P.ReduceStage("sum"), P.Scale(0.5),
+            P.Compress(block_rows=1))))
+    return chains
+
+
+def phase4_streams(dev, gen, card, drive, pair_times):
+    """Kernel 3 on the streams the reference's datapath takes that it once
+    refused: at the main path's shape (8192 x 3072) a float8_e4m3fn and a
+    bool Transpose (word copies on the rank-2 path), a uint32 ReduceStage
+    sum (wrapping modulo 2^32, the generic path's int64 carrier) and a
+    Scale at logical rank 9 (its seven leading axes folded to one); then
+    every chain of tests/test_torch_stream_dtypes.py over bool, uint8,
+    uint16, uint32 and both float8s at (48, 128), and its rank-9 and
+    rank-10 cases.  Each is bitwise its plain version, each main-path case
+    must launch kernel 3, and float64 is refused, naming the reason.  The
+    float8 Transpose is timed beside ``transpose(-1, -2).contiguous()``
+    and its bound."""
+    from repro_torch.core import plugin_compiler
+    from repro_torch.core import plugins as P
+    from repro_torch.core import xdma
+    from repro_torch.core.descriptor import describe
+    from repro_torch.kernels import datapath
+
+    def plain(x, d):
+        return datapath.plain(x, d.plugins, d.src.layout, d.dst.layout)
+
+    rank9 = (2, 2, 2, 2, 2, 2, 2, 64, 3072)     # 8192 x 3072 in rank 9
+    cases = [
+        ("transpose float8_e4m3fn", describe("MN", "MN", P.Transpose(),
+                                             backend="compiled"),
+         (8192, 3072), torch.float8_e4m3fn, {"rank2": 1}),
+        ("transpose bool", describe("MN", "MN", P.Transpose(),
+                                    backend="compiled"),
+         (8192, 3072), torch.bool, {"rank2": 1}),
+        ("reduce sum uint32", describe("MN", "MN", P.ReduceStage("sum"),
+                                       backend="compiled"),
+         (8192, 3072), torch.uint32, {"generic": 1}),
+        ("scale rank 9 f32", describe("MN", "MN", P.Scale(2.5),
+                                      backend="compiled"),
+         rank9, torch.float32, {"rank2": 1})]
+    xs = []
+    for what, d, shape, dtype, _ in cases:
+        if dtype == torch.float32:
+            xs.append(torch.randn(shape, generator=gen, device=dev))
+        else:
+            xs.append(stream_input(shape, dtype, gen, dev))
+    got = []
+    for (what, d, shape, dtype, paths), x in zip(cases, xs):
+        out, counts = drive(f"streams {what}", [datapath.BLOCK],
+                            lambda: xdma.transfer(x, d))
+        check(datapath.BLOCK.paths == paths,
+              f"streams {what}: kernel 3 paths {datapath.BLOCK.paths}, "
+              f"expected {paths}")
+        assert_bitwise(out, plain(x, d), f"streams {what}")
+        got.append(counts["block_datapath"])
+    log(f"[streams] main-path shape: {[c[0] for c in cases]} bitwise their "
+        f"plain versions, kernel 3 launches {got}")
+    # the float8 Transpose timed beside the library call and its bound
+    x8 = xs[0]
+    run8 = plugin_compiler.compile_local(cases[0][1])
+    y8 = run8(x8)
+    lib8 = lambda: x8.transpose(-1, -2).contiguous()  # noqa: E731
+    assert_bitwise(lib8(), y8, "streams float8 transpose library yardstick")
+    pair_times.append({
+        "pair": "float8 transpose (rank-2 word copy): MN->MN + Transpose "
+                "8192x3072", "dtype": "float8_e4m3fn",
+        "paths": {"rank2": 1}, "ms": gpu_ms(lambda: run8(x8)),
+        "plain_ms": gpu_ms(lambda: plain(x8, cases[0][1])),
+        "library_ms": gpu_ms(lib8), "bound_ms": bound_ms(nbytes(x8, y8))})
+    r = pair_times[-1]
+    log(f"[streams] float8 transpose 8192x3072: {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f}, library (transpose(-1, -2).contiguous()) "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound) on {card}")
+    # the uint32 sum (the generic path's int64 carrier) against its bound
+    xu, du = xs[2], cases[2][1]
+    run_u = plugin_compiler.compile_local(du)
+    y_u = run_u(xu)
+    pair_times.append({
+        "pair": "uint32 sum (generic): MN->MN + ReduceStage(sum) 8192x3072",
+        "dtype": "uint32", "paths": {"generic": 1},
+        "ms": gpu_ms(lambda: run_u(xu)),
+        "plain_ms": gpu_ms(lambda: plain(xu, du)),
+        "library_ms": None, "bound_ms": bound_ms(nbytes(xu, y_u))})
+    r = pair_times[-1]
+    log(f"[streams] uint32 sum 8192x3072: {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound) on {card}")
+    del xs, got, x8, y8, xu, y_u
+    # every chain of the CPU tests over each stream, and the ranks above 8
+    small = []
+    for dtype in STREAM_DTYPES:
+        for name, spell in stream_chains(P, dtype):
+            d = describe(*spell, backend="compiled")
+            if name == "cast_from_f32":
+                x = 4 * torch.randn(48, 128, generator=gen, device=dev)
+                if not dtype.is_floating_point and dtype != torch.bool:
+                    # inside the unsigned range: XLA's conversion past it
+                    # is implementation-defined
+                    x = 250 * torch.rand(48, 128, generator=gen, device=dev)
+                x[::3] = 0
+            else:
+                x = stream_input((48, 128), dtype, gen, dev)
+                if name == "compress_roundtrip":
+                    x[8:16] = 0
+                    x[32:40] = 0
+            small.append((f"{name} {str(dtype)[6:]}", d, x))
+    lead = (2, 1, 2, 1, 2, 1, 2)
+    for what, chain, shape in (
+            ("transpose rank 9", (P.Transpose(),), lead + (8, 16)),
+            ("lead gather rank 9", (P.GatherScatter(
+                indices=torch.tensor([1, 0, 5]), axis=0),), lead + (8, 16)),
+            ("scale rank 10", (P.Scale(2.5),), lead + (1, 8, 16)),
+            ("reduce max rank 10", (P.ReduceStage("max", keepdims=False),),
+             lead + (1, 8, 16))):
+        small.append((what, describe("MN", "MN", *chain, backend="compiled"),
+                      torch.randn(shape, generator=gen, device=dev)))
+    xb = torch.randn(16, 32, generator=gen, device=dev)   # zeros, NaN
+    xb[::3] = 0
+    xb[1, ::5] = float("nan")
+    small.append(("bool after a float cast", describe(
+        "MN", "MN", P.Cast(torch.bool), P.Scale(2.0), P.ReduceStage("sum"),
+        backend="compiled"), xb))
+    outs, counts = drive("streams small", [datapath.BLOCK],
+                         lambda: [xdma.transfer(x, d) for _, d, x in small])
+    for (what, d, x), out in zip(small, outs):
+        want = plain(x, d)
+        if isinstance(want, P.CTensor):
+            assert_bitwise(out.mask, want.mask, f"streams {what} mask")
+            out, want = out.values, want.values
+        assert_bitwise(out, want, f"streams {what}")
+    refused = ""
+    try:
+        xdma.transfer(torch.zeros(16, 32, dtype=torch.float64, device=dev),
+                      describe("MN", "MN", P.Transpose(), backend="compiled"))
+    except NotImplementedError as e:
+        refused = str(e)
+    check("no float64 stream" in refused,
+          f"streams: float64 is not refused with its reason: {refused!r}")
+    log(f"[streams] {len(small)} chains over {len(STREAM_DTYPES)} streams "
+        f"and ranks 9-10 bitwise their plain versions; launches {counts}, "
+        f"kernel 3 by path {datapath.BLOCK.paths}; float64 refused: "
+        f"{refused}")
 
 
 # -- phase 12: the collectives, one process a rank -----------------------------
@@ -1439,13 +1628,64 @@ def phase16(dev, gen, card, drive):
 EP_X = (2, 512, 2048)          # (B, S, d_model) of qwen3-moe, f32
 
 
+def int8_wire_backward(cfg, p, x, mesh, tag):
+    """The int8 wire's backward at the layer's full width: the gradients of
+    x and of the experts (the whole tree, this rank's experts nonzero) for
+    a seeded cotangent, bitwise the plain version's (the whole cotangent
+    moved back, ``moe.plain_wire_backward``); its all-to-all bytes, the ``wire``
+    bank's, one f32 a row: the plain version's (d_model f32 a row) over
+    d_model.  (The forward's count holds the ring all-gather's hops too.)"""
+    from repro_torch.core import remote
+    from repro_torch.layers import moe as MOE
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    xg = x.detach().clone().requires_grad_()
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 17)
+    dy = torch.randn(x.shape, generator=gen, device=x.device)
+
+    def moved():
+        return remote.wire_stats().get("bytes:all_to_all", 0)
+
+    def grads(plain):
+        w0 = moved()
+        y, aux = MOE.moe_apply(cfg, leaves, xg, mesh=mesh)
+        w1 = moved()
+        with (MOE.plain_wire_backward() if plain
+              else contextlib.nullcontext()):
+            g = torch.autograd.grad([y, aux], [xg] + list(leaves.values()),
+                                    [dy, torch.ones_like(aux)])
+        torch.cuda.synchronize()
+        return g, w1 - w0, moved() - w1
+
+    # deterministic algorithms: the dispatch's scatter-add sums a token's
+    # top-k gradients with atomics otherwise, in a different order each run
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, fwd, bwd = grads(False)
+        want, fwd_p, bwd_p = grads(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    d = cfg.d_model
+    check(bwd > 0 and bwd * d == bwd_p,
+          f"{tag} int8 wire backward moves {bwd} bytes, not one f32 a row "
+          f"(the plain version's {bwd_p} over d_model {d})")
+    # the same products summed in the same row order: bitwise
+    errs = {name: float((g - w).abs().max())
+            for name, g, w in zip(["x"] + list(leaves), got, want)}
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{tag} int8 wire backward: gradients not bitwise the plain "
+          f"version's (max abs differences {errs})")
+    return {"fwd_bytes": fwd, "bwd_bytes": bwd, "plain_bwd_bytes": bwd_p,
+            "errs": errs, "bitwise": True}
+
+
 def phase17_rank(mesh, card):
     """One rank of phase 17: one qwen3-moe layer's MoE at full width (this
     rank's 32 of 128 experts; every rank draws the whole layer from one
     seed and reads its shard), x (2, 512, 2048) f32 replicated: the EP path
     against the local path, the int8 wire, the scheduled chunked dispatch at
     capacity factor 1.0 against the unscheduled one, and the ring all-gather
-    against a gather of the shards.  The path moves its buffers with
+    against a gather of the shards; the int8 wire's backward
+    (``int8_wire_backward``).  The path moves its buffers with
     empty-chain collectives and the int8 codec's composition (no side of it
     fuses, as in the reference), so it launches no datapath kernel: the
     launches on the int8 wire are logged, the side-fusion reasons held."""
@@ -1494,6 +1734,8 @@ def phase17_rank(mesh, card):
     out["int8_rel"] = float((y_q - y_local).abs().max()) / scale
     check(out["int8_rel"] < 0.05, f"{tag} int8 wire vs local "
           f"{out['int8_rel']}")
+    # its backward: one f32 a row on the wire, the plain version's gradients
+    out["int8_bwd"] = int8_wire_backward(int8, p, x, mesh, tag)
     tight = dataclasses.replace(cfg, capacity_factor=1.0)
     y_t, _ = MOE.moe_apply(tight, p, x, mesh=mesh)
     sched = DistributedScheduler(Topology.parallel(2, prefix="a2a"),
@@ -1515,7 +1757,8 @@ def phase17_rank(mesh, card):
                 Topology.parallel(2, prefix="a2a"), name="moe"))),
         "local_ms": wall_ms_synced(lambda: MOE.moe_apply(local, p, x))}
     log(f"{tag} EP vs local {out['ep_rel']:.2e}, int8 wire {out['int8_rel']:.4f}"
-        f" (bounds 5e-4, 0.05), scheduled vs unscheduled at capacity 1.0 max "
+        f" (bounds 5e-4, 0.05), the int8 wire's backward {out['int8_bwd']}, "
+        f"scheduled vs unscheduled at capacity 1.0 max "
         f"abs {out['sched_err']}, ring all-gather bitwise; launches on the "
         f"int8 wire {counts}, its sides {wire}; wall ms a call {times} on "
         f"{card}")
@@ -4623,6 +4866,9 @@ def main():
         f"{f1_counts}, kernel 3 by path {datapath.BLOCK.paths}, kernel 2 by "
         f"path {datapath.STREAMED.paths}")
     del f1_out
+    # the streams and ranks above 8 kernel 3 once refused (ROADMAP §3,
+    # faults 10 and 11)
+    phase4_streams(dev, gen, card, drive, pair_times)
     run_load = plugin_compiler.compile_local(load)
     run_load(xt)
     lib = lambda: xt.permute(1, 3, 0, 2).reshape(3072, 8192)
@@ -5427,7 +5673,11 @@ def main():
               for k in ep[0]["times"]}
     log(f"[moe ep] 4 ranks ({ep[0]['backend']}): wall ms a call (median over "
         f"ranks) {moe_ep}; EP vs local {[rk['out']['ep_rel'] for rk in ep]}, "
-        f"int8 wire {[rk['out']['int8_rel'] for rk in ep]}; launches on the "
+        f"int8 wire {[rk['out']['int8_rel'] for rk in ep]}; its backward's "
+        f"all-to-all bytes a rank {[rk['out']['int8_bwd']['bwd_bytes'] for rk in ep]} "
+        f"(the plain version's {[rk['out']['int8_bwd']['plain_bwd_bytes'] for rk in ep]}), "
+        f"gradients bitwise the plain version's "
+        f"{[rk['out']['int8_bwd']['bitwise'] for rk in ep]}; launches on the "
         f"int8 wire by rank {[rk['counts'] for rk in ep]}; phase {ep_s:.1f} s "
         f"with 4 process starts on {card}")
 

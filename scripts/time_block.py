@@ -31,7 +31,9 @@ the same function:
   Transpose, Scale, ReduceStage(max), RMSNorm (the generic path's
   statistics and reduce passes), beside no library call.
 
-Each output is checked bitwise against the plain version and the PyTorch
+The build's wall seconds are printed too (near 0 where the checkout's
+library is already built).  Each output is checked bitwise against the
+plain version and the PyTorch
 call (the rank-3 chain, whose RMSNorm sums in another order, within
 1e-5), and the launches of each case are counted by path.  ``--index64``
 runs the generic path's 64-bit index instances where the 32-bit ones
@@ -46,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 INDEX64 = "--index64" in sys.argv[1:]
@@ -91,7 +94,9 @@ def main():
     from repro_torch.core.descriptor import describe
     from repro_torch.kernels import _build, datapath
 
+    t0 = time.perf_counter()
     _build.build_all(["block_datapath.cu"])
+    build_s = time.perf_counter() - t0
     if INDEX64:
         datapath._INDEX32 = 0      # no launch fits the 32-bit instances
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -180,8 +185,10 @@ def main():
               f"(paths {paths}), library {lib_text}, bound {bound:.4f} "
               f"ms ({bound / ms:.1%}) on {card}", flush=True)
     log = _build.BUILD_LOG.get("block_datapath.cu", "")
+    print(f"[{os.path.basename(ROOT) or ROOT}] build {build_s:.1f} s on "
+          f"{card}", flush=True)
     print(json.dumps({"root": ROOT, "index64": INDEX64, "card": card,
-                      "times": times,
+                      "build_s": build_s, "times": times,
                       "spill_bytes": sum(int(b) for b in re.findall(
                           r"(\d+) bytes spill", log))}),
           flush=True)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,24 @@ __all__ = [
     "GatherScatter", "Compress", "Decompress", "CTensor", "ReduceStage",
     "register_plugin", "plugin_by_name", "registered_plugins", "as_tensor",
 ]
+
+
+# the dtypes torch computes only in part: float8 arithmetic runs in f32,
+# uint16 / uint32 arithmetic in int64, each result rounded (float8) or
+# wrapped (unsigned) back to the stream dtype, as jnp's result is
+_FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+_UNSIGNED_WIDE = {torch.uint16: 0xFFFF, torch.uint32: 0xFFFFFFFF}
+
+
+def computed(x: torch.Tensor, fn: Callable) -> torch.Tensor:
+    """``fn(x)`` in ``x``'s dtype, evaluated in f32 for a float8 stream and
+    in int64 (wrapped to the width) for a uint16 / uint32 one: the plain
+    versions on the streams torch has few kernels for."""
+    if x.dtype in _FLOAT8:
+        return fn(x.to(torch.float32)).to(x.dtype)
+    if x.dtype in _UNSIGNED_WIDE:
+        return (fn(x.to(torch.int64)) & _UNSIGNED_WIDE[x.dtype]).to(x.dtype)
+    return fn(x)
 
 
 def as_tensor(a: Any, *, device=None, dtype=None) -> torch.Tensor:
@@ -183,7 +201,8 @@ class Scale(Plugin):
     streaming = True
 
     def __call__(self, x):
-        return x * as_tensor(self.alpha, dtype=x.dtype, device=x.device)
+        c = as_tensor(self.alpha, dtype=x.dtype, device=x.device)
+        return computed(x, lambda v: v * c.to(v.dtype))
 
     emit = __call__
 
@@ -198,7 +217,8 @@ class BiasAdd(Plugin):
     streaming = True
 
     def __call__(self, x):
-        return x + as_tensor(self.bias, dtype=x.dtype, device=x.device)
+        c = as_tensor(self.bias, dtype=x.dtype, device=x.device)
+        return computed(x, lambda v: v + c.to(v.dtype))
 
     emit = __call__
 
@@ -309,6 +329,26 @@ class CTensor:
         return occupied * block_bytes + lead * blocks  # 1 byte/mask bit (padded)
 
 
+# jnp.take's fill word for an index out of range: NaN for a float (float8's
+# as the reference's take writes it, 0x7F in both formats), the minimum of a
+# signed integer, the maximum of an unsigned one, True
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+FILL_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC0,
+             torch.float16: 0x7E00,
+             torch.float8_e4m3fn: 0x7F, torch.float8_e5m2: 0x7F,
+             torch.bool: 1, torch.int8: -0x80, torch.uint8: 0xFF,
+             torch.int16: -0x8000, torch.uint16: 0xFFFF,
+             torch.int32: -0x80000000, torch.uint32: 0xFFFFFFFF,
+             torch.int64: -2 ** 63}
+
+
+def fill_word(dtype: torch.dtype) -> int:
+    """:data:`FILL_BITS` of ``dtype`` as a signed integer of its width."""
+    bits, width = FILL_BITS[dtype], 8 * dtype.itemsize
+    bits &= (1 << width) - 1
+    return bits - (1 << width) if bits >> (width - 1) else bits
+
+
 def take_indices(indices: Any, n: int, device=None) -> torch.Tensor:
     """``jnp.take`` index semantics as int64: negatives count from the end,
     anything outside ``[-n, n)`` becomes -1 (its rows read as fill)."""
@@ -324,7 +364,8 @@ class GatherScatter(Plugin):
 
     Follows ``jnp.take``: negative indices count from the end, and an index
     outside ``[-n, n)`` yields NaN for floats, the most negative value for
-    signed and the largest for unsigned ints."""
+    signed and the largest for unsigned ints, and True for bools (the words
+    of :data:`FILL_BITS`)."""
 
     indices: Any = None
     axis: int = -2
@@ -337,17 +378,20 @@ class GatherScatter(Plugin):
     def __call__(self, x):
         axis = self.axis % x.ndim
         idx = take_indices(self.indices, x.shape[axis], device=x.device)
-        out = torch.index_select(x, axis, idx.clamp(min=0))
         # the out-of-range rows filled with no test on the host: no sync on
         # the card, and the shapes of a meta tensor suffice
-        if x.dtype.is_floating_point:
-            fill = float("nan")
-        else:
-            info = torch.iinfo(x.dtype)
-            fill = info.min if x.dtype.is_signed else info.max
         shape = [1] * x.ndim
         shape[axis] = -1
-        return out.masked_fill((idx < 0).reshape(shape), fill)
+        fail = (idx < 0).reshape(shape)
+        if x.dtype.is_floating_point and x.dtype not in _FLOAT8:
+            # on the values, so that autograd passes through
+            out = torch.index_select(x, axis, idx.clamp(min=0))
+            return out.masked_fill(fail, float("nan"))
+        # on the words of the signed integer of the dtype's width, which
+        # torch gathers and fills for every dtype
+        words = x.view(_SIGNED[x.element_size()])
+        out = torch.index_select(words, axis, idx.clamp(min=0))
+        return out.masked_fill(fail, fill_word(x.dtype)).view(x.dtype)
 
     emit = __call__
 
@@ -396,15 +440,16 @@ class Decompress(Plugin):
         v, mask = x.values, x.mask
         m = v.shape[-2]
         block_rows = m // mask.shape[-1]
-        keep = torch.repeat_interleave(mask, block_rows, dim=-1).to(v.dtype)
-        return v * keep[..., :, None]
+        keep = torch.repeat_interleave(mask, block_rows, dim=-1)[..., :, None]
+        return computed(v, lambda t: t * keep.to(t.dtype))
 
     emit = __call__
 
 
 def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
     """``jnp.sum``'s result dtype: floats keep theirs (half precision
-    accumulates in f32), bools and narrow ints widen to 32 bits."""
+    accumulates in f32), bools and narrow ints widen to 32 bits, unsigned
+    ones to uint32."""
     if dtype.is_floating_point or dtype.is_complex:
         return dtype
     if dtype in (torch.uint8, torch.uint16, torch.uint32):
@@ -412,6 +457,46 @@ def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
     if dtype == torch.int64:
         return dtype
     return torch.int32
+
+
+SUM_WINDOW = 32
+
+
+def sum_levels(n: int) -> List[Tuple[int, int]]:
+    """The reference's order of a float8 sum over ``n`` rows, which rounds
+    to float8 after every addition, so that the order is the result: XLA's
+    CPU compiler rewrites a reduction over 32 rows or more into windows of
+    32 (the rows padded evenly at both ends with zeros, each window summed
+    in order from zero), then reduces the window sums the same way, until
+    fewer than 32 remain, summed in order.  ``[(rows, low padding), ...]``
+    of each windowed level."""
+    levels = []
+    while n >= SUM_WINDOW:
+        k = -(-n // SUM_WINDOW)
+        levels.append((n, (k * SUM_WINDOW - n) // 2))
+        n = k
+    return levels
+
+
+def _float8_sum(x: torch.Tensor, keepdims: bool) -> torch.Tensor:
+    """``jnp.sum`` of a float8 stream over its rows in the reference's order
+    (:func:`sum_levels`), each addition rounded to float8."""
+    v = x.to(torch.float32).movedim(-2, 0)
+
+    def in_order(rows):                     # (n, ...) -> (...)
+        acc = torch.zeros_like(rows[0])
+        for r in rows:
+            acc = (acc + r).to(x.dtype).to(torch.float32)
+        return acc
+
+    for n, low in sum_levels(v.shape[0]):
+        k = -(-n // SUM_WINDOW)
+        pad = v.new_zeros((k * SUM_WINDOW - n,) + tuple(v.shape[1:]))
+        v = torch.cat([pad[:low], v, pad[low:]])
+        v = in_order(v.reshape((k, SUM_WINDOW) + tuple(v.shape[1:]))
+                     .movedim(1, 0))
+    out = in_order(v).to(x.dtype)
+    return out.unsqueeze(-2) if keepdims else out
 
 
 @register_plugin
@@ -437,9 +522,15 @@ class ReduceStage(Plugin):
 
     def __call__(self, x):
         if self.op == "max":
-            return torch.amax(x, dim=-2, keepdim=self.keepdims)
-        return torch.sum(x, dim=-2, keepdim=self.keepdims,
-                         dtype=_sum_dtype(x.dtype))
+            return computed(x, lambda v: torch.amax(v, dim=-2,
+                                                    keepdim=self.keepdims))
+        out = _sum_dtype(x.dtype)
+        if out == torch.uint32:             # wraps modulo 2^32
+            s = torch.sum(x.to(torch.int64), dim=-2, keepdim=self.keepdims)
+            return (s & 0xFFFFFFFF).to(out)
+        if x.dtype in _FLOAT8:
+            return _float8_sum(x, self.keepdims)
+        return torch.sum(x, dim=-2, keepdim=self.keepdims, dtype=out)
 
     emit = __call__
 

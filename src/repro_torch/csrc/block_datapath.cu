@@ -5,8 +5,10 @@
 // the whole array in one grid step.  On top of the streaming plugins it runs
 // Transpose, GatherScatter (a take along any axis), Compress (values plus a
 // raw bool mask, one flag per block_rows rows), Decompress and ReduceStage
-// (sum or max over the rows), for logical rank 2 to 8, on float streams
-// (f32, bf16, f16) and integer streams (int8, uint8, int16, int32, int64).
+// (sum or max over the rows), for logical rank 2 to 8 (the host folds a
+// higher rank's leading axes), on every stream the reference's datapath
+// takes: float (f32, bf16, f16, float8_e4m3fn, float8_e5m2), integer (int8,
+// uint8, int16, uint16, int32, uint32, int64) and bool.
 //
 // Bound: device-memory bytes.  Index stages and value stages are a few
 // operations per element; each input element is read once (a Compress or
@@ -35,11 +37,13 @@
 // The generic path takes the rest: a cast between dtypes, a gather after a
 // stage that reads its coordinate, stages after a ReduceStage, an integer
 // stream that does more than move words, a destination that pads a leading
-// axis.  Its values travel as f32 on a float stream and as int64 on an
-// integer one (the carrier, a template parameter, as are the source's
-// element size and the index width: 32-bit where every size of the launch
-// fits).  A coordinate is one running triple (the leading axes' linear
-// index, the row, the column) in registers.  The host compiles two short
+// axis.  Its values travel as f32 on a float stream (float8 included) and
+// as int64 on an integer one (the carrier, a template parameter, as are the
+// source's element size and the index width: 32-bit where every size of the
+// launch fits); a bool stream takes the carrier of the stream it came from,
+// so a bool, uint16 or uint32 stream and a float8 one add no instance.  A
+// coordinate is one running triple (the leading axes' linear index, the
+// row, the column) in registers.  The host compiles two short
 // lists per launch, the index stages (transposes, gathers) and the value
 // stages; a thread takes up to four consecutive elements of the
 // destination's innermost run (decoded once), walks them back through the
@@ -61,6 +65,8 @@
 // chain with more than one ReduceStage into launches joined by a row-major
 // intermediate buffer.
 #include <type_traits>
+
+#include <cuda_fp8.h>
 
 #include "xdma_common.cuh"
 
@@ -128,19 +134,45 @@ struct BlockArgs {
 };
 
 // -- the carriers: f32 for float streams, int64 for integer streams ---------
-// The host cuts a chain where the stream changes between float and integer,
-// so one launch has one carrier; a Cast that crosses is the first stage of
-// its launch and converts on load (an integer to the nearest float, a float
-// toward zero).  Integer results wrap to the stream dtype's width, as XLA's
-// integer arithmetic does.
+// The host cuts a chain where the values change carrier, so one launch has
+// one carrier; a Cast that crosses is the first stage of its launch and
+// converts on load (an integer to the nearest float, a float toward zero).
+// Integer results wrap to the stream dtype's width, as XLA's integer
+// arithmetic does; a bool is 0 or 1 in either carrier (a Cast to bool is
+// x != 0, a product of bools their and, a sum their or).
 __device__ __forceinline__ long long wrap_to(long long v, int64_t dt) {
   switch (dt) {
     case xdma::I8: return (signed char)v;
     case xdma::U8: return (unsigned char)v;
     case xdma::I16: return (short)v;
+    case xdma::U16: return (unsigned short)v;
     case xdma::I32: return (int)v;
+    case xdma::U32: return (unsigned int)v;
+    case xdma::BOOL: return v != 0;
     default: return v;
   }
+}
+
+// float8 through cuda_fp8.h's conversions, to nearest even: Hopper's
+// saturating instruction (its non-saturating form is emulated in software),
+// with the range checked here as torch and ml_dtypes round it: past
+// float8_e4m3fn's (above 464) its NaN, from float8_e5m2's (61440 on) an
+// infinity.  A NaN is stored as the reference's take fills one (0x7F in
+// both formats).
+__device__ __forceinline__ bool is_f8(int64_t dt) {
+  return dt == xdma::F8E4M3 || dt == xdma::F8E5M2;
+}
+__device__ __forceinline__ float f8_value(uint8_t b, int64_t dt) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(
+      (__nv_fp8_storage_t)b, dt == xdma::F8E4M3 ? __NV_E4M3 : __NV_E5M2)));
+}
+__device__ __forceinline__ uint8_t f8_bits(float v, int64_t dt) {
+  const bool e4 = dt == xdma::F8E4M3;
+  if (v != v) return 0x7F;
+  const float a = fabsf(v);
+  if (e4 ? a > 464.f : a >= 61440.f) return e4 ? 0x7F : (v < 0.f ? 0xFC : 0x7C);
+  return (uint8_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE,
+                                        e4 ? __NV_E4M3 : __NV_E5M2);
 }
 
 template <typename C> __device__ __forceinline__ C of_float(float v);
@@ -164,7 +196,12 @@ __device__ __forceinline__ float as_float(long long v) {
 __device__ __forceinline__ long long as_int(float v) { return __float2ll_rz(v); }
 __device__ __forceinline__ long long as_int(long long v) { return v; }
 
-// Round to the stream dtype: to nearest even for a float, wrap an integer.
+// Round to the stream dtype: to nearest even for f32 / bf16 / f16, wrap an
+// integer or a bool.  In the f32 carrier a bool or float8 value is left as
+// it is: the host ends a launch at each stage that changes one, and the
+// store rounds it (x != 0 for a bool), so that no stage carries the narrow
+// streams' conversions (compiled into every stage, they made the f32 / bf16
+// / f16 chains 7 % slower).  A float8 sum rounds as it goes (ordered_sum).
 __device__ __forceinline__ float round_c(float v, int64_t dt) {
   return xdma::round_to(v, dt);
 }
@@ -181,7 +218,7 @@ __device__ __forceinline__ long long add_c(long long a, long long b) {
 }
 
 // jnp.take's fill for an index out of range: NaN, or the integer dtype's
-// minimum (signed) or maximum (unsigned).
+// minimum (signed) or maximum (unsigned), or True.
 template <typename C> __device__ __forceinline__ C fill_of(int64_t dt);
 template <> __device__ __forceinline__ float fill_of<float>(int64_t) {
   return __int_as_float(0x7fc00000);
@@ -191,7 +228,10 @@ template <> __device__ __forceinline__ long long fill_of<long long>(int64_t dt) 
     case xdma::I8: return -128;
     case xdma::U8: return 255;
     case xdma::I16: return -32768;
+    case xdma::U16: return 65535;
     case xdma::I32: return -2147483647LL - 1;
+    case xdma::U32: return 4294967295LL;
+    case xdma::BOOL: return 1;
     default: return (long long)0x8000000000000000ULL;
   }
 }
@@ -209,13 +249,15 @@ using Raw = typename std::conditional<
 template <typename C, int SZ>
 __device__ __forceinline__ C from_raw(Raw<SZ> r, int64_t dt) {
   if constexpr (SZ == 1) {
+    if (is_f8(dt)) return of_float<C>(f8_value(r, dt));
     return dt == xdma::I8 ? of_int<C>((signed char)r) : of_int<C>(r);
   } else if constexpr (SZ == 2) {
     if (dt == xdma::BF16) return of_float<C>(__uint_as_float((uint32_t)r << 16));
     if (dt == xdma::F16) return of_float<C>(__half2float(__ushort_as_half(r)));
-    return of_int<C>((short)r);
+    return dt == xdma::U16 ? of_int<C>(r) : of_int<C>((short)r);
   } else if constexpr (SZ == 4) {
-    return dt == xdma::F32 ? of_float<C>(__uint_as_float(r)) : of_int<C>((int)r);
+    if (dt == xdma::F32) return of_float<C>(__uint_as_float(r));
+    return dt == xdma::U32 ? of_int<C>((long long)r) : of_int<C>((int)r);
   } else {
     return of_int<C>((long long)r);
   }
@@ -252,6 +294,18 @@ __device__ __forceinline__ void put(void* dst, I p0, int E,
   }
 }
 
+// A bool or float8 store (dt), one byte an element: the rounding of the
+// stage that made the value (x != 0, or float8 in either format).
+template <int PT, typename C, typename I>
+__device__ __forceinline__ void put_narrow(void* dst, I p0, int E, int64_t dt,
+                                           const C (&v)[PT]) {
+  uint8_t* p = static_cast<uint8_t*>(dst) + p0;
+#pragma unroll
+  for (int e = 0; e < PT; ++e)
+    if (e < E)
+      p[e] = dt == xdma::BOOL ? (v[e] != (C)0) : f8_bits(as_float(v[e]), dt);
+}
+
 template <int PT, typename C, typename I>
 __device__ __forceinline__ void store_group(void* dst, I p0, int E,
                                             int64_t dt, const C (&v)[PT]) {
@@ -261,8 +315,14 @@ __device__ __forceinline__ void store_group(void* dst, I p0, int E,
     case xdma::F16: put<__half, PT>(dst, p0, E, v); break;
     case xdma::I8: put<signed char, PT>(dst, p0, E, v); break;
     case xdma::U8: put<unsigned char, PT>(dst, p0, E, v); break;
-    case xdma::I16: put<short, PT>(dst, p0, E, v); break;
-    case xdma::I32: put<int, PT>(dst, p0, E, v); break;
+    // a value wrapped to uint16 / uint32 has the bits of its int16 / int32
+    case xdma::I16:
+    case xdma::U16: put<short, PT>(dst, p0, E, v); break;
+    case xdma::I32:
+    case xdma::U32: put<int, PT>(dst, p0, E, v); break;
+    case xdma::BOOL:
+    case xdma::F8E4M3:
+    case xdma::F8E5M2: put_narrow<PT>(dst, p0, E, dt, v); break;
     default: put<long long, PT>(dst, p0, E, v); break;
   }
 }
@@ -546,6 +606,47 @@ __device__ __forceinline__ long long reduce_op(int64_t code, long long acc,
   return v > acc ? v : acc;
 }
 
+// A float8 sum rounds to float8 after every addition, so its order is its
+// result; it takes the reference's (XLA's CPU compiler rewrites a reduction
+// over 32 rows or more into windows of 32, the rows padded evenly at both
+// ends, each window summed in order from zero, then reduces the window sums
+// the same way, until fewer than 32 are summed in order).  One thread walks
+// the n rows (row(i): the value of row i) and closes each window as its last
+// row passes.  The padding's zeros leave a sum as it is: it never holds -0.
+constexpr int SUM_WINDOW = 32, SUM_LEVELS = 8;   // 32^8 rows
+
+template <typename I, typename F>
+__device__ __forceinline__ float ordered_sum(I n, int64_t dt, const F& row) {
+  I ext[SUM_LEVELS], low[SUM_LEVELS];
+  int levels = 0;
+  for (I m = n; m >= (I)SUM_WINDOW && levels < SUM_LEVELS; ++levels) {
+    const I k = (m + (I)(SUM_WINDOW - 1)) / (I)SUM_WINDOW;
+    ext[levels] = m;
+    low[levels] = (k * (I)SUM_WINDOW - m) / 2;
+    m = k;
+  }
+  float acc[SUM_LEVELS + 1];
+  for (int j = 0; j <= levels; ++j) acc[j] = 0.f;
+  for (I i = 0; i < n; ++i) {
+    acc[0] = f8_value(f8_bits(acc[0] + row(i), dt), dt);
+    I e = i;
+    for (int j = 0; j < levels; ++j) {   // row e of level j closes a window
+      const I w = e + low[j];
+      if (e != ext[j] - 1 && w % (I)SUM_WINDOW != (I)(SUM_WINDOW - 1)) break;
+      acc[j + 1] = f8_value(f8_bits(acc[j + 1] + acc[j], dt), dt);
+      acc[j] = 0.f;
+      e = w / (I)SUM_WINDOW;
+    }
+  }
+  return acc[levels];
+}
+
+template <typename C>
+__device__ __forceinline__ bool ordered(const Stage& st) {
+  return std::is_same<C, float>::value && st.code == ST_REDUCE_SUM &&
+         is_f8(st.dtype);
+}
+
 // The input coordinate of ReduceStage st for row r, from its output's.
 template <typename I>
 __device__ __forceinline__ Co<I> reduce_input(const Stage& st, Co<I> out,
@@ -567,7 +668,9 @@ __device__ __forceinline__ C eval_one(const BlockArgs& a, const void* src,
 }
 
 // One element's value after stages [0, k) at point-k coordinate c, a
-// ReduceStage included (the thread loops over all of its rows).
+// ReduceStage included (the thread loops over all of its rows).  Never a
+// float8 sum: the host ends a launch with one, so only the output pass
+// holds its windows' registers, not the statistics and mask passes.
 template <typename C, int SZ, typename I>
 __device__ __forceinline__ C eval(const BlockArgs& a, const void* src, int k,
                                   Co<I> c) {
@@ -722,7 +825,8 @@ out_tiled_kernel(const void* __restrict__ src, void* __restrict__ dst,
 
 constexpr int RX = 32, RY = 8;   // reduce block: 32 outputs x 8 row lanes
 
-// Output pass with a ReduceStage at a.reduce_at: RY threads per output.
+// Output pass with a ReduceStage at a.reduce_at: RY threads per output (a
+// float8 sum: one, in the reference's order).
 template <typename C, int SZ, typename I>
 __global__ void __launch_bounds__(RX * RY, 1)
 out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
@@ -745,10 +849,21 @@ out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
     int fill[1] = {-1};
     walk_back<1, I>(a, R + 1, k, cw, live, fill);
     C acc = reduce_init<C>(st.code);
-    if (live[0] && fill[0] < 0)
-      for (I r = (I)ty; r < rows; r += RY)
-        acc = reduce_op(st.code, acc, eval_one<C, SZ, I>(
-                                          a, src, R, reduce_input<I>(st, cw[0], r)));
+    const bool one = ordered<C>(st);
+    if (live[0] && fill[0] < 0) {
+      if (one) {
+        if constexpr (std::is_same<C, float>::value)
+          if (ty == 0)
+            acc = ordered_sum<I>(rows, st.dtype, [&](I r) {
+              return eval_one<C, SZ, I>(a, src, R,
+                                        reduce_input<I>(st, cw[0], r));
+            });
+      } else {
+        for (I r = (I)ty; r < rows; r += RY)
+          acc = reduce_op(st.code, acc, eval_one<C, SZ, I>(
+                                            a, src, R, reduce_input<I>(st, cw[0], r)));
+      }
+    }
     part[ty][tx] = acc;
     __syncthreads();
     if (ty == 0 && p < (I)a.total) {
@@ -756,7 +871,8 @@ out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
       if (live[0]) {
         if (fill[0] < 0) {
           C tot = part[0][tx];
-          for (int y = 1; y < RY; ++y) tot = reduce_op(st.code, tot, part[y][tx]);
+          for (int y = 1; y < (one ? 1 : RY); ++y)
+            tot = reduce_op(st.code, tot, part[y][tx]);
           v[0] = round_c(tot, st.dtype);
         } else {
           v[0] = fill_of<C>(a.st[fill[0]].dtype);
@@ -1362,8 +1478,8 @@ int launch_rank2(const Rank2Args& a, bool copy, const void* src, void* dst,
                 : launch_rows<T, 1>(a, src, dst, mode, s);
 }
 
-// An integer stream on the rank-2 path only moves words (the host sends it
-// there only then).
+// A stream other than f32, bf16 and f16 (integers, bool, float8) on the
+// rank-2 path only moves words (the host sends it there only then).
 template <typename W>
 int launch_rank2_words(const Rank2Args& a, bool copy, const void* src,
                        void* dst, int64_t mode, cudaStream_t s) {
@@ -1405,11 +1521,7 @@ int launch_generic(const BlockArgs& a, const void* src, void* dst,
 template <typename C>
 int launch_generic_for(const BlockArgs& a, const void* src, void* dst,
                        int64_t mode, cudaStream_t s) {
-  const int64_t dt = a.in_dtype;
-  const int size = dt == xdma::F32 || dt == xdma::I32 ? 4
-                   : dt == xdma::I8 || dt == xdma::U8 ? 1
-                   : dt == xdma::I64                  ? 8
-                                                      : 2;
+  const int size = xdma::elem_size(a.in_dtype);
   if (a.index32) {
     switch (size) {
       case 1: return launch_generic<C, 1, uint32_t>(a, src, dst, mode, s);
@@ -1449,10 +1561,15 @@ extern "C" int xdma_block_datapath(const void* args, const void* src,
         return launch_rank2<__half, uint16_t>(r, copy, src, dst, m, s);
       case xdma::I8:
       case xdma::U8:
+      case xdma::BOOL:
+      case xdma::F8E4M3:
+      case xdma::F8E5M2:
         return launch_rank2_words<uint8_t>(r, copy, src, dst, m, s);
       case xdma::I16:
+      case xdma::U16:
         return launch_rank2_words<uint16_t>(r, copy, src, dst, m, s);
       case xdma::I32:
+      case xdma::U32:
         return launch_rank2_words<uint32_t>(r, copy, src, dst, m, s);
       case xdma::I64:
         return launch_rank2_words<uint64_t>(r, copy, src, dst, m, s);
@@ -1467,11 +1584,7 @@ extern "C" int xdma_block_datapath(const void* args, const void* src,
     return (int)cudaErrorInvalidValue;
   if (a.total == 0) return 0;
   if (mode == 0 && a.per_thread == most) {   // one pack a thread
-    const int64_t dt = a.out_dtype;
-    const int64_t size = dt == xdma::F32 || dt == xdma::I32 ? 4
-                         : dt == xdma::I8 || dt == xdma::U8 ? 1
-                         : dt == xdma::I64                  ? 8
-                                                            : 2;
+    const int64_t size = xdma::elem_size(a.out_dtype);
     if ((uintptr_t)dst % (most * size)) return (int)cudaErrorMisalignedAddress;
   }
   return a.carrier ? launch_generic_for<long long>(a, src, dst, mode, s)

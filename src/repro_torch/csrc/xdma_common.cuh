@@ -16,8 +16,8 @@
 
 namespace xdma {
 
-// dtype codes, shared with repro_torch/kernels/maps.py; the integer codes
-// are kernel 3's only
+// dtype codes, shared with repro_torch/kernels/maps.py; the codes from I8
+// on are kernel 3's only
 constexpr int64_t F32 = 0;
 constexpr int64_t BF16 = 1;
 constexpr int64_t F16 = 2;
@@ -26,8 +26,21 @@ constexpr int64_t U8 = 4;
 constexpr int64_t I16 = 5;
 constexpr int64_t I32 = 6;
 constexpr int64_t I64 = 7;
+constexpr int64_t BOOL = 8;
+constexpr int64_t U16 = 9;
+constexpr int64_t U32 = 10;
+constexpr int64_t F8E4M3 = 11;   // float8_e4m3fn
+constexpr int64_t F8E5M2 = 12;   // float8_e5m2
 
-__host__ __device__ __forceinline__ bool is_int(int64_t dt) { return dt >= I8; }
+// Bytes of an element of a dtype code.
+__host__ __device__ __forceinline__ int elem_size(int64_t dt) {
+  switch (dt) {
+    case F32: case I32: case U32: return 4;
+    case BF16: case F16: case I16: case U16: return 2;
+    case I64: return 8;
+    default: return 1;
+  }
+}
 
 struct DimMap {
   int64_t tile;   // tile factor of the logical dim (1 when untiled)

@@ -17,9 +17,11 @@ tensor it launches its kernel or raises; on a meta tensor the dry run
 (an active ``launch.op_cost.OpCost``) takes the plain version's shapes
 and counts the call as one op (:func:`repro_torch.launch.op_cost.one_op`),
 and elsewhere a meta tensor raises.  Kernel 2 runs float32, bfloat16
-and float16 streams, kernel 3 those and int8, uint8, int16, int32 and int64
-streams (a :class:`StreamedDatapath` hands an integer stream to kernel 3);
-a scale, bias or weight is a scalar or a vector over the last logical axis.
+and float16 streams, kernel 3 those and int8, uint8, int16, uint16, int32,
+uint32, int64, bool, float8_e4m3fn and float8_e5m2 streams (a
+:class:`StreamedDatapath` hands every other stream to kernel 3), at any
+logical rank whose leading axes fold to 8 or fewer; a scale, bias or weight
+is a scalar or a vector over the last logical axis.
 """
 from __future__ import annotations
 
@@ -41,13 +43,17 @@ __all__ = ["StreamedDatapath", "BlockDatapath", "STREAMED", "BLOCK",
 
 
 # -- shared: constants of value stages ----------------------------------------
-def _column_const(value: Any, n: int, dtype: torch.dtype, device
+def _column_const(value: Any, n: int, dtype: torch.dtype, device,
+                  floats: Optional[bool] = None
                   ) -> Tuple[float, Optional[torch.Tensor]]:
     """A scale / bias / weight constant cast to ``dtype`` (jnp's rule), as
-    (scalar, None) or (0.0, vector over the last axis on ``device``): f32
-    for a float stream, int64 for an integer one (kernel 3's carriers)."""
+    (scalar, None) or (0.0, vector over the last axis on ``device``) in
+    kernel 3's carrier: f32 where ``floats`` (default: a float stream),
+    int64 otherwise."""
     c = P.as_tensor(value).to(dtype)
-    wide = torch.float32 if dtype.is_floating_point else torch.int64
+    if floats is None:
+        floats = dtype.is_floating_point
+    wide = torch.float32 if floats else torch.int64
     if c.numel() == 1:
         return float(c.reshape(()).to(wide)), None
     if c.numel() == n and all(s == 1 for s in c.shape[:-1]):
@@ -136,9 +142,9 @@ class StreamedDatapath:
     A chain of more than ``_MAX_OPS`` ops runs as several launches of
     ``_MAX_OPS`` ops or fewer, joined by row-major buffers in the stream
     dtype of the point between them: every op rounds to that dtype, so the
-    buffers lose nothing.  An integer stream (an integer input, or a Cast to
-    an integer dtype) runs on kernel 3, which moves integer words and does
-    integer arithmetic."""
+    buffers lose nothing.  A stream the kernel does not run (an integer,
+    bool or float8 input, or a Cast to such a dtype) runs on kernel 3, which
+    moves their words and does their arithmetic."""
 
     def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
                  dst_layout: L.Layout, in_shape: Sequence[int],
@@ -156,7 +162,7 @@ class StreamedDatapath:
                   for k in range(len(ops) + 1)]
         self._block: Optional[BlockDatapath] = None
         self._parts: Optional[List[StreamedDatapath]] = None
-        if not all(d.is_floating_point for d in dtypes):
+        if not all(d in maps.DTYPE_CODES for d in dtypes):
             self._block = BlockDatapath(self.chain, src_layout, dst_layout,
                                         in_shape, in_dtype)
         elif len(ops) > _MAX_OPS:
@@ -249,11 +255,6 @@ _MODE_OUT, _MODE_STAT, _MODE_MASK = 0, 1, 2
 # the rank-2 path: OUT through f32, STAT, MASK, REDUCE, OUT copying words
 _MODE_OUT2, _MODE_STAT2, _MODE_MASK2, _MODE_REDUCE2, _MODE_COPY2 = range(3, 8)
 _VALUE_CODES = (_ST_SCALE, _ST_BIAS, _ST_RMSNORM, _ST_DECOMPRESS)
-# a failed gather's fill word (jnp.take): NaN, or the integer's min / max
-_FILL_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC0,
-              torch.float16: 0x7E00, torch.int8: 0x80, torch.uint8: 0xFF,
-              torch.int16: 0x8000, torch.int32: 0x80000000,
-              torch.int64: -2 ** 63}
 _REDUCE_STRIP = 64          # csrc SW: columns per reduce block
 _REDUCE_BLOCKS = 512        # reduce blocks to aim for: about 4 an SM of an H100
 _PER_THREAD = 4             # csrc PER_THREAD: generic OUT elements a thread
@@ -326,6 +327,7 @@ class _St:
     vec: Optional[torch.Tensor] = None
     index: Optional[torch.Tensor] = None   # GATHER indices
     mask_of: int = -1                      # DECOMPRESS: its COMPRESS stage
+    floats: bool = True                    # its values travel as f32
 
     @property
     def is_reduce(self) -> bool:
@@ -397,9 +399,10 @@ def rank2_path(seg: Sequence["_St"], src_rank: int, src_dtype: torch.dtype,
     (a gather of a leading axis composes into that axis's index vector; a
     final ReduceStage may drop its rows), one stream dtype, a ReduceStage
     only last, and no gather after a stage that reads its coordinate (the
-    stage's coordinate is then the pass's, swapped or not); on an integer
-    stream, only stages that move words (its copy).  With ``dst_layout``,
-    a destination that pads a leading axis goes to the generic path."""
+    stage's coordinate is then the pass's, swapped or not); on a stream
+    other than float32, bfloat16 and float16, only stages that move words
+    (its copy).  With ``dst_layout``, a destination that pads a leading
+    axis goes to the generic path."""
     if not 2 <= src_rank <= _XR:
         return False
     for i, st in enumerate(seg):
@@ -407,7 +410,7 @@ def rank2_path(seg: Sequence["_St"], src_rank: int, src_dtype: torch.dtype,
         if (len(st.in_shape) != src_rank or st.dtype != src_dtype
                 or len(st.out_shape) != src_rank - drops_rows):
             return False
-    if not src_dtype.is_floating_point and any(
+    if src_dtype not in maps.DTYPE_CODES and any(
             st.code not in (_ST_CAST, _ST_TRANSPOSE, _ST_GATHER) for st in seg):
         return False
     if any(st.is_reduce for st in seg[:-1]):
@@ -432,11 +435,19 @@ class BlockDatapath:
     intermediate): a statistics pass per RMSNorm, a mask pass per Compress,
     then the output pass.  Each segment takes the rank-2 path where
     :func:`rank2_path` allows it, else the generic path; ``BLOCK.paths``
-    counts the launches of each.  A chain is also cut where its stream
-    changes between float and integer, so that a launch carries its values
-    in one type (f32 or int64).  ``GatherScatter`` follows ``jnp.take``:
-    negative indices count from the end, and an index outside ``[-n, n)``
-    yields NaN (an integer stream: its dtype's min, or max if unsigned)."""
+    counts the launches of each.  A chain is also cut where its values
+    change carrier, so that a launch carries them in one type: f32 for a
+    float stream (float8 included) and int64 for an integer one; a bool
+    stream stays in the carrier of the stream it came from (a Cast from a
+    float keeps f32, where ``x != 0`` is the cast).  ``GatherScatter``
+    follows ``jnp.take``: negative indices count from the end, and an index
+    outside ``[-n, n)`` yields the words of ``plugins.FILL_BITS`` (NaN, an
+    integer's min, or max if unsigned, True).
+
+    A logical rank above 8 runs folded (:func:`fold_axes`): its adjacent
+    leading axes that both layouts keep contiguous and untiled and that no
+    stage names become one, and an inner program of rank 8 or less runs on
+    the same buffers reshaped."""
 
     def __init__(self, chain: Sequence[P.Plugin], src_layout: L.Layout,
                  dst_layout: L.Layout, in_shape: Sequence[int],
@@ -447,10 +458,24 @@ class BlockDatapath:
         self.logical = src_layout.logical_shape(self.in_shape)
         self._prepared: Dict[Any, List[_St]] = {}
         self._composed: Dict[Any, _Composed] = {}
+        self._inner: Optional[BlockDatapath] = None
+        if len(self.logical) > _XR:
+            groups = fold_axes(self.chain, src_layout, dst_layout,
+                               self.logical)
+            if len(groups) <= _XR:
+                self._inner = BlockDatapath(
+                    _folded_chain(self.chain, self.logical, groups),
+                    src_layout, dst_layout,
+                    src_layout.physical_shape(_fold(self.logical, groups)),
+                    in_dtype)
 
     # -- compile --------------------------------------------------------------
     def _compile(self, device) -> List[_St]:
+        """The stage list (of the folded program for a rank above 8)."""
+        if self._inner is not None:
+            return self._inner._compile(device)
         shape, dtype = tuple(self.logical), self.in_dtype
+        floats = _float_carried(dtype, False)
         stages: List[_St] = []
         compressed = -1                       # stage index of a pending Compress
         for p in self.chain:
@@ -459,14 +484,15 @@ class BlockDatapath:
             if compressed >= 0 and not isinstance(p, P.Decompress):
                 raise ValueError(f"{p.name!r} cannot follow a Compress; only "
                                  "Decompress takes a CTensor")
-            st = _St(code=0, dtype=dtype, in_shape=shape)
+            st = _St(code=0, dtype=dtype, in_shape=shape, floats=floats)
             n = shape[-1]
             if isinstance(p, P.Cast):
                 st.code, st.dtype = _ST_CAST, p.dtype
+                st.floats = _float_carried(p.dtype, floats)
             elif isinstance(p, (P.Scale, P.BiasAdd)):
                 st.code = _ST_SCALE if isinstance(p, P.Scale) else _ST_BIAS
                 value = p.alpha if isinstance(p, P.Scale) else p.bias
-                st.a, st.vec = _column_const(value, n, dtype, device)
+                st.a, st.vec = _column_const(value, n, dtype, device, floats)
             elif isinstance(p, P.RMSNormPlugin):
                 st.code, st.a = _ST_RMSNORM, float(p.eps)
                 if p.weight is not None:
@@ -496,13 +522,17 @@ class BlockDatapath:
                 st.keepdims = int(p.keepdims)
                 if p.op == "sum":           # jnp.sum widens narrow integers
                     st.dtype = P._sum_dtype(dtype)
+                    st.floats = _float_carried(st.dtype, floats)
             else:
                 raise ValueError(f"{p.name!r} has no block-datapath stage")
             shape = st.out_shape = tuple(p.out_logical_shape(shape))
-            dtype = st.dtype
+            dtype, floats = st.dtype, st.floats
             if not 2 <= len(shape) <= _XR or len(st.in_shape) > _XR:
                 raise NotImplementedError(
-                    f"the block kernel runs logical ranks 2..{_XR}")
+                    f"the block kernel runs logical ranks 2..{_XR}, and this "
+                    f"chain's leading axes do not fold to that "
+                    f"({len(self.logical)} axes in: a stage names an axis, "
+                    f"or a layout tiles, pads or permutes it)")
             stages.append(st)
         maps.dtype_code(self.in_dtype, True)  # raises on a dtype the kernel
         for st in stages:                     # does not run
@@ -511,13 +541,18 @@ class BlockDatapath:
 
     def _segments(self, stages: List[_St]) -> List[Tuple[int, int]]:
         """Stage ranges of the launch segments: at most one ReduceStage and
-        at most ``_XS`` stages each, and one carrier: a stage whose stream
-        turns between float and integer starts a segment."""
+        at most ``_XS`` stages each, and one carrier: a stage whose values
+        change carrier starts a segment.  A stage that makes a bool or
+        float8 value in the f32 carrier ends its segment: the store rounds
+        it (the kernel's stages round to f32 / bf16 / f16 only), and a
+        float8 sum runs in the output pass alone, in the reference's
+        order."""
         segs, lo, has_reduce = [], 0, False
         for s, st in enumerate(stages):
-            crosses = s > lo and (st.dtype.is_floating_point
-                                  != stages[s - 1].dtype.is_floating_point)
-            if (st.is_reduce and has_reduce) or s - lo == _XS or crosses:
+            prev = stages[s - 1] if s > lo else None
+            if prev is not None and (st.floats != prev.floats
+                                     or _rounded_by_store(prev)) \
+                    or (st.is_reduce and has_reduce) or s - lo == _XS:
                 segs.append((lo, s))
                 lo, has_reduce = s, False
             has_reduce = has_reduce or st.is_reduce
@@ -566,8 +601,8 @@ class BlockDatapath:
         for i, k in enumerate(value):
             a.value[i] = k
         a.in_dtype = maps.dtype_code(src_dtype, True)
-        a.carrier = int(not (stages[hi - 1].dtype if hi > lo
-                             else src_dtype).is_floating_point)
+        a.carrier = int(not (stages[hi - 1].floats if hi > lo
+                             else _float_carried(src_dtype, False)))
         a.nlead = len(src_logical) - 2
         for d, e in enumerate(src_logical[:-2]):
             a.lext[d] = e
@@ -709,7 +744,7 @@ class BlockDatapath:
                           st.in_shape[-2] // st.block_rows
                           if st.code == _ST_DECOMPRESS else 0)
         a.dtype = maps.dtype_code(x.dtype, True)
-        a.fill_bits = _FILL_BITS[x.dtype]
+        a.fill_bits = P.fill_word(x.dtype)
         return a
 
     def _launch_rank2(self, stages, lo, hi, x, src_layout, dst_layout,
@@ -780,6 +815,9 @@ class BlockDatapath:
     def launch(self, x: torch.Tensor):
         """Launch kernel 3's passes on ``x``'s device and stream."""
         x = _check_input(x, self.in_shape, self.in_dtype)
+        if self._inner is not None:
+            return self._unfold(self._inner.launch(
+                x.reshape(self._inner.in_shape)))
         key = (x.device.type, x.device.index)
         stages = self._prepared.get(key)
         if stages is None:
@@ -804,3 +842,104 @@ class BlockDatapath:
         if compress and not any(st.mask_of == compress[-1] for st in stages):
             return P.CTensor(values=v, mask=aux[compress[-1]])
         return v
+
+    def _unfold(self, v):
+        """The folded program's output in this program's shapes."""
+        out = P.chain_out_shape(self.chain, self.logical)
+        if isinstance(v, P.CTensor):
+            return P.CTensor(
+                values=self._unfold(v.values),
+                mask=v.mask.reshape(tuple(out[:-2]) + v.mask.shape[-1:]))
+        return v.reshape(self.dst_layout.physical_shape(out))
+
+
+def _rounded_by_store(st: _St) -> bool:
+    """Whether kernel 3 leaves ``st``'s value to the store to round: a bool
+    or float8 made in the f32 carrier by a value stage or a sum."""
+    return (st.floats and st.dtype in (torch.bool,) + P._FLOAT8
+            and (st.changes_value or st.code == _ST_REDUCE_SUM))
+
+
+# -- logical ranks above 8: leading axes folded -------------------------------
+def _float_carried(dtype: torch.dtype, floats: bool) -> bool:
+    """Whether kernel 3 carries a ``dtype`` stream as f32 (else int64); a
+    bool stream stays in ``floats``, its source stream's carrier."""
+    return floats if dtype == torch.bool else dtype.is_floating_point
+
+
+def _layout_reach(layout: L.Layout, rank: int) -> int:
+    """The first logical axis of a rank-``rank`` array that ``layout``
+    tiles, pads or permutes (its physical dims are its logical axes in
+    order, each plain, before that axis)."""
+    k = layout.tile_rank
+    reach = rank - k
+    if layout.pad is not None:
+        reach = min(reach, rank - len(layout.pad))
+    if layout.perm is not None and len(layout.perm) > 2 * k:
+        reach = min(reach, rank + k - len(layout.perm))
+    return reach
+
+
+def _leading(chain: Sequence[P.Plugin], logical: Sequence[int]) -> int:
+    """The axes ``[0, n)`` that are leading at every stage of the chain (a
+    ReduceStage without keepdims drops the rows: the axis before them
+    becomes the rows after it); they keep their numbers throughout."""
+    shape, lead = tuple(logical), len(logical) - 2
+    for p in chain:
+        shape = tuple(p.out_logical_shape(shape))
+        lead = min(lead, len(shape) - 2)
+    return lead
+
+
+def fold_axes(chain: Sequence[P.Plugin], src_layout: L.Layout,
+              dst_layout: L.Layout, logical: Sequence[int]
+              ) -> List[List[int]]:
+    """The logical axes of a chain's input grouped for folding, in order:
+    adjacent leading axes join a group where both are leading at every
+    stage, no stage names either (a gather's axis; a Transpose's and a
+    ReduceStage's are the last two) and both layouts keep both plain,
+    unpadded and in order.  A group of several axes is one axis of their
+    extents' product, their row-major index: a layout maps it as it maps
+    the pair, so the buffers keep their bytes."""
+    rank, shape, named = len(logical), tuple(logical), set()
+    for p in chain:
+        if isinstance(p, P.GatherScatter):
+            named.add(p.axis % len(shape))
+        shape = tuple(p.out_logical_shape(shape))
+    keep = min(_leading(chain, logical), _layout_reach(src_layout, rank),
+               _layout_reach(dst_layout, len(shape)))
+
+    def plain(d):
+        return (d < keep and d not in named
+                and not src_layout.dim_pad(rank, d)
+                and not dst_layout.dim_pad(len(shape), d))
+
+    groups: List[List[int]] = []
+    for d in range(rank):
+        if groups and plain(d) and plain(groups[-1][-1]):
+            groups[-1].append(d)
+        else:
+            groups.append([d])
+    return groups
+
+
+def _fold(shape: Sequence[int], groups: Sequence[Sequence[int]]
+          ) -> Tuple[int, ...]:
+    return tuple(math.prod(shape[d] for d in g) for g in groups)
+
+
+def _folded_chain(chain: Sequence[P.Plugin], logical: Sequence[int],
+                  groups: Sequence[Sequence[int]]) -> Tuple[P.Plugin, ...]:
+    """The chain on the folded axes: a gather of a leading axis names its
+    group, any other axis counts from the end."""
+    group_of = {g[0]: i for i, g in enumerate(groups) if len(g) == 1}
+    lead = _leading(chain, logical)
+    out, shape = [], tuple(logical)
+    for p in chain:
+        if isinstance(p, P.GatherScatter):
+            a = p.axis % len(shape)
+            axis = group_of[a] if a < lead else a - len(shape)
+            p = dataclasses.replace(p, axis=axis)
+        out.append(p)
+        shape = tuple(p.out_logical_shape(shape))
+    return tuple(out)

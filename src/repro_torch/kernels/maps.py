@@ -23,22 +23,30 @@ __all__ = ["DimMap", "dim_maps", "physical_dims",
            "tile2", "run_axis", "fit_to"]
 
 # dtype codes shared with csrc/xdma_common.cuh: the float streams every
-# kernel runs, and the integer streams kernel 3 runs as well
+# kernel runs, and the streams kernel 3 runs as well (integers, bool,
+# float8: every stream the reference's datapath takes)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 INT_CODES = {torch.int8: 3, torch.uint8: 4, torch.int16: 5, torch.int32: 6,
-             torch.int64: 7}
+             torch.int64: 7, torch.bool: 8, torch.uint16: 9,
+             torch.uint32: 10, torch.float8_e4m3fn: 11,
+             torch.float8_e5m2: 12}
 
 
 def dtype_code(dtype: torch.dtype, integers: bool = False) -> int:
-    """The dtype's code; integer dtypes only where ``integers`` (kernel 3)."""
+    """The dtype's code; the codes of :data:`INT_CODES` only where
+    ``integers`` (kernel 3)."""
     code = DTYPE_CODES.get(dtype)
     if code is None and integers:
         code = INT_CODES.get(dtype)
     if code is None:
         kinds = "float32/bfloat16/float16" + (
-            " and int8/uint8/int16/int32/int64" if integers else "")
+            ", int8/uint8/int16/int32/int64, uint16/uint32, bool and "
+            "float8_e4m3fn/float8_e5m2" if integers else "")
+        why = (": the reference has no float64 stream (JAX runs with x64 "
+               "off and takes a float64 array as float32)"
+               if dtype == torch.float64 else "")
         raise NotImplementedError(f"the kernel runs {kinds} streams, not "
-                                  f"{dtype}")
+                                  f"{dtype}{why}")
     return code
 
 

@@ -20,8 +20,9 @@ an all-gather of one-hop ``multicast_axis`` transfers rebuilds the sequence.
 ``autograd.Function`` whose forward is the ``xdma.transfer`` it always was
 and whose backward is the transpose ``jax.vjp`` takes through the
 reference's ``shard_map`` body: an all-to-all's is the mirrored
-all-to-all (with the int8 wire only the scales carry a gradient: the
-values are integers), a ``reduce``'s is a ``reduce``, the ring
+all-to-all (with the int8 wire only the scales carry a gradient, the
+values being integers, so the mirrored all-to-all moves the scales'
+cotangent, one f32 a row), a ``reduce``'s is a ``reduce``, the ring
 all-gather's is this rank's block of the (replicated) output's gradient.
 The inputs enter as ``shard_map`` hands them in: ``x``, the router and
 replicated experts sum their gradient over the model axis
@@ -42,6 +43,7 @@ CPU give the same bits.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -220,15 +222,11 @@ def _a2a_desc(axis: str, split_axis: int, concat_axis: int) -> XDMADescriptor:
                                                   concat_axis=concat_axis))
 
 
-def _quantize_vjp(x, g):
-    """``x``'s gradient through ``Dequantize(Quantize(x))`` for the output's
-    cotangent ``g``, as ``jax.vjp`` takes it: through the scales only (the
-    int8 values are integers), each row's ``amax / 127`` reaching its
-    largest |x|, shared among ties."""
+def _amax_vjp(x, ds):
+    """``x``'s gradient through ``Quantize``'s scales for their cotangent
+    ``ds`` (one f32 a row), as ``jax.vjp`` takes it: each row's ``amax /
+    127`` reaching its largest |x|, shared among ties."""
     xf = x.to(torch.float32)
-    q = XP.Quantize()(x)
-    ds = (q.values.to(torch.float32) * g.to(torch.float32)).sum(
-        -1, keepdim=True)
     ax = xf.abs()
     amax = ax.amax(-1, keepdim=True)
     at = (ax == amax).to(torch.float32)
@@ -237,11 +235,57 @@ def _quantize_vjp(x, g):
             ).to(x.dtype)
 
 
+def _row_dot(q, g):
+    """``sum(q * g)`` over each row, in f32, as (..., 1)."""
+    return (q.to(torch.float32) * g.to(torch.float32)).sum(-1, keepdim=True)
+
+
+def _scales_vjp(y, g):
+    """The cotangent of the scales the int8 wire delivered, on the side that
+    dequantized them into ``y``: ``sum(q * g)`` over each row (the int8
+    values ``q`` carry none).  ``q`` is recovered from ``y``: a row with a
+    nonzero scale ``s`` holds a value of +-127 (its amax), so ``|y|``'s row
+    maximum is ``127 s`` rounded as ``y`` is, and ``round(127 y / max|y|)``
+    is ``q``: in bf16 each of the two is off by at most 2^-9 relative, which
+    moves the quotient by at most 127 * 2^-8 < 0.497; in f16 and f32 (in
+    their normal range) by less."""
+    yf = y.to(torch.float32)
+    top = yf.abs().amax(-1, keepdim=True)
+    q = torch.where(top > 0, torch.round(yf * 127.0 / top),
+                    torch.zeros_like(yf))
+    return _row_dot(q, g)
+
+
+def _quantize_vjp(x, g):
+    """The plain version of the int8 wire's backward: ``x``'s gradient
+    through ``Dequantize(Quantize(x))`` for the output's whole cotangent
+    ``g``, moved back to the source side first (the bytes of ``g`` on the
+    wire, where the kernel path moves one f32 a row)."""
+    return _amax_vjp(x, _row_dot(XP.Quantize()(x).values, g))
+
+
+_PLAIN_WIRE_BACKWARD = False
+
+
+@contextlib.contextmanager
+def plain_wire_backward():
+    """Within it, the int8 wire's backward moves the whole cotangent and
+    takes :func:`_quantize_vjp` (the plain version it is held to)."""
+    global _PLAIN_WIRE_BACKWARD
+    _PLAIN_WIRE_BACKWARD = True
+    try:
+        yield
+    finally:
+        _PLAIN_WIRE_BACKWARD = False
+
+
 class _PlaneA2A(torch.autograd.Function):
     """Task ``i`` of the dispatch queue, an all-to-all (split ``s``, concat
     ``c``).  The backward is the mirrored all-to-all (split ``c``, concat
-    ``s``) of the cotangent, then, where the wire carries the int8 codec,
-    the codec's own gradient on the source side."""
+    ``s``) of the cotangent; where the wire carries the int8 codec, of the
+    scales' cotangent alone (:func:`_scales_vjp`, on this side, where the
+    Dequantize ran), whose source side then takes the codec's own gradient
+    (:func:`_amax_vjp`), as the reference's transpose does."""
 
     @staticmethod
     def forward(ctx, x, queue, i):
@@ -249,16 +293,21 @@ class _PlaneA2A(torch.autograd.Function):
         ep = desc.remote
         ctx.back = _a2a_desc(ep.axis, ep.concat_axis, ep.split_axis)
         ctx.wire = any(isinstance(pl, XP.Quantize) for pl in desc.pre)
+        y = queue.run_task(x, i)
         if ctx.wire:
-            ctx.save_for_backward(x)
-        return queue.run_task(x, i)
+            ctx.save_for_backward(x, y)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        g = xdma.transfer(g.contiguous(), ctx.back)
-        if ctx.wire:
-            g = _quantize_vjp(ctx.saved_tensors[0], g)
-        return g, None, None
+        if not ctx.wire:
+            return xdma.transfer(g.contiguous(), ctx.back), None, None
+        x, y = ctx.saved_tensors
+        if _PLAIN_WIRE_BACKWARD:
+            g = xdma.transfer(g.contiguous(), ctx.back)
+            return _quantize_vjp(x, g), None, None
+        ds = xdma.transfer(_scales_vjp(y, g.contiguous()), ctx.back)
+        return _amax_vjp(x, ds), None, None
 
 
 @functools.lru_cache(maxsize=None)

@@ -20,6 +20,7 @@ import re  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
@@ -394,11 +395,13 @@ def test_fault1_cases_compile_for_the_kernels(name):
         assert len(floats) <= 1, "a launch carries one kind of value"
 
 
-def test_kernels_refuse_integer_streams():
-    """The kernels no longer refuse integer streams: the int8 gather is
-    bitwise the reference's ``compiled`` backend, on kernel 3's rank-2 path
-    (a word copy).  They still refuse dtypes they do not run (bool,
-    float64)."""
+def test_kernels_refuse_integer_streams(monkeypatch):
+    """The kernels refuse no stream the reference's datapath takes: the
+    int8 gather and a bool transpose are bitwise the reference's
+    ``compiled`` backend, each on kernel 3's rank-2 path (a word copy, here
+    emulated over the arguments the host prepares).  float64, of which the
+    reference has no stream (JAX runs with x64 off), is still refused, and
+    the refusal says so."""
     ref, desc, xin = _fault1("gather_int8")
     want = rx.transfer(jnp.asarray(xin), ref)
     got = px.transfer(to_torch(xin), desc)
@@ -407,11 +410,20 @@ def test_kernels_refuse_integer_streams():
     stages = prog._compile("cpu")
     assert [DP.rank2_path(stages[lo:hi], 2, torch.int8)
             for lo, hi in prog._segments(stages)] == [True]
-    for dtype in (torch.bool, torch.float64):
-        prog = DP.BlockDatapath((PP.Transpose(),), PL.MN, PL.MN, (16, 32),
-                                dtype)
-        with pytest.raises(NotImplementedError, match="float32"):
-            prog._compile("cpu")
+    xb = np.random.default_rng(5).random((16, 32)) < 0.5
+    ref = RC.describe("MN", "MN", RP.Transpose(), backend="compiled")
+    want = rx.transfer(jnp.asarray(xb), ref)
+    assert_same_payload(px.transfer(to_torch(xb), port_desc(ref)), want)
+    emu = _Emulated(_emulate_block)
+    monkeypatch.setattr(DP, "BLOCK", emu)
+    prog = DP.BlockDatapath((PP.Transpose(),), PL.MN, PL.MN, (16, 32),
+                            torch.bool)
+    assert_same_payload(prog.launch(to_torch(xb)), want)
+    assert emu.paths == {"rank2": 1}
+    prog = DP.BlockDatapath((PP.Transpose(),), PL.MN, PL.MN, (16, 32),
+                            torch.float64)
+    with pytest.raises(NotImplementedError, match="no float64 stream"):
+        prog._compile("cpu")
 
 
 def test_gather_follows_jnp_take_out_of_range():
@@ -424,10 +436,20 @@ def test_gather_follows_jnp_take_out_of_range():
 
 # -- kernel emulators: the CUDA arithmetic over the same memory ----------------
 _F32, _BF16, _F16 = 0, 1, 2
-_SIZE = {_F32: 4, _BF16: 2, _F16: 2}
+_CODE_DTYPE = {code: dt for dt, code in {**DP.maps.DTYPE_CODES,
+                                         **DP.maps.INT_CODES}.items()}
+_SIZE = {code: dt.itemsize for code, dt in _CODE_DTYPE.items()}
+_BOOL = DP.maps.INT_CODES[torch.bool]
+_FLOAT8 = {DP.maps.INT_CODES[torch.float8_e4m3fn]: ml_dtypes.float8_e4m3fn,
+           DP.maps.INT_CODES[torch.float8_e5m2]: ml_dtypes.float8_e5m2}
+# the integer codes' (bits, signed)
+_INT_RANGE = {DP.maps.INT_CODES[dt]: (8 * dt.itemsize, dt.is_signed)
+              for dt in DP.maps.INT_CODES
+              if not dt.is_floating_point and dt != torch.bool}
 
 
 def _round(v, dt):
+    """``round_c`` in the f32 carrier."""
     v = np.float32(v)
     if dt == _BF16:
         b = np.array([v], np.float32).view(np.uint32)
@@ -436,26 +458,64 @@ def _round(v, dt):
         return b.view(np.float32)[0]
     if dt == _F16:
         return np.float32(np.float16(v))
+    if dt in _FLOAT8:
+        return np.float32(np.array(v).astype(_FLOAT8[dt]))
+    if dt == _BOOL:
+        return np.float32(1.0 if v != 0 else 0.0)
     return v
+
+
+def _wrap(v, dt):
+    """``wrap_to``: an int64 carrier value in the width of dtype code
+    ``dt``."""
+    if dt == _BOOL:
+        return int(v != 0)
+    width, signed = _INT_RANGE[dt]
+    v = int(v) % (1 << width)
+    return v - (1 << width) if signed and v >> (width - 1) else v
 
 
 def _at(ctype, addr):
     return ctype.from_address(int(addr))
 
 
-def _load(addr, i, dt):
+def _load(addr, i, dt, ints=False):
+    """``from_raw``: element ``i`` of dtype code ``dt`` at ``addr`` in the
+    f32 carrier, or with ``ints`` the int64 one (a float toward zero)."""
+    n = _SIZE[dt]
+    word = int.from_bytes(ctypes.string_at(int(addr) + n * i, n), "little")
     if dt == _F32:
-        return np.float32(_at(ctypes.c_float, addr + 4 * i).value)
-    raw = _at(ctypes.c_uint16, addr + 2 * i).value
-    if dt == _BF16:
-        return np.array([raw << 16], np.uint32).view(np.float32)[0]
-    return np.float32(np.array([raw], np.uint16).view(np.float16)[0])
+        f = np.array([word], np.uint32).view(np.float32)[0]
+    elif dt == _BF16:
+        f = np.array([word << 16], np.uint32).view(np.float32)[0]
+    elif dt == _F16:
+        f = np.float32(np.array([word], np.uint16).view(np.float16)[0])
+    elif dt in _FLOAT8:
+        f = np.float32(np.array([word], np.uint8).view(_FLOAT8[dt])[0])
+    else:
+        width, signed = _INT_RANGE.get(dt, (8, False))     # bool: 0 or 1
+        v = word - (1 << width) if signed and word >> (width - 1) else word
+        return v if ints else np.float32(v)
+    if not ints:
+        return np.float32(f)
+    return -2 ** 63 if not abs(f) < 2.0 ** 63 else int(np.trunc(f))
 
 
 def _store_all(addr, values, dt):
-    t = torch.from_numpy(np.asarray(values, np.float32))
-    t = t.to({_F32: torch.float32, _BF16: torch.bfloat16,
-              _F16: torch.float16}[dt]).contiguous()
+    """``store_group`` of every element: f32 carrier values rounded to dtype
+    code ``dt`` (a float8 NaN as ``plugins.FILL_BITS`` spells it), or int64
+    ones already in its range."""
+    values = np.asarray(values)
+    target = _CODE_DTYPE[dt]
+    if values.dtype == np.int64:
+        t = torch.from_numpy(values.copy()).to(target)
+    else:
+        f = torch.from_numpy(np.asarray(values, np.float32))
+        t = f.to(target)
+        if dt in _FLOAT8:
+            t = t.view(torch.int8).masked_fill(
+                f.isnan(), PP.fill_word(target)).view(target)
+    t = t.contiguous()
     ctypes.memmove(addr, t.data_ptr(), t.numel() * t.element_size())
 
 
@@ -492,7 +552,27 @@ class _BlockEmu:
 
     def __init__(self, a, src):
         self.a, self.src = a, src
-        assert a.carrier == 0, "the emulator runs float streams"
+        self.ints = a.carrier == 1          # the int64 carrier, else f32
+
+    def rnd(self, v, dt):
+        """``round_c``: the f32 carrier leaves a bool or float8 value to
+        the store (the host ends the launch at its stage)."""
+        if self.ints:
+            return _wrap(v, dt)
+        return v if dt == _BOOL or dt in _FLOAT8 else _round(v, dt)
+
+    def konst(self, st, j):
+        if self.ints:
+            return (_at(ctypes.c_int64, st.vec + 8 * j).value if st.vec
+                    else int(st.a))
+        return _f32_at(st.vec, j) if st.vec else np.float32(st.a)
+
+    def fill(self, dt):
+        """``fill_of``: jnp.take's fill in the carrier."""
+        if not self.ints:
+            return np.float32(np.nan)
+        return _load(ctypes.addressof(ctypes.c_int64(
+            PP.fill_word(_CODE_DTYPE[dt]))), 0, dt, True)
 
     def walk_back(self, lo, hi, c):
         for s in reversed([self.a.walk[w] for w in range(self.a.nwalk)]):
@@ -518,28 +598,32 @@ class _BlockEmu:
         return -1
 
     def apply(self, st, v, c):
-        vec = (lambda j: _f32_at(st.vec, j)) if st.vec else None
         if st.code == DP._ST_CAST:
-            return _round(v, st.dtype)
+            return self.rnd(v, st.dtype)
         if st.code == DP._ST_SCALE:
-            return _round(v * (vec(c[2]) if vec else np.float32(st.a)),
-                          st.dtype)
+            return self.rnd(v * self.konst(st, c[2]), st.dtype)
         if st.code == DP._ST_BIAS:
-            return _round(v + (vec(c[2]) if vec else np.float32(st.a)),
-                          st.dtype)
-        if st.code == DP._ST_RMSNORM:
-            y = np.float32(v * _f32_at(st.aux, c[0] * st.rows + c[1]))
-            if vec:
-                y = np.float32(y * vec(c[2]))
-            return _round(y, st.dtype)
+            return self.rnd(v + self.konst(st, c[2]), st.dtype)
+        if st.code == DP._ST_RMSNORM:       # in f32
+            y = np.float32(np.float32(v)
+                           * _f32_at(st.aux, c[0] * st.rows + c[1]))
+            if st.vec:
+                y = np.float32(y * _f32_at(st.vec, c[2]))
+            if self.ints:
+                y = -2 ** 63 if not abs(y) < 2.0 ** 63 else int(np.trunc(y))
+            return self.rnd(y, st.dtype)
         assert st.code == DP._ST_DECOMPRESS
         m = c[0] * st.nb + c[1] // st.block_rows
         keep = _at(ctypes.c_uint8, st.aux + m).value != 0
-        return _round(v * np.float32(1.0 if keep else 0.0), st.dtype)
+        one = int(keep) if self.ints else np.float32(1.0 if keep else 0.0)
+        return self.rnd(v * one, st.dtype)
 
     def apply_forward(self, lo, hi, c, fill, v):
         """The value stages of [lo, hi) after the fill stage, in order."""
         for s in [self.a.value[w] for w in range(self.a.nvalue)]:
+            dt = self.a.st[s].dtype
+            assert self.ints or not (dt == _BOOL or dt in _FLOAT8) \
+                or s == self.a.nstages - 1, "a narrow value before the store"
             if lo <= s < hi and s > fill:
                 cs = list(c)
                 assert self.walk_back(s + 1, hi, cs) < 0
@@ -560,9 +644,10 @@ class _BlockEmu:
         cw = list(c)
         fill = self.walk_back(0, k, cw)
         if fill >= 0:
-            v = np.float32(np.nan)
+            v = self.fill(self.a.st[fill].dtype)
         else:
-            v = _load(self.src, self.src_offset(cw), self.a.in_dtype)
+            v = _load(self.src, self.src_offset(cw), self.a.in_dtype,
+                      self.ints)
         return self.apply_forward(0, k, c, fill, v)
 
     def eval(self, k, c):
@@ -572,20 +657,51 @@ class _BlockEmu:
         cw = list(c)
         fill = self.walk_back(R + 1, k, cw)
         if fill >= 0:
-            v = np.float32(np.nan)
+            v = self.fill(self.a.st[fill].dtype)
         else:
             st = self.a.st[R]
             lead = cw[0] if st.keepdims else cw[0] * st.out_rows + cw[1]
-            acc = np.float32(0.0) if st.code == DP._ST_REDUCE_SUM \
-                else np.float32(-np.inf)
-            for r in range(st.rows):
-                x = self.eval_plain(R, [lead, r, cw[2]])
-                if st.code == DP._ST_REDUCE_SUM:
-                    acc = np.float32(acc + x)
-                elif not (acc != acc or x <= acc):
-                    acc = x
-            v = _round(acc, st.dtype)
+            row = lambda r: self.eval_plain(R, [lead, r, cw[2]])  # noqa: E731
+            total = st.code == DP._ST_REDUCE_SUM
+            if self.ints:
+                xs = [row(r) for r in range(st.rows)]
+                acc = sum(xs) if total else max(xs, default=-2 ** 63)
+            elif total and st.dtype in _FLOAT8:
+                acc = _ordered_sum(st.rows, st.dtype, row)
+            else:
+                acc = np.float32(0.0 if total else -np.inf)
+                for r in range(st.rows):
+                    x = row(r)
+                    if total:
+                        acc = np.float32(acc + x)
+                    elif not (acc != acc or x <= acc):
+                        acc = x
+            v = self.rnd(acc, st.dtype)
         return self.apply_forward(R + 1, k, c, fill, v)
+
+
+def _ordered_sum(n, dt, row):
+    """``ordered_sum``: a float8 sum in the reference's order, one thread
+    walking the rows and closing each window of 32 as its last row passes
+    (each addition rounded to float8)."""
+    ext, low, m = [], [], n
+    while m >= 32:
+        k = -(-m // 32)
+        ext.append(m)
+        low.append((k * 32 - m) // 2)
+        m = k
+    acc = [np.float32(0.0)] * (len(ext) + 1)
+    for i in range(n):
+        acc[0] = _round(acc[0] + row(i), dt)
+        e = i
+        for j in range(len(ext)):
+            w = e + low[j]
+            if e != ext[j] - 1 and w % 32 != 31:
+                break
+            acc[j + 1] = _round(acc[j + 1] + acc[j], dt)
+            acc[j] = np.float32(0.0)
+            e = w // 32
+    return acc[-1]
 
 
 # -- kernel 3's rank-2 path, vectorized over the pass's space ------------------
@@ -706,7 +822,6 @@ def _pass_values(a, stages, src, src_base, lead_code):
 
 
 _WORD = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
-_WORD_SIZE = {**_SIZE, 3: 1, 4: 1, 5: 2, 6: 4, 7: 8}
 
 
 def _src_top(a, leads):
@@ -729,7 +844,7 @@ def _emulate_rank2(args_addr, src, dst, mode):
     top = max(do for _, _, do, _ in leads) + span
     written = np.zeros(top, np.int64)
     if mode in (DP._MODE_COPY2, DP._MODE_OUT2):
-        n = _WORD_SIZE[a.dtype]
+        n = _SIZE[a.dtype]
         word = _WORD[n]
         raw = np.ctypeslib.as_array((ctypes.c_uint8 * (_src_top(a, leads) * n))
                                     .from_address(src)).view(word)
@@ -810,7 +925,7 @@ def _emulate_tiled(a, emu, dst):
     tc = (ec + T - 1) // T
     per = (er + T - 1) // T * tc
     assert a.total % (er * ec) == 0
-    vals = np.zeros(a.total, np.float32)
+    vals = np.zeros(a.total, np.int64 if emu.ints else np.float32)
     written = np.zeros(a.total, np.int64)
     for t in range(a.total // (er * ec) * per):
         q, rest = divmod(t, per)
@@ -846,7 +961,7 @@ def _emulate_block(args_addr, src, dst, mode):
         assert E <= DP._PER_THREAD
         if E == DP._PER_THREAD:
             assert dst % (E * _SIZE[a.out_dtype]) == 0, "an unaligned pack"
-        vals = np.zeros(a.total, np.float32)
+        vals = np.zeros(a.total, np.int64 if emu.ints else np.float32)
         for g in range(a.total // E):
             p0 = g * E
             assert not a.index32 or p0 + E <= DP._INDEX32
@@ -862,12 +977,15 @@ def _emulate_block(args_addr, src, dst, mode):
         _store_all(dst, vals, a.out_dtype)
         return
     st = a.st[k]
+    R = a.reduce_at      # the kernel's eval sums no float8 in order
+    assert not (0 <= R < k and a.st[R].code == DP._ST_REDUCE_SUM
+                and a.st[R].dtype in _FLOAT8), "a float8 sum before a pass"
     if mode == DP._MODE_STAT:
         for row in range(a.total):
             lead, i = divmod(row, st.rows)
             ss = np.float32(0.0)
             for j in range(st.cols):
-                v = emu.eval(k, [lead, i, j])
+                v = np.float32(emu.eval(k, [lead, i, j]))
                 ss = np.float32(ss + v * v)
             inv = np.float32(1.0) / np.sqrt(np.float32(
                 ss / np.float32(st.cols) + np.float32(st.a)))

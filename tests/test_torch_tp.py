@@ -284,14 +284,16 @@ def _mesh_snippet(inp, src, dst):
     ``TP_MOE_DAUX``) on the inputs saved to ``src``, and jamba's widened
     f32 config as its launcher shards it (``launch/train.py:61-73``): one
     microbatch's gradient, then 2 steps of 2 microbatches with no warmup,
-    the state they leave."""
+    the state they leave; for the int8 wire, the all-to-all bytes
+    (``repro.launch.dryrun.collective_bytes``) in the compiled HLO of the
+    vjp's program and of its forward alone."""
     flat = {}
     for name, c in inp["moe"].items():
         flat.update({f"moe/{name}/{k}": v for k, v in c["p"].items()})
         flat[f"moe/{name}/x"], flat[f"moe/{name}/dy"] = c["x"], c["dy"]
     np.savez(src, **flat)
     return f"""
-import dataclasses
+import dataclasses, os
 import jax, jax.numpy as jnp, numpy as np
 from repro import configs
 from repro.configs.base import ShapeConfig
@@ -303,6 +305,9 @@ from repro.sharding import Axes, make_mesh_compat
 from repro.train.step import init_state, loss_fn, make_train_step
 
 mesh = make_mesh_compat((2, 2), ('data', 'model'))
+flags = os.environ['XLA_FLAGS']      # the dry run sets its own on import
+from repro.launch.dryrun import collective_bytes
+os.environ['XLA_FLAGS'] = flags
 inp, out = np.load({src!r}), {{}}
 axes = Axes(batch=('data',), model='model', model_size=2, batch_size=2)
 for name, (kw, _) in {RC.TP_MOE!r}.items():
@@ -318,6 +323,14 @@ for name, (kw, _) in {RC.TP_MOE!r}.items():
         return y, aux, gp, gx
     y, aux, gp, gx = jax.jit(run)(p, inp[f'moe/{{name}}/x'],
                                   inp[f'moe/{{name}}/dy'])
+    if name == 'int8':
+        args = (p, inp[f'moe/{{name}}/x'])
+        fwd = jax.jit(lambda p, x, cfg=cfg: RMOE.moe_apply(
+            cfg, p, x, mesh=mesh)).lower(*args).compile().as_text()
+        both = jax.jit(run).lower(*args, inp[f'moe/{{name}}/dy']).compile(
+            ).as_text()
+        out['moe/int8/a2a_fwd'] = collective_bytes(fwd).get('all-to-all', 0)
+        out['moe/int8/a2a_both'] = collective_bytes(both).get('all-to-all', 0)
     out.update({{f'moe/{{name}}/y': y, f'moe/{{name}}/aux': aux,
                 f'moe/{{name}}/dx': gx}})
     for i, g in enumerate(jax.tree.leaves(gp)):
@@ -405,6 +418,8 @@ def reference_mesh(reference_runs):
         "loss": float(got["jamba/loss"]),
         "losses": [float(v) for v in got["jamba/losses"]],
         **{k: seq(f"jamba/{k}/") for k in ("grads", "params", "mu", "nu")}}}
+    ref["int8_a2a"] = {k: int(got[f"moe/int8/a2a_{k}"])
+                       for k in ("fwd", "both")}
     for name in RC.TP_MOE:
         ref["moe"][name] = {"y": got[f"moe/{name}/y"],
                             "aux": float(got[f"moe/{name}/aux"]),
@@ -489,6 +504,23 @@ def test_sharded_moe_matches_the_reference_shard_map(world, reference_mesh,
         assert len(got["grads"]) == len(want["grads"])
         for g, w in zip(got["grads"], want["grads"]):
             _close(g, w, 1e-5 * _scale(w) + 1e-7, "weight gradient")
+
+
+def test_int8_wire_backward_moves_the_reference_bytes(world, reference_mesh):
+    """The int8 MoE wire's backward moves what the reference's transpose
+    moves: the scales' cotangent, one f32 a row of each all-to-all.  The
+    port's all-to-all bytes of the vjp alone (the ``collectives`` and
+    ``wire`` ledgers around ``torch.autograd.grad``) in every rank equal the
+    all-to-all bytes of the reference's ``shard_map`` vjp on the same (2, 2)
+    mesh: those of the compiled HLO of forward and vjp less those of its
+    forward alone (``collective_bytes`` counts each all-to-all's result
+    shapes, the bytes it moves a device)."""
+    ref = reference_mesh["int8_a2a"]
+    want = ref["both"] - ref["fwd"]
+    assert want > 0
+    for rank in world:
+        assert rank["moe_int8"]["a2a_vjp"] == want, (
+            rank["moe_int8"]["a2a_vjp"], ref)
 
 
 @pytest.mark.parametrize("model", RC.TP_MODELS)

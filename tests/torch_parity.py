@@ -69,10 +69,14 @@ def bits(a) -> np.ndarray:
 
 
 def to_torch(a) -> torch.Tensor:
-    """numpy / jax array -> CPU tensor, bf16 through its uint16 view."""
+    """numpy / jax array -> CPU tensor, bf16 through its uint16 view and
+    float8 through its uint8 view (torch does not take ``ml_dtypes``)."""
     a = np.ascontiguousarray(np.asarray(a))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name in ("float8_e4m3fn", "float8_e5m2"):
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            getattr(torch, a.dtype.name))
     return torch.from_numpy(a.copy())
 
 

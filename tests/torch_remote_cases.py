@@ -486,6 +486,16 @@ def tp_opt_config(AdamWConfig, run):
     return AdamWConfig(warmup_steps=0) if run == "f32" else AdamWConfig()
 
 
+def all_to_all_bytes():
+    """This rank's all-to-all payload bytes so far: the ``collectives``
+    bank's over every axis and the movement plane's ``wire`` bank's."""
+    from repro_torch import sharding as S
+    from repro_torch.core import remote
+    return sum(v for k, v in list(S.collective_stats().items())
+               + list(remote.wire_stats().items())
+               if k.startswith("bytes:all_to_all"))
+
+
 def tp_body(mesh, inp):
     """One rank of the (2, 2) world: each sharded layer's output, input
     gradient and weight gradients (whole: gathered over the model axis,
@@ -619,14 +629,16 @@ def tp_body(mesh, inp):
         local = _pytree.unflatten(local, leaves)
         x = rows(c["x"]).requires_grad_()
         y, aux = MOE.moe_apply(cfg, local["ffn"], x, mesh=mesh)
+        before = all_to_all_bytes()
         got = torch.autograd.grad(
             [y, aux], [x] + leaves,
             [rows(c["dy"]), torch.tensor(TP_MOE_DAUX / dp)])
+        a2a_vjp = all_to_all_bytes() - before
         grads = M.gather_tree(_pytree.unflatten(local, list(got[1:])),
                               specs, mesh)
         out["moe_" + name] = {
             "y": whole_rows(y.detach()), "aux": aux.detach(),
-            "dx": whole_rows(got[0]),
+            "dx": whole_rows(got[0]), "a2a_vjp": a2a_vjp,
             "grads": [S.all_reduce(g, "data")
                       for g in _pytree.leaves(grads)]}
 

@@ -429,7 +429,11 @@ def phase4_streams(dev, gen, card, drive, pair_times):
     rank-10 cases.  Each is bitwise its plain version, each main-path case
     must launch kernel 3, and float64 is refused, naming the reason.  The
     float8 Transpose is timed beside ``transpose(-1, -2).contiguous()``
-    and its bound."""
+    and its bound, the uint32 sum beside an int32 ``sum`` (the same bits)
+    and its bound; f32 values at float8's edges cast to both float8s, and
+    a Scale on those float8 streams, are bitwise their plain versions
+    (``plugins.to_float8``: the reference's rounding past the range and of
+    NaN)."""
     from repro_torch.core import plugin_compiler
     from repro_torch.core import plugins as P
     from repro_torch.core import xdma
@@ -488,18 +492,23 @@ def phase4_streams(dev, gen, card, drive, pair_times):
         f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, "
         f"{r['bound_ms'] / r['ms']:.1%} of the bound) on {card}")
     # the uint32 sum (the generic path's int64 carrier) against its bound
+    # and one library call: an int32 sum is the same bits modulo 2^32
     xu, du = xs[2], cases[2][1]
     run_u = plugin_compiler.compile_local(du)
     y_u = run_u(xu)
+    lib_u = lambda: xu.view(torch.int32).sum(  # noqa: E731
+        -2, keepdim=True, dtype=torch.int32).view(torch.uint32)
+    assert_bitwise(lib_u(), y_u, "streams uint32 sum library yardstick")
     pair_times.append({
         "pair": "uint32 sum (generic): MN->MN + ReduceStage(sum) 8192x3072",
         "dtype": "uint32", "paths": {"generic": 1},
         "ms": gpu_ms(lambda: run_u(xu)),
         "plain_ms": gpu_ms(lambda: plain(xu, du)),
-        "library_ms": None, "bound_ms": bound_ms(nbytes(xu, y_u))})
+        "library_ms": gpu_ms(lib_u), "bound_ms": bound_ms(nbytes(xu, y_u))})
     r = pair_times[-1]
     log(f"[streams] uint32 sum 8192x3072: {r['ms']:.4f} ms (plain "
-        f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+        f"{r['plain_ms']:.4f}, library (int32 view .sum(dtype=int32)) "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, "
         f"{r['bound_ms'] / r['ms']:.1%} of the bound) on {card}")
     del xs, got, x8, y8, xu, y_u
     # every chain of the CPU tests over each stream, and the ranks above 8
@@ -530,6 +539,24 @@ def phase4_streams(dev, gen, card, drive, pair_times):
              lead + (1, 8, 16))):
         small.append((what, describe("MN", "MN", *chain, backend="compiled"),
                       torch.randn(shape, generator=gen, device=dev)))
+    # f32 at float8's edges (tests/test_torch_stream_dtypes.py's EDGES): the
+    # saturation band, past the range, the infinities, NaN of both signs,
+    # subnormals; cast to each float8, and a Scale on the float8 stream
+    edges = torch.tensor(
+        [448, -448, 449, 464, -464, 465, -465, 479, 480, 57344, 61439, 61440,
+         -61440, 1e9, math.inf, -math.inf, math.nan, 2.0 ** -9, 2.0 ** -10,
+         3 * 2.0 ** -10, 2.0 ** -17, 3 * 2.0 ** -18, -2.0 ** -16],
+        dtype=torch.float32)
+    neg_nan = torch.tensor([0xFFC00000 - 2 ** 32], dtype=torch.int32)
+    edges = torch.cat([edges, neg_nan.view(torch.float32), 4 * torch.randn(
+        8, generator=torch.Generator().manual_seed(SEED))]).reshape(2, 16)
+    for f8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+        name = str(f8)[6:]
+        small.append((f"edges cast to {name}", describe(
+            "MN", "MN", P.Cast(f8), backend="compiled"), edges.to(dev)))
+        small.append((f"edges scale {name}", describe(
+            "MN", "MN", P.Scale(1.5), backend="compiled"),
+            P.to_float8(edges, f8, cast=True).to(dev)))
     xb = torch.randn(16, 32, generator=gen, device=dev)   # zeros, NaN
     xb[::3] = 0
     xb[1, ::5] = float("nan")
@@ -1628,11 +1655,34 @@ def phase16(dev, gen, card, drive):
 EP_X = (2, 512, 2048)          # (B, S, d_model) of qwen3-moe, f32
 
 
+@contextlib.contextmanager
+def plain_wire_backward(MOE):
+    """Within it, the MoE dispatch's backward on the int8 wire moves the
+    whole cotangent back and takes ``moe._quantize_vjp`` on the source side:
+    the plain version the kernel path is held to."""
+    from repro_torch.core import xdma
+    kernel_backward = MOE._PlaneA2A.backward
+
+    def backward(ctx, g):
+        if not ctx.wire:
+            return kernel_backward(ctx, g)
+        x, _ = ctx.saved_tensors
+        g = xdma.transfer(g.contiguous(), ctx.back)
+        return MOE._quantize_vjp(x, g), None, None
+
+    MOE._PlaneA2A.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        MOE._PlaneA2A.backward = staticmethod(kernel_backward)
+
+
 def int8_wire_backward(cfg, p, x, mesh, tag):
     """The int8 wire's backward at the layer's full width: the gradients of
     x and of the experts (the whole tree, this rank's experts nonzero) for
     a seeded cotangent, bitwise the plain version's (the whole cotangent
-    moved back, ``moe.plain_wire_backward``); its all-to-all bytes, the ``wire``
+    moved back, then ``moe._quantize_vjp``: ``plain_wire_backward``); its
+    all-to-all bytes, the ``wire``
     bank's, one f32 a row: the plain version's (d_model f32 a row) over
     d_model.  (The forward's count holds the ring all-gather's hops too.)"""
     from repro_torch.core import remote
@@ -1649,7 +1699,7 @@ def int8_wire_backward(cfg, p, x, mesh, tag):
         w0 = moved()
         y, aux = MOE.moe_apply(cfg, leaves, xg, mesh=mesh)
         w1 = moved()
-        with (MOE.plain_wire_backward() if plain
+        with (plain_wire_backward(MOE) if plain
               else contextlib.nullcontext()):
             g = torch.autograd.grad([y, aux], [xg] + list(leaves.values()),
                                     [dy, torch.ones_like(aux)])

@@ -41,12 +41,34 @@ _FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 _UNSIGNED_WIDE = {torch.uint16: 0xFFFF, torch.uint32: 0xFFFFFFFF}
 
 
+def to_float8(v: torch.Tensor, dtype: torch.dtype,
+              cast: bool = False) -> torch.Tensor:
+    """``v`` rounded to float8 ``dtype`` as the reference rounds it: to
+    nearest even; past float8_e4m3fn's range (above 464) its NaN, from
+    float8_e5m2's (61440 on) an infinity, each with the value's sign.  A NaN
+    keeps its sign in float8_e4m3fn (0x7F); in float8_e5m2 it is 0x7E with
+    its sign where a Cast made it (``cast``: XLA's conversion), else 0x7F
+    (XLA's float8_e5m2 arithmetic).  torch's own conversion past the range
+    differs between versions (saturating or not), so only in-range values
+    are left to it."""
+    v = v.to(torch.float32)
+    e4 = dtype == torch.float8_e4m3fn
+    top, over = (448.0, 464.0) if e4 else (57344.0, 61440.0)
+    bits = v.clamp(-top, top).to(dtype).view(torch.uint8)
+    sign = torch.signbit(v).to(torch.uint8) * 128
+    past = v.abs() > over if e4 else v.abs() >= over
+    bits = torch.where(past, sign + (0x7F if e4 else 0x7C), bits)
+    nan = sign + 0x7F if e4 else (
+        sign + 0x7E if cast else torch.full_like(sign, 0x7F))
+    return torch.where(v.isnan(), nan, bits).view(dtype)
+
+
 def computed(x: torch.Tensor, fn: Callable) -> torch.Tensor:
     """``fn(x)`` in ``x``'s dtype, evaluated in f32 for a float8 stream and
     in int64 (wrapped to the width) for a uint16 / uint32 one: the plain
     versions on the streams torch has few kernels for."""
     if x.dtype in _FLOAT8:
-        return fn(x.to(torch.float32)).to(x.dtype)
+        return to_float8(fn(x.to(torch.float32)), x.dtype)
     if x.dtype in _UNSIGNED_WIDE:
         return (fn(x.to(torch.int64)) & _UNSIGNED_WIDE[x.dtype]).to(x.dtype)
     return fn(x)
@@ -183,6 +205,8 @@ class Cast(Plugin):
         object.__setattr__(self, "dtype", torch_dtype(self.dtype))
 
     def __call__(self, x):
+        if self.dtype in _FLOAT8 and x.dtype != self.dtype:
+            return to_float8(x, self.dtype, cast=True)
         return x.to(self.dtype)
 
     emit = __call__
@@ -486,7 +510,7 @@ def _float8_sum(x: torch.Tensor, keepdims: bool) -> torch.Tensor:
     def in_order(rows):                     # (n, ...) -> (...)
         acc = torch.zeros_like(rows[0])
         for r in rows:
-            acc = (acc + r).to(x.dtype).to(torch.float32)
+            acc = to_float8(acc + r, x.dtype).to(torch.float32)
         return acc
 
     for n, low in sum_levels(v.shape[0]):
@@ -495,7 +519,7 @@ def _float8_sum(x: torch.Tensor, keepdims: bool) -> torch.Tensor:
         v = torch.cat([pad[:low], v, pad[low:]])
         v = in_order(v.reshape((k, SUM_WINDOW) + tuple(v.shape[1:]))
                      .movedim(1, 0))
-    out = in_order(v).to(x.dtype)
+    out = to_float8(in_order(v), x.dtype)
     return out.unsqueeze(-2) if keepdims else out
 
 

@@ -155,10 +155,12 @@ __device__ __forceinline__ long long wrap_to(long long v, int64_t dt) {
 
 // float8 through cuda_fp8.h's conversions, to nearest even: Hopper's
 // saturating instruction (its non-saturating form is emulated in software),
-// with the range checked here as torch and ml_dtypes round it: past
-// float8_e4m3fn's (above 464) its NaN, from float8_e5m2's (61440 on) an
-// infinity.  A NaN is stored as the reference's take fills one (0x7F in
-// both formats).
+// with the range and the NaNs checked here as the reference rounds them
+// (plugins.to_float8): past float8_e4m3fn's range (above 464) its NaN, from
+// float8_e5m2's (61440 on) an infinity, each with the value's sign.  A NaN
+// keeps its sign in float8_e4m3fn (0x7F); in float8_e5m2 it is 0x7E with
+// its sign where a Cast made it (XLA's conversion), else 0x7F (XLA's
+// float8_e5m2 arithmetic, and jnp.take's fill).
 __device__ __forceinline__ bool is_f8(int64_t dt) {
   return dt == xdma::F8E4M3 || dt == xdma::F8E5M2;
 }
@@ -166,11 +168,13 @@ __device__ __forceinline__ float f8_value(uint8_t b, int64_t dt) {
   return __half2float(__half(__nv_cvt_fp8_to_halfraw(
       (__nv_fp8_storage_t)b, dt == xdma::F8E4M3 ? __NV_E4M3 : __NV_E5M2)));
 }
-__device__ __forceinline__ uint8_t f8_bits(float v, int64_t dt) {
+__device__ __forceinline__ uint8_t f8_bits(float v, int64_t dt,
+                                           bool cast = false) {
   const bool e4 = dt == xdma::F8E4M3;
-  if (v != v) return 0x7F;
+  const uint8_t sign = (__float_as_uint(v) >> 24) & 0x80;
+  if (v != v) return e4 ? (0x7F | sign) : cast ? (0x7E | sign) : 0x7F;
   const float a = fabsf(v);
-  if (e4 ? a > 464.f : a >= 61440.f) return e4 ? 0x7F : (v < 0.f ? 0xFC : 0x7C);
+  if (e4 ? a > 464.f : a >= 61440.f) return sign | (e4 ? 0x7F : 0x7C);
   return (uint8_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE,
                                         e4 ? __NV_E4M3 : __NV_E5M2);
 }
@@ -294,22 +298,29 @@ __device__ __forceinline__ void put(void* dst, I p0, int E,
   }
 }
 
-// A bool or float8 store (dt), one byte an element: the rounding of the
-// stage that made the value (x != 0, or float8 in either format).
+// A bool or float8 store, one byte an element: the rounding of the stage
+// that made the value (x != 0, or float8 in either format, the launch's
+// last stage: a Cast's NaN rounds as the conversion's).
 template <int PT, typename C, typename I>
-__device__ __forceinline__ void put_narrow(void* dst, I p0, int E, int64_t dt,
+__device__ __forceinline__ void put_narrow(void* dst, I p0, int E,
+                                           const BlockArgs& a,
                                            const C (&v)[PT]) {
+  const int64_t dt = a.out_dtype;
+  const bool cast = a.nstages > 0 && a.st[a.nstages - 1].code == ST_CAST;
   uint8_t* p = static_cast<uint8_t*>(dst) + p0;
 #pragma unroll
   for (int e = 0; e < PT; ++e)
     if (e < E)
-      p[e] = dt == xdma::BOOL ? (v[e] != (C)0) : f8_bits(as_float(v[e]), dt);
+      p[e] = dt == xdma::BOOL ? (v[e] != (C)0)
+                              : f8_bits(as_float(v[e]), dt, cast);
 }
 
+// E elements of the launch's output (a.out_dtype) from p0.
 template <int PT, typename C, typename I>
 __device__ __forceinline__ void store_group(void* dst, I p0, int E,
-                                            int64_t dt, const C (&v)[PT]) {
-  switch (dt) {
+                                            const BlockArgs& a,
+                                            const C (&v)[PT]) {
+  switch (a.out_dtype) {
     case xdma::F32: put<float, PT>(dst, p0, E, v); break;
     case xdma::BF16: put<__nv_bfloat16, PT>(dst, p0, E, v); break;
     case xdma::F16: put<__half, PT>(dst, p0, E, v); break;
@@ -322,7 +333,7 @@ __device__ __forceinline__ void store_group(void* dst, I p0, int E,
     case xdma::U32: put<int, PT>(dst, p0, E, v); break;
     case xdma::BOOL:
     case xdma::F8E4M3:
-    case xdma::F8E5M2: put_narrow<PT>(dst, p0, E, dt, v); break;
+    case xdma::F8E5M2: put_narrow<PT>(dst, p0, E, a, v); break;
     default: put<long long, PT>(dst, p0, E, v); break;
   }
 }
@@ -762,7 +773,7 @@ out_kernel(const void* __restrict__ src, void* __restrict__ dst,
     }
     C v[PER_THREAD];
     eval_plain<C, SZ, PER_THREAD, I>(a, src, k, c, live, v);
-    store_group<PER_THREAD, C, I>(dst, p0, E, a.out_dtype, v);
+    store_group<PER_THREAD, C, I>(dst, p0, E, a, v);
   }
 }
 
@@ -816,7 +827,7 @@ out_tiled_kernel(const void* __restrict__ src, void* __restrict__ dst,
       const I r = r0 + (I)(ty + TY * e), j = c0 + (I)tx;
       if (r < er && j < ec) {
         const C w[1] = {tile[tx][ty + TY * e]};
-        store_group<1, C, I>(dst, base + r * ec + j, 1, a.out_dtype, w);
+        store_group<1, C, I>(dst, base + r * ec + j, 1, a, w);
       }
     }
     __syncthreads();
@@ -879,7 +890,7 @@ out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
         }
         apply_forward<C, 1, I>(a, R + 1, k, out, live, fill, v);
       }
-      store_group<1, C, I>(dst, p, 1, a.out_dtype, v);
+      store_group<1, C, I>(dst, p, 1, a, v);
     }
     __syncthreads();
   }

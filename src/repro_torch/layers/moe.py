@@ -43,7 +43,6 @@ CPU give the same bits.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional
 
@@ -264,21 +263,6 @@ def _quantize_vjp(x, g):
     return _amax_vjp(x, _row_dot(XP.Quantize()(x).values, g))
 
 
-_PLAIN_WIRE_BACKWARD = False
-
-
-@contextlib.contextmanager
-def plain_wire_backward():
-    """Within it, the int8 wire's backward moves the whole cotangent and
-    takes :func:`_quantize_vjp` (the plain version it is held to)."""
-    global _PLAIN_WIRE_BACKWARD
-    _PLAIN_WIRE_BACKWARD = True
-    try:
-        yield
-    finally:
-        _PLAIN_WIRE_BACKWARD = False
-
-
 class _PlaneA2A(torch.autograd.Function):
     """Task ``i`` of the dispatch queue, an all-to-all (split ``s``, concat
     ``c``).  The backward is the mirrored all-to-all (split ``c``, concat
@@ -303,9 +287,6 @@ class _PlaneA2A(torch.autograd.Function):
         if not ctx.wire:
             return xdma.transfer(g.contiguous(), ctx.back), None, None
         x, y = ctx.saved_tensors
-        if _PLAIN_WIRE_BACKWARD:
-            g = xdma.transfer(g.contiguous(), ctx.back)
-            return _quantize_vjp(x, g), None, None
         ds = xdma.transfer(_scales_vjp(y, g.contiguous()), ctx.back)
         return _amax_vjp(x, ds), None, None
 

@@ -501,20 +501,22 @@ def _load(addr, i, dt, ints=False):
     return -2 ** 63 if not abs(f) < 2.0 ** 63 else int(np.trunc(f))
 
 
-def _store_all(addr, values, dt):
+def _made_by_cast(a):
+    """``put_narrow``'s ``cast``: the launch's last stage is a Cast."""
+    return a.nstages > 0 and a.st[a.nstages - 1].code == DP._ST_CAST
+
+
+def _store_all(addr, values, dt, cast=False):
     """``store_group`` of every element: f32 carrier values rounded to dtype
-    code ``dt`` (a float8 NaN as ``plugins.FILL_BITS`` spells it), or int64
-    ones already in its range."""
+    code ``dt`` (a float8 as ``plugins.to_float8`` rounds it, a Cast's NaN
+    with ``cast``), or int64 ones already in its range."""
     values = np.asarray(values)
     target = _CODE_DTYPE[dt]
     if values.dtype == np.int64:
         t = torch.from_numpy(values.copy()).to(target)
     else:
         f = torch.from_numpy(np.asarray(values, np.float32))
-        t = f.to(target)
-        if dt in _FLOAT8:
-            t = t.view(torch.int8).masked_fill(
-                f.isnan(), PP.fill_word(target)).view(target)
+        t = PP.to_float8(f, target, cast) if dt in _FLOAT8 else f.to(target)
     t = t.contiguous()
     ctypes.memmove(addr, t.data_ptr(), t.numel() * t.element_size())
 
@@ -943,7 +945,7 @@ def _emulate_tiled(a, emu, dst):
                 c[a.pslot[last]] += j * a.pw[last]
                 vals[p] = emu.eval(a.upto, c)
     assert (written == 1).all(), "a destination element not written once"
-    _store_all(dst, vals, a.out_dtype)
+    _store_all(dst, vals, a.out_dtype, _made_by_cast(a))
 
 
 def _emulate_block(args_addr, src, dst, mode):
@@ -974,7 +976,7 @@ def _emulate_block(args_addr, src, dst, mode):
                 c = list(base)
                 c[a.pslot[last]] += i * a.pw[last]
                 vals[p0 + e] = emu.eval(k, c)
-        _store_all(dst, vals, a.out_dtype)
+        _store_all(dst, vals, a.out_dtype, _made_by_cast(a))
         return
     st = a.st[k]
     R = a.reduce_at      # the kernel's eval sums no float8 in order

@@ -10,11 +10,13 @@ host code then runs each case against the emulator of its CUDA arithmetic
 (``test_torch_plugin_compiler.py``): the stage lists, carriers, segments,
 paths and the folded leading axes of a rank above 8, bitwise the same.
 
-The rule for casts: XLA's conversion of a value outside the destination's
-range (a negative float to an unsigned integer, a float past float8's
-range) is implementation-defined, so a cast's input stays inside it: a
-float into an unsigned integer is drawn in [0, max), into float8 from a
-normal of scale 4, and within those ranges every value is held bitwise.
+The rule for casts: XLA's conversion of a negative float to an unsigned
+integer is implementation-defined, so such a cast's input stays inside the
+range: a float into an unsigned integer is drawn in [0, max), and within it
+every value is held bitwise.  Into float8 the port rounds as the reference's
+XLA does past the range too (``plugins.to_float8``: float8_e4m3fn's NaN
+above 464, float8_e5m2's infinity from 61440, a NaN's sign kept), and
+``test_float8_edges_match_reference`` holds those values bitwise.
 """
 import pytest
 
@@ -297,3 +299,38 @@ def test_float8_sum_follows_the_reference_order():
         np.testing.assert_array_equal(
             np.asarray(col, np.float32).astype(np.dtype(want.dtype)).view(
                 np.uint8), np.asarray(want).reshape(8).view(np.uint8))
+
+
+# f32 values at float8's edges: the saturation band of float8_e4m3fn (448 <
+# |v| <= 464 rounds to 448), past it (its NaN), float8_e5m2's largest finite
+# value and its infinity from 61440, the infinities, NaN of both signs (-NaN
+# as x86 makes it, 0xFFC00000) and subnormals (a tie to even among them)
+EDGES = np.concatenate([np.array(
+    [448, -448, 449, 464, -464, 465, -465, 479, 480, 57344, 61439, 61440,
+     -61440, 1e9, np.inf, -np.inf, np.nan, 2.0 ** -9, 2.0 ** -10,
+     3 * 2.0 ** -10, 2.0 ** -17, 3 * 2.0 ** -18, -2.0 ** -16], np.float32),
+    np.array([0xFFC00000], np.uint32).view(np.float32)])
+
+
+@pytest.mark.parametrize("dtype", ("float8_e4m3fn", "float8_e5m2"))
+@pytest.mark.parametrize("op", ("cast", "scale"))
+def test_float8_edges_match_reference(op, dtype, monkeypatch):
+    """Cast f32 -> float8 of the edge values, and a Scale of 1.5 on the
+    float8 stream they round to (whose products cross the range again):
+    the port under every backend and kernel 3 (emulated) are bitwise the
+    reference's ``compiled`` result, NaN bytes included (a Cast's NaN is
+    0x7E with its sign in float8_e5m2, its arithmetic's 0x7F)."""
+    rng = np.random.default_rng(11)
+    x = np.concatenate([EDGES, (4 * rng.standard_normal(
+        32 - EDGES.size)).astype(np.float32)]).reshape(2, 16)
+    if op == "cast":
+        chain = lambda M: (M.Cast(_cast_to(M, dtype)),)  # noqa: E731
+    else:
+        x = np.asarray(x.astype(jnp.dtype(dtype)))
+        chain = lambda M: (M.Scale(1.5),)  # noqa: E731
+    want, got = _run(x, "MN", "MN", chain)
+    for backend, g in got.items():
+        assert_same_payload(g, want, context=f"{op} {dtype} {backend}")
+    got, emu, _ = _emulated(x, "MN", "MN", chain(PP), monkeypatch)
+    assert_same_payload(got, want, context=f"{op} {dtype} emulated")
+    assert emu.paths == {"generic": 1}

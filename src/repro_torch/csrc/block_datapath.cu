@@ -834,14 +834,26 @@ out_tiled_kernel(const void* __restrict__ src, void* __restrict__ dst,
   }
 }
 
-constexpr int RX = 32, RY = 8;   // reduce block: 32 outputs x 8 row lanes
+// The reduce block: RX outputs x RY row lanes, 256 threads.  In the f32
+// carrier 32 x 8 (the lanes' order is its sums' order); in the int64
+// carrier, whose sums (modulo 2^64) and maxima are exact in any order,
+// 8 x 32: 4x the blocks and the rows in flight (3,072 columns of 32-bit
+// words make 384 blocks, 8 outputs reading one 32-byte sector a row).
+template <typename C> struct ReduceBlock {
+  static constexpr int RX = 32, RY = 8;
+};
+template <> struct ReduceBlock<long long> {
+  static constexpr int RX = 8, RY = 32;
+};
 
 // Output pass with a ReduceStage at a.reduce_at: RY threads per output (a
 // float8 sum: one, in the reference's order).
 template <typename C, int SZ, typename I>
-__global__ void __launch_bounds__(RX * RY, 1)
+__global__ void __launch_bounds__(256, 1)
 out_reduce_kernel(const void* __restrict__ src, void* __restrict__ dst,
                   const __grid_constant__ BlockArgs a) {
+  constexpr int RX = ReduceBlock<C>::RX, RY = ReduceBlock<C>::RY;
+  static_assert(RX * RY == 256, "the reduce block has 256 threads");
   __shared__ C part[RY][RX + 1];
   const int k = (int)a.upto, R = (int)a.reduce_at;
   const int last = (int)a.nphys - 1;
@@ -1516,7 +1528,8 @@ int launch_generic(const BlockArgs& a, const void* src, void* dst,
     out_kernel<C, SZ, I><<<grid_for(groups, THREADS), THREADS, 0, s>>>(
         src, dst, a);
   } else if (mode == 0) {
-    out_reduce_kernel<C, SZ, I><<<grid_for(a.total, RX), dim3(RX, RY), 0, s>>>(
+    constexpr int rx = ReduceBlock<C>::RX, ry = ReduceBlock<C>::RY;
+    out_reduce_kernel<C, SZ, I><<<grid_for(a.total, rx), dim3(rx, ry), 0, s>>>(
         src, dst, a);
   } else if (mode == 1) {
     stat_kernel<C, SZ, I><<<grid_for(a.total, 1), THREADS, 0, s>>>(src, a);
